@@ -1,0 +1,833 @@
+// Mega-step kernel K2: whole physics steps of one world per CUDA thread, for
+// NVIDIA Hopper (sm_90a).
+//
+// Replaces (TPU kernel of the JAX package): flygym_tpu/ops/megastep.py
+// make_megastep.<kernel> (body emit_step), launched by pallas_call in
+// _megastep_impl. Its plain PyTorch version, used for CPU tensors and as the
+// oracle on the card, is flygym_tpu_torch/ops/megastep.py emit_step.
+//
+// One step per world: FK over the tree, motion subspace, velocities and bias
+// accelerations, spatial inertias, CRBA and RNEA, position and adhesion
+// actuator forces, every ground candidate (no top-K), pyramid rows with
+// impedance and the adhesion split, primal Newton on the frozen tree-LDL^T
+// Hessian with the bisection + regula-falsi line search, semi-implicit Euler
+// and, on the last of the K fused steps only, the outputs (state, FK,
+// actuator forces, contact sensors). The K-1 inner steps write their qpos
+// rows only.
+//
+// Design. The work of a world is a long chain of dependent scalar updates
+// over static tables, with no tile and no reduction across worlds, so each
+// thread owns one world. The repeated structure stays runtime loops over
+// the model's constant tables (generated header megastep_model.h, in
+// __constant__ memory: every thread of a warp reads the same entry, a
+// broadcast), so the source stays small and builds in seconds, where the
+// emitter unrolls to ~2.8e5 straight-line ops. Per-world arrays (FK, S,
+// inertias, the 813 tree-sparse entries of Mh and of the Hessian, the
+// contact rows) live in a world-minor scratch buffer (rows, B) that the
+// wrapper allocates: a warp's access to one row is one coalesced line.
+//
+// Numerics. Built with -fmad=false and IEEE div and sqrt, and the header's
+// constants are the float32 values the emitter's Python arithmetic gives, so
+// the arithmetic is the emitter's, term for term and in the same order. The
+// emitter folds multiplies by the model's structural 0 and 1 at trace time;
+// this code multiplies densely, and x*0 = 0, x*1 = x, x + 0 = x are exact.
+// sin and cos are glibc's algorithm (ms_sincosf), as the JAX package's CPU
+// backend and the plain version round them, so the kernel repeats both.
+//
+// What bounds it on the H100: at 4096 worlds, 32 blocks of 128 threads fill
+// a quarter of the 132 SMs with 4 warps each, and the scratch traffic (~56 KB
+// per world per step, 230 MB at 4096 worlds, above the 50 MB L2) is served at
+// that low occupancy: latency, not the op count or the card's bandwidth.
+// Keeping rows in registers and shared memory and one warp per world are
+// later work.
+//
+// The same file compiles as host C++ (g++ -x c++), where the kernel becomes
+// a loop over worlds (megastep_host_f32), so its arithmetic is tested on the
+// CPU against the plain version.
+//
+// Interface: plain C, bound with ctypes (flygym_tpu_torch/ops/_build.py).
+// Pointers are device pointers; the kernel allocates nothing, launches on the
+// caller's stream, does not synchronise, and returns cudaGetLastError().
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define MS_FN __device__ __forceinline__
+#define MS_TABLE __constant__
+#define MS_NOUNROLL _Pragma("unroll 1")
+#else
+#include <cmath>
+#define MS_FN inline
+#define MS_TABLE static const
+#define MS_NOUNROLL
+#endif
+
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+
+#include "megastep_model.h"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// One world's column of a world-minor (rows, B) buffer.
+struct Rows {
+  float* p;
+  size_t stride;
+  MS_FN float& operator[](int r) const { return p[static_cast<size_t>(r) * stride]; }
+};
+
+struct V3 {
+  float x, y, z;
+};
+struct Q4 {
+  float w, x, y, z;
+};
+struct V6 {  // (angular, linear) motion or (moment, force) force vector
+  V3 w, v;
+};
+
+MS_FN V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+MS_FN V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+MS_FN V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+MS_FN V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+MS_FN float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+MS_FN Q4 qmul(Q4 a, Q4 b) {
+  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
+          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
+          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
+          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
+}
+// Rotate c by q (the emitter's _qrot_c, densely).
+MS_FN V3 qrot(Q4 q, V3 c) {
+  const V3 qv = {q.x, q.y, q.z};
+  const V3 t = scale(cross(qv, c), 2.0f);
+  const V3 u = cross(qv, t);
+  return {q.w * t.x + u.x + c.x, q.w * t.y + u.y + c.y, q.w * t.z + u.z + c.z};
+}
+MS_FN V6 add6(V6 a, V6 b) { return {add(a.w, b.w), add(a.v, b.v)}; }
+MS_FN V6 scale6(V6 a, float s) { return {scale(a.w, s), scale(a.v, s)}; }
+MS_FN V6 cross6(V6 m, V6 o) { return {cross(m.w, o.w), add(cross(m.w, o.v), cross(m.v, o.w))}; }
+MS_FN float dot6(V6 a, V6 b) { return dot(a.w, b.w) + dot(a.v, b.v); }
+MS_FN float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+// torch.pow(x, p) for a float scalar p (squares and cubes by multiplies).
+MS_FN float ms_pow(float x, float p) {
+  if (p == 2.0f) return x * x;
+  if (p == 3.0f) return x * x * x;
+  return powf(x, p);
+}
+
+// sinf and cosf as glibc computes them (sysdeps/ieee754/flt-32/s_sinf.c,
+// s_cosf.c, sincosf.h), which is how the JAX package's CPU backend rounds
+// them: reduce by pi/2 in float64, a float64 polynomial, round to float32.
+// CUDA's sinf is another algorithm; its 1-ulp differences, amplified by the
+// contact solve, flip line-search brackets within tens of steps. The plain version (ops/megastep.py _sincosf) is the same algorithm.
+constexpr double kHpiInv = 0x1.45F306DC9C883p+23;  // 2/pi * 2^24
+constexpr double kHpi = 0x1.921FB54442D18p0;       // pi/2
+constexpr double kC0 = 1.0, kC1 = -0x1.ffffffd0c621cp-2, kC2 = 0x1.55553e1068f19p-5,
+                 kC3 = -0x1.6c087e89a359dp-10, kC4 = 0x1.99343027bf8c3p-16;
+constexpr double kS1 = -0x1.555545995a603p-3, kS2 = 0x1.1107605230bc4p-7,
+                 kS3 = -0x1.994eb3774cf24p-13;
+constexpr uint32_t kTopTiny = 0x39800000u >> 20, kTopPio4 = 0x3f490fdbu >> 20,
+                   kTopBig = 0x42f00000u >> 20;  // 2^-12, pi/4, 120
+
+MS_FN double sincos_poly(double x, double x2, bool odd) {
+  if (!odd) {
+    const double x3 = x * x2;
+    const double s = x + x3 * kS1;
+    return s + (x3 * x2) * (kS2 + x2 * kS3);
+  }
+  const double x4 = x2 * x2;
+  const double c = (kC0 + x2 * kC1) + x4 * kC2;
+  return c + (x4 * x2) * (kC3 + x2 * kC4);
+}
+
+MS_FN float ms_sincosf(float y, bool want_cos) {
+  uint32_t bits;
+  memcpy(&bits, &y, sizeof bits);
+  const uint32_t top = (bits >> 20) & 0x7ffu;
+  const double x = y;
+  if (top < kTopTiny) return want_cos ? 1.0f : y;
+  if (top < kTopPio4) return static_cast<float>(sincos_poly(x, x * x, want_cos));
+  if (top >= kTopBig) return static_cast<float>(want_cos ? cos(x) : sin(x));
+  const int n = (static_cast<int32_t>(x * kHpiInv) + 0x800000) >> 24;
+  const double xr = x - n * kHpi;
+  const double sign = ((n & 3) == 1 || (n & 3) == 2) ? -1.0 : 1.0;
+  const bool odd = ((n ^ static_cast<int>(want_cos)) & 1) != 0;
+  const double v = sincos_poly(xr * sign, xr * xr, odd);
+  return static_cast<float>(((n & 2) && odd) ? -v : v);
+}
+MS_FN float ms_sinf(float y) { return ms_sincosf(y, false); }
+MS_FN float ms_cosf(float y) { return ms_sincosf(y, true); }
+
+MS_FN V3 ld3(const Rows& s, int r) { return {s[r], s[r + 1], s[r + 2]}; }
+MS_FN void st3(const Rows& s, int r, V3 a) {
+  s[r] = a.x;
+  s[r + 1] = a.y;
+  s[r + 2] = a.z;
+}
+MS_FN Q4 ld4(const Rows& s, int r) { return {s[r], s[r + 1], s[r + 2], s[r + 3]}; }
+MS_FN void st4(const Rows& s, int r, Q4 a) {
+  s[r] = a.w;
+  s[r + 1] = a.x;
+  s[r + 2] = a.y;
+  s[r + 3] = a.z;
+}
+MS_FN V6 ld6(const Rows& s, int r) { return {ld3(s, r), ld3(s, r + 3)}; }
+MS_FN void st6(const Rows& s, int r, V6 a) {
+  st3(s, r, a.w);
+  st3(s, r + 3, a.v);
+}
+
+#define TV3(tab, i) (V3{tab[3 * (i)], tab[3 * (i) + 1], tab[3 * (i) + 2]})
+#define TQ4(tab, i) (Q4{tab[4 * (i)], tab[4 * (i) + 1], tab[4 * (i) + 2], tab[4 * (i) + 3]})
+
+// Spatial inertia about ref in world axes, stored as 9 rows: TL (00, 01, 02,
+// 11, 12, 22) and the top-right block m c× by its entries 01, 02, 12
+// (TR10 = -TR01, TR20 = -TR02, TR21 = -TR12, zero diagonal).
+MS_FN V6 inertia_mul(const Rows& s, int r, float m, V6 x) {
+  const float tl[3][3] = {{s[r], s[r + 1], s[r + 2]},
+                          {s[r + 1], s[r + 3], s[r + 4]},
+                          {s[r + 2], s[r + 4], s[r + 5]}};
+  const float a = s[r + 6], b = s[r + 7], c = s[r + 8];
+  const float tr[3][3] = {{0.0f, a, b}, {-a, 0.0f, c}, {-b, -c, 0.0f}};
+  const float w[3] = {x.w.x, x.w.y, x.w.z}, v[3] = {x.v.x, x.v.y, x.v.z};
+  float n[3], f[3];
+  for (int i = 0; i < 3; ++i) {
+    n[i] = tl[i][0] * w[0] + tl[i][1] * w[1] + tl[i][2] * w[2] + tr[i][0] * v[0] +
+           tr[i][1] * v[1] + tr[i][2] * v[2];
+    f[i] = tr[0][i] * w[0] + tr[1][i] * w[1] + tr[2][i] * w[2] + m * v[i];
+  }
+  return {{n[0], n[1], n[2]}, {f[0], f[1], f[2]}};
+}
+
+// Candidate scalar rows (S_CAND + 24 * c + ...).
+constexpr int C_ACT = 0, C_IMP = 1, C_PERR = 2, C_D = 3, C_ADH = 4, C_CPOS = 5,
+              C_AREF = 8, C_JAR = 12, C_JD = 16, C_DJD = 20;
+
+MS_FN int cand_row(int c) { return S_CAND + 24 * c; }
+MS_FN int comp_row(int c, int i, int t) { return S_COMP + 3 * (MAXP * c + i) + t; }
+
+// Direction products J_t · x along candidate c's path, t = n, t1, t2.
+MS_FN V3 products(const Rows& s, int c, int x_row) {
+  const int b = kCandBody[c], p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+  const int d0 = kPathDof[p0];
+  float pn = s[comp_row(c, 0, 0)] * s[x_row + d0];
+  float p1 = s[comp_row(c, 0, 1)] * s[x_row + d0];
+  float p2 = s[comp_row(c, 0, 2)] * s[x_row + d0];
+  MS_NOUNROLL
+  for (int i = 1; i < np; ++i) {
+    const float xd = s[x_row + kPathDof[p0 + i]];
+    pn = pn + s[comp_row(c, i, 0)] * xd;
+    p1 = p1 + s[comp_row(c, i, 1)] * xd;
+    p2 = p2 + s[comp_row(c, i, 2)] * xd;
+  }
+  return {pn, p1, p2};
+}
+
+// Pyramid rows [n + mu t1, n - mu t1, n + mu t2, n - mu t2].
+MS_FN void row_combos(int c, V3 p, float out[4]) {
+  const float mu = kMu[c];
+  out[0] = p.x + mu * p.y;
+  out[1] = p.x - mu * p.y;
+  out[2] = p.x + mu * p.z;
+  out[3] = p.x - mu * p.z;
+}
+
+// Contact gradient J^T (D m jar) of candidate c into S_GC, and with
+// `hessian` its fill J^T Σ J into the tree-sparse Hessian S_H.
+MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
+  const int cr = cand_row(c);
+  const float D = s[cr + C_D], mu = kMu[c];
+  float jar[4], wk[4], wa[4];
+  for (int r = 0; r < 4; ++r) {
+    jar[r] = s[cr + C_JAR + r];
+    const float m = jar[r] < 0.0f ? 1.0f : 0.0f;
+    wk[r] = D * m * jar[r];
+    wa[r] = D * m;
+  }
+  const float cn = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
+  const float c1 = mu * (wk[0] - wk[1]), c2 = mu * (wk[2] - wk[3]);
+  const int b = kCandBody[c], p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+  MS_NOUNROLL
+  for (int i = 0; i < np; ++i) {
+    const int d = kPathDof[p0 + i];
+    const float g =
+        s[comp_row(c, i, 0)] * cn + s[comp_row(c, i, 1)] * c1 + s[comp_row(c, i, 2)] * c2;
+    s[S_GC + d] = s[S_GC + d] + g;
+  }
+  if (!hessian) return;
+  const float W = 0.0f + wa[0] + wa[1] + wa[2] + wa[3];
+  const float bt1 = mu * (wa[0] - wa[1]), bt2 = mu * (wa[2] - wa[3]);
+  const float mu2 = kMu2[c];
+  const float wt1 = mu2 * (wa[0] + wa[1]), wt2 = mu2 * (wa[2] + wa[3]);
+  float un[MAXP], u1[MAXP], u2[MAXP];
+  MS_NOUNROLL
+  for (int j = 0; j < np; ++j) {
+    const float nj = s[comp_row(c, j, 0)], d1 = s[comp_row(c, j, 1)],
+                d2 = s[comp_row(c, j, 2)];
+    un[j] = nj * W + d1 * bt1 + d2 * bt2;
+    u1[j] = nj * bt1 + d1 * wt1;
+    u2[j] = nj * bt2 + d2 * wt2;
+  }
+  // path[i] is an ancestor-or-self of path[j]: key (path[i], path[j]) is
+  // entry i of path[j]'s column.
+  MS_NOUNROLL
+  for (int i = 0; i < np; ++i) {
+    const float ni = s[comp_row(c, i, 0)], t1 = s[comp_row(c, i, 1)],
+                t2 = s[comp_row(c, i, 2)];
+    MS_NOUNROLL
+    for (int j = i; j < np; ++j) {
+      const int k = S_H + kPkPtr[kPathDof[p0 + j]] + i;
+      s[k] = s[k] + (ni * un[j] + t1 * u1[j] + t2 * u2[j]);
+    }
+  }
+}
+
+// out = Mh x over the tree-sparse entries.
+MS_FN void mh_mul(const Rows& s, int x_row, int out_row) {
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) s[out_row + d] = s[S_MH + kPkPtr[d + 1] - 1] * s[x_row + d];
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const int base = kPkPtr[d], n = kPkPtr[d + 1] - base - 1;
+    for (int ia = 0; ia < n; ++ia) {
+      const int a = kPkRow[base + ia];
+      const float val = s[S_MH + base + ia];
+      s[out_row + d] = s[out_row + d] + val * s[x_row + a];
+      s[out_row + a] = s[out_row + a] + val * s[x_row + d];
+    }
+  }
+}
+
+// Tree LDL^T of S_H in place: column i's ancestor entries become L, its
+// diagonal entry d_i. DoFs are eliminated leaves first (kElim).
+MS_FN void tree_ldl(const Rows& s) {
+  float li[MAXP];
+  MS_NOUNROLL
+  for (int e = 0; e < NV; ++e) {
+    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
+    const float inv = 1.0f / s[S_H + base + n];
+    for (int ia = 0; ia < n; ++ia) li[ia] = s[S_H + base + ia] * inv;
+    for (int ia = 0; ia < n; ++ia) {
+      const float ra = s[S_H + base + ia];
+      for (int ib = ia; ib < n; ++ib) {
+        const int k = S_H + kPkPtr[kPkRow[base + ib]] + ia;
+        s[k] = s[k] - li[ib] * ra;
+      }
+    }
+    for (int ia = 0; ia < n; ++ia) s[S_H + base + ia] = li[ia];
+  }
+}
+
+// Solve with the factor in S_H, in place on the rows at y_row.
+MS_FN void tree_solve(const Rows& s, int y_row) {
+  MS_NOUNROLL
+  for (int e = 0; e < NV; ++e) {
+    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
+    const float yi = s[y_row + i];
+    for (int ia = 0; ia < n; ++ia) {
+      const int a = y_row + kPkRow[base + ia];
+      s[a] = s[a] - s[S_H + base + ia] * yi;
+    }
+  }
+  MS_NOUNROLL
+  for (int i = 0; i < NV; ++i) s[y_row + i] = s[y_row + i] / s[S_H + kPkPtr[i + 1] - 1];
+  MS_NOUNROLL
+  for (int e = NV - 1; e >= 0; --e) {
+    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
+    float acc = s[y_row + i];
+    for (int ia = 0; ia < n; ++ia) acc = acc - s[S_H + base + ia] * s[y_row + kPkRow[base + ia]];
+    s[y_row + i] = acc;
+  }
+}
+
+// φ'(α) of the line search along delta.
+MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero) {
+  float d = at_zero ? gMd : gMd + alpha * dMd;
+  MS_NOUNROLL
+  for (int c = 0; c < NCAND; ++c) {
+    const int cr = cand_row(c);
+    for (int r = 0; r < 4; ++r) {
+      const float jr = s[cr + C_JAR + r];
+      const float ja = at_zero ? jr : jr + alpha * s[cr + C_JD + r];
+      const float m = ja < 0.0f ? 1.0f : 0.0f;
+      d = d + m * s[cr + C_DJD + r] * ja;
+    }
+  }
+  return d;
+}
+
+// One physics step of one world: state in scratch rows S_Q, S_V, S_A (warm
+// start), controls from input rows of step k; the last step writes outputs.
+MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int K) {
+  const bool last = k == K - 1;
+
+  // ---------------- FK: parent -> child over the tree ----------------
+  st3(s, S_XPOS, V3{0.0f, 0.0f, 0.0f});
+  st4(s, S_XQUAT, Q4{1.0f, 0.0f, 0.0f, 0.0f});
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    if (kFreeQ[b] >= 0) {
+      const int qa = S_Q + kFreeQ[b];
+      st3(s, S_XPOS + 3 * b, ld3(s, qa));
+      st4(s, S_XQUAT + 4 * b, ld4(s, qa + 3));
+      continue;
+    }
+    const Q4 qp = ld4(s, S_XQUAT + 4 * p);
+    Q4 cur = qmul(qp, TQ4(kBodyQuat, b));
+    for (int hi = kBodyHingePtr[b]; hi < kBodyHingePtr[b + 1]; ++hi) {
+      const int h = kBodyHinge[hi];
+      const V3 ax = TV3(kHingeAxis, h);
+      // The world hinge axis uses the rotation before the hinge.
+      st3(s, S_HAX + 3 * h, qrot(cur, ax));
+      const float half = 0.5f * s[S_Q + kHingeQ[h]];
+      const float ch = ms_cosf(half), sh = ms_sinf(half);
+      cur = qmul(cur, Q4{ch, sh * ax.x, sh * ax.y, sh * ax.z});
+    }
+    st4(s, S_XQUAT + 4 * b, cur);
+    st3(s, S_XPOS + 3 * b, add(ld3(s, S_XPOS + 3 * p), qrot(qp, TV3(kBodyPos, b))));
+  }
+  const V3 ref = ld3(s, S_XPOS + 3 * REF_BODY);
+
+  // ---------------- motion subspace S = (angular, linear) at ref --------
+  MS_NOUNROLL
+  for (int h = 0; h < NHINGE; ++h) {
+    const V3 aw = ld3(s, S_HAX + 3 * h);
+    const V3 anchor = sub(ld3(s, S_XPOS + 3 * kHingeBody[h]), ref);
+    st6(s, S_SM + 6 * kHingeV[h], V6{aw, cross(anchor, aw)});
+  }
+  MS_NOUNROLL
+  for (int b = 0; b < NBODY; ++b) {
+    if (kFreeV[b] < 0) continue;
+    const int va = kFreeV[b];
+    const V3 p = sub(ld3(s, S_XPOS + 3 * b), ref);
+    for (int i = 0; i < 3; ++i) {
+      const V3 e = {i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f, i == 2 ? 1.0f : 0.0f};
+      st6(s, S_SM + 6 * (va + i), V6{{0.0f, 0.0f, 0.0f}, e});
+      st6(s, S_SM + 6 * (va + 3 + i), V6{e, cross(p, e)});
+    }
+  }
+
+  // ---------------- velocities and bias accelerations --------------------
+  st6(s, S_CVEL, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+  st6(s, S_CACC, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    V6 vel = ld6(s, S_CVEL + 6 * p), acc = ld6(s, S_CACC + 6 * p);
+    if (kFreeV[b] >= 0) {
+      const int va = kFreeV[b];
+      for (int i = 0; i < 6; ++i)
+        vel = add6(vel, scale6(ld6(s, S_SM + 6 * (va + i)), s[S_V + va + i]));
+      const V3 vlin = ld3(s, S_V + va), omg = ld3(s, S_V + va + 3);
+      acc = add6(acc, V6{{0.0f, 0.0f, 0.0f}, cross(vlin, omg)});
+    } else {
+      for (int di = kBodyDofPtr[b]; di < kBodyDofPtr[b + 1]; ++di) {
+        const int d = kBodyDof[di];
+        const V6 sd = scale6(ld6(s, S_SM + 6 * d), s[S_V + d]);
+        acc = add6(acc, cross6(vel, sd));
+        vel = add6(vel, sd);
+      }
+    }
+    st6(s, S_CVEL + 6 * b, vel);
+    st6(s, S_CACC + 6 * b, acc);
+  }
+
+  // ---------------- spatial inertias about ref ---------------------------
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti];
+    const Q4 xq = ld4(s, S_XQUAT + 4 * b);
+    const Q4 qi = qmul(xq, TQ4(kBodyIQuat, b));
+    const float w = qi.w, x = qi.x, y = qi.y, z = qi.z;
+    const float R[3][3] = {
+        {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y - w * z), 2.0f * (x * z + w * y)},
+        {2.0f * (x * y + w * z), 1.0f - 2.0f * (x * x + z * z), 2.0f * (y * z - w * x)},
+        {2.0f * (x * z - w * y), 2.0f * (y * z + w * x), 1.0f - 2.0f * (x * x + y * y)}};
+    const float I1 = kBodyInertia[3 * b], I2 = kBodyInertia[3 * b + 1],
+                I3 = kBodyInertia[3 * b + 2];
+    float ib[3][3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = i; j < 3; ++j)
+        ib[i][j] = R[i][0] * R[j][0] * I1 + R[i][1] * R[j][1] * I2 + R[i][2] * R[j][2] * I3;
+    const float m = kBodyMass[b];
+    const V3 com = add(ld3(s, S_XPOS + 3 * b), qrot(xq, TV3(kBodyIPos, b)));
+    const V3 c = sub(com, ref);
+    const float c2 = c.x * c.x + c.y * c.y + c.z * c.z;
+    const int r = S_IB + 9 * b;
+    s[r] = ib[0][0] + m * (c2 - c.x * c.x);
+    s[r + 1] = ib[0][1] - m * c.x * c.y;
+    s[r + 2] = ib[0][2] - m * c.x * c.z;
+    s[r + 3] = ib[1][1] + m * (c2 - c.y * c.y);
+    s[r + 4] = ib[1][2] - m * c.y * c.z;
+    s[r + 5] = ib[2][2] + m * (c2 - c.z * c.z);
+    s[r + 6] = -m * c.z;
+    s[r + 7] = m * c.y;
+    s[r + 8] = -m * c.x;
+    for (int e = 0; e < 9; ++e) s[S_IC + 9 * b + e] = s[r + e];
+  }
+  // Composite inertias: children into parents, reverse topological order.
+  MS_NOUNROLL
+  for (int ti = NTOPO - 1; ti >= 0; --ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    if (p == 0) continue;
+    for (int e = 0; e < 9; ++e) s[S_IC + 9 * p + e] = s[S_IC + 9 * p + e] + s[S_IC + 9 * b + e];
+  }
+
+  // ---------------- CRBA: tree-sparse Mh = M + armature + dt*damping ------
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const int bd = kDofBody[d];
+    const V6 F = inertia_mul(s, S_IC + 9 * bd, kCompMass[bd], ld6(s, S_SM + 6 * d));
+    for (int idx = kPkPtr[d]; idx < kPkPtr[d + 1]; ++idx) {
+      const int a = kPkRow[idx];
+      float val = dot6(ld6(s, S_SM + 6 * a), F);
+      if (a == d) val = val + kDofArm[d] + kDofDtDamp[d];
+      s[S_MH + idx] = val;
+    }
+  }
+
+  // ---------------- RNEA bias ---------------------------------------------
+  const V3 g = {kGrav[0], kGrav[1], kGrav[2]};
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti];
+    const V6 cv = ld6(s, S_CVEL + 6 * b), ca = ld6(s, S_CACC + 6 * b);
+    const V6 Ia = inertia_mul(s, S_IB + 9 * b, kBodyMass[b], V6{ca.w, sub(ca.v, g)});
+    const V6 Iv = inertia_mul(s, S_IB + 9 * b, kBodyMass[b], cv);
+    const V6 fc = {add(cross(cv.w, Iv.w), cross(cv.v, Iv.v)), cross(cv.w, Iv.v)};
+    st6(s, S_FSUB + 6 * b, add6(Ia, fc));
+  }
+  MS_NOUNROLL
+  for (int ti = NTOPO - 1; ti >= 0; --ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    if (p != 0) st6(s, S_FSUB + 6 * p, add6(ld6(s, S_FSUB + 6 * p), ld6(s, S_FSUB + 6 * b)));
+  }
+
+  // ---------------- passive + actuator forces -----------------------------
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const float bias = dot6(ld6(s, S_SM + 6 * d), ld6(s, S_FSUB + 6 * kDofBody[d]));
+    s[S_QFRC + d] = kDofNegDamp[d] * s[S_V + d] - bias;
+  }
+  MS_NOUNROLL
+  for (int h = 0; h < NHINGE; ++h) {
+    const int d = S_QFRC + kHingeV[h];
+    s[d] = s[d] - kHingeK[h] * (s[S_Q + kHingeQ[h]] - kHingeRef[h]);
+  }
+  MS_NOUNROLL
+  for (int u = 0; u < NU; ++u) {
+    float c = in[NQ + NV + k * NU + u];
+    if (kCtrlLim[u]) c = clampf(c, kCtrlRange[2 * u], kCtrlRange[2 * u + 1]);
+    s[S_CCL + u] = c;
+    if (kActKind[u] != 1) {  // adhesion: the commanded force, applied by the solver
+      s[S_AF + u] = kActGain[u] * c;
+      continue;
+    }
+    const int h = kActHinge[u];
+    const float qh = h >= 0 ? s[S_Q + kHingeQ[h]] : 0.0f;
+    const float vh = h >= 0 ? s[S_V + kHingeV[h]] : 0.0f;
+    float force = kActGain[u] * (c - qh) - kActKv[u] * vh;
+    if (kForceLim[u]) force = clampf(force, kForceRange[2 * u], kForceRange[2 * u + 1]);
+    s[S_AF + u] = force;
+    if (h >= 0) s[S_QFRC + kHingeV[h]] = s[S_QFRC + kHingeV[h]] + force;
+  }
+
+  // ---------------- contact candidates (flat ground) ----------------------
+  MS_NOUNROLL
+  for (int c = 0; c < NCAND; ++c) {
+    const int b = kCandBody[c], cr = cand_row(c);
+    const V3 xp = ld3(s, S_XPOS + 3 * b);
+    const Q4 xq = ld4(s, S_XQUAT + 4 * b);
+    const V3 gpos = add(xp, qrot(xq, TV3(kCandGPos, c)));
+    const V3 zax = qrot(qmul(xq, TQ4(kCandGQuat, c)), V3{0.0f, 0.0f, 1.0f});
+    const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
+    const float rad = kCandRad[c];
+    const float dist = ep.z - kGroundZ - rad;
+    const V3 cpos = {ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+    const bool active = dist < kCandMargin[c];
+    const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
+    const float x = clampf(fabsf(pos_err) / kSolWidth[c], 0.0f, 1.0f);
+    const float y = x < kSolMid[c] ? kSolA[c] * ms_pow(x, kSolPow[c])
+                                   : 1.0f - kSolB[c] * ms_pow(1.0f - x, kSolPow[c]);
+    const float imp = clampf(kSolDmin[c] + y * kSolDmm[c], 1e-4f, 0.9999f);
+    const float R = (1.0f - imp) / imp * kInvW[c];
+    s[cr + C_ACT] = active ? 1.0f : 0.0f;
+    s[cr + C_IMP] = imp;
+    s[cr + C_PERR] = pos_err;
+    s[cr + C_D] = active ? 1.0f / fmaxf(R, 1e-12f) : 0.0f;
+    s[cr + C_ADH] = 0.0f;
+    st3(s, cr + C_CPOS, cpos);
+    // Jacobian direction components jp = S_v + S_w x rel, flat frame.
+    const V3 rel = sub(cpos, ref);
+    const int p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+    for (int i = 0; i < np; ++i) {
+      const V6 sd = ld6(s, S_SM + 6 * kPathDof[p0 + i]);
+      const V3 jp = add(sd.v, cross(sd.w, rel));
+      s[comp_row(c, i, 0)] = jp.z;
+      s[comp_row(c, i, 1)] = jp.x;
+      s[comp_row(c, i, 2)] = jp.y;
+    }
+  }
+  // Adhesion: each actuator's force split over its active candidates.
+  MS_NOUNROLL
+  for (int gi = 0; gi < NADH; ++gi) {
+    const int u = kAdhAct[gi];
+    const float total = kActGain[u] * s[S_CCL + u];
+    float count = 0.0f;
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) count = count + s[cand_row(kAdhCand[j]) + C_ACT];
+    const float per = total / fmaxf(count, 1.0f);
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) {
+      const int cr = cand_row(kAdhCand[j]);
+      s[cr + C_ADH] = s[cr + C_ACT] != 0.0f ? per : 0.0f;
+    }
+  }
+
+  // ---------------- first pass: aref, adhesion, jar, gradient, Hessian ----
+  MS_NOUNROLL
+  for (int e = 0; e < NPK; ++e) s[S_H + e] = s[S_MH + e];
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
+  MS_NOUNROLL
+  for (int c = 0; c < NCAND; ++c) {
+    const int cr = cand_row(c);
+    float vel[4], jr[4];
+    row_combos(c, products(s, c, S_V), vel);
+    const float kimp = kKGain[c] * s[cr + C_IMP];
+    for (int r = 0; r < 4; ++r)
+      s[cr + C_AREF + r] = kNegBGain[c] * vel[r] - kimp * s[cr + C_PERR];
+    const float adh = s[cr + C_ADH];
+    const int b = kCandBody[c], p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+    for (int i = 0; i < np; ++i) {
+      const int d = S_QFRC + kPathDof[p0 + i];
+      s[d] = s[d] - s[comp_row(c, i, 0)] * adh;
+    }
+    row_combos(c, products(s, c, S_A), jr);
+    for (int r = 0; r < 4; ++r) s[cr + C_JAR + r] = jr[r] - s[cr + C_AREF + r];
+    grad_pass(s, c, true);
+  }
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const int k2 = S_H + kPkPtr[d + 1] - 1;
+    s[k2] = s[k2] + 1e-9f;
+  }
+  tree_ldl(s);
+
+  // ---------------- Newton on the frozen Hessian --------------------------
+  mh_mul(s, S_A, S_MA);
+  MS_NOUNROLL
+  for (int it = 0; it < NEWTON_ITERS; ++it) {
+    if (it > 0) {
+      for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
+      MS_NOUNROLL
+      for (int c = 0; c < NCAND; ++c) grad_pass(s, c, false);
+    }
+    for (int d = 0; d < NV; ++d) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
+    tree_solve(s, S_DEL);
+    for (int d = 0; d < NV; ++d) s[S_DEL + d] = -s[S_DEL + d];
+    mh_mul(s, S_DEL, S_MD);
+    float dMd = 0.0f, gMd = 0.0f;
+    for (int d = 0; d < NV; ++d) {
+      const float del = s[S_DEL + d], md = s[S_MD + d];
+      dMd = dMd + del * md;
+      gMd = gMd + s[S_A + d] * md - s[S_QFRC + d] * del;
+    }
+    MS_NOUNROLL
+    for (int c = 0; c < NCAND; ++c) {
+      const int cr = cand_row(c);
+      float jd[4];
+      row_combos(c, products(s, c, S_DEL), jd);
+      for (int r = 0; r < 4; ++r) {
+        s[cr + C_JD + r] = jd[r];
+        s[cr + C_DJD + r] = s[cr + C_D] * jd[r];
+      }
+    }
+    // Bisection with a final regula falsi: only the sign of φ' feeds back.
+    float dlo = dphi(s, gMd, dMd, 0.0f, true);
+    const float d0 = dlo;
+    float dhi = dphi(s, gMd, dMd, 0.0f + kAlphaMax, false);
+    float lo = 0.0f, hi = 0.0f + kAlphaMax;
+    MS_NOUNROLL
+    for (int kb = 0; kb < LS_BISECT; ++kb) {
+      const float mid = 0.5f * (lo + hi);
+      const float dm = dphi(s, gMd, dMd, mid, false);
+      const bool neg = dm < 0.0f;
+      lo = neg ? mid : lo;
+      dlo = neg ? dm : dlo;
+      hi = neg ? hi : mid;
+      dhi = neg ? dhi : dm;
+    }
+    const float t = -dlo / fmaxf(dhi - dlo, 1e-12f);
+    float alpha = lo + clampf(t, 0.0f, 1.0f) * (hi - lo);
+    alpha = d0 < 0.0f ? alpha : 0.0f;
+    for (int d = 0; d < NV; ++d) {
+      s[S_A + d] = s[S_A + d] + alpha * s[S_DEL + d];
+      s[S_MA + d] = s[S_MA + d] + alpha * s[S_MD + d];
+    }
+    MS_NOUNROLL
+    for (int c = 0; c < NCAND; ++c) {
+      const int cr = cand_row(c);
+      for (int r = 0; r < 4; ++r)
+        s[cr + C_JAR + r] = s[cr + C_JAR + r] + alpha * s[cr + C_JD + r];
+    }
+  }
+
+  // ---------------- outputs of the last step (pre-integration FK) ---------
+  const int o0 = (K - 1) * NQ;  // the state rows follow the K-1 qpos rows
+  const int o_xpos = o0 + NQ + 2 * NV + NA;
+  const int o_xquat = o_xpos + 3 * NBODY;
+  const int o_site = o_xquat + 4 * NBODY;
+  const int o_af = o_site + 3 * NSITE;
+  const int o_sens = o_af + NU;
+  if (last) {
+    for (int r = 0; r < 3 * NBODY; ++r) out[o_xpos + r] = s[S_XPOS + r];
+    for (int r = 0; r < 4 * NBODY; ++r) out[o_xquat + r] = s[S_XQUAT + r];
+    for (int si = 0; si < NSITE; ++si) {
+      const int b = kSiteBody[si];
+      const V3 sp = add(ld3(s, S_XPOS + 3 * b), qrot(ld4(s, S_XQUAT + 4 * b), TV3(kSitePos, si)));
+      out[o_site + 3 * si] = sp.x;
+      out[o_site + 3 * si + 1] = sp.y;
+      out[o_site + 3 * si + 2] = sp.z;
+    }
+    for (int u = 0; u < NU; ++u) out[o_af + u] = s[S_AF + u];
+    // Per-leg 16-value net-force sensors.
+    MS_NOUNROLL
+    for (int sn = 0; sn < NSENSOR; ++sn) {
+      const int r0 = o_sens + 16 * sn;
+      float row[16] = {};
+      const int j0 = kSensPtr[sn], j1 = kSensPtr[sn + 1];
+      if (j1 > j0) {
+        float count = 0.0f, fmag = 0.0f;
+        V3 ff = {0.0f, 0.0f, 0.0f}, posw = ff, posp = ff, tw = ff;
+        for (int j = j0; j < j1; ++j) count = count + s[cand_row(kSensCand[j]) + C_ACT];
+        // Contact-frame force of a candidate from its final rows.
+        auto frame_force = [&](int c) {
+          const int cr = cand_row(c);
+          const float D = s[cr + C_D], act = s[cr + C_ACT];
+          float lam[4];
+          for (int r = 0; r < 4; ++r) {
+            const float jr = s[cr + C_JAR + r];
+            lam[r] = fmaxf(-D * (jr < 0.0f ? 1.0f : 0.0f) * jr, 0.0f);
+          }
+          const float fn = 0.0f + lam[0] + lam[1] + lam[2] + lam[3];
+          const float ft1 = kMu[c] * (lam[0] - lam[1]), ft2 = kMu[c] * (lam[2] - lam[3]);
+          return V3{fn * act, ft1 * act, ft2 * act};
+        };
+        for (int j = j0; j < j1; ++j) {
+          const int c = kSensCand[j];
+          const float w = s[cand_row(c) + C_ACT];
+          ff = add(ff, scale(frame_force(c), w));
+        }
+        for (int j = j0; j < j1; ++j) {
+          const int c = kSensCand[j], cr = cand_row(c);
+          const float w = s[cr + C_ACT];
+          const float fm = fabsf(frame_force(c).x) * w;
+          const V3 cp = ld3(s, cr + C_CPOS);
+          fmag = fmag + fm;
+          posw = add(posw, scale(cp, fm));
+          posp = add(posp, scale(cp, w));
+        }
+        const bool by_force = fmag > 1e-12f;
+        const float fden = fmaxf(fmag, 1e-12f), cden = fmaxf(count, 1.0f);
+        const V3 pos = {by_force ? posw.x / fden : posp.x / cden,
+                        by_force ? posw.y / fden : posp.y / cden,
+                        by_force ? posw.z / fden : posp.z / cden};
+        for (int j = j0; j < j1; ++j) {
+          const int c = kSensCand[j], cr = cand_row(c);
+          const float w = s[cr + C_ACT];
+          const V3 f = frame_force(c);
+          const V3 tq = cross(sub(ld3(s, cr + C_CPOS), pos), V3{f.y, f.z, f.x});
+          tw = add(tw, scale(tq, w));
+        }
+        // Flat ground: normal z, tangent x, t2 = normal x tangent = y.
+        const V3 nrm = {0.0f, 0.0f, 1.0f}, tan = {1.0f, 0.0f, 0.0f}, t2 = cross(nrm, tan);
+        const float vals[16] = {count > 0.0f ? 1.0f : 0.0f, ff.x, ff.y, ff.z,
+                                dot(tw, nrm), dot(tw, tan), dot(tw, t2),
+                                pos.x, pos.y, pos.z, 0.0f, 0.0f, 1.0f, 1.0f, 0.0f, 0.0f};
+        for (int r = 0; r < 16; ++r) row[r] = vals[r];
+      }
+      for (int r = 0; r < 16; ++r) out[r0 + r] = row[r];
+    }
+  }
+
+  // ---------------- semi-implicit Euler -----------------------------------
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) s[S_V + d] = s[S_V + d] + kDt * s[S_A + d];
+  MS_NOUNROLL
+  for (int h = 0; h < NHINGE; ++h) {
+    const int qa = S_Q + kHingeQ[h];
+    s[qa] = s[qa] + kDt * s[S_V + kHingeV[h]];
+  }
+  MS_NOUNROLL
+  for (int b = 0; b < NBODY; ++b) {
+    if (kFreeV[b] < 0) continue;
+    const int qa = S_Q + kFreeQ[b], va = S_V + kFreeV[b];
+    for (int i = 0; i < 3; ++i) s[qa + i] = s[qa + i] + kDt * s[va + i];
+    const V3 om = ld3(s, va + 3);
+    const float ang = sqrtf(dot(om, om) + 1e-24f) * kDt;
+    const float sc = ang > 1e-12f ? ms_sinf(0.5f * ang) / fmaxf(ang / kDt, 1e-12f) : kHalfDt;
+    const Q4 dq = {ms_cosf(0.5f * ang), om.x * sc, om.y * sc, om.z * sc};
+    const Q4 nq = qmul(dq, ld4(s, qa + 3));
+    const float norm = sqrtf(nq.w * nq.w + nq.x * nq.x + nq.y * nq.y + nq.z * nq.z);
+    st4(s, qa + 3, Q4{nq.w / norm, nq.x / norm, nq.y / norm, nq.z / norm});
+  }
+
+  if (!last) {
+    for (int i = 0; i < NQ; ++i) out[k * NQ + i] = s[S_Q + i];
+    return;
+  }
+  for (int i = 0; i < NQ; ++i) out[o0 + i] = s[S_Q + i];
+  for (int i = 0; i < NV; ++i) out[o0 + NQ + i] = s[S_V + i];
+  for (int i = 0; i < NA; ++i) out[o0 + NQ + NV + i] = in[NQ + NV + K * NU + i];
+  for (int i = 0; i < NV; ++i) out[o0 + NQ + NV + NA + i] = s[S_A + i];
+}
+
+// K steps of world w: in (n_in, B), out (n_out, B), scratch (N_SCRATCH, B).
+MS_FN void run_world(const float* in, float* out, float* scratch, int w, int B, int K) {
+  const size_t sB = static_cast<size_t>(B);
+  const Rows I{const_cast<float*>(in) + w, sB}, O{out + w, sB}, S{scratch + w, sB};
+  for (int i = 0; i < NQ; ++i) S[S_Q + i] = I[i];
+  for (int i = 0; i < NV; ++i) S[S_V + i] = I[NQ + i];
+  for (int i = 0; i < NV; ++i) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
+  MS_NOUNROLL
+  for (int k = 0; k < K; ++k) step_world(I, O, S, k, K);
+}
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(kThreads)
+megastep_kernel(const float* __restrict__ in, float* __restrict__ out,
+                float* __restrict__ scratch, int B, int K) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= B) return;
+  run_world(in, out, scratch, w, B, K);
+}
+#endif
+
+}  // namespace
+
+#ifdef __CUDACC__
+extern "C" int megastep_f32(const void* in, void* out, void* scratch, int B, int K,
+                            void* stream) {
+  if (B <= 0 || K < 1) return cudaErrorInvalidValue;
+  megastep_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out),
+      static_cast<float*>(scratch), B, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#else
+extern "C" int megastep_host_f32(const float* in, float* out, float* scratch, int B, int K) {
+  if (B <= 0 || K < 1) return 1;
+  for (int w = 0; w < B; ++w) run_world(in, out, scratch, w, B, K);
+  return 0;
+}
+#endif

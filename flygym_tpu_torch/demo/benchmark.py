@@ -7,8 +7,10 @@ then one timed replay runs. The metric is
 ``world-steps/s = n_steps * n_worlds / walltime``.
 
 Where the JAX package scans the episode on the device, the port runs a
-Python loop of eager batched steps; the timer brackets the replay with
-``torch.cuda.synchronize()`` on a CUDA device.
+Python loop of launches of the simulation's step (the mega-step kernel, K
+steps fused per launch, on the card; the eager engine step otherwise); the
+timer brackets the replay with ``torch.cuda.synchronize()`` on a CUDA
+device.
 """
 
 from dataclasses import replace
@@ -66,15 +68,32 @@ class ReplayTargetData:
         return out
 
 
-def replay_episode(model, state, targets: torch.Tensor, act_ids: torch.Tensor,
+def replay_episode(sim: BatchSimulation, state, targets: torch.Tensor, act_ids: torch.Tensor,
                    n_steps: int, on_step=None):
-    """Replay ``targets`` (B, n_steps, n_dofs) into the actuators ``act_ids``,
-    one batched step per target row. ``on_step(i, state)``, if given, sees
-    the state after each step."""
+    """Replay ``targets`` (B, n_steps, n_dofs) into the actuators ``act_ids``
+    through ``sim``'s step (:meth:`~flygym_tpu_torch.Simulation.step_fns`).
+
+    With the K-step mega-step each launch takes the chunk's K target slices
+    written into its (K, B, nu) controls (``flygym_tpu/demo/benchmark.py:
+    144-170``); otherwise one step per target row. ``on_step(i, state)``, if
+    given, sees the state after each launch, ``i`` the index of its last
+    step."""
+    batched_step, kstep_fn = sim.step_fns(n_steps)
+    if kstep_fn is not None:
+        K = kstep_fn.k_steps
+        for i in range(0, n_steps, K):
+            ctrl_seq = state.ctrl.expand((K,) + state.ctrl.shape).clone()
+            ctrl_seq[:, :, act_ids] = targets[:, i : i + K].transpose(0, 1)
+            state, _traj = kstep_fn(state, ctrl_seq)
+            if on_step is not None:
+                on_step(i + K - 1, state)
+        return state
+    if batched_step is None:
+        batched_step = lambda s: step(sim.model, s)
     for i in range(n_steps):
         ctrl = state.ctrl.clone()
         ctrl[:, act_ids] = targets[:, i]
-        state = step(model, replace(state, ctrl=ctrl))
+        state = batched_step(replace(state, ctrl=ctrl))
         if on_step is not None:
             on_step(i, state)
     return state
@@ -86,17 +105,20 @@ def _sync(device: torch.device) -> None:
 
 
 def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
-                   device="cuda", warmup_steps: int = 500):
+                   device="cuda", warmup_steps: int = 500, megastep: bool | None = None,
+                   megastep_k: int = 8):
     """Settle, then time one replay run (reference ``time_gpu_simulation.py:108-156``).
 
     Args:
         replay_data: (n_worlds, n_steps, n_dofs) target angles.
+        megastep, megastep_k: The step, as for :class:`BatchSimulation`.
 
     Returns:
         (walltime of the replay in seconds, the simulation after it).
     """
     n_worlds, n_steps, _ = replay_data.shape
-    sim = BatchSimulation(compiled, n_worlds, device=device)
+    sim = BatchSimulation(compiled, n_worlds, device=device, megastep=megastep,
+                          megastep_k=megastep_k)
     fly = compiled.fly_names[0]
     sim.set_leg_adhesion_states(fly, np.ones((n_worlds, 6), np.float32))
     sim.rollout(None, warmup_steps, record_trajectory=False)
@@ -105,13 +127,16 @@ def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
     targets = torch.as_tensor(replay_data, dtype=torch.float32, device=sim.device)
     _sync(sim.device)
     start = perf_counter()
-    sim.state = replay_episode(sim.model, sim.state, targets, act_ids, n_steps)
+    sim.state = replay_episode(sim, sim.state, targets, act_ids, n_steps)
     _sync(sim.device)
     return perf_counter() - start, sim
 
 
-def track_golden(compiled: CompiledModel, golden: dict, *, device="cpu", n_worlds=None) -> dict:
-    """Replay the golden's steps from its settled JAX state on ``device``.
+def track_golden(compiled: CompiledModel, golden: dict, *, device="cuda", n_worlds=None,
+                 megastep: bool | None = None) -> dict:
+    """Replay the golden's steps from its settled JAX state on ``device``,
+    one step per launch so that every step is compared; ``megastep`` picks
+    the path as for :class:`BatchSimulation`.
 
     Returns the largest |port - JAX| over all steps for ``qpos`` and
     ``qvel``, and ``found_share``, the share of (step, world, sensor) contact
@@ -119,7 +144,7 @@ def track_golden(compiled: CompiledModel, golden: dict, *, device="cpu", n_world
     """
     n_worlds = n_worlds or golden["targets"].shape[0]
     n_steps = golden["targets"].shape[1]
-    sim = BatchSimulation(compiled, n_worlds, device=device)
+    sim = BatchSimulation(compiled, n_worlds, device=device, megastep=megastep, megastep_k=1)
     dev = sim.device
     state = golden["state"].map(lambda x: x[:n_worlds].clone()).to(dev)
     ref = {k: torch.as_tensor(golden[k][:, :n_worlds], device=dev)
@@ -134,5 +159,5 @@ def track_golden(compiled: CompiledModel, golden: dict, *, device="cpu", n_world
 
     targets = torch.as_tensor(golden["targets"][:n_worlds], device=dev)
     act_ids = sim.actuator_ids(compiled.fly_names[0], "position")
-    replay_episode(sim.model, state, targets, act_ids, n_steps, on_step=on_step)
+    replay_episode(sim, state, targets, act_ids, n_steps, on_step=on_step)
     return worst

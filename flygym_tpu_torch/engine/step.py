@@ -112,6 +112,8 @@ def rollout_batched(
     ctrl_seq: torch.Tensor | None,
     n_steps: int,
     record: bool = True,
+    batched_step=None,
+    kstep_fn=None,
 ):
     """Step ``n_steps`` times.
 
@@ -119,18 +121,40 @@ def rollout_batched(
         ctrl_seq: (n_steps, B, nu) controls per step; NaN entries keep the
             previous control. None holds the current controls throughout.
         record: Stack the per-step qpos trajectory.
+        batched_step: Replaces :func:`step` (e.g. the K = 1 mega-step,
+            ``ops/megastep.py``); takes and returns a batched State.
+        kstep_fn: A K-step fused mega-step (``make_megastep(model, K)``);
+            ``n_steps`` must be a multiple of its ``k_steps``. The loop then
+            makes n_steps / K launches, forward-filling the NaN controls of
+            each chunk before its launch (``flygym_tpu/engine/step.py:256-277``).
 
     Returns:
         (final state, (n_steps, B, nq) qpos trajectory or None).
     """
     traj = []
+    if kstep_fn is not None:
+        K = kstep_fn.k_steps
+        if n_steps % K:
+            raise ValueError(f"n_steps={n_steps} is not a multiple of k_steps={K}")
+        for t0 in range(0, n_steps, K):
+            eff, prev = [], state.ctrl
+            for t in range(t0, t0 + K):
+                if ctrl_seq is not None:
+                    prev = torch.where(torch.isnan(ctrl_seq[t]), prev, ctrl_seq[t])
+                eff.append(prev)
+            state, qpos_k = kstep_fn(state, torch.stack(eff))
+            if record:
+                traj.extend(qpos_k)
+        return state, (torch.stack(traj) if record else None)
+
+    step_fn = batched_step if batched_step is not None else (lambda s: step(model, s))
     for t in range(n_steps):
         if ctrl_seq is not None:
             ctrl_t = ctrl_seq[t]
             state = replace(
                 state, ctrl=torch.where(torch.isnan(ctrl_t), state.ctrl, ctrl_t)
             )
-        state = step(model, state)
+        state = step_fn(state)
         if record:
             traj.append(state.qpos)
     return state, (torch.stack(traj) if record else None)

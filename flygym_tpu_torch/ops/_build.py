@@ -1,10 +1,20 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``flygym_tpu_torch/csrc/*.cu`` file is compiled at first use into one
-shared library with a plain C interface, under ``flygym_tpu_torch/_build/``.
-The library's name carries a hash of the sources and flags, so an edit to a
-source builds anew and an unchanged tree reuses its build. Only the sources
-in the repository are used. A failed build raises with nvcc's stderr.
+Two builds, both at first use, under ``flygym_tpu_torch/_build/``:
+
+- The model-independent kernels: every ``flygym_tpu_torch/csrc/*.cu`` file
+  except ``megastep.cu``, compiled into one shared library (:func:`build`,
+  :func:`load_library`).
+- The mega-step kernel K2 (:func:`build_megastep`, :func:`load_megastep`):
+  ``csrc/megastep.cu`` with the model's generated header
+  ``megastep_model.h`` (``ops/megastep.py:model_header``), one library per
+  model. nvcc's ``-Xptxas -v`` report is kept beside it as ``ptxas.txt``.
+
+Each library's name carries a hash of its sources, flags and (for K2) the
+header, so an edit builds anew and an unchanged tree reuses its build. Only
+the sources in the repository and the model's arrays are used. A failed
+build raises with the compiler's stderr. :func:`build_megastep_host`
+compiles the same K2 source as host C++ with g++, for the CPU tests.
 """
 
 import ctypes
@@ -15,17 +25,31 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "NVCC_FLAGS"]
+__all__ = [
+    "build",
+    "build_megastep",
+    "build_megastep_host",
+    "load_library",
+    "load_megastep",
+    "ptxas_report",
+    "NVCC_FLAGS",
+]
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
+MEGASTEP_SRC = CSRC / "megastep.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 )
+# K2 keeps the emitter's arithmetic: no contraction into FMAs; IEEE div and
+# sqrt are nvcc's defaults.
+MEGASTEP_NVCC_FLAGS = NVCC_FLAGS + ("-fmad=false", "-Xptxas", "-v")
+MEGASTEP_GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
 _lib = None
+_megastep_libs = {}
 
 
 def _nvcc() -> str:
@@ -39,40 +63,48 @@ def _nvcc() -> str:
 
 
 def _sources():
-    return sorted(CSRC.glob("*.cu"))
+    return sorted(p for p in CSRC.glob("*.cu") if p != MEGASTEP_SRC)
+
+
+def _digest(flags, sources, extra: str = "") -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(extra.encode())
+    return h.hexdigest()[:16]
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + sorted(CSRC.glob("*.cuh")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD / f"libflygym_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD / f"libflygym_kernels_{_digest(NVCC_FLAGS, _sources() + sorted(CSRC.glob('*.cuh')))}.so"
 
 
-def build() -> Path:
-    """Compile the sources if their library is not built yet; return its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD.mkdir(parents=True, exist_ok=True)
+def _compile(cmd_head: list, out: Path, sources: list) -> str:
+    """Run a compiler into ``out`` via a private name; return its stderr."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     # Build to a private name, then rename: concurrent processes never load
     # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    cmd = [*cmd_head, "-o", tmp, *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"build failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, out)
+    return proc.stderr
+
+
+def build() -> Path:
+    """Compile the model-independent kernels if not built yet; return the path."""
+    out = library_path()
+    if not out.exists():
+        _compile([_nvcc(), *NVCC_FLAGS], out, _sources())
     return out
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on the first call."""
+    """The model-independent kernels' shared library, built on the first call."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -85,3 +117,65 @@ def load_library() -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _megastep_dir(header: str, flags) -> Path:
+    """The build directory of K2 for one model header: holds the header."""
+    d = BUILD / f"megastep_{_digest(flags, [MEGASTEP_SRC], header)}"
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "megastep_model.h"
+    if not path.exists() or path.read_text() != header:
+        fd, tmp = tempfile.mkstemp(suffix=".h", dir=d)
+        with os.fdopen(fd, "w") as f:
+            f.write(header)
+        os.replace(tmp, path)
+    return d
+
+
+def build_megastep(header: str) -> Path:
+    """Compile K2 for the model whose header is ``header``; return the
+    library's path. nvcc's ptxas report is written to ``ptxas.txt``."""
+    d = _megastep_dir(header, MEGASTEP_NVCC_FLAGS)
+    out = d / "libmegastep.so"
+    if not out.exists():
+        log = _compile([_nvcc(), *MEGASTEP_NVCC_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
+        (d / "ptxas.txt").write_text(log)
+    return out
+
+
+def ptxas_report(header: str) -> str:
+    """The ``-Xptxas -v`` lines of K2's build for ``header`` (built if need be)."""
+    path = build_megastep(header).parent / "ptxas.txt"
+    return path.read_text() if path.exists() else ""
+
+
+def load_megastep(header: str) -> ctypes.CDLL:
+    """K2 for one model, built on the first call."""
+    path = build_megastep(header)
+    lib = _megastep_libs.get(path)
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.megastep_f32.argtypes = [p, p, p, i, i, p]
+        lib.megastep_f32.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _megastep_libs[path] = lib
+    return lib
+
+
+def build_megastep_host(header: str) -> ctypes.CDLL:
+    """K2's source compiled as host C++ with g++ (``megastep_host_f32``: the
+    kernel's per-world body in a loop over worlds), loaded."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    d = _megastep_dir(header, MEGASTEP_GXX_FLAGS)
+    out = d / "libmegastep_host.so"
+    if not out.exists():
+        _compile([gxx, *MEGASTEP_GXX_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.megastep_host_f32.argtypes = [p, p, p, i, i]
+    lib.megastep_host_f32.restype = i
+    return lib

@@ -1,0 +1,1513 @@
+"""Mega-step (K2): the whole physics step of one world in one CUDA thread.
+
+Port of ``flygym_tpu/ops/megastep.py``, the JAX package's main-path kernel.
+Three parts:
+
+- :class:`_Static`, the model snapshot the emitter reads (the JAX
+  ``_Static``, ``megastep.py:715-888``, for ground rows only).
+- :func:`emit_step`, the plain version of K2: the JAX emitter
+  (``emit_step``, ``_cand_geom``, the fused ``_contacts_impl``, the tree
+  LDLᵀ and ``_emit_sensors``) over lists of (B,) tensors, op for op and in
+  the same order, with the same trace-time folding of the model's zeros and
+  ±1s. :func:`megastep_plain` packs a :class:`State` into those lists and
+  chains K steps.
+- :func:`make_megastep`, the wrapper of the kernel in
+  ``flygym_tpu_torch/csrc/megastep.cu``. The model's constants reach the
+  kernel as a generated header (:func:`model_header`), built with the
+  kernel by :mod:`flygym_tpu_torch.ops._build`. For a CPU tensor the wrapper
+  runs :func:`megastep_plain`; for a CUDA tensor it launches K2 or raises.
+
+``launches["megastep"]`` counts kernel launches; only a launch adds to it.
+
+Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
+and gates, the streamed emitter, H0-matvec mode, sublane packing. Not yet
+ported (later slices of K2): other actuator kinds, heightfield planes, pair
+rows, ``solver_exact``; :func:`megastep_supported` refuses those models.
+"""
+
+import numpy as np
+import torch
+
+from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State
+
+__all__ = [
+    "emit_step",
+    "launches",
+    "make_megastep",
+    "megastep_plain",
+    "megastep_supported",
+    "model_header",
+    "reset_launches",
+]
+
+_EPS = 1e-9
+# Bisection line-search schedule of the engine's _exact_linesearch.
+_LS_BISECT_ITERS = 8
+_LS_ALPHA_MAX = 2.0
+_C_EPS = 1e-12
+THREADS = 128  # kThreads in megastep.cu: worlds per block
+
+launches = {"megastep": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# float32 sin and cos as the JAX package's CPU backend rounds them
+# ---------------------------------------------------------------------------
+# XLA's CPU backend takes sin and cos of float32 from glibc's sinf/cosf
+# (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c, sincosf.h): a float64 range
+# reduction by pi/2 and a float64 polynomial, rounded to float32. torch.sin
+# rounds otherwise in ~5% of arguments on the CPU (CUDA's sinf is another
+# algorithm again), and those 1-ulp differences, amplified by the contact
+# solve, flip line-search brackets within tens of steps. The plain emitter and K2 (ms_sinf/ms_cosf in
+# csrc/megastep.cu) both use this algorithm, so they repeat the JAX
+# emitter's rounding (checked against libm for |x| <= 4 on 3e7 arguments).
+
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")  # pi/2
+_COS_C = [1.0] + [float.fromhex(h) for h in (
+    "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10",
+    "0x1.99343027bf8c3p-16")]
+_SIN_S = [float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13")]
+
+
+def _top12(x: float) -> int:
+    return (int(np.float32(x).view(np.int32)) >> 20) & 0x7FF
+
+
+_TOP_TINY, _TOP_PIO4, _TOP_BIG = _top12(2.0**-12), _top12(float.fromhex("0x1.921FB6p-1")), _top12(120.0)
+
+
+def _sincos_poly(x, x2, odd):
+    """glibc's sinf_poly: the sine polynomial where ``odd`` is false, the
+    cosine polynomial where it is true (float64)."""
+    x3 = x * x2
+    s = x + x3 * _SIN_S[0]
+    sin_p = s + (x3 * x2) * (_SIN_S[1] + x2 * _SIN_S[2])
+    x4 = x2 * x2
+    c = (_COS_C[0] + x2 * _COS_C[1]) + x4 * _COS_C[2]
+    cos_p = c + (x4 * x2) * (_COS_C[3] + x2 * _COS_C[4])
+    return torch.where(odd, cos_p, sin_p)
+
+
+def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    """sinf(y) or cosf(y) of a float32 tensor, rounded as glibc rounds them.
+    Arguments of 120 or more in magnitude (glibc's slow reduction; joint
+    angles never get there) take float64 sin/cos rounded to float32."""
+    x = y.double()
+    top = (y.view(torch.int32) >> 20) & 0x7FF
+    n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
+    xr = x - n.double() * _HPI
+    sign = torch.where(((n & 3) == 1) | ((n & 3) == 2), -1.0, 1.0).double()
+    small = top < _TOP_PIO4
+    nq = torch.where(small, 0, n) ^ int(cos)
+    odd = (nq & 1) == 1
+    out = _sincos_poly(torch.where(small, x, xr * sign), torch.where(small, x * x, xr * xr), odd)
+    out = torch.where(~small & ((n & 2) == 2) & odd, -out, out).float()
+    far = torch.cos(x) if cos else torch.sin(x)
+    out = torch.where(top < _TOP_BIG, out, far.float())
+    return torch.where(top < _TOP_TINY, torch.ones_like(y) if cos else y, out)
+
+
+def _sinf(y):
+    return _sincosf(y, cos=False)
+
+
+def _cosf(y):
+    return _sincosf(y, cos=True)
+
+
+# ---------------------------------------------------------------------------
+# Lane-vector maths: 3-vectors and quaternions as tuples of (B,) tensors
+# ---------------------------------------------------------------------------
+
+
+def _qmul(a, b):
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return (
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    )
+
+
+def _cross(a, b):
+    ax, ay, az = a
+    bx, by, bz = b
+    return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _add3(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def _sub3(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def _scale3(a, s):
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def _quat_to_mat(q):
+    w, x, y, z = q
+    return (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+        (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+        (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)),
+    )
+
+
+# Constant-folded forms: the second operand is a tuple of Python floats, and
+# only its nonzero terms are emitted (as the JAX emitter does at trace time).
+
+
+def _comb(terms, z):
+    out = None
+    for v, k in terms:
+        k = float(k)
+        out = _acc(out, _mul_cf(0.0 if abs(k) < _C_EPS else k, v))
+    return z if out is None else out
+
+
+def _is_ident_quat(c):
+    return (
+        abs(float(c[0]) - 1.0) < _C_EPS
+        and abs(float(c[1])) < _C_EPS
+        and abs(float(c[2])) < _C_EPS
+        and abs(float(c[3])) < _C_EPS
+    )
+
+
+def _qmul_c(a, c, z):
+    """a ∘ c with c a constant quaternion."""
+    if _is_ident_quat(c):
+        return a
+    aw, ax, ay, az = a
+    cw, cx, cy, cz = (float(v) for v in c)
+    return (
+        _comb([(aw, cw), (ax, -cx), (ay, -cy), (az, -cz)], z),
+        _comb([(aw, cx), (ax, cw), (ay, cz), (az, -cy)], z),
+        _comb([(aw, cy), (ax, -cz), (ay, cw), (az, cx)], z),
+        _comb([(aw, cz), (ax, cy), (ay, -cx), (az, cw)], z),
+    )
+
+
+def _cross_c(a, c, z):
+    """a × c with c a constant 3-vector."""
+    ax, ay, az = a
+    cx, cy, cz = (float(v) for v in c)
+    return (
+        _comb([(ay, cz), (az, -cy)], z),
+        _comb([(az, cx), (ax, -cz)], z),
+        _comb([(ax, cy), (ay, -cx)], z),
+    )
+
+
+def _cross_cl(c, b, z):
+    """c × b with c a constant 3-vector."""
+    cx, cy, cz = (float(v) for v in c)
+    return (
+        _comb([(b[2], cy), (b[1], -cz)], z),
+        _comb([(b[0], cz), (b[2], -cx)], z),
+        _comb([(b[1], cx), (b[0], -cy)], z),
+    )
+
+
+def _div(x, c: float):
+    """x / c rounded as a division. On CUDA tensors, torch computes
+    ``x / python_float`` as x times the float's reciprocal, which rounds
+    otherwise than the JAX emitter and K2 do."""
+    return x / torch.full_like(x, c)
+
+
+def _mul_cf(coef, x):
+    """coef·x, coef a Python float or a tensor, x a tensor or None (a
+    structural zero). None for an exactly-zero product: 0·x and 1·x fold."""
+    if x is None or coef is None:
+        return None
+    if isinstance(coef, float):
+        if coef == 0.0:
+            return None
+        if coef == 1.0:
+            return x
+        if coef == -1.0:
+            return -x
+        return x * coef
+    return coef * x
+
+
+def _acc(out, term):
+    if term is None:
+        return out
+    return term if out is None else out + term
+
+
+def _qrot_c(q, c, z):
+    """Rotate the constant 3-vector c by the quaternion q."""
+    cx, cy, cz = (float(v) for v in c)
+    if abs(cx) < _C_EPS and abs(cy) < _C_EPS and abs(cz) < _C_EPS:
+        return (z, z, z)
+    w, x, y, zc = q
+    qv = (x, y, zc)
+    t = _scale3(_cross_c(qv, (cx, cy, cz), z), 2.0)
+    u = _cross(qv, t)
+    out = []
+    for comp, cv in zip(range(3), (cx, cy, cz)):
+        val = w * t[comp] + u[comp]
+        if abs(cv) >= _C_EPS:
+            val = val + cv
+        out.append(val)
+    return tuple(out)
+
+
+def _qmul_sp(a, b, z):
+    """a ∘ b where b's components may be None (structural zeros)."""
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+
+    def comb(terms):
+        out = None
+        for u, v, s in terms:
+            if v is None:
+                continue
+            t = u * v
+            if out is None:
+                out = -t if s < 0 else t
+            else:
+                out = out - t if s < 0 else out + t
+        return z if out is None else out
+
+    return (
+        comb([(aw, bw, 1), (ax, bx, -1), (ay, by, -1), (az, bz, -1)]),
+        comb([(aw, bx, 1), (ax, bw, 1), (ay, bz, 1), (az, by, -1)]),
+        comb([(aw, by, 1), (ax, bz, -1), (ay, bw, 1), (az, bx, 1)]),
+        comb([(aw, bz, 1), (ax, by, 1), (ay, bx, -1), (az, bw, 1)]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Static model snapshot
+# ---------------------------------------------------------------------------
+
+
+class _Static:
+    """What the emitter and the kernel's header need, as numpy arrays and
+    Python structures (the JAX ``_Static``, ground rows only)."""
+
+    def __init__(self, model: PhysicsModel):
+        f = lambda x: x.detach().cpu().numpy()
+        self.nbody = model.nbody
+        self.nq, self.nv, self.nu, self.na = model.nq, model.nv, model.nu, model.na
+        self.nhinge = model.nhinge
+        self.nsite = model.nsite
+        self.ncand = model.ncand
+        self.condim = model.condim
+        self.timestep = float(model.timestep)
+        self.solver_iterations = int(model.solver_iterations)
+        self.ref_body = int(model.ref_body)
+        self.gravity = f(model.gravity)
+
+        self.body_parent = f(model.body_parent)
+        self.body_pos = f(model.body_pos)
+        self.body_quat = f(model.body_quat)
+        self.body_ipos = f(model.body_ipos)
+        self.body_iquat = f(model.body_iquat)
+        self.body_mass = f(model.body_mass)
+        self.body_inertia = f(model.body_inertia)
+
+        # Topological order (parents before children), skipping world (0).
+        order, depth = [], {0: 0}
+        pending = list(range(1, self.nbody))
+        while pending:
+            nxt = [b for b in pending if int(self.body_parent[b]) in depth]
+            for b in nxt:
+                depth[b] = depth[int(self.body_parent[b])] + 1
+                order.append(b)
+            pending = [b for b in pending if b not in depth]
+        self.topo = order
+
+        self.hinge_body = f(model.hinge_body)
+        self.hinge_slot = f(model.hinge_slot)
+        self.hinge_axis = f(model.hinge_axis)
+        self.hinge_qadr = f(model.hinge_qadr)
+        self.hinge_vadr = f(model.hinge_vadr)
+        self.hinge_stiffness = f(model.hinge_stiffness)
+        self.hinge_springref = f(model.hinge_springref)
+
+        self.dof_body = f(model.dof_body)
+        self.dof_armature = f(model.dof_armature)
+        self.dof_damping = f(model.dof_damping)
+        self.dof_chains = [list(c) for c in model.dof_chains]
+        self.free_joints = [tuple(int(x) for x in j) for j in model.free_joints]
+        self.free_dof_axis = {}
+        for _b, _qa, va in self.free_joints:
+            for i in range(6):
+                self.free_dof_axis[va + i] = i  # 0-2 translation, 3-5 rotation
+
+        # Hinges per body (by slot) and DoFs per body.
+        self.body_hinges = {b: [] for b in range(self.nbody)}
+        for h in range(self.nhinge):
+            self.body_hinges[int(self.hinge_body[h])].append(h)
+        for b in self.body_hinges:
+            self.body_hinges[b].sort(key=lambda h: int(self.hinge_slot[h]))
+        self.body_dofs = {b: [] for b in range(self.nbody)}
+        for h in range(self.nhinge):
+            self.body_dofs[int(self.hinge_body[h])].append(int(self.hinge_vadr[h]))
+        for b, _qa, va in self.free_joints:
+            self.body_dofs[b] = list(range(va, va + 6))
+
+        # Per-DoF root path (ancestors + self) and per-body affecting DoFs.
+        self.dof_path = [self.dof_chains[d] + [d] for d in range(self.nv)]
+        anc_bodies = {0: []}
+        for b in order:
+            anc_bodies[b] = anc_bodies[int(self.body_parent[b])] + [b]
+        self.body_path_dofs = {
+            b: [d for ab in anc_bodies[b] for d in self.body_dofs[ab]]
+            for b in range(self.nbody)
+        }
+
+        # Tree-sparse matrix keys (ancestor_or_self, dof), and the
+        # leaves→root elimination order.
+        self.pair_keys = [(a_, d) for d in range(self.nv) for a_ in self.dof_path[d]]
+        self.elim_order = sorted(range(self.nv), key=lambda d: -len(self.dof_chains[d]))
+
+        self.geom_body = f(model.geom_body)
+        self.geom_pos = f(model.geom_pos)
+        self.geom_quat = f(model.geom_quat)
+        self.geom_size = f(model.geom_size)
+        self.site_body = f(model.site_body) if self.nsite else np.zeros(0, int)
+        self.site_pos = f(model.site_pos) if self.nsite else np.zeros((0, 3))
+
+        self.can_geom = f(model.can_geom)
+        self.can_end = f(model.can_end)
+        self.can_friction = f(model.can_friction)
+        self.can_solref = f(model.can_solref)
+        self.can_solimp = f(model.can_solimp)
+        self.can_margin = f(model.can_margin)
+        self.can_adh_act = f(model.can_adh_act)
+        self.can_sensor = f(model.can_sensor)
+        self.can_invweight = f(model.can_invweight)
+        self.ground_z = float(f(model.ground_pos)[2])
+        self.nsensor = model.nsensor_contact
+
+        # Candidates grouped by adhesion actuator and by sensor slot.
+        self.adh_groups = {}
+        for c in range(self.ncand):
+            a_ = int(self.can_adh_act[c])
+            if a_ >= 0:
+                self.adh_groups.setdefault(a_, []).append(c)
+        self.sensor_groups = {s: [] for s in range(self.nsensor)}
+        for c in range(self.ncand):
+            s = int(self.can_sensor[c])
+            if s >= 0:
+                self.sensor_groups[s].append(c)
+
+        self.act_kind = f(model.act_kind)
+        self.act_hinge = f(model.act_hinge)
+        self.act_gain = f(model.act_gain)
+        self.act_kv = f(model.act_kv)
+        self.act_ctrlrange = f(model.act_ctrlrange)
+        self.act_ctrllimited = f(model.act_ctrllimited)
+        self.act_forcerange = f(model.act_forcerange)
+        self.act_forcelimited = f(model.act_forcelimited)
+
+
+def megastep_supported(model: PhysicsModel) -> bool:
+    """Whether K2 covers ``model``: the feature half of the JAX gate
+    (``megastep.py:934-989``) as far as this slice goes — Newton without
+    ``solver_exact``, no welds, flat ground, no pair rows, condim 3, no
+    activation states, position and adhesion actuators only, and candidate
+    paths that run down one chain of the tree. There is no VMEM estimate."""
+    if (
+        model.solver_type != "newton"
+        or model.solver_exact
+        or model.welds
+        or model.has_hfield
+        or model.ncand_pair
+        or model.condim != 3
+        or model.na
+        or model.ncand == 0
+    ):
+        return False
+    kinds = set(model.act_kind.tolist())
+    if not kinds <= {ActKind.POSITION, ActKind.ADHESION}:
+        return False
+    st = _Static(model)
+    return all(_path_on_chain(st, int(st.geom_body[g])) for g in st.can_geom)
+
+
+def _path_on_chain(st: _Static, body: int) -> bool:
+    """Every prefix of the body's DoF path is a DoF's root path, so the
+    Hessian key of (path[i], path[j]), i <= j, is entry i of path[j]'s
+    column."""
+    path = st.body_path_dofs[body]
+    return all(st.dof_path[d] == path[: j + 1] for j, d in enumerate(path))
+
+
+# ---------------------------------------------------------------------------
+# The plain version of K2: one physics step over lists of (B,) tensors
+# ---------------------------------------------------------------------------
+
+
+def emit_step(st: _Static, q, v, ctrl, act, warm):
+    """One physics step (the JAX ``emit_step`` for flat ground).
+
+    Args:
+        st: The static model snapshot.
+        q, v, ctrl, act, warm: Lists of (B,) tensors (nq, nv, nu, na, nv).
+
+    Returns:
+        dict of lists of (B,) tensors: qpos, qvel, act, qacc, xpos (nbody
+        3-tuples), xquat (nbody 4-tuples), site_xpos, actuator_force,
+        sensordata (nsensor lists of 16).
+    """
+    z = torch.zeros_like(q[0])
+    one = torch.ones_like(q[0])
+    dt = st.timestep
+
+    # ---------------- FK: parent → child over the tree ----------------
+    xpos = [None] * st.nbody
+    xquat = [None] * st.nbody
+    xpos[0] = (z, z, z)
+    xquat[0] = (one, z, z, z)
+    hinge_xaxis = [None] * st.nhinge
+    free_bodies = {b for b, _qa, _va in st.free_joints}
+    free_qadr = {b: qa for b, qa, _va in st.free_joints}
+
+    for b in st.topo:
+        p = int(st.body_parent[b])
+        if b in free_bodies:
+            qa = free_qadr[b]
+            xpos[b] = (q[qa], q[qa + 1], q[qa + 2])
+            xquat[b] = (q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6])
+            continue
+        cur = _qmul_c(xquat[p], st.body_quat[b], z)
+        for h in st.body_hinges[b]:
+            ax = st.hinge_axis[h]
+            # The world hinge axis uses the rotation before the hinge.
+            hinge_xaxis[h] = _qrot_c(cur, ax, z)
+            half = 0.5 * q[int(st.hinge_qadr[h])]
+            c_, s_ = _cosf(half), _sinf(half)
+            hq = [c_, None, None, None]
+            for j in range(3):
+                aj = float(ax[j])
+                if abs(aj) < _C_EPS:
+                    continue
+                hq[j + 1] = s_ if aj == 1.0 else (-s_ if aj == -1.0 else s_ * aj)
+            cur = _qmul_sp(cur, hq, z)
+        xquat[b] = cur
+        bp = st.body_pos[b]
+        if max(abs(float(x)) for x in bp) < _C_EPS:
+            xpos[b] = xpos[p]
+        else:
+            xpos[b] = _add3(xpos[p], _qrot_c(xquat[p], bp, z))
+
+    ref = xpos[st.ref_body]
+
+    # ---------------- motion subspace S: (angular, linear) at ref ----------
+    S = [None] * st.nv
+    for h in range(st.nhinge):
+        b = int(st.hinge_body[h])
+        a_w = hinge_xaxis[h]
+        S[int(st.hinge_vadr[h])] = (a_w, _cross(_sub3(xpos[b], ref), a_w))
+    for b, _qa, va in st.free_joints:
+        p_ = _sub3(xpos[b], ref)
+        for i in range(3):
+            e = [z, z, z]
+            e[i] = one
+            S[va + i] = ((z, z, z), tuple(e))
+        for i in range(3):
+            e = (one if i == 0 else z, one if i == 1 else z, one if i == 2 else z)
+            S[va + 3 + i] = (e, _cross(p_, e))
+
+    # ---------------- velocities and bias accelerations (topo) ------------
+    zero6 = ((z, z, z), (z, z, z))
+
+    def m6_add(a, b_):
+        return (_add3(a[0], b_[0]), _add3(a[1], b_[1]))
+
+    def m6_scale(a, s):
+        return (_scale3(a[0], s), _scale3(a[1], s))
+
+    def m6_cross(m, o):
+        w_, v_ = m
+        ow, ov = o
+        return (_cross(w_, ow), _add3(_cross(w_, ov), _cross(v_, ow)))
+
+    cvel = [zero6] * st.nbody
+    cacc = [zero6] * st.nbody
+    for b in st.topo:
+        p = int(st.body_parent[b])
+        vel = cvel[p]
+        acc = cacc[p]
+        if b in free_bodies:
+            va = st.body_dofs[b][0]
+            for i in range(6):
+                vel = m6_add(vel, m6_scale(S[va + i], v[va + i]))
+            vlin = (v[va], v[va + 1], v[va + 2])
+            omg = (v[va + 3], v[va + 4], v[va + 5])
+            acc = m6_add(acc, ((z, z, z), _cross(vlin, omg)))
+        else:
+            for d in st.body_dofs[b]:
+                sd = m6_scale(S[d], v[d])
+                acc = m6_add(acc, m6_cross(vel, sd))
+                vel = m6_add(vel, sd)
+        cvel[b] = vel
+        cacc[b] = acc
+
+    # ---------------- spatial inertias about ref, world axes --------------
+    I_body = [None] * st.nbody
+    for b in st.topo:
+        R = _quat_to_mat(_qmul_c(xquat[b], st.body_iquat[b], z))
+        I1, I2, I3 = (float(x) for x in st.body_inertia[b])
+        Ibar = [[None] * 3 for _ in range(3)]
+        for i in range(3):
+            for j in range(i, 3):
+                Ibar[i][j] = (
+                    R[i][0] * R[j][0] * I1
+                    + R[i][1] * R[j][1] * I2
+                    + R[i][2] * R[j][2] * I3
+                )
+                Ibar[j][i] = Ibar[i][j]
+        m = float(st.body_mass[b])
+        ip = st.body_ipos[b]
+        if max(abs(float(x)) for x in ip) < _C_EPS:
+            com = xpos[b]
+        else:
+            com = _add3(xpos[b], _qrot_c(xquat[b], ip, z))
+        cx, cy, cz = _sub3(com, ref)
+        c2 = cx * cx + cy * cy + cz * cz
+        TL = [
+            [
+                Ibar[0][0] + m * (c2 - cx * cx),
+                Ibar[0][1] - m * cx * cy,
+                Ibar[0][2] - m * cx * cz,
+            ],
+            [None, Ibar[1][1] + m * (c2 - cy * cy), Ibar[1][2] - m * cy * cz],
+            [None, None, Ibar[2][2] + m * (c2 - cz * cz)],
+        ]
+        TL[1][0], TL[2][0], TL[2][1] = TL[0][1], TL[0][2], TL[1][2]
+        TR = [
+            [z, -m * cz, m * cy],
+            [m * cz, z, -m * cx],
+            [-m * cy, m * cx, z],
+        ]
+        I_body[b] = (TL, TR, m)
+
+    def I_mul(I, m6):
+        """Spatial inertia times a motion vector → force vector (n, f)."""
+        TL, TR, m_ = I
+        w_, v_ = m6
+        n = tuple(
+            TL[i][0] * w_[0] + TL[i][1] * w_[1] + TL[i][2] * w_[2]
+            + TR[i][0] * v_[0] + TR[i][1] * v_[1] + TR[i][2] * v_[2]
+            for i in range(3)
+        )
+        f = tuple(
+            TR[0][i] * w_[0] + TR[1][i] * w_[1] + TR[2][i] * w_[2] + m_ * v_[i]
+            for i in range(3)
+        )
+        return (n, f)
+
+    # ---------------- composite inertias (reverse topo) -------------------
+    Icomp = [
+        ([list(r) for r in I_body[b][0]], [list(r) for r in I_body[b][1]], I_body[b][2])
+        if I_body[b]
+        else None
+        for b in range(st.nbody)
+    ]
+    for b in reversed(st.topo):
+        p = int(st.body_parent[b])
+        if p == 0:
+            continue
+        TLp, TRp, mp = Icomp[p]
+        TLb, TRb, mb = Icomp[b]
+        for i in range(3):
+            for j in range(3):
+                TLp[i][j] = TLp[i][j] + TLb[i][j]
+                TRp[i][j] = TRp[i][j] + TRb[i][j]
+        Icomp[p] = (TLp, TRp, mp + mb)
+
+    # ---------------- CRBA: tree-sparse mass matrix ------------------------
+    F = [I_mul(Icomp[int(st.dof_body[d])], S[d]) for d in range(st.nv)]
+
+    def m6_dot(a, b_):
+        return _dot3(a[0], b_[0]) + _dot3(a[1], b_[1])
+
+    def m6_dot_free(a_, Fd):
+        """S[a_]·F with the free joint's constant columns folded."""
+        fa = st.free_dof_axis.get(a_)
+        if fa is None:
+            return m6_dot(S[a_], Fd)
+        if fa < 3:
+            return Fd[1][fa]
+        return Fd[0][fa - 3] + _dot3(S[a_][1], Fd[1])
+
+    Mh = {}
+    for a_, d in st.pair_keys:
+        val = m6_dot_free(a_, F[d])
+        if a_ == d:
+            val = val + float(st.dof_armature[d]) + dt * float(st.dof_damping[d])
+        Mh[(a_, d)] = val
+
+    # ---------------- RNEA bias (reverse-topo force accumulation) ---------
+    g = tuple(float(x) for x in st.gravity)
+    f_sub = [None] * st.nbody
+    for b in st.topo:
+        glin = tuple(
+            cacc[b][1][k] - g[k] if abs(g[k]) >= _C_EPS else cacc[b][1][k]
+            for k in range(3)
+        )
+        Ia = I_mul(I_body[b], (cacc[b][0], glin))
+        n_, fl_ = I_mul(I_body[b], cvel[b])
+        w_, v_ = cvel[b]
+        fc = (_add3(_cross(w_, n_), _cross(v_, fl_)), _cross(w_, fl_))
+        f_sub[b] = m6_add(Ia, fc)
+    for b in reversed(st.topo):
+        p = int(st.body_parent[b])
+        if p != 0:
+            f_sub[p] = m6_add(f_sub[p], f_sub[b])
+    qfrc_bias = [m6_dot_free(d, f_sub[int(st.dof_body[d])]) for d in range(st.nv)]
+
+    # ---------------- passive + actuator forces ---------------------------
+    qfrc = [-float(st.dof_damping[d]) * v[d] - qfrc_bias[d] for d in range(st.nv)]
+    for h in range(st.nhinge):
+        k = float(st.hinge_stiffness[h])
+        if k:
+            d = int(st.hinge_vadr[h])
+            qfrc[d] = qfrc[d] - k * (q[int(st.hinge_qadr[h])] - float(st.hinge_springref[h]))
+
+    actuator_force = [z] * st.nu
+    c_clamped = [None] * st.nu
+    for u in range(st.nu):
+        c_ = ctrl[u]
+        if st.act_ctrllimited[u] > 0:
+            c_ = torch.clamp(c_, float(st.act_ctrlrange[u, 0]), float(st.act_ctrlrange[u, 1]))
+        c_clamped[u] = c_
+        kind = int(st.act_kind[u])
+        gain, kv = float(st.act_gain[u]), float(st.act_kv[u])
+        h = int(st.act_hinge[u])
+        if kind == ActKind.ADHESION:
+            # The readout is the commanded force; the solver applies it.
+            actuator_force[u] = gain * c_
+            continue
+        if kind != ActKind.POSITION:
+            raise NotImplementedError(f"actuator kind {kind} in the mega-step")
+        qh = q[int(st.hinge_qadr[h])] if h >= 0 else z
+        vh = v[int(st.hinge_vadr[h])] if h >= 0 else z
+        force = gain * (c_ - qh) - kv * vh
+        if st.act_forcelimited[u] > 0:
+            force = torch.clamp(
+                force, float(st.act_forcerange[u, 0]), float(st.act_forcerange[u, 1])
+            )
+        actuator_force[u] = force
+        if h >= 0:
+            d = int(st.hinge_vadr[h])
+            qfrc[d] = qfrc[d] + force
+
+    # ---------------- contacts --------------------------------------------
+    qacc, cons = _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z)
+
+    # ---------------- integrate -------------------------------------------
+    v_new = [v[d] + dt * qacc[d] for d in range(st.nv)]
+    q_new = list(q)
+    for h in range(st.nhinge):
+        qa, va = int(st.hinge_qadr[h]), int(st.hinge_vadr[h])
+        q_new[qa] = q[qa] + dt * v_new[va]
+    for b, qa, va in st.free_joints:
+        for i in range(3):
+            q_new[qa + i] = q[qa + i] + dt * v_new[va + i]
+        om = (v_new[va + 3], v_new[va + 4], v_new[va + 5])
+        ang = torch.sqrt(_dot3(om, om) + 1e-24) * dt
+        scale = torch.where(
+            ang > 1e-12,
+            _sinf(0.5 * ang) / torch.clamp(_div(ang, dt), min=1e-12),
+            0.5 * dt,
+        )
+        dq = (_cosf(0.5 * ang), om[0] * scale, om[1] * scale, om[2] * scale)
+        nq_ = _qmul(dq, (q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6]))
+        norm = torch.sqrt(nq_[0] ** 2 + nq_[1] ** 2 + nq_[2] ** 2 + nq_[3] ** 2)
+        for i in range(4):
+            q_new[qa + 3 + i] = nq_[i] / norm
+
+    # ---------------- sites + sensors --------------------------------------
+    site_xpos = []
+    for s in range(st.nsite):
+        b = int(st.site_body[s])
+        sp = st.site_pos[s]
+        if max(abs(float(x)) for x in sp) < _C_EPS:
+            site_xpos.append(xpos[b])
+        else:
+            site_xpos.append(_add3(xpos[b], _qrot_c(xquat[b], sp, z)))
+
+    return dict(
+        qpos=q_new,
+        qvel=v_new,
+        act=list(act),
+        qacc=qacc,
+        xpos=xpos,
+        xquat=xquat,
+        site_xpos=site_xpos,
+        actuator_force=actuator_force,
+        sensordata=_emit_sensors(st, cons, z, one),
+    )
+
+
+def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache):
+    """Ground-contact geometry and constraint-dynamics scalars of candidate
+    ``cidx`` (a capsule end against the flat plane; the contact frame is
+    the world's axes, n = z, t1 = x, t2 = y)."""
+
+    def geom_world_frame(gi):
+        if gi in geom_cache:
+            return geom_cache[gi]
+        b_ = int(st.geom_body[gi])
+        gp = st.geom_pos[gi]
+        if max(abs(float(x)) for x in gp) < _C_EPS:
+            gpos = xpos[b_]
+        else:
+            gpos = _add3(xpos[b_], _qrot_c(xquat[b_], gp, z))
+        gquat = _qmul_c(xquat[b_], st.geom_quat[gi], z)
+        out = geom_cache[gi] = (b_, gpos, _qrot_c(gquat, (0.0, 0.0, 1.0), z))
+        return out
+
+    gi = int(st.can_geom[cidx])
+    b, gpos, zax = geom_world_frame(gi)
+    radius = float(st.geom_size[gi, 0])
+    halflen = float(st.geom_size[gi, 1])
+    end = float(st.can_end[cidx])
+    ep = _add3(gpos, _scale3(zax, end * halflen))
+    dist = ep[2] - st.ground_z - radius
+    cpos = (ep[0], ep[1], ep[2] - (radius + 0.5 * dist))
+    margin = float(st.can_margin[cidx])
+    active = dist < margin
+
+    # solref / solimp constraint dynamics.
+    dmin, dmax, width, mid, power = (float(x) for x in st.can_solimp[cidx])
+    pos_err = torch.clamp(dist - margin, max=0.0)
+    x_ = torch.clamp(_div(torch.abs(pos_err), max(width, 1e-12)), 0.0, 1.0)
+    a_c = 1.0 / mid ** (power - 1.0)
+    b_c = 1.0 / (1.0 - mid) ** (power - 1.0)
+    y_ = torch.where(x_ < mid, a_c * x_**power, 1.0 - b_c * (1.0 - x_) ** power)
+    imp = torch.clamp(dmin + y_ * (dmax - dmin), 1e-4, 0.9999)
+    tc, dr = float(st.can_solref[cidx][0]), float(st.can_solref[cidx][1])
+    return dict(
+        path=st.body_path_dofs[b],
+        cpos=cpos,
+        rel=_sub3(cpos, ref),
+        active=active,
+        imp=imp,
+        pos_err=pos_err,
+        b_gain=2.0 / (dmax * tc),
+        k_gain=1.0 / (dmax * dmax * tc * tc * dr * dr),
+        mu=float(st.can_friction[cidx][0]),
+        invweight=float(st.can_invweight[cidx, 0]),
+    )
+
+
+def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z):
+    """Candidate rows, tree LDLᵀ and frozen-Hessian primal Newton with the
+    bisection line search (the JAX ``_contacts_impl``, fused, condim 3)."""
+    nv = st.nv
+    geom_cache = {}
+    cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache) for c in range(st.ncand)]
+    tags = ["t1", "t2"]
+
+    for c in cons:
+        iw = max(c["invweight"], 1e-12)
+        R_ = (1.0 - c["imp"]) / c["imp"] * iw
+        c["D"] = torch.where(c["active"], 1.0 / torch.clamp(R_, min=1e-12), 0.0)
+
+    # ---- adhesion split over the active candidates of each actuator ----
+    qfrc = list(qfrc)
+    for u, group in st.adh_groups.items():
+        total = float(st.act_gain[u]) * c_clamped[u]
+        count = z
+        for ci in group:
+            count = count + torch.where(cons[ci]["active"], 1.0, 0.0)
+        per = total / torch.clamp(count, min=1.0)
+        for ci in group:
+            cons[ci]["adh_force"] = torch.where(cons[ci]["active"], per, 0.0)
+    for c in cons:
+        c.setdefault("adh_force", z)
+
+    def dof_components(c):
+        """Jacobian direction components along the path: jp_d = S_v[d] +
+        S_w[d] × rel in the flat frame (n = z, t1 = x, t2 = y). The free
+        joint's translation columns fold to Python floats 0/1."""
+        rel = c["rel"]
+        comps = {"n": [], "t1": [], "t2": []}
+        for d in c["path"]:
+            fa = st.free_dof_axis.get(d)
+            if fa is not None and fa < 3:
+                e = [0.0, 0.0, 0.0]
+                e[fa] = 1.0
+                jp = e
+            elif fa is not None:
+                ec = [0.0, 0.0, 0.0]
+                ec[fa - 3] = 1.0
+                jp = _add3(S[d][1], _cross_cl(ec, rel, z))
+            else:
+                w_, v_ = S[d]
+                jp = _add3(v_, _cross(w_, rel))
+            comps["n"].append(jp[2])
+            comps["t1"].append(jp[0])
+            comps["t2"].append(jp[1])
+        return comps
+
+    def products(c, comps, vec):
+        out = {}
+        for t, col in comps.items():
+            s_ = None
+            for i, d in enumerate(c["path"]):
+                s_ = _acc(s_, _mul_cf(col[i], vec[d]))
+            out[t] = z if s_ is None else s_
+        return out
+
+    def row_combos(c, p):
+        out = []
+        for t in tags:
+            out.append(p["n"] + c["mu"] * p[t])
+            out.append(p["n"] - c["mu"] * p[t])
+        return out
+
+    def jar_grad_pass(c, a_vec, grad_con, with_hessian=None, with_aref=False,
+                      use_cached_jar=False):
+        comps = c.get("comps")
+        if comps is None:
+            comps = c["comps"] = dof_components(c)
+        if with_aref:
+            vel_rows = row_combos(c, products(c, comps, v))
+            krow = c["k_gain"]
+            c["aref"] = [
+                -c["b_gain"] * vel - krow * c["imp"] * c["pos_err"] for vel in vel_rows
+            ]
+            # Adhesion as an applied generalised force along the normal rows.
+            adh = c["adh_force"]
+            for i, d in enumerate(c["path"]):
+                term = _mul_cf(comps["n"][i], adh)
+                if term is not None:
+                    qfrc[d] = qfrc[d] - term
+        if use_cached_jar:
+            jars = c["jar_cur"]
+        else:
+            jrows = row_combos(c, products(c, comps, a_vec))
+            jars = [jr - ar for jr, ar in zip(jrows, c["aref"])]
+            c["jar_cur"] = jars
+        D_ = c["D"]
+        wk = [D_ * torch.where(jr < 0.0, 1.0, 0.0) * jr for jr in jars]
+        coef_n = z
+        for w_ in wk:
+            coef_n = coef_n + w_
+        coef = {"n": coef_n}
+        for ti, t in enumerate(tags):
+            coef[t] = c["mu"] * (wk[2 * ti] - wk[2 * ti + 1])
+        for i, d in enumerate(c["path"]):
+            g = None
+            for t, cf in coef.items():
+                g = _acc(g, _mul_cf(comps[t][i], cf))
+            if g is not None:
+                grad_con[d] = grad_con[d] + g
+        if with_hessian is not None:
+            H = with_hessian
+            wa = [D_ * torch.where(jr < 0.0, 1.0, 0.0) for jr in jars]
+            W = z
+            for w_ in wa:
+                W = W + w_
+            Bt, Wt = {}, {}
+            for ti, t in enumerate(tags):
+                mu = c["mu"]
+                Bt[t] = mu * (wa[2 * ti] - wa[2 * ti + 1])
+                Wt[t] = mu * mu * (wa[2 * ti] + wa[2 * ti + 1])
+            path = c["path"]
+            npath = len(path)
+            u_of = {t: [None] * npath for t in ["n"] + tags}
+            for j_ in range(npath):
+                nj = comps["n"][j_]
+                un = _mul_cf(nj, W)
+                for t in tags:
+                    dj = comps[t][j_]
+                    un = _acc(un, _mul_cf(dj, Bt[t]))
+                    u_of[t][j_] = _acc(_mul_cf(nj, Bt[t]), _mul_cf(dj, Wt[t]))
+                u_of["n"][j_] = un
+            # path[i_] is an ancestor-or-self of path[j_] (megastep_supported).
+            for i_ in range(npath):
+                for j_ in range(i_, npath):
+                    val = _mul_cf(comps["n"][i_], u_of["n"][j_])
+                    for t in tags:
+                        val = _acc(val, _mul_cf(comps[t][i_], u_of[t][j_]))
+                    if val is None:
+                        continue
+                    k = (path[i_], path[j_])
+                    H[k] = H[k] + val
+
+    def Mh_mul(a_vec):
+        out = [None] * nv
+        for d in range(nv):
+            out[d] = Mh[(d, d)] * a_vec[d]
+        for a_, b_ in st.pair_keys:
+            if a_ == b_:
+                continue
+            val = Mh[(a_, b_)]
+            out[b_] = out[b_] + val * a_vec[a_]
+            out[a_] = out[a_] + val * a_vec[b_]
+        return out
+
+    # ---- first pass: aref, adhesion, jars and gradient at warm, Hessian ----
+    a_vec = list(warm)
+    H = dict(Mh)
+    grad_con = [z] * nv
+    for c in cons:
+        jar_grad_pass(c, a_vec, grad_con, with_hessian=H, with_aref=True)
+    for d in range(nv):
+        H[(d, d)] = H[(d, d)] + 1e-9
+    Ld, dd = _tree_ldl(st, H)
+
+    # ---- Newton iterations on the frozen Hessian ----
+    Ma = Mh_mul(a_vec)
+    for it in range(max(st.solver_iterations, 1)):
+        if it > 0:
+            grad_con = [z] * nv
+            for c in cons:
+                jar_grad_pass(c, a_vec, grad_con, use_cached_jar=True)
+        grad = [Ma[d] - qfrc[d] + grad_con[d] for d in range(nv)]
+        delta = [-x for x in _tree_solve(st, Ld, dd, grad)]
+
+        Md = Mh_mul(delta)
+        dMd = z
+        gMd = z
+        for d in range(nv):
+            dMd = dMd + delta[d] * Md[d]
+            gMd = gMd + a_vec[d] * Md[d] - qfrc[d] * delta[d]
+        for c in cons:
+            c["jd_cur"] = row_combos(c, products(c, c["comps"], delta))
+            c["djd_cur"] = [c["D"] * jd for jd in c["jd_cur"]]
+
+        # Bisection line search with a final regula falsi (the engine's
+        # _exact_linesearch): only the sign of φ' feeds back, so 1-ulp
+        # differences do not move the iterate.
+        def _dphi(alpha, at_zero=False):
+            d_ = gMd if at_zero else gMd + alpha * dMd
+            for c in cons:
+                for jr, jd, t_ in zip(c["jar_cur"], c["jd_cur"], c["djd_cur"]):
+                    ja = jr if at_zero else jr + alpha * jd
+                    m_ = torch.where(ja < 0.0, 1.0, 0.0)
+                    d_ = d_ + m_ * t_ * ja
+            return d_
+
+        dlo = _dphi(z, at_zero=True)
+        d0 = dlo
+        dhi = _dphi(z + _LS_ALPHA_MAX)
+        lo = z
+        hi = z + _LS_ALPHA_MAX
+        for _k in range(_LS_BISECT_ITERS):
+            mid = 0.5 * (lo + hi)
+            d_ = _dphi(mid)
+            neg = d_ < 0.0
+            lo = torch.where(neg, mid, lo)
+            dlo = torch.where(neg, d_, dlo)
+            hi = torch.where(neg, hi, mid)
+            dhi = torch.where(neg, dhi, d_)
+        t_ = -dlo / torch.clamp(dhi - dlo, min=1e-12)
+        alpha_sel = lo + torch.clamp(t_, 0.0, 1.0) * (hi - lo)
+        alpha_sel = torch.where(d0 < 0.0, alpha_sel, 0.0)
+        a_vec = [a_vec[d] + alpha_sel * delta[d] for d in range(nv)]
+        Ma = [Ma[d] + alpha_sel * Md[d] for d in range(nv)]
+        for c in cons:
+            c["jar_cur"] = [jr + alpha_sel * jd for jr, jd in zip(c["jar_cur"], c["jd_cur"])]
+
+    # ---- final jars → row forces → contact-frame and world forces ----
+    for c in cons:
+        D_ = c["D"]
+        lam_c = [
+            torch.clamp(-D_ * torch.where(jr < 0.0, 1.0, 0.0) * jr, min=0.0)
+            for jr in c["jar_cur"]
+        ]
+        fn = z
+        for l_ in lam_c:
+            fn = fn + l_
+        ft1 = c["mu"] * (lam_c[0] - lam_c[1])
+        ft2 = c["mu"] * (lam_c[2] - lam_c[3])
+        act_m = torch.where(c["active"], 1.0, 0.0)
+        c["f_frame"] = (fn * act_m, ft1 * act_m, ft2 * act_m)
+        c["f_world"] = (ft1 * act_m, ft2 * act_m, fn * act_m)
+    return a_vec, cons
+
+
+def _tree_ldl(st, A):
+    """Tree-sparse LDLᵀ of the dict matrix A → (L dict, list of diagonals)."""
+    A = dict(A)
+
+    def key(a_, b_):
+        if a_ == b_:
+            return (a_, b_)
+        return (a_, b_) if a_ in st.dof_chains[b_] else (b_, a_)
+
+    L = {}
+    dvec = [None] * st.nv
+    for i in st.elim_order:
+        chain = st.dof_chains[i]
+        di = A[(i, i)]
+        dvec[i] = di
+        inv = 1.0 / di
+        lis = {}
+        for a_ in chain:
+            lis[a_] = A[key(a_, i)] * inv
+            L[(a_, i)] = lis[a_]
+        for ia, a_ in enumerate(chain):
+            ra = A[key(a_, i)]
+            for b_ in chain[ia:]:
+                k = key(a_, b_)
+                A[k] = A[k] - lis[b_] * ra
+    return L, dvec
+
+
+def _tree_solve(st, L, dvec, b):
+    """Solve with the tree factor: leaves→root, the diagonal, root→leaves."""
+    y = list(b)
+    for i in st.elim_order:
+        yi = y[i]
+        for a_ in st.dof_chains[i]:
+            y[a_] = y[a_] - L[(a_, i)] * yi
+    for i in range(st.nv):
+        y[i] = y[i] / dvec[i]
+    for i in reversed(st.elim_order):
+        acc = y[i]
+        for a_ in st.dof_chains[i]:
+            acc = acc - L[(a_, i)] * y[a_]
+        y[i] = acc
+    return y
+
+
+def _emit_sensors(st, cons, z, one):
+    """Per-leg 16-value net-force sensors, flat ground."""
+    out = []
+    for s in range(st.nsensor):
+        group = [cons[c] for c in st.sensor_groups[s]]
+        if not group:
+            out.append([z] * 16)
+            continue
+        w = [torch.where(c["active"], 1.0, 0.0) for c in group]
+        count = z
+        for w_ in w:
+            count = count + w_
+        found = torch.where(count > 0, 1.0, 0.0)
+        ff = [z, z, z]
+        for c, w_ in zip(group, w):
+            for i in range(3):
+                ff[i] = ff[i] + c["f_frame"][i] * w_
+        fmag_sum = z
+        posw = [z, z, z]
+        posp = [z, z, z]
+        for c, w_ in zip(group, w):
+            fm = torch.abs(c["f_frame"][0]) * w_
+            fmag_sum = fmag_sum + fm
+            for i in range(3):
+                posw[i] = posw[i] + c["cpos"][i] * fm
+                posp[i] = posp[i] + c["cpos"][i] * w_
+        pos = [
+            torch.where(
+                fmag_sum > 1e-12,
+                posw[i] / torch.clamp(fmag_sum, min=1e-12),
+                posp[i] / torch.clamp(count, min=1.0),
+            )
+            for i in range(3)
+        ]
+        normal = (z, z, one)
+        tangent = (one, z, z)
+        t2 = _cross(normal, tangent)
+        tw = [z, z, z]
+        for c, w_ in zip(group, w):
+            tq = _cross(_sub3(c["cpos"], tuple(pos)), c["f_world"])
+            for i in range(3):
+                tw[i] = tw[i] + tq[i] * w_
+        torque = (_dot3(tuple(tw), normal), _dot3(tuple(tw), tangent), _dot3(tuple(tw), t2))
+        out.append([found] + ff + list(torque) + pos + list(normal) + list(tangent))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Packing: State <-> the kernel's world-minor rows
+# ---------------------------------------------------------------------------
+
+
+def _io_rows(st: _Static, k_steps: int) -> tuple:
+    """(n_in, n_out) rows of the kernel's input and output at K steps:
+    in = qpos, qvel, K ctrl slices, act, qacc; out = (K-1) qpos rows, then
+    qpos, qvel, act, qacc, xpos, xquat, site_xpos, actuator_force, sensors."""
+    n_in = st.nq + st.nv + k_steps * st.nu + st.na + st.nv
+    n_out = (
+        (k_steps - 1) * st.nq + st.nq + 2 * st.nv + st.na
+        + 7 * st.nbody + 3 * st.nsite + st.nu + 16 * st.nsensor
+    )
+    return n_in, n_out
+
+
+def _unpack(st: _Static, out: torch.Tensor, state: State, ctrl, k_steps: int):
+    """The kernel's (n_out, B) rows → (new State, (K, B, nq) qpos rows)."""
+    B = out.shape[1]
+    o = 0
+
+    def take(n, shape):
+        nonlocal o
+        r = out[o : o + n].t().reshape((B,) + shape)
+        o += n
+        return r
+
+    traj = take((k_steps - 1) * st.nq, (k_steps - 1, st.nq))
+    qpos = take(st.nq, (st.nq,))
+    new = State(
+        qpos=qpos,
+        qvel=take(st.nv, (st.nv,)),
+        ctrl=ctrl,
+        act=take(st.na, (st.na,)),
+        time=state.time + k_steps * st.timestep,
+        qacc=take(st.nv, (st.nv,)),
+        xpos=take(3 * st.nbody, (st.nbody, 3)),
+        xquat=take(4 * st.nbody, (st.nbody, 4)),
+        site_xpos=take(3 * st.nsite, (st.nsite, 3)),
+        actuator_force=take(st.nu, (st.nu,)),
+        contact_sensordata=take(16 * st.nsensor, (st.nsensor, 16)),
+    )
+    return new, torch.cat([traj.transpose(0, 1), qpos[None]], dim=0)
+
+
+def megastep_plain(st: _Static, state: State, ctrl_seq: torch.Tensor | None = None):
+    """K chained plain steps (the plain version of K2).
+
+    Args:
+        ctrl_seq: (K, B, nu) controls of the K steps, NaN-free; None is one
+            step with ``state.ctrl``.
+
+    Returns:
+        The new State for one step; ``(state, (K, B, nq) qpos rows)`` with a
+        ``ctrl_seq``.
+    """
+    cols = lambda x: [x[:, i] for i in range(x.shape[1])]
+    q, v, act, warm = cols(state.qpos), cols(state.qvel), cols(state.act), cols(state.qacc)
+    ctrls = [state.ctrl] if ctrl_seq is None else list(ctrl_seq)
+    traj = []
+    for ctrl in ctrls:
+        r = emit_step(st, q, v, cols(ctrl), act, warm)
+        q, v, act, warm = r["qpos"], r["qvel"], r["act"], r["qacc"]
+        traj.append(torch.stack(q, dim=1))
+    B = state.qpos.shape[0]
+    stack = lambda lst: torch.stack(lst, dim=1) if lst else state.qpos.new_zeros((B, 0))
+    rows = lambda vecs, width: (
+        torch.stack([torch.stack(list(p), dim=1) for p in vecs], dim=1)
+        if vecs else state.qpos.new_zeros((B, 0, width))
+    )
+    new = State(
+        qpos=traj[-1],
+        qvel=stack(r["qvel"]),
+        ctrl=ctrls[-1],
+        act=stack(r["act"]),
+        time=state.time + len(ctrls) * st.timestep,
+        qacc=stack(r["qacc"]),
+        xpos=rows(r["xpos"], 3),
+        xquat=rows(r["xquat"], 4),
+        site_xpos=rows(r["site_xpos"], 3),
+        actuator_force=stack(r["actuator_force"]),
+        contact_sensordata=rows(r["sensordata"], 16),
+    )
+    if ctrl_seq is None:
+        return new
+    return new, torch.stack(traj)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's generated header and its wrapper
+# ---------------------------------------------------------------------------
+
+
+def _f32(x) -> str:
+    """A float as a C literal that rounds to the same float32."""
+    v = float(np.float32(x))
+    if v != v or v in (float("inf"), float("-inf")):
+        raise ValueError(f"non-finite model constant {x}")
+    return repr(v) + "f" if "e" in repr(v) or "." in repr(v) else repr(v) + ".0f"
+
+
+def _fold(vec) -> list:
+    """Constants as the emitter folds them: |x| < 1e-12 is an exact 0."""
+    return [0.0 if abs(float(x)) < _C_EPS else float(x) for x in vec]
+
+
+def _fold_quat(c) -> list:
+    return [1.0, 0.0, 0.0, 0.0] if _is_ident_quat(c) else _fold(c)
+
+
+def model_header(model: PhysicsModel) -> tuple:
+    """The model's part of K2: shape numbers, scratch layout and constant
+    tables as a C++ header for ``csrc/megastep.cu``.
+
+    Each constant is the float32 value the emitter's Python arithmetic gives
+    it (products of Python floats are taken in double, then rounded), and the
+    constant frames are folded as the emitter folds them, so that the
+    kernel's dense arithmetic repeats the emitter's bit for bit up to
+    summation order.
+
+    Returns:
+        (header text, scratch rows per world).
+    """
+    if not megastep_supported(model):
+        raise NotImplementedError("the mega-step kernel does not support this model")
+    st = _Static(model)
+    dt = st.timestep
+    lines = [
+        "// Generated by flygym_tpu_torch/ops/megastep.py:model_header. Do not edit.",
+        "#pragma once",
+    ]
+
+    def const(name, value):
+        lines.append(f"constexpr int {name} = {int(value)};")
+
+    def table(name, ctype, values):
+        values = list(values)
+        if not values:
+            values = [0]
+        fmt = _f32 if ctype == "float" else (lambda x: str(int(x)))
+        body = ", ".join(fmt(x) for x in values)
+        lines.append(f"MS_TABLE {ctype} {name}[{len(values)}] = {{{body}}};")
+
+    nb, nv = st.nbody, st.nv
+    cand_bodies = [int(st.geom_body[int(st.can_geom[c])]) for c in range(st.ncand)]
+    paths = [st.body_path_dofs[b] for b in range(nb)]
+    maxp = max(len(paths[b]) for b in cand_bodies)
+    adh = list(st.adh_groups.items())
+    for name, value in (
+        ("NQ", st.nq), ("NV", nv), ("NU", st.nu), ("NA", st.na), ("NBODY", nb),
+        ("NTOPO", len(st.topo)), ("NHINGE", st.nhinge), ("NSITE", st.nsite),
+        ("NCAND", st.ncand), ("NSENSOR", st.nsensor), ("NPK", len(st.pair_keys)),
+        ("MAXP", maxp), ("NFREE", len(st.free_joints)), ("NADH", len(adh)),
+        ("REF_BODY", st.ref_body), ("NEWTON_ITERS", max(st.solver_iterations, 1)),
+        ("LS_BISECT", _LS_BISECT_ITERS),
+    ):
+        const(name, value)
+    lines.append(f"constexpr float kDt = {_f32(dt)};")
+    lines.append(f"constexpr float kHalfDt = {_f32(0.5 * dt)};")
+    lines.append(f"constexpr float kGroundZ = {_f32(st.ground_z)};")
+    lines.append(f"constexpr float kAlphaMax = {_f32(_LS_ALPHA_MAX)};")
+
+    # Scratch rows per world (world-minor in the kernel).
+    layout = [
+        ("S_Q", st.nq), ("S_V", nv), ("S_A", nv), ("S_XPOS", 3 * nb),
+        ("S_XQUAT", 4 * nb), ("S_HAX", 3 * max(st.nhinge, 1)), ("S_SM", 6 * nv),
+        ("S_CVEL", 6 * nb), ("S_CACC", 6 * nb), ("S_IB", 9 * nb), ("S_IC", 9 * nb),
+        ("S_FSUB", 6 * nb), ("S_MH", len(st.pair_keys)), ("S_H", len(st.pair_keys)),
+        ("S_QFRC", nv), ("S_MA", nv), ("S_GC", nv), ("S_DEL", nv), ("S_MD", nv),
+        ("S_AF", max(st.nu, 1)), ("S_CCL", max(st.nu, 1)),
+        ("S_COMP", 3 * maxp * st.ncand), ("S_CAND", 24 * st.ncand),
+    ]
+    off = 0
+    for name, n in layout:
+        const(name, off)
+        off += n
+    const("N_SCRATCH", off)
+
+    # Bodies.
+    free_of = {b: (qa, va) for b, qa, va in st.free_joints}
+    table("kTopo", "int", st.topo)
+    table("kParent", "int", st.body_parent)
+    table("kFreeQ", "int", [free_of.get(b, (-1, -1))[0] for b in range(nb)])
+    table("kFreeV", "int", [free_of.get(b, (-1, -1))[1] for b in range(nb)])
+    table("kBodyQuat", "float", [x for b in range(nb) for x in _fold_quat(st.body_quat[b])])
+    table("kBodyPos", "float", [x for b in range(nb) for x in _fold(st.body_pos[b])])
+    table("kBodyIQuat", "float", [x for b in range(nb) for x in _fold_quat(st.body_iquat[b])])
+    table("kBodyIPos", "float", [x for b in range(nb) for x in _fold(st.body_ipos[b])])
+    table("kBodyInertia", "float", st.body_inertia.reshape(-1))
+    table("kBodyMass", "float", st.body_mass)
+    comp_mass = [float(m) for m in st.body_mass]  # Python sums, as the emitter's
+    for b in reversed(st.topo):
+        p = int(st.body_parent[b])
+        if p != 0:
+            comp_mass[p] = comp_mass[p] + comp_mass[b]
+    table("kCompMass", "float", comp_mass)
+    hptr, hlist, dptr, dlist = [0], [], [0], []
+    for b in range(nb):
+        hlist += st.body_hinges[b]
+        hptr.append(len(hlist))
+        dlist += st.body_dofs[b]
+        dptr.append(len(dlist))
+    table("kBodyHingePtr", "int", hptr)
+    table("kBodyHinge", "int", hlist)
+    table("kBodyDofPtr", "int", dptr)
+    table("kBodyDof", "int", dlist)
+    table("kGrav", "float", _fold(st.gravity))
+
+    # Hinges and DoFs.
+    table("kHingeAxis", "float", [x for h in range(st.nhinge) for x in _fold(st.hinge_axis[h])])
+    table("kHingeQ", "int", st.hinge_qadr)
+    table("kHingeV", "int", st.hinge_vadr)
+    table("kHingeBody", "int", st.hinge_body)
+    table("kHingeK", "float", st.hinge_stiffness)
+    table("kHingeRef", "float", st.hinge_springref)
+    table("kDofBody", "int", st.dof_body)
+    table("kDofNegDamp", "float", [-float(x) for x in st.dof_damping])
+    table("kDofArm", "float", st.dof_armature)
+    table("kDofDtDamp", "float", [dt * float(x) for x in st.dof_damping])
+    table("kElim", "int", st.elim_order)
+    pk_ptr = [0]
+    for d in range(nv):
+        pk_ptr.append(pk_ptr[-1] + len(st.dof_path[d]))
+    table("kPkPtr", "int", pk_ptr)
+    table("kPkRow", "int", [a_ for a_, _d in st.pair_keys])
+
+    # Actuators.
+    table("kActKind", "int", st.act_kind)
+    table("kActHinge", "int", st.act_hinge)
+    table("kActGain", "float", st.act_gain)
+    table("kActKv", "float", st.act_kv)
+    table("kCtrlLim", "int", st.act_ctrllimited > 0)
+    table("kCtrlRange", "float", st.act_ctrlrange.reshape(-1))
+    table("kForceLim", "int", st.act_forcelimited > 0)
+    table("kForceRange", "float", st.act_forcerange.reshape(-1))
+
+    # Candidates: geometry, constraint dynamics, paths.
+    cg = [int(g) for g in st.can_geom]
+    table("kCandBody", "int", cand_bodies)
+    table("kCandGPos", "float", [x for g in cg for x in _fold(st.geom_pos[g])])
+    table("kCandGQuat", "float", [x for g in cg for x in _fold_quat(st.geom_quat[g])])
+    table("kCandEndH", "float",
+          [float(st.can_end[c]) * float(st.geom_size[g, 1]) for c, g in enumerate(cg)])
+    table("kCandRad", "float", [st.geom_size[g, 0] for g in cg])
+    table("kCandMargin", "float", st.can_margin)
+    sol = {k: [] for k in ("width", "mid", "pow", "ac", "bc", "dmin", "dmm", "nbg", "kg", "iw",
+                           "mu", "mu2")}
+    for c in range(st.ncand):
+        dmin, dmax, width, mid, power = (float(x) for x in st.can_solimp[c])
+        tc, dr = float(st.can_solref[c][0]), float(st.can_solref[c][1])
+        mu = float(st.can_friction[c][0])
+        sol["width"].append(max(width, 1e-12))
+        sol["mid"].append(mid)
+        sol["pow"].append(power)
+        sol["ac"].append(1.0 / mid ** (power - 1.0))
+        sol["bc"].append(1.0 / (1.0 - mid) ** (power - 1.0))
+        sol["dmin"].append(dmin)
+        sol["dmm"].append(dmax - dmin)
+        sol["nbg"].append(-(2.0 / (dmax * tc)))
+        sol["kg"].append(1.0 / (dmax * dmax * tc * tc * dr * dr))
+        sol["iw"].append(max(float(st.can_invweight[c, 0]), 1e-12))
+        sol["mu"].append(mu)
+        sol["mu2"].append(mu * mu)
+    names = dict(width="kSolWidth", mid="kSolMid", pow="kSolPow", ac="kSolA", bc="kSolB",
+                 dmin="kSolDmin", dmm="kSolDmm", nbg="kNegBGain", kg="kKGain",
+                 iw="kInvW", mu="kMu", mu2="kMu2")
+    for key, name in names.items():
+        table(name, "float", sol[key])
+    pptr, plist = [0], []
+    for b in range(nb):
+        plist += paths[b]
+        pptr.append(len(plist))
+    table("kPathPtr", "int", pptr)
+    table("kPathDof", "int", plist)
+    table("kDofFree", "int", [st.free_dof_axis.get(d, -1) for d in range(nv)])
+
+    # Adhesion groups and sensor groups.
+    aptr, alist = [0], []
+    for _u, group in adh:
+        alist += group
+        aptr.append(len(alist))
+    table("kAdhAct", "int", [u for u, _g in adh])
+    table("kAdhPtr", "int", aptr)
+    table("kAdhCand", "int", alist)
+    sptr, slist = [0], []
+    for s in range(st.nsensor):
+        slist += st.sensor_groups[s]
+        sptr.append(len(slist))
+    table("kSensPtr", "int", sptr)
+    table("kSensCand", "int", slist)
+
+    # Sites.
+    table("kSiteBody", "int", st.site_body)
+    table("kSitePos", "float", [x for s in range(st.nsite) for x in _fold(st.site_pos[s])])
+    return "\n".join(lines) + "\n", off
+
+
+def _raise_on_error(lib, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"megastep launch failed: {lib.cuda_error_string(err).decode()}")
+
+
+def make_megastep(model: PhysicsModel, k_steps: int = 1):
+    """A batched step through K2 that fuses ``k_steps`` physics steps.
+
+    With ``k_steps == 1`` the function is ``fn(state) -> state``; with K > 1
+    it is ``fn(state, ctrl_seq) -> (state, (K, B, nq) qpos rows)``, where
+    ``ctrl_seq`` is (K, B, nu) of NaN-free controls (``make_megastep`` of the
+    JAX package, ``megastep.py:2422-2452``).
+
+    For CPU tensors the function runs :func:`megastep_plain`. For CUDA
+    tensors it packs the state world-minor, (n_in, B), launches K2 once on
+    the current stream and unpacks its (n_out, B) rows; the kernel is built
+    at the first launch and a build or launch failure raises.
+    """
+    K = int(k_steps)
+    if K < 1:
+        raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+    if not megastep_supported(model):
+        raise NotImplementedError("the mega-step kernel does not support this model")
+    st = _Static(model)
+    n_in, n_out = _io_rows(st, K)
+    built = {}
+
+    def run(state: State, ctrl_seq):
+        if ctrl_seq is not None and tuple(ctrl_seq.shape) != (K,) + tuple(state.ctrl.shape):
+            raise ValueError(f"ctrl_seq: expected {(K,) + tuple(state.ctrl.shape)}, "
+                             f"got {tuple(ctrl_seq.shape)}")
+        dev = state.qpos.device
+        if dev.type == "cpu":
+            return megastep_plain(st, state, ctrl_seq)
+        if dev.type != "cuda":
+            raise RuntimeError(f"the mega-step kernel runs on CUDA tensors, got {dev}")
+        if not built:
+            from flygym_tpu_torch.ops._build import load_megastep
+
+            header, n_scratch = model_header(model)
+            built["lib"], built["n_scratch"] = load_megastep(header), n_scratch
+        lib = built["lib"]
+        B = state.qpos.shape[0]
+        ctrl_rows = (state.ctrl if ctrl_seq is None else ctrl_seq).reshape(-1, B, st.nu)
+        packed = torch.cat(
+            [state.qpos.t(), state.qvel.t(), ctrl_rows.permute(0, 2, 1).reshape(K * st.nu, B),
+             state.act.t(), state.qacc.t()]
+        )
+        if packed.dtype != torch.float32:
+            raise TypeError(f"the mega-step kernel takes float32 state, got {packed.dtype}")
+        if packed.shape[0] != n_in:
+            raise ValueError(f"state packs into {packed.shape[0]} rows, the model needs {n_in}")
+        out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
+        scratch = torch.empty((built["n_scratch"], B), dtype=torch.float32, device=dev)
+        if B:
+            err = lib.megastep_f32(
+                packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, K,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            _raise_on_error(lib, err)
+            launches["megastep"] += 1
+        ctrl = state.ctrl if ctrl_seq is None else ctrl_seq[-1]
+        new, traj = _unpack(st, out, state, ctrl, K)
+        return new if ctrl_seq is None else (new, traj)
+
+    if K == 1:
+        def fn(state: State) -> State:
+            return run(state, None)
+    else:
+        def fn(state: State, ctrl_seq: torch.Tensor):
+            return run(state, ctrl_seq)
+
+    fn.k_steps = K
+    fn.static = st
+    return fn

@@ -5,6 +5,13 @@ from a compiled model, roll out, read state in the fly's canonical orders
 and write control inputs. The state is a batch of one world (B = 1); getters
 return that world. :class:`flygym_tpu_torch.batch.BatchSimulation` is the
 same runtime over many worlds.
+
+The step is chosen as the JAX package chooses it (``batch.py:77-106``,
+``simulation.py:189-243``), with arguments in place of its environment
+variables: the mega-step kernel K2 (:mod:`flygym_tpu_torch.ops.megastep`)
+on a CUDA device for a model it supports, the engine step otherwise; a
+rollout of n steps fuses K = ``megastep_k`` steps per launch when K divides
+n, and runs one step per launch when it does not.
 """
 
 from dataclasses import replace
@@ -13,6 +20,7 @@ import torch
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
 from flygym_tpu_torch.engine.step import rollout_batched
+from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
 
 __all__ = ["Simulation"]
 
@@ -28,16 +36,38 @@ class Simulation:
     Args:
         compiled: A :class:`CompiledModel`, e.g. from
             :func:`flygym_tpu_torch.load_compiled`.
-        device: Where the model and state live (``"cpu"`` or ``"cuda"``).
+        device: Where the model and state live: the card by default; pass
+            ``"cpu"`` to run on the CPU.
+        megastep: Step through the mega-step kernel. None takes it on a CUDA
+            device when the model is supported, and the engine step
+            otherwise; True on an unsupported model raises. On the CPU the
+            mega-step runs its plain version.
+        megastep_k: Steps fused per mega-step launch in rollouts whose
+            length it divides.
     """
 
     n_worlds = 1
 
-    def __init__(self, compiled: CompiledModel, *, device="cpu") -> None:
+    def __init__(self, compiled: CompiledModel, *, device="cuda", megastep: bool | None = None,
+                 megastep_k: int = 8) -> None:
         if not compiled.flies:
             raise ValueError("The compiled world must contain at least one fly.")
         self.compiled = compiled
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        if megastep_k < 1:
+            raise ValueError(f"megastep_k must be >= 1, got {megastep_k}")
+        supported = megastep_supported(compiled.model)
+        if megastep is None:
+            megastep = self.device.type == "cuda" and supported
+        elif megastep and not supported:
+            raise NotImplementedError("the mega-step kernel does not support this model")
+        self.megastep = bool(megastep)
+        self.megastep_k = int(megastep_k)
+        self._megastep_fns = {}
         self.model = compiled.model.to(self.device)
         self._initial_state = self._batch(compiled.initial_state.to(self.device))
         self.state = self._initial_state
@@ -88,6 +118,20 @@ class Simulation:
         """Back to the neutral keyframe at time 0."""
         self.state = self._initial_state
 
+    def step_fns(self, n_steps: int):
+        """``(batched_step, kstep_fn)`` for a run of ``n_steps`` steps, as
+        :func:`~flygym_tpu_torch.engine.step.rollout_batched` takes them:
+        (None, None) for the engine step; the K = 1 mega-step and None when
+        ``megastep_k`` does not divide ``n_steps``; else None and the
+        K-step mega-step."""
+        if not self.megastep:
+            return None, None
+        K = self.megastep_k if n_steps % self.megastep_k == 0 else 1
+        if K not in self._megastep_fns:
+            self._megastep_fns[K] = make_megastep(self.model, K)
+        fn = self._megastep_fns[K]
+        return (fn, None) if K == 1 else (None, fn)
+
     def rollout(self, ctrl_sequence, n_steps: int, *, record_trajectory: bool = True):
         """Run ``n_steps`` steps.
 
@@ -112,8 +156,10 @@ class Simulation:
             ctrl_sequence = ctrl_sequence.reshape(
                 ctrl_sequence.shape[0], self.n_worlds, self.model.nu
             )
+        batched_step, kstep_fn = self.step_fns(n_steps)
         self.state, traj = rollout_batched(
-            self.model, self.state, ctrl_sequence, n_steps, record=record_trajectory
+            self.model, self.state, ctrl_sequence, n_steps, record=record_trajectory,
+            batched_step=batched_step, kstep_fn=kstep_fn,
         )
         if traj is None:
             return None

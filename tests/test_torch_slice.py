@@ -94,7 +94,7 @@ def test_replay_targets_equal_jax(fresh_export, compiled):
     want = JaxReplayTargetData(
         dt, fly.get_actuated_jointdofs_order(ActuatorType.POSITION)
     ).make_target_angles_all_worlds(12, 1000)
-    order = Simulation(compiled).actuated_dofs(fly.name, "position")
+    order = Simulation(compiled, device="cpu").actuated_dofs(fly.name, "position")
     got = ReplayTargetData(dt, order).make_target_angles_all_worlds(12, 1000)
     np.testing.assert_array_equal(got, want)
     golden = load_golden()
@@ -113,7 +113,7 @@ def test_batch_tracks_the_jax_golden(compiled):
 
 
 def test_runtime_getters_setters_and_reset(compiled):
-    sim = BatchSimulation(compiled, 3)
+    sim = BatchSimulation(compiled, 3, device="cpu")
     fly = compiled.fly_names[0]
     n_pos = len(sim.actuated_dofs(fly, "position"))
     assert sim.get_joint_angles(fly).shape == (3, len(compiled.flies[fly]["qpos_adrs"]))
@@ -133,7 +133,7 @@ def test_runtime_getters_setters_and_reset(compiled):
     torch.testing.assert_close(sim.state.qpos[0], compiled.initial_state.qpos[0])
 
     # NaN controls hold the previous ones, like no control sequence at all.
-    held, one = Simulation(compiled), Simulation(compiled)
+    held, one = Simulation(compiled, device="cpu"), Simulation(compiled, device="cpu")
     for s in (held, one):
         s.set_leg_adhesion_states(fly, np.ones(6))
     traj = one.rollout(np.full((2, compiled.model.nu), np.nan), 2)
@@ -141,12 +141,29 @@ def test_runtime_getters_setters_and_reset(compiled):
     assert torch.equal(traj, held.rollout(None, 2))
 
 
+def test_simulation_defaults_to_the_card(compiled):
+    """No device means CUDA: without a card the constructor raises instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        assert Simulation(compiled).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Simulation(compiled)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BatchSimulation(compiled, 2)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, numpy as np, flygym_tpu_torch as ft\n"
-        "sim = ft.BatchSimulation(ft.load_compiled(), 2)\n"
+        "import flygym_tpu_torch.ops._build\n"
+        "sim = ft.BatchSimulation(ft.load_compiled(), 2, device='cpu')\n"
         "sim.rollout(None, 3, record_trajectory=False)\n"
         "assert np.isfinite(sim.state.qpos.numpy()).all()\n"
+        "mega = ft.BatchSimulation(ft.load_compiled(), 2, device='cpu', megastep=True, megastep_k=2)\n"
+        "mega.rollout(None, 2, record_trajectory=False)\n"
+        "assert np.isfinite(mega.state.qpos.numpy()).all()\n"
+        "ft.ops.megastep.model_header(mega.model)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flygym_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
