@@ -8,10 +8,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (each failure ends the run with a non-zero exit code):
 
 0. The card (``nvidia-smi`` name and power limit) and the torch/CUDA versions.
-1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, the
-   tree-LDL library and the mega-step kernel K2 (with the benchmark fly's
-   generated header) at once; print each build's seconds and K2's ptxas
-   report (registers, stack, spills).
+1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, all at
+   once: the library of K1, K1b and the retina kernel K3, and the mega-step
+   kernel K2 for the benchmark fly and for config 5's fly (one generated
+   header each); print each build's seconds and the ptxas reports
+   (registers, stack, spills).
 2. Hold the tree-LDL factor (K1) and solve (K1b) kernels against their plain
    PyTorch versions at 4096 and at 1000 worlds, within 1e-5 of the largest
    plain value; time both, their plain versions and ``torch.linalg``'s
@@ -33,6 +34,24 @@ Phases (each failure ends the run with a non-zero exit code):
    engine path against the JAX engine trajectory and the mega-step path
    against the JAX mega-step emitter's, to ``GOLDEN_TOLERANCE``
    (``flygym_tpu_torch/demo/benchmark.py``).
+7. Hold the retina kernel K3 against its plain version
+   (``ops/retina.py:retina_plain``) at 4096 and 1000 worlds of config 5's
+   fly (the env golden's settled worlds with seeded pose noise), in both
+   shading branches: at least 99.9% of outputs within 1e-5, all finite and
+   in [0, 1]; time K3, the plain version and the acceptance blur at 4096
+   worlds; K3's bound from its operations counted on the CPU.
+8. The env path, config 5 (vision and odor RL env step) at 4096 worlds:
+   ``VectorFlyEnv.make_batched_step`` with its defaults, 10 warm-up and 100
+   timed env steps; launches K2 110 (K = 10 each), K3 110, K1/K1b 0; every
+   observation finite, vision in [0, 1]; env-steps/s and world-steps/s; the
+   split of one env step by CUDA events; then 5 auto-reset steps from a
+   batch with upside-down (done) worlds, which must come back as fresh
+   reset states.
+9. The env goldens: 8 worlds from the JAX settled env state, 5 env steps,
+   the default path (K2 + K3) against the JAX emitter golden and the engine
+   path (K1/K1b + K3) against the JAX engine golden: qpos and qvel to
+   ``GOLDEN_TOLERANCE``, vision 99.5% within 1e-3, odor 1e-5 relative,
+   reward 1e-6, done equal.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -54,6 +73,19 @@ ENGINE_SETTLE_STEPS = 100
 MEGASTEP_K = 8
 CHECK_WORLDS = (4096, 1000)
 KERNEL_RTOL = 1e-5
+ENV_WARMUP_STEPS = 10
+ENV_STEPS = 100
+ENV_ACTION_NOISE = 0.05  # rad around the neutral joint targets
+AUTO_RESET_STEPS = 5
+# K3 against its plain version: the same fp32 operations in the same order,
+# so they agree to the last bit except where a silhouette or checker edge
+# flips on one ulp of a hit distance; outputs lie in [0, 1].
+RETINA_ATOL = 1e-5
+RETINA_SHARE = 0.999
+# The env goldens' vision: the JAX package's bar for its retina kernel
+# against its jnp oracle (tests/engine/test_retina_kernel.py:97-98).
+VISION_GOLDEN = (1e-3, 0.995)
+RETINA_BRANCHES = {"cone": None, "hard": 0.0}  # acceptance_fwhm_deg
 # K2 against its plain version, as a share of the largest plain value of
 # each output. The two run the same fp32 operations in the same order, with
 # no fused multiply-adds, true divisions and the same sin/cos, so they agree
@@ -109,28 +141,34 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_build(compiled) -> None:
-    """Both nvcc builds at once, each timed."""
+def phase_build(compiled, env_compiled) -> None:
+    """Every nvcc build at once, each timed."""
     from flygym_tpu_torch.ops import _build, megastep
 
-    header, _n_scratch = megastep.model_header(compiled.model)
+    headers = {name: megastep.model_header(c.model)[0]
+               for name, c in (("benchmark fly", compiled), ("env fly", env_compiled))}
 
     def timed(fn, *args):
         t0 = time.perf_counter()
         path = fn(*args)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        ldl_job = pool.submit(timed, _build.build)
-        k2_job = pool.submit(timed, _build.build_megastep, header)
-        (ldl_path, ldl_s), (k2_path, k2_s) = ldl_job.result(), k2_job.result()
+    with ThreadPoolExecutor(max_workers=1 + len(headers)) as pool:
+        jobs = {"K1, K1b, K3": pool.submit(timed, _build.build)}
+        for name, header in headers.items():
+            jobs[f"K2, {name}"] = pool.submit(timed, _build.build_megastep, header)
+        done = {name: job.result() for name, job in jobs.items()}
     _build.load_library()
-    _build.load_megastep(header)
-    print(f"[build] {ldl_path.name} (K1, K1b) in {ldl_s:.2f} s; "
-          f"{k2_path.parent.name}/{k2_path.name} (K2) in {k2_s:.2f} s")
-    for line in _build.ptxas_report(header).splitlines():
-        if any(w in line for w in ("registers", "stack frame", "spill")):
-            print(f"[build] K2 ptxas: {line.strip()}")
+    for header in headers.values():
+        _build.load_megastep(header)
+    for name, (path, seconds) in done.items():
+        print(f"[build] {path.parent.name}/{path.name} ({name}) in {seconds:.2f} s")
+    reports = {"library": _build.ptxas_report(), **{
+        f"K2 {name}": _build.ptxas_report(h) for name, h in headers.items()}}
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
+                print(f"[build] {name} ptxas: {line.strip()}")
 
 
 def ldl_work(tables, B: int) -> dict:
@@ -309,16 +347,17 @@ def phase_megastep(compiled, model) -> dict:
 
 
 def reset_counts() -> None:
-    from flygym_tpu_torch.ops import ldl, megastep
+    from flygym_tpu_torch.ops import ldl, megastep, retina
 
     ldl.reset_launches()
     megastep.reset_launches()
+    retina.reset_launches()
 
 
 def read_counts() -> dict:
-    from flygym_tpu_torch.ops import ldl, megastep
+    from flygym_tpu_torch.ops import ldl, megastep, retina
 
-    return {**ldl.launches, **megastep.launches}
+    return {**ldl.launches, **megastep.launches, **retina.launches}
 
 
 def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want: dict):
@@ -374,6 +413,291 @@ def phase_golden(compiled, *, label: str, golden_path, megastep: bool) -> None:
         check(worst[key] <= tol, f"{label} {key}: {worst[key]:.3e} > {tol}")
 
 
+def posed_states(env_compiled, model, n_worlds: int, seed: int):
+    """The env golden's settled worlds repeated to ``n_worlds`` on the card,
+    with seeded pose noise (root moved by up to 1.5 mm and turned by up to
+    0.6 rad, joints by 0.05 rad) and the forward kinematics of the result."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_env_golden
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics
+
+    golden = load_env_golden()
+    idx = torch.arange(n_worlds) % golden["state"].qpos.shape[0]
+    state = golden["state"].map(lambda x: x[idx].clone()).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qpos = state.qpos.clone()
+    qpos[:, :2] += 3.0 * torch.rand((n_worlds, 2), generator=gen, device="cuda") - 1.5
+    yaw = 1.2 * torch.rand(n_worlds, generator=gen, device="cuda") - 0.6
+    qpos[:, 3:7] = torch.stack([torch.cos(yaw / 2), 0 * yaw, 0 * yaw, torch.sin(yaw / 2)], dim=1)
+    qpos[:, 7:] += 0.05 * torch.randn(qpos[:, 7:].shape, generator=gen, device="cuda")
+    xpos, xquat = forward_kinematics(model, qpos)
+    return replace(state, qpos=qpos, xpos=xpos, xquat=xquat)
+
+
+def retina_ops(env_compiled, retina) -> tuple:
+    """Elementwise operations of K3's plain version at one world, each
+    weighted by its output's element count (arithmetic, comparisons and
+    selects; views, copies and constants not counted), on the CPU; and how
+    many of them are selects (``where``)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from flygym_tpu_torch.ops import retina as rk
+
+    counted = {"add", "sub", "mul", "truediv", "div", "neg", "abs", "sqrt", "floor",
+               "remainder", "clamp", "minimum", "maximum", "where", "lt", "gt", "le", "ge",
+               "eq", "and", "or", "rsub", "radd", "rmul", "rtruediv", "reciprocal"}
+
+    class Count(TorchFunctionMode):
+        n = 0
+        selects = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "").strip("_")
+            if isinstance(out, torch.Tensor) and name in counted:
+                Count.n += out.numel()
+                Count.selects += out.numel() if name == "where" else 0
+            return out
+
+    model = env_compiled.model
+    tables = rk.RetinaTables(model, retina)
+    state = env_compiled.initial_state
+    packed = rk.pack_rows(tables, state.xpos, state.xquat)
+    with Count():
+        rk.retina_plain(tables, packed)
+    return Count.n, Count.selects
+
+
+def phase_retina(env_compiled, model) -> dict:
+    """K3 against its plain version in both branches; times, the blur's
+    time and the bound at N_WORLDS (default, cone branch)."""
+    import torch
+
+    from flygym_tpu_torch.ops import retina as rk
+    from flygym_tpu_torch.vision import Retina
+
+    worst = 0.0
+    for branch, fwhm in RETINA_BRANCHES.items():
+        retina = Retina.for_compiled(env_compiled, acceptance_fwhm_deg=fwhm)
+        kern = rk.make_retina_kernel(model, retina)
+        check(kern.tables.use_cone == (branch == "cone"), f"{branch}: wrong shading branch")
+        for n in CHECK_WORLDS:
+            state = posed_states(env_compiled, model, n, seed=n)
+            packed = rk.pack_rows(kern.tables, state.xpos, state.xquat)
+            got, want = rk.launch_retina(kern.tables, packed), rk.retina_plain(kern.tables, packed)
+            torch.cuda.synchronize()
+            gap = (got - want).abs()
+            share = (gap <= RETINA_ATOL).float().mean().item()
+            flips = int((gap > RETINA_ATOL).sum().item())
+            print(f"[retina] {branch} B={n}: share within {RETINA_ATOL} {share:.6f}, "
+                  f"max gap {gap.max().item():.3e}, flips {flips} of {gap.numel()}, "
+                  f"exact {(gap == 0).float().mean().item():.6f}")
+            check(bool(torch.isfinite(got).all()), f"K3 {branch} not finite at B={n}")
+            check(got.min().item() >= 0.0 and got.max().item() <= 1.0,
+                  f"K3 {branch} outside [0, 1] at B={n}")
+            check(share >= RETINA_SHARE, f"K3 {branch} at B={n}: share {share} < {RETINA_SHARE}")
+            worst = max(worst, gap.max().item())
+
+    retina = Retina.for_compiled(env_compiled)
+    render = retina.make_render_batched(model)
+    tables = render.kernel.tables
+    state = posed_states(env_compiled, model, N_WORLDS, seed=1)
+    packed = rk.pack_rows(tables, state.xpos, state.xquat)
+    points = rk.launch_retina(tables, packed)
+    k1 = time_ms(lambda: rk.launch_retina(tables, packed), TIMED_LAUNCHES)
+    p = time_ms(lambda: rk.retina_plain(tables, packed), 1)
+    k2 = time_ms(lambda: rk.launch_retina(tables, packed), TIMED_LAUNCHES, warm_up=False)
+    blur = time_ms(lambda: render.blur(points), TIMED_LAUNCHES)
+    times = (0.5 * (k1 + k2), p)
+    print(f"[retina] K3 at B={N_WORLDS}: kernel {times[0]:.4f} ms (runs {k1:.4f}/{k2:.4f}), "
+          f"plain {p:.1f} ms, acceptance blur (torch.einsum) {blur:.4f} ms")
+
+    ops, selects = retina_ops(env_compiled, retina)
+    total_ops = ops * N_WORLDS
+    table_bytes = 4 * sum(t.numel() for t in (tables.dirs, tables.weights, tables.radius, tables.rgb))
+    nbytes = 4 * (packed.numel() + points.numel()) + table_bytes
+    bound = bound_ms(total_ops, nbytes)
+    blur_ops = 2 * 2 * (2 * N_WORLDS) * tables.R * tables.R
+    nonzeros = (retina.blur_weights != 0).sum(axis=2).mean(axis=1)
+    pairs = 2 * tables.R * tables.G
+    print(f"[retina] {ops} ops per world ({ops / pairs:.1f} per ray-geom pair, of which "
+          f"{selects / pairs:.1f} are selects; -fmad=false issues none as an FMA, where the "
+          f"fp32 peak counts an FMA as two ops); K3 at B={N_WORLDS}: bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {total_ops:.3e} ops, {nbytes:.3e} bytes), "
+          f"{times[0] / bound[0]:.1f}x the bound; blur {blur_ops:.3e} fp32 ops "
+          f"({blur_ops / PEAK_FP32 * 1e3:.4f} ms at the fp32 peak), its rows hold "
+          f"{nonzeros[0]:.2f} (pale) and {nonzeros[1]:.2f} (yellow) nonzeros on average")
+    return {"err": worst, "times": times, "bound": bound, "blur_ms": blur}
+
+
+def env_actions(env, n_steps: int, seed: int) -> list:
+    """Neutral joint targets plus seeded noise, adhesion on, per step."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    neutral = env._state0.ctrl[0, env._act_ids]
+    ones = torch.ones((N_WORLDS, 6), device="cuda")
+    return [
+        {"joints": neutral + ENV_ACTION_NOISE * torch.randn(
+            (N_WORLDS, env.n_actuated), generator=gen, device="cuda"), "adhesion": ones}
+        for _ in range(n_steps)
+    ]
+
+
+def phase_env(env_compiled) -> tuple:
+    """Config 5 at N_WORLDS through the default env step; returns the
+    launch counts and the timed steps' walltime."""
+    import torch
+
+    from flygym_tpu_torch.env import VectorFlyEnv
+    from flygym_tpu_torch.olfaction import OdorField
+    from flygym_tpu_torch.ops import retina as rk
+
+    env = VectorFlyEnv(env_compiled, enable_vision=True,
+                       odor_field=OdorField.for_compiled(env_compiled))
+    check(env.megastep, "the env's default step is not the mega-step on the card")
+    step = env.make_batched_step()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    actions = env_actions(env, ENV_WARMUP_STEPS + ENV_STEPS, seed=1)
+    states = env.reset_batched(gen, N_WORLDS)
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def checked(obs):
+        nonlocal ok
+        for v in obs.values():
+            ok = ok & torch.isfinite(v).all()
+        ok = ok & (obs["vision"].min() >= 0.0) & (obs["vision"].max() <= 1.0)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    for a in actions[:ENV_WARMUP_STEPS]:
+        states, obs, reward, done, _ = step(states, a)
+        checked(obs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in actions[ENV_WARMUP_STEPS:]:
+        states, obs, reward, done, _ = step(states, a)
+        checked(obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_steps = ENV_WARMUP_STEPS + ENV_STEPS
+    print(f"[env] config 5, {N_WORLDS} worlds: {ENV_WARMUP_STEPS} + {ENV_STEPS} env steps "
+          f"({env.decision_interval} physics steps each); launches {counts}")
+    for name, n in {"megastep": n_steps, "retina": n_steps,
+                    "tree_ldl_factor": 0, "tree_ldl_solve": 0}.items():
+        check(counts[name] == n, f"env: {name} launches {counts[name]} != {n}")
+    check(bool(ok.item()), "env: an observation is not finite, or vision is outside [0, 1]")
+    for name in ("qpos", "qvel", "xpos"):
+        check(bool(torch.isfinite(getattr(states, name)).all()), f"env: state.{name} not finite")
+    z = states.qpos[:, 2]
+    print(f"[env] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
+          f"{z.max().item():.4f} mm, done share {done.float().mean().item():.4f}, "
+          f"reward mean {reward.mean().item():.3e}, vision mean {obs['vision'].mean().item():.4f}, "
+          f"odor mean {obs['odor_intensity'].mean().item():.3e}")
+    rate = ENV_STEPS * N_WORLDS / wall
+    print(f"[env] {ENV_STEPS} timed env steps in {wall:.3f} s, {wall / ENV_STEPS * 1e3:.3f} ms "
+          f"per env step: {rate:.0f} env-steps/s, {rate * env.decision_interval:.0f} "
+          f"world-steps/s on {card_line()}")
+
+    # The split of one env step, by CUDA events over 5 steps.
+    render = env.render_vision
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    parts = [0.0] * 4
+    for a in actions[:5]:
+        ev[0].record()
+        states = env._advance(states, a)
+        ev[1].record()
+        points = render.kernel(states)
+        ev[2].record()
+        render.blur(points)
+        ev[3].record()
+        env._observe_body(states)
+        env._reward_done(states)
+        ev[4].record()
+        ev[4].synchronize()
+        for i in range(4):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / 5
+    print(f"[env] one env step: K2 launch with its packing {parts[0]:.3f} ms, "
+          f"K3 with its packing {parts[1]:.3f} ms, blur {parts[2]:.3f} ms, "
+          f"observations, odor, reward and done {parts[3]:.3f} ms")
+
+    # Auto-reset: every fourth world upside down (flipped: done).
+    auto = env.make_batched_step(auto_reset=True)
+    qpos = states.qpos.clone()
+    qpos[::4, 3:7] = torch.tensor([0.0, 1.0, 0.0, 0.0], device="cuda")
+    states = replace(states, qpos=qpos)
+    n_done = 0
+    for i, a in enumerate(actions[:AUTO_RESET_STEPS]):
+        probe = torch.Generator(device="cuda")
+        probe.set_state(gen.get_state())
+        fresh = env.reset_batched(probe, N_WORLDS)
+        states, obs, reward, done, _ = auto(states, a, gen)
+        if i == 0:
+            flipped = torch.zeros(N_WORLDS, dtype=torch.bool, device="cuda")
+            flipped[::4] = True
+            check(bool(done[flipped].all()), "auto-reset: a flipped world is not done")
+        n_done += int(done.sum().item())
+        for name in ("qpos", "qvel", "xpos", "time"):
+            got, want = getattr(states, name)[done], getattr(fresh, name)[done]
+            check(torch.equal(got, want), f"auto-reset step {i}: done worlds' {name} not fresh")
+        check(bool(torch.isfinite(obs["vision"]).all()), f"auto-reset step {i}: vision not finite")
+    print(f"[env] auto-reset: {AUTO_RESET_STEPS} steps, {n_done} done worlds replaced by fresh states")
+
+    # The method entry points render through K3 too: one launch per step.
+    before = rk.launches["retina"]
+    states, obs, _reward, _done, _ = env.step(states, actions[0])
+    env.observe(states)
+    check(rk.launches["retina"] == before + 2,
+          f"env.step and env.observe: {rk.launches['retina'] - before} K3 launches, not 2")
+    check(bool(torch.isfinite(obs["vision"]).all()), "env.step: vision not finite")
+    return counts, wall
+
+
+def phase_env_golden(env_compiled, *, label: str, megastep) -> None:
+    """8 worlds from the JAX settled env state, 5 env steps vs a JAX path."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_env_golden
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+    from flygym_tpu_torch.env import VectorFlyEnv
+    from flygym_tpu_torch.olfaction import OdorField
+
+    golden = load_env_golden()
+    rec = golden["engine" if megastep is False else "emitter"]
+    env = VectorFlyEnv(env_compiled, enable_vision=True, megastep=megastep,
+                       odor_field=OdorField.for_compiled(env_compiled))
+    step = env.make_batched_step()
+    states = golden["state"].to("cuda")
+    worst = {"qpos": 0.0, "qvel": 0.0, "vision_share": 1.0, "odor_rel": 0.0, "reward": 0.0}
+    n_steps = golden["joints"].shape[0]
+    for i in range(n_steps):
+        action = {k: torch.as_tensor(golden[k][i]).cuda() for k in ("joints", "adhesion")}
+        states, obs, reward, done, _ = step(states, action)
+        gap = lambda a, b: float(np.abs(a.cpu().numpy() - b).max())
+        worst["qpos"] = max(worst["qpos"], gap(states.qpos, rec["qpos"][i]))
+        worst["qvel"] = max(worst["qvel"], gap(states.qvel, rec["qvel"][i]))
+        vis = np.abs(obs["vision"].cpu().numpy() - rec["obs"]["vision"][i])
+        worst["vision_share"] = min(worst["vision_share"], float((vis <= VISION_GOLDEN[0]).mean()))
+        odor, odor_want = obs["odor_intensity"].cpu().numpy(), rec["obs"]["odor_intensity"][i]
+        worst["odor_rel"] = max(worst["odor_rel"],
+                                float((np.abs(odor - odor_want) / np.abs(odor_want)).max()))
+        worst["reward"] = max(worst["reward"], gap(reward, rec["reward"][i]))
+        check(bool((done.cpu().numpy() == rec["done"][i]).all()), f"{label}: done differs at {i}")
+        for key, v in obs.items():
+            check(bool(torch.isfinite(v).all()), f"{label}: {key} not finite at step {i}")
+    print(f"[{label}] {states.qpos.shape[0]} worlds x {n_steps} env steps vs JAX: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    for key in ("qpos", "qvel"):
+        check(worst[key] <= GOLDEN_TOLERANCE[key], f"{label} {key}: {worst[key]:.3e}")
+    check(worst["vision_share"] >= VISION_GOLDEN[1], f"{label} vision {worst['vision_share']}")
+    check(worst["odor_rel"] <= 1e-5, f"{label} odor {worst['odor_rel']:.3e}")
+    check(worst["reward"] <= 1e-6, f"{label} reward {worst['reward']:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -386,10 +710,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         import flygym_tpu_torch
-        from flygym_tpu_torch.compose.bridge import BENCHMARK_GOLDEN, ASSETS
+        from flygym_tpu_torch.compose.bridge import BENCHMARK_GOLDEN, ASSETS, ENV_FLY
 
         compiled = flygym_tpu_torch.load_compiled()
-        phase_build(compiled)
+        env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
+        phase_build(compiled, env_compiled)
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model)
         k2 = phase_megastep(compiled, model)
@@ -412,6 +737,10 @@ def main() -> int:
                      megastep=False)
         phase_golden(compiled, label="golden megastep",
                      golden_path=ASSETS / "benchmark_fly_megastep_golden.npz", megastep=True)
+        retina = phase_retina(env_compiled, env_compiled.model.to("cuda"))
+        env_counts, _env_wall = phase_env(env_compiled)
+        phase_env_golden(env_compiled, label="env golden megastep", megastep=None)
+        phase_env_golden(env_compiled, label="env golden engine", megastep=False)
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -447,6 +776,19 @@ def main() -> int:
         "plain_ms": k2["times"][MEGASTEP_K][1],
         "bound_ms": k2["bound"][0],
         "bound_by": k2["bound"][1],
+        "library_ms": None,
+    })
+    entries.append({
+        "name": "retina",
+        "route": "cuda",
+        "source": "flygym_tpu_torch/csrc/retina.cu",
+        "replaces": "flygym_tpu/ops/retina_pallas.py:133",
+        "launches": env_counts["retina"],
+        "max_abs_err": retina["err"],
+        "ms": retina["times"][0],
+        "plain_ms": retina["times"][1],
+        "bound_ms": retina["bound"][0],
+        "bound_by": retina["bound"][1],
         "library_ms": None,
     })
     print(json.dumps({"kernels": entries}))

@@ -6,6 +6,8 @@ that compiled model as data instead: ``scripts/export_torch_model.py``
 writes every array field, the static fields, the initial state and the
 fly's index maps to an ``.npz`` file, and :func:`model_from_numpy` turns
 them into the port's :class:`~flygym_tpu_torch.engine.model.PhysicsModel`.
+An RL env's world (``scripts/export_env_golden.py``) adds ``meta["env"]``:
+the env's index maps and tables, kept as :attr:`CompiledModel.env`.
 
 Models that use a feature the port does not have yet are refused here,
 with ``NotImplementedError``, rather than simulated wrongly.
@@ -26,6 +28,9 @@ __all__ = [
     "BENCHMARK_FLY",
     "BENCHMARK_GOLDEN",
     "CompiledModel",
+    "ENV_FLY",
+    "ENV_GOLDEN",
+    "load_env_golden",
     "model_from_numpy",
     "load_compiled",
     "load_golden",
@@ -34,6 +39,8 @@ __all__ = [
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 BENCHMARK_FLY = ASSETS / "benchmark_fly.npz"
 BENCHMARK_GOLDEN = ASSETS / "benchmark_fly_golden.npz"
+ENV_FLY = ASSETS / "env_fly.npz"
+ENV_GOLDEN = ASSETS / "env_fly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -43,11 +50,13 @@ class CompiledModel:
     as exported: ``qpos_adrs``, ``qvel_adrs``, ``body_ids``, ``site_ids``,
     ``act_ids`` by actuator type, ``adh_ids``, ``sensor_slots``, and the DoF
     orders ``jointdofs`` and ``actuated_dofs`` by type as
-    (leg, parent link, child link, axis) tuples."""
+    (leg, parent link, child link, axis) tuples. ``env`` is the RL env's
+    ``meta["env"]`` where the world was exported for one, else None."""
 
     model: PhysicsModel
     initial_state: State
     flies: dict
+    env: dict | None = None
 
     @property
     def fly_names(self) -> list:
@@ -116,7 +125,9 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
     state = State(
         **{f.name: _tensor(arrays[f"state.{f.name}"])[None] for f in fields(State)}
     )
-    return CompiledModel(model=PhysicsModel(**kw), initial_state=state, flies=meta["flies"])
+    return CompiledModel(
+        model=PhysicsModel(**kw), initial_state=state, flies=meta["flies"], env=meta.get("env")
+    )
 
 
 def _read_npz(path):
@@ -132,14 +143,36 @@ def load_compiled(path=BENCHMARK_FLY) -> CompiledModel:
     return model_from_numpy(*_read_npz(path))
 
 
+def _state_of(arrays: dict) -> State:
+    return State(**{f.name: _tensor(arrays[f"state.{f.name}"]) for f in fields(State)})
+
+
 def load_golden(path=BENCHMARK_GOLDEN) -> dict:
     """The JAX golden of the replay: ``state`` (the settled batched
     :class:`State`), ``targets`` (B, n_steps, n_dofs), and the JAX
     trajectory ``qpos``, ``qvel``, ``sensordata`` (n_steps, B, ...)."""
     arrays, meta = _read_npz(path)
     out = {k: v for k, v in arrays.items() if not k.startswith("state.")}
-    out["state"] = State(
-        **{f.name: _tensor(arrays[f"state.{f.name}"]) for f in fields(State)}
-    )
+    out["state"] = _state_of(arrays)
     out["meta"] = meta
+    return out
+
+
+def load_env_golden(path=ENV_GOLDEN) -> dict:
+    """The JAX golden of the RL env: ``state`` (the settled batched
+    :class:`State`), the actions ``joints`` (n_steps, B, 42) and
+    ``adhesion`` (n_steps, B, 6), and for the two JAX paths (``engine``,
+    ``emitter``) per env step ``qpos``, ``qvel``, ``obs`` (a dict of the
+    observations), ``reward`` and ``done``."""
+    arrays, meta = _read_npz(path)
+    out = {"state": _state_of(arrays), "meta": meta,
+           "joints": arrays["joints"], "adhesion": arrays["adhesion"]}
+    for path_name in ("engine", "emitter"):
+        rec = {"obs": {}}
+        for key, value in arrays.items():
+            if key.startswith(f"{path_name}.obs."):
+                rec["obs"][key[len(f"{path_name}.obs."):]] = value
+            elif key.startswith(f"{path_name}."):
+                rec[key[len(path_name) + 1:]] = value
+        out[path_name] = rec
     return out

@@ -3,18 +3,21 @@
 Two builds, both at first use, under ``flygym_tpu_torch/_build/``:
 
 - The model-independent kernels: every ``flygym_tpu_torch/csrc/*.cu`` file
-  except ``megastep.cu``, compiled into one shared library (:func:`build`,
+  except ``megastep.cu`` (the tree-LDL factor and solve K1/K1b, the retina
+  K3), compiled into one shared library (:func:`build`,
   :func:`load_library`).
 - The mega-step kernel K2 (:func:`build_megastep`, :func:`load_megastep`):
   ``csrc/megastep.cu`` with the model's generated header
   ``megastep_model.h`` (``ops/megastep.py:model_header``), one library per
-  model. nvcc's ``-Xptxas -v`` report is kept beside it as ``ptxas.txt``.
+  model.
 
-Each library's name carries a hash of its sources, flags and (for K2) the
-header, so an edit builds anew and an unchanged tree reuses its build. Only
-the sources in the repository and the model's arrays are used. A failed
-build raises with the compiler's stderr. :func:`build_megastep_host`
-compiles the same K2 source as host C++ with g++, for the CPU tests.
+nvcc's ``-Xptxas -v`` report of each build is kept beside it
+(:func:`ptxas_report`). Each library's name carries a hash of its sources,
+flags and (for K2) the header, so an edit builds anew and an unchanged tree
+reuses its build. Only the sources in the repository and the model's arrays
+are used. A failed build raises with the compiler's stderr.
+:func:`build_megastep_host` and :func:`build_retina_host` compile the same
+K2 and K3 sources as host C++ with g++, for the CPU tests.
 """
 
 import ctypes
@@ -29,6 +32,7 @@ __all__ = [
     "build",
     "build_megastep",
     "build_megastep_host",
+    "build_retina_host",
     "load_library",
     "load_megastep",
     "ptxas_report",
@@ -39,14 +43,16 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 MEGASTEP_SRC = CSRC / "megastep.cu"
+RETINA_SRC = CSRC / "retina.cu"
+# The kernels keep their plain versions' arithmetic: no contraction into
+# FMAs; IEEE div and sqrt are nvcc's defaults. -Xptxas -v reports registers,
+# stack and spills.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
 )
-# K2 keeps the emitter's arithmetic: no contraction into FMAs; IEEE div and
-# sqrt are nvcc's defaults.
-MEGASTEP_NVCC_FLAGS = NVCC_FLAGS + ("-fmad=false", "-Xptxas", "-v")
-MEGASTEP_GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
+GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
 _lib = None
 _megastep_libs = {}
@@ -95,11 +101,17 @@ def _compile(cmd_head: list, out: Path, sources: list) -> str:
     return proc.stderr
 
 
+def _ptxas_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
-    """Compile the model-independent kernels if not built yet; return the path."""
+    """Compile the model-independent kernels if not built yet; return the
+    path. nvcc's ptxas report is written beside the library."""
     out = library_path()
     if not out.exists():
-        _compile([_nvcc(), *NVCC_FLAGS], out, _sources())
+        log = _compile([_nvcc(), *NVCC_FLAGS], out, _sources())
+        _ptxas_path(out).write_text(log)
     return out
 
 
@@ -113,6 +125,9 @@ def load_library() -> ctypes.CDLL:
         lib.tree_ldl_factor_f32.restype = i
         lib.tree_ldl_solve_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
         lib.tree_ldl_solve_f32.restype = i
+        f = ctypes.c_float
+        lib.retina_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i, p]
+        lib.retina_f32.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -134,18 +149,19 @@ def _megastep_dir(header: str, flags) -> Path:
 
 def build_megastep(header: str) -> Path:
     """Compile K2 for the model whose header is ``header``; return the
-    library's path. nvcc's ptxas report is written to ``ptxas.txt``."""
-    d = _megastep_dir(header, MEGASTEP_NVCC_FLAGS)
+    library's path, with nvcc's ptxas report beside it."""
+    d = _megastep_dir(header, NVCC_FLAGS)
     out = d / "libmegastep.so"
     if not out.exists():
-        log = _compile([_nvcc(), *MEGASTEP_NVCC_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
-        (d / "ptxas.txt").write_text(log)
+        log = _compile([_nvcc(), *NVCC_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
+        _ptxas_path(out).write_text(log)
     return out
 
 
-def ptxas_report(header: str) -> str:
-    """The ``-Xptxas -v`` lines of K2's build for ``header`` (built if need be)."""
-    path = build_megastep(header).parent / "ptxas.txt"
+def ptxas_report(header: str | None = None) -> str:
+    """The ``-Xptxas -v`` lines of K2's build for ``header``, or of the
+    model-independent library without one (built if need be)."""
+    path = _ptxas_path(build() if header is None else build_megastep(header))
     return path.read_text() if path.exists() else ""
 
 
@@ -164,18 +180,36 @@ def load_megastep(header: str) -> ctypes.CDLL:
     return lib
 
 
-def build_megastep_host(header: str) -> ctypes.CDLL:
-    """K2's source compiled as host C++ with g++ (``megastep_host_f32``: the
-    kernel's per-world body in a loop over worlds), loaded."""
+def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    d = _megastep_dir(header, MEGASTEP_GXX_FLAGS)
+    return gxx
+
+
+def build_megastep_host(header: str) -> ctypes.CDLL:
+    """K2's source compiled as host C++ with g++ (``megastep_host_f32``: the
+    kernel's per-world body in a loop over worlds), loaded."""
+    gxx = _gxx()
+    d = _megastep_dir(header, GXX_FLAGS)
     out = d / "libmegastep_host.so"
     if not out.exists():
-        _compile([gxx, *MEGASTEP_GXX_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
+        _compile([gxx, *GXX_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.megastep_host_f32.argtypes = [p, p, p, i, i]
     lib.megastep_host_f32.restype = i
+    return lib
+
+
+def build_retina_host() -> ctypes.CDLL:
+    """K3's source compiled as host C++ with g++ (``retina_host_f32``: the
+    kernel's per-ray body in loops over worlds, eyes and rays), loaded."""
+    out = BUILD / f"libretina_host_{_digest(GXX_FLAGS, [RETINA_SRC])}.so"
+    if not out.exists():
+        _compile([_gxx(), *GXX_FLAGS], out, [RETINA_SRC])
+    lib = ctypes.CDLL(str(out))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.retina_host_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i]
+    lib.retina_host_f32.restype = i
     return lib

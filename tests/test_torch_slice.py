@@ -164,6 +164,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mega.rollout(None, 2, record_trajectory=False)\n"
         "assert np.isfinite(mega.state.qpos.numpy()).all()\n"
         "ft.ops.megastep.model_header(mega.model)\n"
+        "import flygym_tpu_torch.vision, flygym_tpu_torch.render.raycast\n"
+        "import flygym_tpu_torch.ops.retina, flygym_tpu_torch.olfaction, flygym_tpu_torch.env.gym\n"
+        "from flygym_tpu_torch.compose.bridge import ENV_FLY\n"
+        "c = ft.load_compiled(ENV_FLY)\n"
+        "env = flygym_tpu_torch.env.gym.VectorFlyEnv(c, device='cpu', megastep=False,\n"
+        "    enable_vision=True, odor_field=flygym_tpu_torch.olfaction.OdorField.for_compiled(c))\n"
+        "s = env.reset_batched(None, 2)\n"
+        "a = {'joints': s.ctrl[:, env._act_ids], 'adhesion': np.ones((2, 6))}\n"
+        "s, obs, r, d, _ = env.make_batched_step()(s, a)\n"
+        "assert np.isfinite(obs['vision'].numpy()).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flygym_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
