@@ -10,9 +10,9 @@ Phases (each failure ends the run with a non-zero exit code):
 0. The card (``nvidia-smi`` name and power limit) and the torch/CUDA versions.
 1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, all at
    once: the library of K1, K1b and the retina kernel K3, and the mega-step
-   kernel K2 for the benchmark fly and for config 5's fly (one generated
-   header each); print each build's seconds and the ptxas reports
-   (registers, stack, spills).
+   kernel K2 for the benchmark fly, config 5's fly and config 3's terrain
+   fly (one generated header each); print each build's seconds and the
+   ptxas reports (registers, stack, spills).
 2. Hold the tree-LDL factor (K1) and solve (K1b) kernels against their plain
    PyTorch versions at 4096 and at 1000 worlds, within 1e-5 of the largest
    plain value; time both, their plain versions and ``torch.linalg``'s
@@ -52,6 +52,23 @@ Phases (each failure ends the run with a non-zero exit code):
    path (K1/K1b + K3) against the JAX engine golden: qpos and qvel to
    ``GOLDEN_TOLERANCE``, vision 99.5% within 1e-3, odor 1e-5 relative,
    reward 1e-6, done equal.
+10. Hold K2 built for config 3's terrain fly (heightfield plane rows)
+    against its plain version at 1000 and 4096 worlds (the terrain golden's
+    settled worlds with seeded root offsets and joint noise, planes from the
+    port's sampler): one K = 1 and one K = 8 launch, to ``K2_RTOL``; time
+    K = 1 and K = 8 launches and the plane sampler at 4096 worlds; K2's
+    bound from its operations counted on the CPU.
+11. Config 3 (the hybrid controller on blocks terrain) at 4096 worlds:
+    ``BatchSimulation`` with its default step, roots moved apart, adhesion
+    on; a 504-step settle through ``rollout`` (63 K = 8 launches, 63 plane
+    samples), then 1000 closed-loop steps of ``demo/hybrid_terrain.py``
+    (1000 K = 1 launches, 125 samples). Launches K2 1063, samples 188,
+    K1/K1b 0; all state finite; distance walked, world-steps/s, the split
+    of one step by CUDA events, and no host synchronisation in a step.
+12. The terrain goldens: 8 worlds from the JAX settled state, 48
+    closed-loop steps, the K2 path against the JAX emitter golden and the
+    engine path (K1/K1b) against the JAX engine golden, to
+    ``GOLDEN_TOLERANCE``.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -61,6 +78,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
@@ -77,6 +95,10 @@ ENV_WARMUP_STEPS = 10
 ENV_STEPS = 100
 ENV_ACTION_NOISE = 0.05  # rad around the neutral joint targets
 AUTO_RESET_STEPS = 5
+TERRAIN_SETTLE_STEPS = 504  # 63 K = 8 launches
+TERRAIN_STEPS = 1000  # closed-loop steps, one K = 1 launch each
+TERRAIN_RESAMPLE = 8
+SPLIT_STEPS = 16
 # K3 against its plain version: the same fp32 operations in the same order,
 # so they agree to the last bit except where a silhouette or checker edge
 # flips on one ulp of a hit distance; outputs lie in [0, 1].
@@ -141,12 +163,13 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_build(compiled, env_compiled) -> None:
+def phase_build(compiled, env_compiled, terrain_compiled) -> None:
     """Every nvcc build at once, each timed."""
     from flygym_tpu_torch.ops import _build, megastep
 
     headers = {name: megastep.model_header(c.model)[0]
-               for name, c in (("benchmark fly", compiled), ("env fly", env_compiled))}
+               for name, c in (("benchmark fly", compiled), ("env fly", env_compiled),
+                               ("terrain fly", terrain_compiled))}
 
     def timed(fn, *args):
         t0 = time.perf_counter()
@@ -268,8 +291,12 @@ def megastep_ops(model) -> int:
     s = make_initial_state(cpu, 1)
     cols = lambda x: [x[:, i] for i in range(x.shape[1])]
     args = [cols(s.qpos), cols(s.qvel), cols(s.ctrl), cols(s.act), cols(s.qacc)]
+    # A heightfield world's planes are inputs (level ground here: the count
+    # does not depend on their values).
+    z, one = torch.zeros(1), torch.ones(1)
+    terrain = [(z, z, z, one)] * st.ncand if st.has_hfield else None
     with Count():
-        megastep.emit_step(st, *args)
+        megastep.emit_step(st, *args, terrain)
     return Count.n
 
 
@@ -698,6 +725,245 @@ def phase_env_golden(env_compiled, *, label: str, megastep) -> None:
     check(worst["reward"] <= 1e-6, f"{label} reward {worst['reward']:.3e}")
 
 
+def terrain_inputs(terrain_compiled, model, golden, n_worlds: int, k_steps: int, seed: int):
+    """The terrain golden's settled worlds repeated to ``n_worlds`` on the
+    card, roots moved by up to ±20 mm and joints by 0.05 rad (seeded), the
+    forward kinematics redone; the controls as a (K, B, nu) sequence with
+    0.05 rad of seeded noise on the joint targets."""
+    import torch
+
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics
+
+    idx = torch.arange(n_worlds) % golden["state"].qpos.shape[0]
+    state = golden["state"].map(lambda x: x[idx].clone()).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qpos = state.qpos.clone()
+    qpos[:, :2] += 40.0 * torch.rand((n_worlds, 2), generator=gen, device="cuda") - 20.0
+    qpos[:, 7:] += 0.05 * torch.randn(qpos[:, 7:].shape, generator=gen, device="cuda")
+    xpos, xquat = forward_kinematics(model, qpos)
+    ids = torch.tensor(terrain_compiled.flies["rugged"]["act_ids"]["position"], device="cuda")
+    seq = state.ctrl.expand((k_steps,) + state.ctrl.shape).clone()
+    seq[:, :, ids] += 0.05 * torch.randn((k_steps, n_worlds, len(ids)), generator=gen,
+                                         device="cuda")
+    return replace(state, qpos=qpos, xpos=xpos, xquat=xquat, ctrl=seq[0]), seq
+
+
+def phase_terrain_kernel(terrain_compiled, model) -> dict:
+    """K2 with heightfield planes against its plain version; times of K2
+    and of the sampler, and K2's bound, at N_WORLDS."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_terrain_golden
+    from flygym_tpu_torch.ops import megastep
+
+    golden = load_terrain_golden()
+    fns = {k: megastep.make_megastep(model, k) for k in (1, MEGASTEP_K)}
+    fields = ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata")
+    worst, plain_ms = 0.0, {}
+    for n in CHECK_WORLDS:
+        for k, fn in fns.items():
+            state, seq = terrain_inputs(terrain_compiled, model, golden, n, k, seed=n + k)
+            planes = fn.sample_planes(state)
+            check(bool(torch.isfinite(planes).all()), f"planes not finite at B={n}")
+            pairs = []
+            if k == 1:
+                got = fn(state, planes)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = megastep.megastep_plain(fn.static, state, None, planes)
+            else:
+                got, traj = fn(state, seq, planes)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want, wtraj = megastep.megastep_plain(fn.static, state, seq, planes)
+                pairs.append(("qpos rows", traj, wtraj))
+            torch.cuda.synchronize()
+            if n == N_WORLDS:
+                plain_ms[k] = (time.perf_counter() - t0) * 1e3
+            pairs += [(f, getattr(got, f), getattr(want, f)) for f in fields]
+            gaps = []
+            for name, a, b in pairs:
+                gap, scale = (a - b).abs().max().item(), b.abs().max().item()
+                check(bool(torch.isfinite(a).all()), f"K2 terrain {name} not finite at B={n}")
+                check(gap <= K2_RTOL * scale,
+                      f"K2 terrain {name} at B={n}, K={k}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
+                worst = max(worst, gap)
+                gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
+            tilted = (planes[..., 3] < 0.999).float().mean().item()
+            print(f"[terrain kernel] B={n} K={k} max|kernel-plain|/max|plain|: "
+                  + ", ".join(gaps) + f"; share of tilted planes {tilted:.4f}")
+
+    times = {}
+    for k, fn in fns.items():
+        state, seq = terrain_inputs(terrain_compiled, model, golden, N_WORLDS, k, seed=1)
+        planes = fn.sample_planes(state)
+        kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
+        k1 = time_ms(kernel, TIMED_LAUNCHES)
+        k2 = time_ms(kernel, TIMED_LAUNCHES, warm_up=False)
+        times[k] = (0.5 * (k1 + k2), plain_ms[k])
+        print(f"[terrain kernel] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
+              f"(runs {k1:.3f}/{k2:.3f}), plain {plain_ms[k]:.1f} ms")
+    sample_ms = time_ms(lambda: fns[1].sample_planes(state), TIMED_LAUNCHES)
+    print(f"[terrain kernel] plane sampler at B={N_WORLDS}: {sample_ms:.4f} ms per sample")
+
+    ops = megastep_ops(model)
+    bounds = {}
+    for k in fns:
+        n_in, n_out = megastep._io_rows(fns[k].static, k)
+        total_ops, nbytes = ops * k * N_WORLDS, 4 * (n_in + n_out) * N_WORLDS
+        bounds[k] = bound_ms(total_ops, nbytes)
+        print(f"[terrain kernel] {ops} ops per world-step; K={k} launch at B={N_WORLDS}: "
+              f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}: {total_ops:.3e} ops, "
+              f"{nbytes:.3e} bytes), {times[k][0] / bounds[k][0]:.0f}x the bound")
+    return {"err": worst, "times": times, "bounds": bounds, "sample_ms": sample_ms}
+
+
+def phase_terrain(terrain_compiled) -> dict:
+    """Config 3 at N_WORLDS through the default step; returns the launch
+    and sample counts."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.demo.hybrid_terrain import HybridLoop, place_roots, root_offsets
+    from flygym_tpu_torch.engine import terrain
+
+    sim = BatchSimulation(terrain_compiled, N_WORLDS, terrain_resample=TERRAIN_RESAMPLE)
+    check(sim.megastep, "config 3's default step is not the mega-step on the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    place_roots(sim, root_offsets(N_WORLDS, gen))
+    sim.set_leg_adhesion_states("rugged", torch.ones(6, device="cuda"))
+    loop = HybridLoop(sim)
+    cs = loop.init_state(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    terrain.reset_samples()
+    t0 = time.perf_counter()
+    sim.rollout(None, TERRAIN_SETTLE_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    settle = time.perf_counter() - t0
+    start_xy = sim.state.qpos[:, :2].clone()
+    t0 = time.perf_counter()
+    cs, _rec = loop.run(cs, TERRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**read_counts(), "planes": terrain.samples["planes"]}
+    print(f"[terrain] config 3, {N_WORLDS} worlds: settle {TERRAIN_SETTLE_STEPS} steps in "
+          f"{settle:.2f} s, {TERRAIN_STEPS} closed-loop steps in {wall:.3f} s; counts {counts}")
+    want = {"megastep": TERRAIN_SETTLE_STEPS // MEGASTEP_K + TERRAIN_STEPS,
+            "planes": (TERRAIN_SETTLE_STEPS // MEGASTEP_K + TERRAIN_STEPS // TERRAIN_RESAMPLE),
+            "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"terrain: {name} {counts[name]} != {n}")
+    st = sim.state
+    for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"terrain: state.{name} not finite")
+    for name in ("phase", "amplitude"):
+        check(bool(torch.isfinite(getattr(cs.cpg, name)).all()), f"terrain: cpg {name} not finite")
+    z = st.qpos[:, 2]
+    walked = (st.qpos[:, :2] - start_xy).norm(dim=1)
+    print(f"[terrain] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
+          f"{z.max().item():.4f} mm, contact found share "
+          f"{st.contact_sensordata[..., 0].mean().item():.3f}, walked mean "
+          f"{walked.mean().item():.4f} mm (max {walked.max().item():.4f}) in "
+          f"{TERRAIN_STEPS * terrain_compiled.model.timestep:.3f} s, retraction/stumbling "
+          f"active share {(cs.retraction > 0).float().mean().item():.3f}/"
+          f"{(cs.stumbling > 0).float().mean().item():.3f}")
+    rate = TERRAIN_STEPS * N_WORLDS / wall
+    print(f"[terrain] {wall / TERRAIN_STEPS * 1e3:.3f} ms per closed-loop step: {rate:.0f} "
+          f"world-steps/s on {card_line()}")
+
+    # The split of one step by CUDA events: controller with its readouts, K2
+    # launch with its packing, and one plane sample per TERRAIN_RESAMPLE steps.
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = [0.0] * 3
+    state = sim.state
+    for _ in range(SPLIT_STEPS):
+        ev[0].record()
+        planes = loop.sample_planes(state)
+        ev[1].record()
+        state, cs = loop.control(state, cs)
+        ev[2].record()
+        state = loop.physics_step(state, planes)
+        ev[3].record()
+        ev[3].synchronize()
+        for i in range(3):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / SPLIT_STEPS
+    print(f"[terrain] one closed-loop step: K2 launch with its packing {parts[2]:.3f} ms, "
+          f"controller with its readouts {parts[1]:.3f} ms, plane sampling "
+          f"{parts[0] / TERRAIN_RESAMPLE:.4f} ms amortised ({parts[0]:.3f} ms per sample)")
+    print(f"[terrain] torch calls: controller with its readouts "
+          f"{torch_calls(lambda: loop.control(state, cs))}, plane sample "
+          f"{torch_calls(lambda: loop.sample_planes(state))}, K2 launch with its packing "
+          f"{torch_calls(lambda: loop.physics_step(state, planes))}")
+    # The host runs ahead of the card only if a step never waits for it.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, cs = loop.control(loop.physics_step(state, loop.sample_planes(state)), cs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Enabling the mode warns once that it is a prototype; only the
+    # "called a synchronizing CUDA operation" warnings are synchronisations.
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"[terrain] host synchronisations in one closed-loop step: {len(syncs)} {syncs}")
+    check(not syncs, "terrain: the closed-loop step waits for the card")
+    return counts
+
+
+def torch_calls(fn) -> int:
+    """How many torch functions and tensor methods one call of ``fn``
+    dispatches (each is at least one kernel launch or host operation)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def phase_terrain_golden(terrain_compiled, *, label: str, megastep) -> None:
+    """8 worlds from the JAX settled state, 48 closed-loop steps vs a JAX path."""
+    import numpy as np
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import load_terrain_golden
+    from flygym_tpu_torch.control import HybridState
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+    from flygym_tpu_torch.demo.hybrid_terrain import HybridLoop
+
+    golden = load_terrain_golden()
+    rec_want = golden["engine" if megastep is False else "emitter"]
+    n_worlds = golden["state"].qpos.shape[0]
+    sim = BatchSimulation(terrain_compiled, n_worlds, megastep=megastep,
+                          terrain_resample=golden["meta"]["terrain_resample"])
+    check(sim.megastep == (megastep is not False), f"{label}: wrong step")
+    sim.state = golden["state"].to("cuda")
+    loop = HybridLoop(sim)
+    cs = HybridState.from_numpy(golden["controller"], device="cuda")
+    n_steps = rec_want["qpos"].shape[0]
+    cs, rec = loop.run(cs, n_steps, record=True)
+    worst = {key: float(np.abs(rec[key].cpu().numpy() - rec_want[key]).max())
+             for key in ("qpos", "qvel")}
+    found = rec["sensordata"][..., 0].cpu().numpy() != rec_want["sensordata"][..., 0]
+    worst["found_share"] = float(found.mean())
+    phase_gap = float(np.abs(cs.cpg.phase.cpu().numpy()
+                             - rec_want["controller"]["phase"]).max())
+    print(f"[{label}] {n_worlds} worlds x {n_steps} closed-loop steps vs JAX: max|dqpos| "
+          f"{worst['qpos']:.3e}, max|dqvel| {worst['qvel']:.3e}, share of found flags "
+          f"differing {worst['found_share']:.4f}, max|dphase| {phase_gap:.3e}; "
+          f"tolerances {GOLDEN_TOLERANCE}")
+    for key, tol in GOLDEN_TOLERANCE.items():
+        check(worst[key] <= tol, f"{label} {key}: {worst[key]:.3e} > {tol}")
+
+
 def main() -> int:
     import torch
 
@@ -710,11 +976,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         import flygym_tpu_torch
-        from flygym_tpu_torch.compose.bridge import BENCHMARK_GOLDEN, ASSETS, ENV_FLY
+        from flygym_tpu_torch.compose.bridge import BENCHMARK_GOLDEN, ASSETS, ENV_FLY, TERRAIN_FLY
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
-        phase_build(compiled, env_compiled)
+        terrain_compiled = flygym_tpu_torch.load_compiled(TERRAIN_FLY)
+        phase_build(compiled, env_compiled, terrain_compiled)
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model)
         k2 = phase_megastep(compiled, model)
@@ -741,6 +1008,10 @@ def main() -> int:
         env_counts, _env_wall = phase_env(env_compiled)
         phase_env_golden(env_compiled, label="env golden megastep", megastep=None)
         phase_env_golden(env_compiled, label="env golden engine", megastep=False)
+        k2_terrain = phase_terrain_kernel(terrain_compiled, terrain_compiled.model.to("cuda"))
+        terrain_counts = phase_terrain(terrain_compiled)
+        phase_terrain_golden(terrain_compiled, label="terrain golden megastep", megastep=None)
+        phase_terrain_golden(terrain_compiled, label="terrain golden engine", megastep=False)
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -789,6 +1060,21 @@ def main() -> int:
         "plain_ms": retina["times"][1],
         "bound_ms": retina["bound"][0],
         "bound_by": retina["bound"][1],
+        "library_ms": None,
+    })
+    # K2 built for the terrain fly: its K = 1 launch, as config 3's closed
+    # loop makes it (1000 of its 1063 launches).
+    entries.append({
+        "name": "megastep_terrain",
+        "route": "cuda",
+        "source": "flygym_tpu_torch/csrc/megastep.cu",
+        "replaces": "flygym_tpu/ops/megastep.py:2477",
+        "launches": terrain_counts["megastep"],
+        "max_abs_err": k2_terrain["err"],
+        "ms": k2_terrain["times"][1][0],
+        "plain_ms": k2_terrain["times"][1][1],
+        "bound_ms": k2_terrain["bounds"][1][0],
+        "bound_by": k2_terrain["bounds"][1][1],
         "library_ms": None,
     })
     print(json.dumps({"kernels": entries}))

@@ -7,7 +7,9 @@ writes every array field, the static fields, the initial state and the
 fly's index maps to an ``.npz`` file, and :func:`model_from_numpy` turns
 them into the port's :class:`~flygym_tpu_torch.engine.model.PhysicsModel`.
 An RL env's world (``scripts/export_env_golden.py``) adds ``meta["env"]``:
-the env's index maps and tables, kept as :attr:`CompiledModel.env`.
+the env's index maps and tables, kept as :attr:`CompiledModel.env`. The
+blocks-terrain world of config 3 (``scripts/export_terrain_golden.py``)
+carries its height grid in the model's ``hfield_*`` fields.
 
 Models that use a feature the port does not have yet are refused here,
 with ``NotImplementedError``, rather than simulated wrongly.
@@ -30,7 +32,11 @@ __all__ = [
     "CompiledModel",
     "ENV_FLY",
     "ENV_GOLDEN",
+    "TERRAIN_FLY",
+    "TERRAIN_GOLDEN",
     "load_env_golden",
+    "load_terrain_golden",
+    "read_meta",
     "model_from_numpy",
     "load_compiled",
     "load_golden",
@@ -41,6 +47,8 @@ BENCHMARK_FLY = ASSETS / "benchmark_fly.npz"
 BENCHMARK_GOLDEN = ASSETS / "benchmark_fly_golden.npz"
 ENV_FLY = ASSETS / "env_fly.npz"
 ENV_GOLDEN = ASSETS / "env_fly_golden.npz"
+TERRAIN_FLY = ASSETS / "terrain_fly.npz"
+TERRAIN_GOLDEN = ASSETS / "terrain_fly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -85,7 +93,6 @@ def _refuse_unported(static: dict, arrays: dict) -> None:
         (kinds <= set(SUPPORTED_KINDS), f"actuator kinds {sorted(kinds)}"),
         (static["na"] == 0, "activation states (na > 0)"),
         (static["ncand_pair"] == 0, "fly-fly contact pair rows"),
-        (not static["has_hfield"], "heightfield terrain"),
         (static["solver_type"] != "pgs", "the PGS solver"),
         (not static["solver_exact"], "solver_exact"),
         (static["condim"] == 3, f"condim {static['condim']}"),
@@ -137,6 +144,11 @@ def _read_npz(path):
     return arrays, meta
 
 
+def read_meta(path) -> dict:
+    """The JSON metadata of an exported ``.npz`` file."""
+    return _read_npz(path)[1]
+
+
 def load_compiled(path=BENCHMARK_FLY) -> CompiledModel:
     """Load a compiled model written by ``scripts/export_torch_model.py``
     (by default the benchmark fly)."""
@@ -175,4 +187,30 @@ def load_env_golden(path=ENV_GOLDEN) -> dict:
             elif key.startswith(f"{path_name}."):
                 rec[key[len(path_name) + 1:]] = value
         out[path_name] = rec
+    return out
+
+
+def load_terrain_golden(path=TERRAIN_GOLDEN) -> dict:
+    """The JAX golden of config 3's closed loop: ``state`` (the settled
+    batched :class:`State`), ``offsets`` (B, 2) root offsets, ``controller``
+    (the initial controller state as numpy arrays), and for the two JAX paths
+    (``engine``, ``emitter``) per step ``qpos``, ``qvel``, ``sensordata``
+    and the final ``controller`` state; ``emitter["planes"]`` holds the
+    ground planes that path sampled every ``meta["terrain_resample"]``
+    steps."""
+    arrays, meta = _read_npz(path)
+    out = {"state": _state_of(arrays), "meta": meta, "offsets": arrays["offsets"],
+           "controller": {}}
+    for path_name in ("engine", "emitter"):
+        out[path_name] = {"controller": {}}
+    for key, value in arrays.items():
+        head, _, rest = key.partition(".")
+        if head == "controller":
+            out["controller"][rest] = value
+        elif head in ("engine", "emitter"):
+            sub, _, name = rest.partition(".")
+            if sub == "controller":
+                out[head]["controller"][name] = value
+            else:
+                out[head][rest] = value
     return out

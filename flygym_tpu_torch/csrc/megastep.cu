@@ -8,7 +8,8 @@
 //
 // One step per world: FK over the tree, motion subspace, velocities and bias
 // accelerations, spatial inertias, CRBA and RNEA, position and adhesion
-// actuator forces, every ground candidate (no top-K), pyramid rows with
+// actuator forces, every ground candidate (no top-K) against the flat plane
+// or, on a heightfield world, its sampled local plane, pyramid rows with
 // impedance and the adhesion split, primal Newton on the frozen tree-LDL^T
 // Hessian with the bisection + regula-falsi line search, semi-implicit Euler
 // and, on the last of the K fused steps only, the outputs (state, FK,
@@ -66,6 +67,18 @@
 #include <cstring>
 
 #include "megastep_model.h"
+
+// Heightfield worlds (slice d; the header defines MS_HFIELD): the local
+// ground plane [h, nx, ny, nz] of each candidate follows the state rows of
+// the input (N_AUX = 4 NCAND rows, sampled outside the kernel and read for
+// all K steps), and each candidate's contact frame (n, t1, t2) is kept in
+// the scratch rows S_FRAME. Flat worlds contact along the world's axes.
+#ifdef MS_HFIELD
+constexpr bool kHasHfield = true;
+#else
+constexpr bool kHasHfield = false;
+constexpr int N_AUX = 0, S_FRAME = 0;
+#endif
 
 namespace {
 
@@ -538,7 +551,7 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     if (h >= 0) s[S_QFRC + kHingeV[h]] = s[S_QFRC + kHingeV[h]] + force;
   }
 
-  // ---------------- contact candidates (flat ground) ----------------------
+  // ---------------- contact candidates (flat ground or terrain planes) ----
   MS_NOUNROLL
   for (int c = 0; c < NCAND; ++c) {
     const int b = kCandBody[c], cr = cand_row(c);
@@ -548,8 +561,29 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     const V3 zax = qrot(qmul(xq, TQ4(kCandGQuat, c)), V3{0.0f, 0.0f, 1.0f});
     const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
     const float rad = kCandRad[c];
-    const float dist = ep.z - kGroundZ - rad;
-    const V3 cpos = {ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+    float dist;
+    V3 cpos, fn{}, f1{}, f2{};
+    if (kHasHfield) {
+      // Distance along the plane's normal; the frame as the emitter's
+      // _contact_frames builds it: t1 from the x axis (the y axis for a
+      // steep normal) made orthogonal to n, t2 = n x t1.
+      const int pr = NQ + NV + K * NU + NA + NV + 4 * c;
+      const float h = in[pr];
+      fn = V3{in[pr + 1], in[pr + 2], in[pr + 3]};
+      dist = (ep.z - h) * fn.z - rad;
+      cpos = sub(ep, scale(fn, rad + 0.5f * dist));
+      const bool use_ey = fabsf(fn.x) > 0.9f;
+      const V3 seed = {use_ey ? 0.0f : 1.0f, use_ey ? 1.0f : 0.0f, 0.0f};
+      f1 = sub(seed, scale(fn, dot(seed, fn)));
+      f1 = scale(f1, 1.0f / fmaxf(sqrtf(dot(f1, f1)), 1e-12f));
+      f2 = cross(fn, f1);
+      st3(s, S_FRAME + 9 * c, fn);
+      st3(s, S_FRAME + 9 * c + 3, f1);
+      st3(s, S_FRAME + 9 * c + 6, f2);
+    } else {
+      dist = ep.z - kGroundZ - rad;
+      cpos = V3{ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+    }
     const bool active = dist < kCandMargin[c];
     const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
     const float x = clampf(fabsf(pos_err) / kSolWidth[c], 0.0f, 1.0f);
@@ -563,15 +597,16 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     s[cr + C_D] = active ? 1.0f / fmaxf(R, 1e-12f) : 0.0f;
     s[cr + C_ADH] = 0.0f;
     st3(s, cr + C_CPOS, cpos);
-    // Jacobian direction components jp = S_v + S_w x rel, flat frame.
+    // Jacobian direction components jp = S_v + S_w x rel along n, t1, t2:
+    // dots with the terrain frame, or the z, x, y components on flat ground.
     const V3 rel = sub(cpos, ref);
     const int p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
     for (int i = 0; i < np; ++i) {
       const V6 sd = ld6(s, S_SM + 6 * kPathDof[p0 + i]);
       const V3 jp = add(sd.v, cross(sd.w, rel));
-      s[comp_row(c, i, 0)] = jp.z;
-      s[comp_row(c, i, 1)] = jp.x;
-      s[comp_row(c, i, 2)] = jp.y;
+      s[comp_row(c, i, 0)] = kHasHfield ? dot(jp, fn) : jp.z;
+      s[comp_row(c, i, 1)] = kHasHfield ? dot(jp, f1) : jp.x;
+      s[comp_row(c, i, 2)] = kHasHfield ? dot(jp, f2) : jp.y;
     }
   }
   // Adhesion: each actuator's force split over its active candidates.
@@ -705,18 +740,31 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
         float count = 0.0f, fmag = 0.0f;
         V3 ff = {0.0f, 0.0f, 0.0f}, posw = ff, posp = ff, tw = ff;
         for (int j = j0; j < j1; ++j) count = count + s[cand_row(kSensCand[j]) + C_ACT];
-        // Contact-frame force of a candidate from its final rows.
-        auto frame_force = [&](int c) {
+        // Contact-frame force (n, t1, t2) of a candidate from its final
+        // rows, before and after the active mask.
+        auto raw_force = [&](int c) {
           const int cr = cand_row(c);
-          const float D = s[cr + C_D], act = s[cr + C_ACT];
+          const float D = s[cr + C_D];
           float lam[4];
           for (int r = 0; r < 4; ++r) {
             const float jr = s[cr + C_JAR + r];
             lam[r] = fmaxf(-D * (jr < 0.0f ? 1.0f : 0.0f) * jr, 0.0f);
           }
           const float fn = 0.0f + lam[0] + lam[1] + lam[2] + lam[3];
-          const float ft1 = kMu[c] * (lam[0] - lam[1]), ft2 = kMu[c] * (lam[2] - lam[3]);
-          return V3{fn * act, ft1 * act, ft2 * act};
+          return V3{fn, kMu[c] * (lam[0] - lam[1]), kMu[c] * (lam[2] - lam[3])};
+        };
+        auto frame_force = [&](int c) { return scale(raw_force(c), s[cand_row(c) + C_ACT]); };
+        // World force: the frame's axes weighted, or (t1, t2, n) = (x, y, z).
+        auto world_force = [&](int c) {
+          if (!kHasHfield) {
+            const V3 f = frame_force(c);
+            return V3{f.y, f.z, f.x};
+          }
+          const V3 f = raw_force(c);
+          const int fr = S_FRAME + 9 * c;
+          const V3 fw = add(add(scale(ld3(s, fr), f.x), scale(ld3(s, fr + 3), f.y)),
+                            scale(ld3(s, fr + 6), f.z));
+          return scale(fw, s[cand_row(c) + C_ACT]);
         };
         for (int j = j0; j < j1; ++j) {
           const int c = kSensCand[j];
@@ -737,18 +785,39 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
         const V3 pos = {by_force ? posw.x / fden : posp.x / cden,
                         by_force ? posw.y / fden : posp.y / cden,
                         by_force ? posw.z / fden : posp.z / cden};
+        // The sensor frame. Flat ground: normal z, tangent x. Terrain: the
+        // weighted mean normal and the mean t1 made orthogonal to it.
+        V3 nrm = {0.0f, 0.0f, 1.0f}, tan = {1.0f, 0.0f, 0.0f};
+        if (kHasHfield) {
+          V3 nsum = {0.0f, 0.0f, 0.0f}, tsum = nsum;
+          for (int j = j0; j < j1; ++j) {
+            const int c = kSensCand[j];
+            const float w = s[cand_row(c) + C_ACT];
+            nsum = add(nsum, scale(ld3(s, S_FRAME + 9 * c), w));
+            tsum = add(tsum, scale(ld3(s, S_FRAME + 9 * c + 3), w));
+          }
+          const float nn = sqrtf(dot(nsum, nsum));
+          const bool nok = nn > 1e-9f;
+          const float nden = fmaxf(nn, 1e-12f);
+          nrm = V3{nok ? nsum.x / nden : 0.0f, nok ? nsum.y / nden : 0.0f,
+                   nok ? nsum.z / nden : 1.0f};
+          tsum = sub(tsum, scale(nrm, dot(tsum, nrm)));
+          const float tn = sqrtf(dot(tsum, tsum));
+          const bool tok = tn > 1e-9f;
+          const float tden = fmaxf(tn, 1e-12f);
+          tan = V3{tok ? tsum.x / tden : 1.0f, tok ? tsum.y / tden : 0.0f,
+                   tok ? tsum.z / tden : 0.0f};
+        }
         for (int j = j0; j < j1; ++j) {
           const int c = kSensCand[j], cr = cand_row(c);
           const float w = s[cr + C_ACT];
-          const V3 f = frame_force(c);
-          const V3 tq = cross(sub(ld3(s, cr + C_CPOS), pos), V3{f.y, f.z, f.x});
+          const V3 tq = cross(sub(ld3(s, cr + C_CPOS), pos), world_force(c));
           tw = add(tw, scale(tq, w));
         }
-        // Flat ground: normal z, tangent x, t2 = normal x tangent = y.
-        const V3 nrm = {0.0f, 0.0f, 1.0f}, tan = {1.0f, 0.0f, 0.0f}, t2 = cross(nrm, tan);
+        const V3 t2 = cross(nrm, tan);
         const float vals[16] = {count > 0.0f ? 1.0f : 0.0f, ff.x, ff.y, ff.z,
                                 dot(tw, nrm), dot(tw, tan), dot(tw, t2),
-                                pos.x, pos.y, pos.z, 0.0f, 0.0f, 1.0f, 1.0f, 0.0f, 0.0f};
+                                pos.x, pos.y, pos.z, nrm.x, nrm.y, nrm.z, tan.x, tan.y, tan.z};
         for (int r = 0; r < 16; ++r) row[r] = vals[r];
       }
       for (int r = 0; r < 16; ++r) out[r0 + r] = row[r];

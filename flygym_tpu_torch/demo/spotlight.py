@@ -28,20 +28,34 @@ class MotionSnippet:
 
     Args:
         data_path: NPZ recording; None loads the bundled clip.
+        keypoints: the keypoint labels, as (leg, link, link or None)
+            tuples. None takes the bundled clip's, which the clip stores as
+            pickled objects that this loader does not read: the export of
+            the terrain world (``scripts/export_terrain_golden.py``) keeps
+            them as JSON in ``terrain_fly.npz``.
 
     Attributes:
         joint_angles: (n_frames, 6 legs, 7 DoFs per leg) radians.
+        fwdkin_egoxyz: (n_frames, n_keypoints, 3) keypoint positions in the
+            ego frame.
+        keypoints: the labels of its keypoints.
         legs: leg labels, e.g. ``"lf"``.
         dofs_per_leg: (parent link, child link, axis) per DoF slot.
         data_fps: recording frame rate in Hz.
     """
 
-    def __init__(self, data_path=None) -> None:
+    def __init__(self, data_path=None, keypoints=None) -> None:
         with np.load(data_path or DEFAULT_CLIP_PATH, allow_pickle=False) as npz:
             self.joint_angles = np.array(npz["joint_angles"], copy=True)
+            self.fwdkin_egoxyz = np.asarray(npz["fwdkin_egoxyz"])
             self.legs = npz["legs"].tolist()
             self.dofs_per_leg = [tuple(x) for x in npz["dofs_per_leg"].tolist()]
             self.data_fps = npz["data_fps"].item()
+        if keypoints is None:
+            from flygym_tpu_torch.compose.bridge import TERRAIN_FLY, read_meta
+
+            keypoints = read_meta(TERRAIN_FLY)["clip_keypoints"]
+        self.keypoints = [tuple(k) for k in keypoints]
         on_right = np.array([leg[0] == "r" for leg in self.legs])
         is_mirror_axis = np.array(
             [axis in ("roll", "yaw") for _p, _c, axis in self.dofs_per_leg]

@@ -1,9 +1,10 @@
 """Ground contacts, adhesion and the primal Newton contact solver, batch-first.
 
-Port of ``flygym_tpu/engine/contact.py`` (lines 116-175, 256-357, 441-753)
-for ground rows on flat ground with condim 3:
+Port of ``flygym_tpu/engine/contact.py`` (lines 46-85, 116-175, 256-357,
+441-753) for ground rows with condim 3:
 
-1. Capsule-end vs ground-plane candidates from the static candidate table.
+1. Capsule-end vs ground candidates from the static candidate table, on a
+   flat plane or on a heightfield (:func:`ground_height_normal`).
 2. The ``ncon`` closest candidates go to the solver. They are chosen with a
    stable sort, which keeps the lower candidate index first among equal
    distances, as ``jax.lax.top_k`` does: at rest the left and right legs can
@@ -19,18 +20,24 @@ for ground rows on flat ground with condim 3:
    functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU), with the
    reference's bisection line search.
 
-Pair rows, heightfields, PGS, ``solver_exact`` and condim other than 3 are
-refused when a model is loaded.
+Pair rows, PGS, ``solver_exact`` and condim other than 3 are refused when a
+model is loaded.
 """
 
 import torch
 
 from flygym_tpu_torch.engine.actuation import clamp_ctrl
-from flygym_tpu_torch.engine.maths import cross, norm, quat_rotate
+from flygym_tpu_torch.engine.maths import cross, norm, quat_rotate, sqrt_rn
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel
 from flygym_tpu_torch.ops import ldl
 
-__all__ = ["contact_candidates", "select_contacts", "solve_contacts", "ContactInfo"]
+__all__ = [
+    "contact_candidates",
+    "ground_height_normal",
+    "select_contacts",
+    "solve_contacts",
+    "ContactInfo",
+]
 
 _NROWS = 4  # pyramid rows per condim-3 contact
 
@@ -42,18 +49,56 @@ class ContactInfo:
         self.__dict__.update(kw)
 
 
+def ground_height_normal(model: PhysicsModel, xy: torch.Tensor):
+    """Ground height (...) and unit normal (..., 3) under (..., 2) positions.
+
+    Flat worlds give ``ground_pos`` z and (0, 0, 1). Heightfield worlds
+    interpolate the grid bilinearly and take the normal from the cell
+    gradient, in the JAX package's order of operations; the normal's length
+    is ``sqrt`` of the sum of squares, rounded once, as ``jnp.linalg.norm``
+    rounds it on the CPU.
+    """
+    if not model.has_hfield:
+        h = model.ground_pos[2].expand(xy.shape[:-1])
+        n = torch.zeros(xy.shape[:-1] + (3,), dtype=xy.dtype, device=xy.device)
+        n[..., 2] = 1.0
+        return h, n
+    data = model.hfield_data
+    nr, nc = data.shape
+    fx = (xy[..., 0] - model.hfield_xy0[0]) / model.hfield_cell[0]
+    fy = (xy[..., 1] - model.hfield_xy0[1]) / model.hfield_cell[1]
+    fx = torch.clamp(fx, 0.0, float(torch.tensor(nc - 1.001, dtype=torch.float32)))
+    fy = torch.clamp(fy, 0.0, float(torch.tensor(nr - 1.001, dtype=torch.float32)))
+    ix, iy = torch.floor(fx), torch.floor(fy)
+    tx, ty = fx - ix, fy - iy
+    ix, iy = ix.long(), iy.long()
+    h00, h01 = data[iy, ix], data[iy, ix + 1]
+    h10, h11 = data[iy + 1, ix], data[iy + 1, ix + 1]
+    h = h00 * (1 - tx) * (1 - ty) + h01 * tx * (1 - ty) + h10 * (1 - tx) * ty + h11 * tx * ty
+    dh_dx = ((h01 - h00) * (1 - ty) + (h11 - h10) * ty) / model.hfield_cell[0]
+    dh_dy = ((h10 - h00) * (1 - tx) + (h11 - h01) * tx) / model.hfield_cell[1]
+    n = torch.stack([-dh_dx, -dh_dy, torch.ones_like(h)], dim=-1)
+    length = sqrt_rn(n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2])
+    return h, n / length[..., None]
+
+
+def candidate_endpoints(model: PhysicsModel, gpos, gquat):
+    """(B, ncand, 3) world positions of the candidates' capsule ends."""
+    # The z axis made on the device: a copy from the host, even of one
+    # scalar, would wait for the card's queue to drain.
+    ez = torch.cat([gpos.new_zeros(2), gpos.new_ones(1)])
+    z_all = quat_rotate(gquat, ez)
+    g = model.can_geom
+    halflen = model.geom_size[g, 1]
+    return gpos[:, g] + model.can_end[:, None] * halflen[:, None] * z_all[:, g]
+
+
 def contact_candidates(model: PhysicsModel, gpos, gquat):
     """Signed distances (B, ncand), positions and normals (B, ncand, 3) of
-    every capsule-end vs ground candidate."""
-    z_all = quat_rotate(gquat, gpos.new_tensor([0.0, 0.0, 1.0]))
-    g = model.can_geom
-    z_axis = z_all[:, g]
-    radius = model.geom_size[g, 0]
-    halflen = model.geom_size[g, 1]
-    endpoint = gpos[:, g] + model.can_end[:, None] * halflen[:, None] * z_axis
-    h = model.ground_pos[2]
-    n = torch.zeros_like(endpoint)
-    n[..., 2] = 1.0
+    every capsule-end vs ground candidate, along the local ground normal."""
+    endpoint = candidate_endpoints(model, gpos, gquat)
+    radius = model.geom_size[model.can_geom, 0]
+    h, n = ground_height_normal(model, endpoint[..., :2])
     dist = (endpoint[..., 2] - h) * n[..., 2] - radius
     cpos = endpoint - (radius + 0.5 * dist)[..., None] * n
     return dist, cpos, n

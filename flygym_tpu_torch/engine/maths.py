@@ -15,6 +15,7 @@ import torch
 
 __all__ = [
     "cross",
+    "sqrt_rn",
     "norm",
     "quat_mul",
     "quat_conj",
@@ -36,6 +37,13 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross product of (..., 3) vectors, broadcasting like ``jnp.cross``."""
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt rounded once, as sqrtf (XLA's and the kernels') rounds
+    it: torch's vectorised CPU sqrt is off by an ulp in ~0.7% of arguments;
+    a float64 sqrt rounded to float32 is exact."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:

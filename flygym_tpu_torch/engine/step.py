@@ -114,6 +114,7 @@ def rollout_batched(
     record: bool = True,
     batched_step=None,
     kstep_fn=None,
+    terrain_resample: int = 8,
 ):
     """Step ``n_steps`` times.
 
@@ -127,6 +128,13 @@ def rollout_batched(
             ``n_steps`` must be a multiple of its ``k_steps``. The loop then
             makes n_steps / K launches, forward-filling the NaN controls of
             each chunk before its launch (``flygym_tpu/engine/step.py:256-277``).
+        terrain_resample: On a heightfield world a mega-step carries
+            ``sample_planes``. The K-chunk path samples the ground planes
+            once per chunk; the one-step path once every
+            ``terrain_resample`` steps when that number (> 1) divides
+            ``n_steps``, and otherwise the step samples them at every step
+            (``flygym_tpu/engine/step.py:269, 283-308``). Candidates move
+            ~1e-3 mm per step against 0.25 mm terrain cells.
 
     Returns:
         (final state, (n_steps, B, nq) qpos trajectory or None).
@@ -136,25 +144,33 @@ def rollout_batched(
         K = kstep_fn.k_steps
         if n_steps % K:
             raise ValueError(f"n_steps={n_steps} is not a multiple of k_steps={K}")
+        sample_planes = getattr(kstep_fn, "sample_planes", None)
         for t0 in range(0, n_steps, K):
             eff, prev = [], state.ctrl
             for t in range(t0, t0 + K):
                 if ctrl_seq is not None:
                     prev = torch.where(torch.isnan(ctrl_seq[t]), prev, ctrl_seq[t])
                 eff.append(prev)
-            state, qpos_k = kstep_fn(state, torch.stack(eff))
+            if sample_planes is None:
+                state, qpos_k = kstep_fn(state, torch.stack(eff))
+            else:
+                state, qpos_k = kstep_fn(state, torch.stack(eff), sample_planes(state))
             if record:
                 traj.extend(qpos_k)
         return state, (torch.stack(traj) if record else None)
 
     step_fn = batched_step if batched_step is not None else (lambda s: step(model, s))
+    sample_planes = getattr(batched_step, "sample_planes", None)
+    chunked = sample_planes is not None and terrain_resample > 1 and n_steps % terrain_resample == 0
     for t in range(n_steps):
+        if chunked and t % terrain_resample == 0:
+            planes = sample_planes(state)
         if ctrl_seq is not None:
             ctrl_t = ctrl_seq[t]
             state = replace(
                 state, ctrl=torch.where(torch.isnan(ctrl_t), state.ctrl, ctrl_t)
             )
-        state = step_fn(state)
+        state = step_fn(state, planes) if chunked else step_fn(state)
         if record:
             traj.append(state.qpos)
     return state, (torch.stack(traj) if record else None)

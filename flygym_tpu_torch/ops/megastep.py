@@ -9,26 +9,33 @@ Three parts:
   (``emit_step``, ``_cand_geom``, the fused ``_contacts_impl``, the tree
   LDLᵀ and ``_emit_sensors``) over lists of (B,) tensors, op for op and in
   the same order, with the same trace-time folding of the model's zeros and
-  ±1s. :func:`megastep_plain` packs a :class:`State` into those lists and
-  chains K steps.
+  ±1s. On a heightfield world each candidate's ground is the local plane
+  [h, nx, ny, nz] of its input rows, with a contact frame (n, t1, t2) per
+  candidate; on flat ground the frame is the world's axes.
+  :func:`megastep_plain` packs a :class:`State` into those lists and chains
+  K steps with one set of planes.
 - :func:`make_megastep`, the wrapper of the kernel in
   ``flygym_tpu_torch/csrc/megastep.cu``. The model's constants reach the
   kernel as a generated header (:func:`model_header`), built with the
   kernel by :mod:`flygym_tpu_torch.ops._build`. For a CPU tensor the wrapper
   runs :func:`megastep_plain`; for a CUDA tensor it launches K2 or raises.
+  On a heightfield world it carries ``sample_planes`` (the plane sampler of
+  :mod:`flygym_tpu_torch.engine.terrain`) and takes ``terrain_planes=``.
 
 ``launches["megastep"]`` counts kernel launches; only a launch adds to it.
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
 and gates, the streamed emitter, H0-matvec mode, sublane packing. Not yet
-ported (later slices of K2): other actuator kinds, heightfield planes, pair
-rows, ``solver_exact``; :func:`megastep_supported` refuses those models.
+ported (later slices of K2): other actuator kinds, pair rows,
+``solver_exact``; :func:`megastep_supported` refuses those models.
 """
 
 import numpy as np
 import torch
 
+from flygym_tpu_torch.engine.maths import sqrt_rn
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State
+from flygym_tpu_torch.engine.terrain import make_plane_sampler
 
 __all__ = [
     "emit_step",
@@ -400,6 +407,7 @@ class _Static:
         self.can_sensor = f(model.can_sensor)
         self.can_invweight = f(model.can_invweight)
         self.ground_z = float(f(model.ground_pos)[2])
+        self.has_hfield = bool(model.has_hfield)
         self.nsensor = model.nsensor_contact
 
         # Candidates grouped by adhesion actuator and by sensor slot.
@@ -427,14 +435,13 @@ class _Static:
 def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
     (``megastep.py:934-989``) as far as this slice goes — Newton without
-    ``solver_exact``, no welds, flat ground, no pair rows, condim 3, no
+    ``solver_exact``, no welds, no pair rows, condim 3, no
     activation states, position and adhesion actuators only, and candidate
     paths that run down one chain of the tree. There is no VMEM estimate."""
     if (
         model.solver_type != "newton"
         or model.solver_exact
         or model.welds
-        or model.has_hfield
         or model.ncand_pair
         or model.condim != 3
         or model.na
@@ -461,12 +468,14 @@ def _path_on_chain(st: _Static, body: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def emit_step(st: _Static, q, v, ctrl, act, warm):
-    """One physics step (the JAX ``emit_step`` for flat ground).
+def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None):
+    """One physics step (the JAX ``emit_step`` for ground rows).
 
     Args:
         st: The static model snapshot.
         q, v, ctrl, act, warm: Lists of (B,) tensors (nq, nv, nu, na, nv).
+        terrain: Per candidate the local ground plane (h, nx, ny, nz) as
+            (B,) tensors on a heightfield world; None on flat ground.
 
     Returns:
         dict of lists of (B,) tensors: qpos, qvel, act, qacc, xpos (nbody
@@ -718,7 +727,7 @@ def emit_step(st: _Static, q, v, ctrl, act, warm):
             qfrc[d] = qfrc[d] + force
 
     # ---------------- contacts --------------------------------------------
-    qacc, cons = _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z)
+    qacc, cons = _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
 
     # ---------------- integrate -------------------------------------------
     v_new = [v[d] + dt * qacc[d] for d in range(st.nv)]
@@ -765,10 +774,12 @@ def emit_step(st: _Static, q, v, ctrl, act, warm):
     )
 
 
-def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache):
+def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
     """Ground-contact geometry and constraint-dynamics scalars of candidate
-    ``cidx`` (a capsule end against the flat plane; the contact frame is
-    the world's axes, n = z, t1 = x, t2 = y)."""
+    ``cidx``: a capsule end against the flat plane, whose contact frame is
+    the world's axes (n = z, t1 = x, t2 = y; ``frame`` None), or against its
+    local terrain plane, with the frame (n, t1, t2) built from the plane's
+    normal as the JAX ``_contact_frames`` builds it."""
 
     def geom_world_frame(gi):
         if gi in geom_cache:
@@ -789,8 +800,21 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache):
     halflen = float(st.geom_size[gi, 1])
     end = float(st.can_end[cidx])
     ep = _add3(gpos, _scale3(zax, end * halflen))
-    dist = ep[2] - st.ground_z - radius
-    cpos = (ep[0], ep[1], ep[2] - (radius + 0.5 * dist))
+    if terrain is None:
+        dist = ep[2] - st.ground_z - radius
+        cpos = (ep[0], ep[1], ep[2] - (radius + 0.5 * dist))
+        frame = None
+    else:
+        h_c, nx_c, ny_c, nz_c = terrain[cidx]
+        n_c = (nx_c, ny_c, nz_c)
+        dist = (ep[2] - h_c) * nz_c - radius
+        cpos = _sub3(ep, _scale3(n_c, radius + 0.5 * dist))
+        use_ey = torch.abs(n_c[0]) > 0.9
+        seed = (torch.where(use_ey, 0.0, 1.0), torch.where(use_ey, 1.0, 0.0), z)
+        t1 = _sub3(seed, _scale3(n_c, _dot3(seed, n_c)))
+        t1n = torch.clamp(sqrt_rn(_dot3(t1, t1)), min=1e-12)
+        t1 = _scale3(t1, 1.0 / t1n)
+        frame = (n_c, t1, _cross(n_c, t1))
     margin = float(st.can_margin[cidx])
     active = dist < margin
 
@@ -814,15 +838,17 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache):
         k_gain=1.0 / (dmax * dmax * tc * tc * dr * dr),
         mu=float(st.can_friction[cidx][0]),
         invweight=float(st.can_invweight[cidx, 0]),
+        frame=frame,
     )
 
 
-def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z):
+def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain):
     """Candidate rows, tree LDLᵀ and frozen-Hessian primal Newton with the
     bisection line search (the JAX ``_contacts_impl``, fused, condim 3)."""
     nv = st.nv
     geom_cache = {}
-    cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache) for c in range(st.ncand)]
+    cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache, terrain)
+            for c in range(st.ncand)]
     tags = ["t1", "t2"]
 
     for c in cons:
@@ -845,13 +871,20 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z):
 
     def dof_components(c):
         """Jacobian direction components along the path: jp_d = S_v[d] +
-        S_w[d] × rel in the flat frame (n = z, t1 = x, t2 = y). The free
-        joint's translation columns fold to Python floats 0/1."""
+        S_w[d] × rel in the contact frame. The flat frame (n = z, t1 = x,
+        t2 = y) picks components, and the free joint's translation columns
+        fold to Python floats 0/1; a terrain frame dots jp into n, t1, t2,
+        and a translation column picks the frame vectors' components."""
         rel = c["rel"]
+        frame = c["frame"]
         comps = {"n": [], "t1": [], "t2": []}
         for d in c["path"]:
             fa = st.free_dof_axis.get(d)
             if fa is not None and fa < 3:
+                if frame is not None:
+                    for t, vec in zip(("n", "t1", "t2"), frame):
+                        comps[t].append(vec[fa])
+                    continue
                 e = [0.0, 0.0, 0.0]
                 e[fa] = 1.0
                 jp = e
@@ -862,9 +895,13 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z):
             else:
                 w_, v_ = S[d]
                 jp = _add3(v_, _cross(w_, rel))
-            comps["n"].append(jp[2])
-            comps["t1"].append(jp[0])
-            comps["t2"].append(jp[1])
+            if frame is None:
+                comps["n"].append(jp[2])
+                comps["t1"].append(jp[0])
+                comps["t2"].append(jp[1])
+            else:
+                for t, vec in zip(("n", "t1", "t2"), frame):
+                    comps[t].append(_dot3(jp, vec))
         return comps
 
     def products(c, comps, vec):
@@ -1042,7 +1079,13 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z):
         ft2 = c["mu"] * (lam_c[2] - lam_c[3])
         act_m = torch.where(c["active"], 1.0, 0.0)
         c["f_frame"] = (fn * act_m, ft1 * act_m, ft2 * act_m)
-        c["f_world"] = (ft1 * act_m, ft2 * act_m, fn * act_m)
+        if c["frame"] is None:
+            c["f_world"] = (ft1 * act_m, ft2 * act_m, fn * act_m)
+        else:
+            n_f, t1_f, t2_f = c["frame"]
+            c["f_world"] = tuple(
+                (fn * n_f[i] + ft1 * t1_f[i] + ft2 * t2_f[i]) * act_m for i in range(3)
+            )
     return a_vec, cons
 
 
@@ -1092,7 +1135,8 @@ def _tree_solve(st, L, dvec, b):
 
 
 def _emit_sensors(st, cons, z, one):
-    """Per-leg 16-value net-force sensors, flat ground."""
+    """Per-leg 16-value net-force sensors; on terrain the sensor frame is
+    the weighted mean normal and the re-orthogonalised mean tangent."""
     out = []
     for s in range(st.nsensor):
         group = [cons[c] for c in st.sensor_groups[s]]
@@ -1125,8 +1169,31 @@ def _emit_sensors(st, cons, z, one):
             )
             for i in range(3)
         ]
-        normal = (z, z, one)
-        tangent = (one, z, z)
+        if group[0]["frame"] is None:
+            normal = (z, z, one)
+            tangent = (one, z, z)
+        else:
+            n_sum = [z, z, z]
+            t_sum = [z, z, z]
+            for c, w_ in zip(group, w):
+                n_f, t1_f, _ = c["frame"]
+                for i in range(3):
+                    n_sum[i] = n_sum[i] + n_f[i] * w_
+                    t_sum[i] = t_sum[i] + t1_f[i] * w_
+            nn = sqrt_rn(_dot3(n_sum, n_sum))
+            normal = tuple(
+                torch.where(nn > 1e-9, n_sum[i] / torch.clamp(nn, min=1e-12),
+                            1.0 if i == 2 else 0.0)
+                for i in range(3)
+            )
+            tdn = _dot3(t_sum, normal)
+            t_sum = [t_sum[i] - tdn * normal[i] for i in range(3)]
+            tn = sqrt_rn(_dot3(t_sum, t_sum))
+            tangent = tuple(
+                torch.where(tn > 1e-9, t_sum[i] / torch.clamp(tn, min=1e-12),
+                            1.0 if i == 0 else 0.0)
+                for i in range(3)
+            )
         t2 = _cross(normal, tangent)
         tw = [z, z, z]
         for c, w_ in zip(group, w):
@@ -1145,14 +1212,21 @@ def _emit_sensors(st, cons, z, one):
 
 def _io_rows(st: _Static, k_steps: int) -> tuple:
     """(n_in, n_out) rows of the kernel's input and output at K steps:
-    in = qpos, qvel, K ctrl slices, act, qacc; out = (K-1) qpos rows, then
-    qpos, qvel, act, qacc, xpos, xquat, site_xpos, actuator_force, sensors."""
-    n_in = st.nq + st.nv + k_steps * st.nu + st.na + st.nv
+    in = qpos, qvel, K ctrl slices, act, qacc, then on a heightfield world
+    the 4 plane rows [h, nx, ny, nz] of each candidate; out = (K-1) qpos
+    rows, then qpos, qvel, act, qacc, xpos, xquat, site_xpos,
+    actuator_force, sensors."""
+    n_in = st.nq + st.nv + k_steps * st.nu + st.na + st.nv + _n_aux(st)
     n_out = (
         (k_steps - 1) * st.nq + st.nq + 2 * st.nv + st.na
         + 7 * st.nbody + 3 * st.nsite + st.nu + 16 * st.nsensor
     )
     return n_in, n_out
+
+
+def _n_aux(st: _Static) -> int:
+    """Plane input rows of a heightfield world (JAX ``megastep.py:2457``)."""
+    return 4 * st.ncand if st.has_hfield else 0
 
 
 def _unpack(st: _Static, out: torch.Tensor, state: State, ctrl, k_steps: int):
@@ -1184,23 +1258,31 @@ def _unpack(st: _Static, out: torch.Tensor, state: State, ctrl, k_steps: int):
     return new, torch.cat([traj.transpose(0, 1), qpos[None]], dim=0)
 
 
-def megastep_plain(st: _Static, state: State, ctrl_seq: torch.Tensor | None = None):
+def megastep_plain(st: _Static, state: State, ctrl_seq: torch.Tensor | None = None,
+                   terrain_planes: torch.Tensor | None = None):
     """K chained plain steps (the plain version of K2).
 
     Args:
         ctrl_seq: (K, B, nu) controls of the K steps, NaN-free; None is one
             step with ``state.ctrl``.
+        terrain_planes: (B, ncand, 4) ground planes [h, nx, ny, nz] for all
+            K steps; required on a heightfield world, None on flat ground.
 
     Returns:
         The new State for one step; ``(state, (K, B, nq) qpos rows)`` with a
         ``ctrl_seq``.
     """
     cols = lambda x: [x[:, i] for i in range(x.shape[1])]
+    if st.has_hfield != (terrain_planes is not None):
+        raise ValueError("terrain planes are needed on a heightfield world, and only there")
+    terrain = None
+    if terrain_planes is not None:
+        terrain = [tuple(terrain_planes[:, c, k] for k in range(4)) for c in range(st.ncand)]
     q, v, act, warm = cols(state.qpos), cols(state.qvel), cols(state.act), cols(state.qacc)
     ctrls = [state.ctrl] if ctrl_seq is None else list(ctrl_seq)
     traj = []
     for ctrl in ctrls:
-        r = emit_step(st, q, v, cols(ctrl), act, warm)
+        r = emit_step(st, q, v, cols(ctrl), act, warm, terrain)
         q, v, act, warm = r["qpos"], r["qvel"], r["act"], r["qacc"]
         traj.append(torch.stack(q, dim=1))
     B = state.qpos.shape[0]
@@ -1300,6 +1382,11 @@ def model_header(model: PhysicsModel) -> tuple:
     lines.append(f"constexpr float kHalfDt = {_f32(0.5 * dt)};")
     lines.append(f"constexpr float kGroundZ = {_f32(st.ground_z)};")
     lines.append(f"constexpr float kAlphaMax = {_f32(_LS_ALPHA_MAX)};")
+    if st.has_hfield:
+        # Heightfield world: 4 plane rows per candidate follow the state
+        # rows of the input, and 9 frame rows per candidate the scratch.
+        lines.append("#define MS_HFIELD 1")
+        const("N_AUX", _n_aux(st))
 
     # Scratch rows per world (world-minor in the kernel).
     layout = [
@@ -1311,6 +1398,8 @@ def model_header(model: PhysicsModel) -> tuple:
         ("S_AF", max(st.nu, 1)), ("S_CCL", max(st.nu, 1)),
         ("S_COMP", 3 * maxp * st.ncand), ("S_CAND", 24 * st.ncand),
     ]
+    if st.has_hfield:
+        layout.append(("S_FRAME", 9 * st.ncand))
     off = 0
     for name, n in layout:
         const(name, off)
@@ -1444,10 +1533,15 @@ def _raise_on_error(lib, err: int) -> None:
 def make_megastep(model: PhysicsModel, k_steps: int = 1):
     """A batched step through K2 that fuses ``k_steps`` physics steps.
 
-    With ``k_steps == 1`` the function is ``fn(state) -> state``; with K > 1
-    it is ``fn(state, ctrl_seq) -> (state, (K, B, nq) qpos rows)``, where
-    ``ctrl_seq`` is (K, B, nu) of NaN-free controls (``make_megastep`` of the
-    JAX package, ``megastep.py:2422-2452``).
+    With ``k_steps == 1`` the function is ``fn(state, terrain_planes=None)
+    -> state``; with K > 1 it is ``fn(state, ctrl_seq, terrain_planes=None)
+    -> (state, (K, B, nq) qpos rows)``, where ``ctrl_seq`` is (K, B, nu) of
+    NaN-free controls (``make_megastep`` of the JAX package,
+    ``megastep.py:2422-2452``). On a heightfield world ``fn.sample_planes(
+    state)`` gives the (B, ncand, 4) ground planes under the state's cached
+    pose, which one launch reads for all its K steps; without
+    ``terrain_planes`` the function samples them itself. On flat ground
+    ``fn.sample_planes`` is None.
 
     For CPU tensors the function runs :func:`megastep_plain`. For CUDA
     tensors it packs the state world-minor, (n_in, B), launches K2 once on
@@ -1462,14 +1556,27 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
     st = _Static(model)
     n_in, n_out = _io_rows(st, K)
     built = {}
+    sampler = make_plane_sampler(model)
 
-    def run(state: State, ctrl_seq):
+    def sample_planes(state: State) -> torch.Tensor:
+        return sampler(state.xpos, state.xquat)
+
+    def run(state: State, ctrl_seq, terrain_planes):
         if ctrl_seq is not None and tuple(ctrl_seq.shape) != (K,) + tuple(state.ctrl.shape):
             raise ValueError(f"ctrl_seq: expected {(K,) + tuple(state.ctrl.shape)}, "
                              f"got {tuple(ctrl_seq.shape)}")
+        B = state.qpos.shape[0]
+        if sampler is None:
+            if terrain_planes is not None:
+                raise ValueError("terrain_planes given for a world without a heightfield")
+        elif terrain_planes is None:
+            terrain_planes = sample_planes(state)
+        elif tuple(terrain_planes.shape) != (B, st.ncand, 4):
+            raise ValueError(f"terrain_planes: expected {(B, st.ncand, 4)}, "
+                             f"got {tuple(terrain_planes.shape)}")
         dev = state.qpos.device
         if dev.type == "cpu":
-            return megastep_plain(st, state, ctrl_seq)
+            return megastep_plain(st, state, ctrl_seq, terrain_planes)
         if dev.type != "cuda":
             raise RuntimeError(f"the mega-step kernel runs on CUDA tensors, got {dev}")
         if not built:
@@ -1478,12 +1585,12 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
             header, n_scratch = model_header(model)
             built["lib"], built["n_scratch"] = load_megastep(header), n_scratch
         lib = built["lib"]
-        B = state.qpos.shape[0]
         ctrl_rows = (state.ctrl if ctrl_seq is None else ctrl_seq).reshape(-1, B, st.nu)
-        packed = torch.cat(
-            [state.qpos.t(), state.qvel.t(), ctrl_rows.permute(0, 2, 1).reshape(K * st.nu, B),
-             state.act.t(), state.qacc.t()]
-        )
+        parts = [state.qpos.t(), state.qvel.t(),
+                 ctrl_rows.permute(0, 2, 1).reshape(K * st.nu, B), state.act.t(), state.qacc.t()]
+        if terrain_planes is not None:
+            parts.append(terrain_planes.reshape(B, 4 * st.ncand).t())
+        packed = torch.cat(parts)
         if packed.dtype != torch.float32:
             raise TypeError(f"the mega-step kernel takes float32 state, got {packed.dtype}")
         if packed.shape[0] != n_in:
@@ -1502,12 +1609,13 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
         return new if ctrl_seq is None else (new, traj)
 
     if K == 1:
-        def fn(state: State) -> State:
-            return run(state, None)
+        def fn(state: State, terrain_planes: torch.Tensor | None = None) -> State:
+            return run(state, None, terrain_planes)
     else:
-        def fn(state: State, ctrl_seq: torch.Tensor):
-            return run(state, ctrl_seq)
+        def fn(state: State, ctrl_seq: torch.Tensor, terrain_planes: torch.Tensor | None = None):
+            return run(state, ctrl_seq, terrain_planes)
 
     fn.k_steps = K
     fn.static = st
+    fn.sample_planes = None if sampler is None else sample_planes
     return fn

@@ -23,7 +23,7 @@ and ray-major layouts and the ``layout=`` argument.
 import numpy as np
 import torch
 
-from flygym_tpu_torch.engine.maths import quat_mul, quat_rotate
+from flygym_tpu_torch.engine.maths import quat_mul, quat_rotate, sqrt_rn
 from flygym_tpu_torch.engine.model import PhysicsModel, State
 
 __all__ = [
@@ -47,13 +47,6 @@ launches = {"retina": 0}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """float32 sqrt rounded once, as sqrtf (the kernel's and XLA's) rounds
-    it: torch's vectorised CPU sqrt is off by an ulp in ~0.7% of arguments;
-    a float64 sqrt rounded to float32 is exact."""
-    return torch.sqrt(x.double()).float()
 
 
 def retina_kernel_supported(model: PhysicsModel) -> bool:
@@ -186,17 +179,17 @@ def retina_plain(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
         b_ = g_baba * rdoa - g_baoa * bard
         h_ = b_ * b_ - a_ * at(c_cyl)
         safe_a = torch.where(a_.abs() < 1e-12, torch.full_like(a_, 1e-12), a_)
-        t_cyl = (-b_ - _sqrt(torch.clamp(h_, min=0.0))) / safe_a
+        t_cyl = (-b_ - sqrt_rn(torch.clamp(h_, min=0.0))) / safe_a
         y_c = g_baoa + t_cyl * bard
         cyl_ok = (h_ >= 0.0) & (y_c > 0.0) & (y_c < g_baba) & (t_cyl > 0.0)
         # Endpoint spheres; d . (o - p0) is rdoa.
         b_s0 = rdoa
         h_s0 = b_s0 * b_s0 - at(c_s0)
-        t_s0 = -b_s0 - _sqrt(torch.clamp(h_s0, min=0.0))
+        t_s0 = -b_s0 - sqrt_rn(torch.clamp(h_s0, min=0.0))
         t_s0 = torch.where((h_s0 >= 0.0) & (t_s0 > 0.0), t_s0, big(t_s0))
         b_s1 = at(ob[0]) * rdx + at(ob[1]) * rdy + at(ob[2]) * rdz
         h_s1 = b_s1 * b_s1 - at(c_s1)
-        t_s1 = -b_s1 - _sqrt(torch.clamp(h_s1, min=0.0))
+        t_s1 = -b_s1 - sqrt_rn(torch.clamp(h_s1, min=0.0))
         t_s1 = torch.where((h_s1 >= 0.0) & (t_s1 > 0.0), t_s1, big(t_s1))
         t_g = torch.where(cyl_ok, t_cyl, torch.minimum(t_s0, t_s1))
         better = t_g < t_min
@@ -217,7 +210,7 @@ def retina_plain(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
             dxc = oax + tc * rdx - s_c * bax
             dyc = oay + tc * rdy - s_c * bay
             dzc = oaz + tc * rdz - s_c * baz
-            dperp = _sqrt(dxc * dxc + dyc * dyc + dzc * dzc)
+            dperp = sqrt_rn(dxc * dxc + dyc * dyc + dzc * dzc)
             width = torch.clamp(tc * tables.tanh_cone, min=1e-9)
             c_g2 = torch.clamp(0.5 - 0.5 * (dperp - r[g]) / width, 0.0, 1.0)
             c_g2 = c_g2 * at(outside)
@@ -237,7 +230,7 @@ def retina_plain(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
     dx_ = hx - (w_p0[0] + s_ * w_ba[0])
     dy_ = hy - (w_p0[1] + s_ * w_ba[1])
     dz_ = hz - (w_p0[2] + s_ * w_ba[2])
-    nrm = _sqrt(dx_ * dx_ + dy_ * dy_ + dz_ * dz_)
+    nrm = sqrt_rn(dx_ * dx_ + dy_ * dy_ + dz_ * dz_)
     inv_n = 1.0 / torch.clamp(nrm, min=1e-12)
     is_geom = idx >= 0.0
     nx = torch.where(is_geom, dx_ * inv_n, zeros(dx_))

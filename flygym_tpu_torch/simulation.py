@@ -9,9 +9,11 @@ same runtime over many worlds.
 The step is chosen as the JAX package chooses it (``batch.py:77-106``,
 ``simulation.py:189-243``), with arguments in place of its environment
 variables: the mega-step kernel K2 (:mod:`flygym_tpu_torch.ops.megastep`)
-on a CUDA device for a model it supports, the engine step otherwise; a
-rollout of n steps fuses K = ``megastep_k`` steps per launch when K divides
-n, and runs one step per launch when it does not.
+on a CUDA device for a model it supports (heightfield terrain included),
+the engine step otherwise; a rollout of n steps fuses K = ``megastep_k``
+steps per launch when K divides n, and runs one step per launch when it does
+not. On terrain the mega-step's ground planes are sampled once per launch
+of K steps, or every ``terrain_resample`` steps on the one-step path.
 """
 
 from dataclasses import replace
@@ -44,12 +46,15 @@ class Simulation:
             mega-step runs its plain version.
         megastep_k: Steps fused per mega-step launch in rollouts whose
             length it divides.
+        terrain_resample: On a heightfield world, the mega-step's ground
+            planes are sampled every this many steps on the one-step path
+            (:func:`~flygym_tpu_torch.engine.step.rollout_batched`).
     """
 
     n_worlds = 1
 
     def __init__(self, compiled: CompiledModel, *, device="cuda", megastep: bool | None = None,
-                 megastep_k: int = 8) -> None:
+                 megastep_k: int = 8, terrain_resample: int = 8) -> None:
         if not compiled.flies:
             raise ValueError("The compiled world must contain at least one fly.")
         self.compiled = compiled
@@ -67,6 +72,7 @@ class Simulation:
             raise NotImplementedError("the mega-step kernel does not support this model")
         self.megastep = bool(megastep)
         self.megastep_k = int(megastep_k)
+        self.terrain_resample = int(terrain_resample)
         self._megastep_fns = {}
         self.model = compiled.model.to(self.device)
         self._initial_state = self._batch(compiled.initial_state.to(self.device))
@@ -159,7 +165,7 @@ class Simulation:
         batched_step, kstep_fn = self.step_fns(n_steps)
         self.state, traj = rollout_batched(
             self.model, self.state, ctrl_sequence, n_steps, record=record_trajectory,
-            batched_step=batched_step, kstep_fn=kstep_fn,
+            batched_step=batched_step, kstep_fn=kstep_fn, terrain_resample=self.terrain_resample,
         )
         if traj is None:
             return None

@@ -77,7 +77,7 @@ def test_fresh_export_loads_like_the_committed_one(fresh_export, compiled):
     [
         ("condim", 4, "condim 4"),
         ("solver_type", "pgs", "PGS"),
-        ("has_hfield", True, "heightfield"),
+        ("solver_exact", True, "solver_exact"),
         ("ncand_pair", 3, "pair rows"),
     ],
 )
@@ -174,6 +174,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "a = {'joints': s.ctrl[:, env._act_ids], 'adhesion': np.ones((2, 6))}\n"
         "s, obs, r, d, _ = env.make_batched_step()(s, a)\n"
         "assert np.isfinite(obs['vision'].numpy()).all()\n"
+        "import flygym_tpu_torch.demo.hybrid_terrain as ht\n"
+        "from flygym_tpu_torch.compose.bridge import TERRAIN_FLY\n"
+        "tsim = ft.BatchSimulation(ft.load_compiled(TERRAIN_FLY), 2, device='cpu')\n"
+        "loop = ht.HybridLoop(tsim)\n"
+        "loop.run(loop.init_state(None), 2)\n"
+        "assert np.isfinite(tsim.state.qpos.numpy()).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flygym_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
