@@ -10,9 +10,9 @@ Phases (each failure ends the run with a non-zero exit code):
 0. The card (``nvidia-smi`` name and power limit) and the torch/CUDA versions.
 1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, all at
    once: the library of K1, K1b and the retina kernel K3, and the mega-step
-   kernel K2 for the benchmark fly, config 5's fly and config 3's terrain
-   fly (one generated header each); print each build's seconds and the
-   ptxas reports (registers, stack, spills).
+   kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly
+   and example 11's two flies (one generated header each); print each
+   build's seconds and the ptxas reports (registers, stack, spills).
 2. Hold the tree-LDL factor (K1) and solve (K1b) kernels against their plain
    PyTorch versions at 4096 and at 1000 worlds, within 1e-5 of the largest
    plain value; time both, their plain versions and ``torch.linalg``'s
@@ -69,6 +69,23 @@ Phases (each failure ends the run with a non-zero exit code):
     closed-loop steps, the K2 path against the JAX emitter golden and the
     engine path (K1/K1b) against the JAX engine golden, to
     ``GOLDEN_TOLERANCE``.
+13. Hold K2 built for example 11's two stacked flies (fly-fly pair rows)
+    against its plain version at 1000 and 4096 worlds (the two-fly
+    golden's settled worlds with seeded root and joint noise): one K = 1
+    and one K = 8 launch, to ``K2_RTOL``; time K = 1 and K = 8 launches at
+    4096 worlds; K2's bound from its operations counted on the CPU.
+14. Example 11 at 4096 worlds: ``BatchSimulation`` with its default step,
+    the top fly moved by a seeded ±0.1 mm in xy per world, adhesion on the
+    bottom fly, a timed ``rollout(None, 800)``: launches K2 100 (K = 8),
+    K1/K1b 0; all state finite; in every world the top fly rests on the
+    bottom one (root z 0.4 mm above it, example 11's check); the share of
+    worlds with an active pair row. Then the engine path from the same drop,
+    40 steps: K1 40, K1b 80, K2 0.
+15. The two-fly goldens: 8 worlds from the JAX settled state, 16 steps, the
+    K2 path against the JAX emitter golden to ``GOLDEN_TOLERANCE``, and the
+    engine path against the JAX engine golden within 3 times the spread of
+    the golden's conditioning probe at each step (or the floors
+    ``PROBE_FLOOR``): the stacked flies are ill-conditioned.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,6 +116,13 @@ TERRAIN_SETTLE_STEPS = 504  # 63 K = 8 launches
 TERRAIN_STEPS = 1000  # closed-loop steps, one K = 1 launch each
 TERRAIN_RESAMPLE = 8
 SPLIT_STEPS = 16
+TWOFLY_STEPS = 800  # example 11's rollout: 100 K = 8 launches
+TWOFLY_ENGINE_STEPS = 40
+TOP_OFFSET_MM = 0.1
+# The two-fly engine golden: |port - JAX engine| at each step within 3 times
+# |probe - JAX engine|, or these floors, as the JAX package's probe-gated
+# test of the stacked flies (tests/tpu/test_megastep_tpu.py:436-437).
+PROBE_FLOOR = {"qpos": 3e-5, "qvel": 5e-2}
 # K3 against its plain version: the same fp32 operations in the same order,
 # so they agree to the last bit except where a silhouette or checker edge
 # flips on one ulp of a hit distance; outputs lie in [0, 1].
@@ -163,13 +187,13 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_build(compiled, env_compiled, terrain_compiled) -> None:
+def phase_build(compiled, env_compiled, terrain_compiled, twofly_compiled) -> None:
     """Every nvcc build at once, each timed."""
     from flygym_tpu_torch.ops import _build, megastep
 
     headers = {name: megastep.model_header(c.model)[0]
                for name, c in (("benchmark fly", compiled), ("env fly", env_compiled),
-                               ("terrain fly", terrain_compiled))}
+                               ("terrain fly", terrain_compiled), ("two flies", twofly_compiled))}
 
     def timed(fn, *args):
         t0 = time.perf_counter()
@@ -315,62 +339,95 @@ def k2_inputs(compiled, golden, n_worlds: int, k_steps: int):
     return replace(state, ctrl=seq[0]), seq
 
 
-def phase_megastep(compiled, model) -> dict:
-    """K2 against its plain version; times and bound at N_WORLDS."""
+def k2_against_plain(label: str, model, inputs, note=None) -> dict:
+    """K2 built for ``model`` at K = 1 and K = MEGASTEP_K against its plain
+    version at each of CHECK_WORLDS, on ``inputs(fn, n_worlds, k, seed) ->
+    (state, (K, B, nu) controls, planes or None)``, to K2_RTOL of the
+    largest plain value of each output; ``note(state, planes)`` adds a word
+    on the inputs to each line. Then the kernel's ms per launch at N_WORLDS
+    (CUDA events, two runs) beside its plain version's (the check's call at
+    N_WORLDS, host clock), and each launch's bound from the plain version's
+    operations."""
     import torch
 
-    from flygym_tpu_torch.compose.bridge import load_golden
     from flygym_tpu_torch.ops import megastep
 
-    golden = load_golden()
     fns = {k: megastep.make_megastep(model, k) for k in (1, MEGASTEP_K)}
     fields = ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata")
-    worst = 0.0
+    worst, plain_ms = 0.0, {}
     for n in CHECK_WORLDS:
         for k, fn in fns.items():
-            state, seq = k2_inputs(compiled, golden, n, k)
-            pairs = []
-            if k == 1:
-                got, want = fn(state), megastep.megastep_plain(fn.static, state)
-            else:
-                (got, traj), (want, wtraj) = fn(state, seq), megastep.megastep_plain(
-                    fn.static, state, seq)
-                pairs.append(("qpos rows", traj, wtraj))
+            state, seq, planes = inputs(fn, n, k, n + k)
+            got = fn(state, planes) if k == 1 else fn(state, seq, planes)
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = megastep.megastep_plain(fn.static, state, None if k == 1 else seq, planes)
+            torch.cuda.synchronize()
+            if n == N_WORLDS:
+                plain_ms[k] = (time.perf_counter() - t0) * 1e3
+            pairs = []
+            if k > 1:
+                (got, traj), (want, wtraj) = got, want
+                pairs.append(("qpos rows", traj, wtraj))
             pairs += [(f, getattr(got, f), getattr(want, f)) for f in fields]
             gaps = []
             for name, a, b in pairs:
                 gap, scale = (a - b).abs().max().item(), b.abs().max().item()
-                check(bool(torch.isfinite(a).all()), f"K2 {name} not finite at B={n}, K={k}")
+                check(bool(torch.isfinite(a).all()), f"{label} {name} not finite at B={n}, K={k}")
                 check(gap <= K2_RTOL * scale,
-                      f"K2 {name} at B={n}, K={k}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
+                      f"{label} {name} at B={n}, K={k}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
                 worst = max(worst, gap)
                 gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
-            print(f"[megastep] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps))
+            print(f"[{label}] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps)
+                  + (f"; {note(state, planes)}" if note else ""))
 
     times = {}
     for k, fn in fns.items():
-        state, seq = k2_inputs(compiled, golden, N_WORLDS, k)
-        kernel = (lambda: fn(state)) if k == 1 else (lambda: fn(state, seq))
-        plain = (lambda: megastep.megastep_plain(fn.static, state)) if k == 1 else (
-            lambda: megastep.megastep_plain(fn.static, state, seq))
-        # Kernel, plain, kernel; the plain version was warmed by the check.
+        state, seq, planes = inputs(fn, N_WORLDS, k, 1)
+        kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
         k1 = time_ms(kernel, TIMED_LAUNCHES)
-        p = time_ms(plain, 1, warm_up=False)
         k2 = time_ms(kernel, TIMED_LAUNCHES, warm_up=False)
-        times[k] = (0.5 * (k1 + k2), p)
-        print(f"[megastep] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
-              f"(runs {k1:.3f}/{k2:.3f}), plain {p:.1f} ms")
+        times[k] = (0.5 * (k1 + k2), plain_ms[k])
+        print(f"[{label}] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
+              f"(runs {k1:.3f}/{k2:.3f}), plain {plain_ms[k]:.1f} ms")
 
     ops = megastep_ops(model)
-    n_in, n_out = megastep._io_rows(fns[MEGASTEP_K].static, MEGASTEP_K)
-    total_ops = ops * MEGASTEP_K * N_WORLDS
-    nbytes = 4 * (n_in + n_out) * N_WORLDS
-    bound = bound_ms(total_ops, nbytes)
-    print(f"[megastep] {ops} ops per world-step; K={MEGASTEP_K} launch at B={N_WORLDS}: "
-          f"bound {bound[0]:.4f} ms ({bound[1]}: {total_ops:.3e} ops, {nbytes:.3e} bytes), "
-          f"{times[MEGASTEP_K][0] / bound[0]:.0f}x the bound")
-    return {"err": worst, "times": times, "bound": bound}
+    bounds = {}
+    for k in fns:
+        n_in, n_out = megastep._io_rows(fns[k].static, k)
+        total_ops, nbytes = ops * k * N_WORLDS, 4 * (n_in + n_out) * N_WORLDS
+        bounds[k] = bound_ms(total_ops, nbytes)
+        print(f"[{label}] {ops} ops per world-step; K={k} launch at B={N_WORLDS}: "
+              f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}: {total_ops:.3e} ops, "
+              f"{nbytes:.3e} bytes), {times[k][0] / bounds[k][0]:.0f}x the bound")
+    return {"err": worst, "times": times, "bounds": bounds, "fns": fns}
+
+
+def k2_entry(name: str, k2: dict, launches: int, k: int) -> dict:
+    """The kernels line's entry of K2 built for one model: its K = ``k``
+    launch, as the model's main path makes it."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "flygym_tpu_torch/csrc/megastep.cu",
+        "replaces": "flygym_tpu/ops/megastep.py:2477",
+        "launches": launches,
+        "max_abs_err": k2["err"],
+        "ms": k2["times"][k][0],
+        "plain_ms": k2["times"][k][1],
+        "bound_ms": k2["bounds"][k][0],
+        "bound_by": k2["bounds"][k][1],
+        "library_ms": None,
+    }
+
+
+def phase_megastep(compiled, model) -> dict:
+    """K2 against its plain version; times and bounds at N_WORLDS."""
+    from flygym_tpu_torch.compose.bridge import load_golden
+
+    golden = load_golden()
+    return k2_against_plain(
+        "megastep", model, lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None))
 
 
 def reset_counts() -> None:
@@ -750,72 +807,27 @@ def terrain_inputs(terrain_compiled, model, golden, n_worlds: int, k_steps: int,
 
 def phase_terrain_kernel(terrain_compiled, model) -> dict:
     """K2 with heightfield planes against its plain version; times of K2
-    and of the sampler, and K2's bound, at N_WORLDS."""
+    and of the sampler, and K2's bounds, at N_WORLDS."""
     import torch
 
     from flygym_tpu_torch.compose.bridge import load_terrain_golden
-    from flygym_tpu_torch.ops import megastep
 
     golden = load_terrain_golden()
-    fns = {k: megastep.make_megastep(model, k) for k in (1, MEGASTEP_K)}
-    fields = ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata")
-    worst, plain_ms = 0.0, {}
-    for n in CHECK_WORLDS:
-        for k, fn in fns.items():
-            state, seq = terrain_inputs(terrain_compiled, model, golden, n, k, seed=n + k)
-            planes = fn.sample_planes(state)
-            check(bool(torch.isfinite(planes).all()), f"planes not finite at B={n}")
-            pairs = []
-            if k == 1:
-                got = fn(state, planes)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                want = megastep.megastep_plain(fn.static, state, None, planes)
-            else:
-                got, traj = fn(state, seq, planes)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                want, wtraj = megastep.megastep_plain(fn.static, state, seq, planes)
-                pairs.append(("qpos rows", traj, wtraj))
-            torch.cuda.synchronize()
-            if n == N_WORLDS:
-                plain_ms[k] = (time.perf_counter() - t0) * 1e3
-            pairs += [(f, getattr(got, f), getattr(want, f)) for f in fields]
-            gaps = []
-            for name, a, b in pairs:
-                gap, scale = (a - b).abs().max().item(), b.abs().max().item()
-                check(bool(torch.isfinite(a).all()), f"K2 terrain {name} not finite at B={n}")
-                check(gap <= K2_RTOL * scale,
-                      f"K2 terrain {name} at B={n}, K={k}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
-                worst = max(worst, gap)
-                gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
-            tilted = (planes[..., 3] < 0.999).float().mean().item()
-            print(f"[terrain kernel] B={n} K={k} max|kernel-plain|/max|plain|: "
-                  + ", ".join(gaps) + f"; share of tilted planes {tilted:.4f}")
 
-    times = {}
-    for k, fn in fns.items():
-        state, seq = terrain_inputs(terrain_compiled, model, golden, N_WORLDS, k, seed=1)
+    def inputs(fn, n, k, seed):
+        state, seq = terrain_inputs(terrain_compiled, model, golden, n, k, seed)
         planes = fn.sample_planes(state)
-        kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
-        k1 = time_ms(kernel, TIMED_LAUNCHES)
-        k2 = time_ms(kernel, TIMED_LAUNCHES, warm_up=False)
-        times[k] = (0.5 * (k1 + k2), plain_ms[k])
-        print(f"[terrain kernel] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
-              f"(runs {k1:.3f}/{k2:.3f}), plain {plain_ms[k]:.1f} ms")
-    sample_ms = time_ms(lambda: fns[1].sample_planes(state), TIMED_LAUNCHES)
-    print(f"[terrain kernel] plane sampler at B={N_WORLDS}: {sample_ms:.4f} ms per sample")
+        check(bool(torch.isfinite(planes).all()), f"planes not finite at B={n}")
+        return state, seq, planes
 
-    ops = megastep_ops(model)
-    bounds = {}
-    for k in fns:
-        n_in, n_out = megastep._io_rows(fns[k].static, k)
-        total_ops, nbytes = ops * k * N_WORLDS, 4 * (n_in + n_out) * N_WORLDS
-        bounds[k] = bound_ms(total_ops, nbytes)
-        print(f"[terrain kernel] {ops} ops per world-step; K={k} launch at B={N_WORLDS}: "
-              f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}: {total_ops:.3e} ops, "
-              f"{nbytes:.3e} bytes), {times[k][0] / bounds[k][0]:.0f}x the bound")
-    return {"err": worst, "times": times, "bounds": bounds, "sample_ms": sample_ms}
+    def tilted(_state, planes):
+        return f"share of tilted planes {(planes[..., 3] < 0.999).float().mean().item():.4f}"
+
+    k2 = k2_against_plain("terrain kernel", model, inputs, tilted)
+    state = inputs(k2["fns"][1], N_WORLDS, 1, 1)[0]
+    k2["sample_ms"] = time_ms(lambda: k2["fns"][1].sample_planes(state), TIMED_LAUNCHES)
+    print(f"[terrain kernel] plane sampler at B={N_WORLDS}: {k2['sample_ms']:.4f} ms per sample")
+    return k2
 
 
 def phase_terrain(terrain_compiled) -> dict:
@@ -964,6 +976,161 @@ def phase_terrain_golden(terrain_compiled, *, label: str, megastep) -> None:
         check(worst[key] <= tol, f"{label} {key}: {worst[key]:.3e} > {tol}")
 
 
+def twofly_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
+    """The two-fly golden's settled worlds repeated to ``n_worlds`` on the
+    card, both roots moved by up to ±0.05 mm in xy and the joints by 0.01
+    rad (seeded), the forward kinematics redone; the controls (adhesion on
+    the bottom fly) as a (K, B, nu) sequence."""
+    import torch
+
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics
+
+    idx = torch.arange(n_worlds) % golden["state"].qpos.shape[0]
+    state = golden["state"].map(lambda x: x[idx].clone()).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qpos = state.qpos.clone()
+    for _body, qadr, _vadr in model.free_joints:
+        qpos[:, qadr:qadr + 2] += 0.1 * torch.rand((n_worlds, 2), generator=gen,
+                                                   device="cuda") - 0.05
+    hinges = model.hinge_qadr
+    qpos[:, hinges] += 0.01 * torch.randn((n_worlds, len(hinges)), generator=gen,
+                                          device="cuda")
+    xpos, xquat = forward_kinematics(model, qpos)
+    seq = state.ctrl.expand((k_steps,) + state.ctrl.shape).clone()
+    return replace(state, qpos=qpos, xpos=xpos, xquat=xquat, ctrl=seq[0]), seq
+
+
+def active_pair_share(model, state) -> float:
+    """The share of worlds in which at least one pair row is closer than its
+    margin, at the state's cached pose."""
+    from flygym_tpu_torch.engine.contact import contact_candidates
+    from flygym_tpu_torch.engine.kinematics import geom_poses
+
+    gpos, gquat = geom_poses(model, state.xpos, state.xquat)
+    dist = contact_candidates(model, gpos, gquat)[0]
+    ng = model.ncand - model.ncand_pair
+    return (dist[:, ng:] < model.can_margin[ng:]).any(dim=1).float().mean().item()
+
+
+def phase_pairs_kernel(model) -> dict:
+    """K2 with fly-fly pair rows against its plain version; times of K2 and
+    its bounds at N_WORLDS."""
+    from flygym_tpu_torch.compose.bridge import load_twofly_golden
+
+    golden = load_twofly_golden()
+    return k2_against_plain(
+        "pairs kernel", model,
+        lambda fn, n, k, seed: (*twofly_inputs(model, golden, n, k, seed), None),
+        lambda state, _planes: f"worlds with an active pair row "
+                               f"{active_pair_share(model, state):.4f}")
+
+
+def phase_twofly(twofly_compiled) -> dict:
+    """Example 11 at N_WORLDS through the default step, then the engine
+    path from the same drop; returns the mega path's launch counts."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.demo.hybrid_terrain import place_roots
+
+    sim = BatchSimulation(twofly_compiled, N_WORLDS)
+    check(sim.megastep, "example 11's default step is not the mega-step on the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    offsets = (2.0 * torch.rand((N_WORLDS, 2), generator=gen, device="cuda") - 1.0) * TOP_OFFSET_MM
+    place_roots(sim, offsets, root=1)
+    sim.set_leg_adhesion_states("bottom", torch.ones(6, device="cuda"))
+    drop = sim.state
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.rollout(None, TWOFLY_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[twofly] example 11, {N_WORLDS} worlds: {TWOFLY_STEPS} steps in {wall:.3f} s; "
+          f"launches {counts}")
+    want = {"megastep": TWOFLY_STEPS // MEGASTEP_K, "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"twofly: {name} launches {counts[name]} != {n}")
+    st = sim.state
+    for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"twofly: state.{name} not finite")
+    (_b0, q_bottom, _v0), (_b1, q_top, _v1) = sim.model.free_joints
+    lift = st.qpos[:, q_top + 2] - st.qpos[:, q_bottom + 2]
+    share = active_pair_share(sim.model, st)
+    print(f"[twofly] top root z above the bottom's: min/mean/max {lift.min().item():.4f}/"
+          f"{lift.mean().item():.4f}/{lift.max().item():.4f} mm; worlds with an active pair "
+          f"row {share:.4f}; max|qvel| {st.qvel.abs().max().item():.2f}")
+    check(bool((lift > 0.4).all()), "twofly: the top fly does not rest on the bottom one "
+          f"in {int((lift <= 0.4).sum().item())} worlds")
+    check(share > 0.0, "twofly: no world has an active pair row")
+    rate = TWOFLY_STEPS * N_WORLDS / wall
+    print(f"[twofly] {wall / TWOFLY_STEPS * 1e3:.3f} ms per step: {rate:.0f} world-steps/s "
+          f"(both flies) on {card_line()}")
+
+    esim = BatchSimulation(twofly_compiled, N_WORLDS, megastep=False)
+    esim.state = drop
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    esim.rollout(None, TWOFLY_ENGINE_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    ecounts = read_counts()
+    print(f"[twofly engine] {N_WORLDS} worlds, {TWOFLY_ENGINE_STEPS} steps from the drop in "
+          f"{ewall:.3f} s ({ewall / TWOFLY_ENGINE_STEPS * 1e3:.3f} ms per step); launches "
+          f"{ecounts}")
+    want = {"megastep": 0, "tree_ldl_factor": TWOFLY_ENGINE_STEPS,
+            "tree_ldl_solve": 2 * TWOFLY_ENGINE_STEPS}
+    for name, n in want.items():
+        check(ecounts[name] == n, f"twofly engine: {name} launches {ecounts[name]} != {n}")
+    for name in ("qpos", "qvel", "qacc", "xpos", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(esim.state, name)).all()),
+              f"twofly engine: state.{name} not finite")
+    return counts
+
+
+def phase_twofly_golden(twofly_compiled, *, label: str, megastep) -> None:
+    """8 worlds from the JAX settled state, 16 steps vs a JAX path: the K2
+    path to GOLDEN_TOLERANCE, the engine path within the probe's bar."""
+    import numpy as np
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import load_twofly_golden
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+
+    golden = load_twofly_golden()
+    engine = megastep is False
+    rec, probe = golden["engine" if engine else "emitter"], golden["probe"]
+    n_worlds = golden["state"].qpos.shape[0]
+    sim = BatchSimulation(twofly_compiled, n_worlds, megastep=megastep, megastep_k=1)
+    check(sim.megastep == (not engine), f"{label}: wrong step")
+    sim.state = golden["state"].to("cuda")
+    worst = {"qpos": 0.0, "qvel": 0.0, "found_share": 0.0}
+    ratio = {"qpos": 0.0, "qvel": 0.0}
+    n_steps = rec["qpos"].shape[0]
+    for i in range(n_steps):
+        sim.rollout(None, 1, record_trajectory=False)
+        for key in ("qpos", "qvel"):
+            got = getattr(sim.state, key).cpu().numpy()
+            gap = float(np.abs(got - rec[key][i]).max())
+            worst[key] = max(worst[key], gap)
+            if engine:
+                bar = max(3.0 * float(np.abs(probe[key][i] - rec[key][i]).max()), PROBE_FLOOR[key])
+                ratio[key] = max(ratio[key], gap / bar)
+                check(gap <= bar, f"{label} {key} at step {i}: {gap:.3e} > {bar:.3e}")
+        found = sim.state.contact_sensordata[..., 0].cpu().numpy() != rec["sensordata"][i][..., 0]
+        worst["found_share"] += float(found.mean()) / n_steps
+    print(f"[{label}] {n_worlds} worlds x {n_steps} steps vs JAX: max|dqpos| "
+          f"{worst['qpos']:.3e}, max|dqvel| {worst['qvel']:.3e}, share of found flags "
+          f"differing {worst['found_share']:.4f}"
+          + (f"; largest gap / probe bar qpos {ratio['qpos']:.3f}, qvel {ratio['qvel']:.3f}"
+             if engine else f"; tolerances {GOLDEN_TOLERANCE}"))
+    if not engine:
+        for key, tol in GOLDEN_TOLERANCE.items():
+            check(worst[key] <= tol, f"{label} {key}: {worst[key]:.3e} > {tol}")
+
+
 def main() -> int:
     import torch
 
@@ -976,12 +1143,14 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         import flygym_tpu_torch
-        from flygym_tpu_torch.compose.bridge import BENCHMARK_GOLDEN, ASSETS, ENV_FLY, TERRAIN_FLY
+        from flygym_tpu_torch.compose.bridge import (
+            ASSETS, BENCHMARK_GOLDEN, ENV_FLY, TERRAIN_FLY, TWOFLY)
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
         terrain_compiled = flygym_tpu_torch.load_compiled(TERRAIN_FLY)
-        phase_build(compiled, env_compiled, terrain_compiled)
+        twofly_compiled = flygym_tpu_torch.load_compiled(TWOFLY)
+        phase_build(compiled, env_compiled, terrain_compiled, twofly_compiled)
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model)
         k2 = phase_megastep(compiled, model)
@@ -1012,6 +1181,10 @@ def main() -> int:
         terrain_counts = phase_terrain(terrain_compiled)
         phase_terrain_golden(terrain_compiled, label="terrain golden megastep", megastep=None)
         phase_terrain_golden(terrain_compiled, label="terrain golden engine", megastep=False)
+        k2_pairs = phase_pairs_kernel(twofly_compiled.model.to("cuda"))
+        twofly_counts = phase_twofly(twofly_compiled)
+        phase_twofly_golden(twofly_compiled, label="twofly golden megastep", megastep=None)
+        phase_twofly_golden(twofly_compiled, label="twofly golden engine", megastep=False)
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1036,19 +1209,7 @@ def main() -> int:
             ("tree_ldl_solve", "flygym_tpu/ops/ldl_pallas.py:72"),
         )
     ]
-    entries.append({
-        "name": "megastep",
-        "route": "cuda",
-        "source": "flygym_tpu_torch/csrc/megastep.cu",
-        "replaces": "flygym_tpu/ops/megastep.py:2477",
-        "launches": mega_counts["megastep"],
-        "max_abs_err": k2["err"],
-        "ms": k2["times"][MEGASTEP_K][0],
-        "plain_ms": k2["times"][MEGASTEP_K][1],
-        "bound_ms": k2["bound"][0],
-        "bound_by": k2["bound"][1],
-        "library_ms": None,
-    })
+    entries.append(k2_entry("megastep", k2, mega_counts["megastep"], MEGASTEP_K))
     entries.append({
         "name": "retina",
         "route": "cuda",
@@ -1063,20 +1224,10 @@ def main() -> int:
         "library_ms": None,
     })
     # K2 built for the terrain fly: its K = 1 launch, as config 3's closed
-    # loop makes it (1000 of its 1063 launches).
-    entries.append({
-        "name": "megastep_terrain",
-        "route": "cuda",
-        "source": "flygym_tpu_torch/csrc/megastep.cu",
-        "replaces": "flygym_tpu/ops/megastep.py:2477",
-        "launches": terrain_counts["megastep"],
-        "max_abs_err": k2_terrain["err"],
-        "ms": k2_terrain["times"][1][0],
-        "plain_ms": k2_terrain["times"][1][1],
-        "bound_ms": k2_terrain["bounds"][1][0],
-        "bound_by": k2_terrain["bounds"][1][1],
-        "library_ms": None,
-    })
+    # loop makes it (1000 of its 1063 launches); for example 11's two flies
+    # its K = 8 launch, as the 800-step rollout makes it (100 launches).
+    entries.append(k2_entry("megastep_terrain", k2_terrain, terrain_counts["megastep"], 1))
+    entries.append(k2_entry("megastep_pairs", k2_pairs, twofly_counts["megastep"], MEGASTEP_K))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

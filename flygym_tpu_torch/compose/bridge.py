@@ -9,7 +9,9 @@ them into the port's :class:`~flygym_tpu_torch.engine.model.PhysicsModel`.
 An RL env's world (``scripts/export_env_golden.py``) adds ``meta["env"]``:
 the env's index maps and tables, kept as :attr:`CompiledModel.env`. The
 blocks-terrain world of config 3 (``scripts/export_terrain_golden.py``)
-carries its height grid in the model's ``hfield_*`` fields.
+carries its height grid in the model's ``hfield_*`` fields. Example 11's two
+stacked flies (``scripts/export_twofly_golden.py``) carry their fly-fly pair
+rows in the candidate table (``can_geom2``, ``can_body2``, ``ncand_pair``).
 
 Models that use a feature the port does not have yet are refused here,
 with ``NotImplementedError``, rather than simulated wrongly.
@@ -34,8 +36,11 @@ __all__ = [
     "ENV_GOLDEN",
     "TERRAIN_FLY",
     "TERRAIN_GOLDEN",
+    "TWOFLY",
+    "TWOFLY_GOLDEN",
     "load_env_golden",
     "load_terrain_golden",
+    "load_twofly_golden",
     "read_meta",
     "model_from_numpy",
     "load_compiled",
@@ -49,6 +54,8 @@ ENV_FLY = ASSETS / "env_fly.npz"
 ENV_GOLDEN = ASSETS / "env_fly_golden.npz"
 TERRAIN_FLY = ASSETS / "terrain_fly.npz"
 TERRAIN_GOLDEN = ASSETS / "terrain_fly_golden.npz"
+TWOFLY = ASSETS / "twofly.npz"
+TWOFLY_GOLDEN = ASSETS / "twofly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -92,7 +99,8 @@ def _refuse_unported(static: dict, arrays: dict) -> None:
     checks = [
         (kinds <= set(SUPPORTED_KINDS), f"actuator kinds {sorted(kinds)}"),
         (static["na"] == 0, "activation states (na > 0)"),
-        (static["ncand_pair"] == 0, "fly-fly contact pair rows"),
+        (not (static["pair_compress"] and static["ncand_pair"]),
+         "compressed fly-fly contact pair rows (pair_compress)"),
         (static["solver_type"] != "pgs", "the PGS solver"),
         (not static["solver_exact"], "solver_exact"),
         (static["condim"] == 3, f"condim {static['condim']}"),
@@ -213,4 +221,19 @@ def load_terrain_golden(path=TERRAIN_GOLDEN) -> dict:
                 out[head]["controller"][name] = value
             else:
                 out[head][rest] = value
+    return out
+
+
+def load_twofly_golden(path=TWOFLY_GOLDEN) -> dict:
+    """The JAX golden of example 11's stacked flies: ``state`` (the settled
+    batched :class:`State`), ``offsets`` (B, 2) of the top fly's root, and
+    for the JAX emitter, the JAX engine and the engine's conditioning probe
+    (``emitter``, ``engine``, ``probe``) per step ``qpos``, ``qvel`` and
+    ``sensordata``."""
+    arrays, meta = _read_npz(path)
+    out = {"state": _state_of(arrays), "meta": meta, "offsets": arrays["offsets"]}
+    for key, value in arrays.items():
+        head, _, rest = key.partition(".")
+        if head in ("emitter", "engine", "probe"):
+            out.setdefault(head, {})[rest] = value
     return out

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import _sinf
 
 __all__ = [
@@ -166,9 +167,10 @@ class CPGState:
         return cls(phase=phase, amplitude=zeros, damplitude=zeros.clone())
 
     @classmethod
-    def from_numpy(cls, phase, amplitude, damplitude, device="cpu") -> "CPGState":
+    def from_numpy(cls, phase, amplitude, damplitude, device="cuda") -> "CPGState":
         """A state from (B, 6) arrays, e.g. a batch of the JAX package's
-        ``CPGState`` arrays."""
+        ``CPGState`` arrays, on the card unless ``device`` says otherwise."""
+        device = checked_device(device)
         t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
         return cls(phase=t(phase), amplitude=t(amplitude), damplitude=t(damplitude))
 
@@ -226,9 +228,7 @@ class CPGController:
                  timestep: float = 1e-4, device="cuda"):
         self.network = network or CPGNetwork(intrinsic_freq_hz=steps_data["freq_hz"])
         self.timestep = timestep
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        self.device = checked_device(device)
         t = lambda a: torch.as_tensor(np.asarray(a), device=self.device)
         self.tables = t(steps_data["tables"])  # (6, n_bins, 7)
         self.stance = t(steps_data["stance"])  # (6, n_bins)

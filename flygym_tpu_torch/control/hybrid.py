@@ -40,13 +40,14 @@ class HybridState:
                    stumbling=torch.zeros_like(cpg.phase))
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device="cpu") -> "HybridState":
+    def from_numpy(cls, arrays: dict, device="cuda") -> "HybridState":
         """A state from (B, 6) arrays named ``phase``, ``amplitude``,
         ``damplitude``, ``retraction`` and ``stumbling`` (a batch of the JAX
-        package's ``HybridState``)."""
-        t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+        package's ``HybridState``), on the card unless ``device`` says
+        otherwise."""
         cpg = CPGState.from_numpy(arrays["phase"], arrays["amplitude"], arrays["damplitude"],
                                   device=device)
+        t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cpg.phase.device)
         return cls(cpg=cpg, retraction=t(arrays["retraction"]), stumbling=t(arrays["stumbling"]))
 
 

@@ -6,15 +6,18 @@
 // _megastep_impl. Its plain PyTorch version, used for CPU tensors and as the
 // oracle on the card, is flygym_tpu_torch/ops/megastep.py emit_step.
 //
-// One step per world: FK over the tree, motion subspace, velocities and bias
-// accelerations, spatial inertias, CRBA and RNEA, position and adhesion
-// actuator forces, every ground candidate (no top-K) against the flat plane
-// or, on a heightfield world, its sampled local plane, pyramid rows with
-// impedance and the adhesion split, primal Newton on the frozen tree-LDL^T
-// Hessian with the bisection + regula-falsi line search, semi-implicit Euler
-// and, on the last of the K fused steps only, the outputs (state, FK,
-// actuator forces, contact sensors). The K-1 inner steps write their qpos
-// rows only.
+// One step per world: FK over the tree (a forest where several flies share
+// the world), motion subspace, velocities and bias accelerations, spatial
+// inertias, CRBA and RNEA, position and adhesion actuator forces, every
+// contact candidate (no top-K): ground rows against the flat plane or, on a
+// heightfield world, their sampled local planes, and fly-fly pair rows
+// capsule against capsule with two-body (+1/-1) Jacobian rows; pyramid rows
+// with impedance and the adhesion split, primal Newton on the frozen
+// tree-LDL^T Hessian (cross-tree fill-in of pair rows dropped, as the
+// emitter drops it) with the bisection + regula-falsi line search,
+// semi-implicit Euler and, on the last of the K fused steps only, the
+// outputs (state, FK, actuator forces, contact sensors). The K-1 inner steps
+// write their qpos rows only.
 //
 // Design. The work of a world is a long chain of dependent scalar updates
 // over static tables, with no tile and no reduction across worlds, so each
@@ -37,8 +40,9 @@
 //
 // What bounds it on the H100: at 4096 worlds, 32 blocks of 128 threads fill
 // a quarter of the 132 SMs with 4 warps each, and the scratch traffic (~56 KB
-// per world per step, 230 MB at 4096 worlds, above the 50 MB L2) is served at
-// that low occupancy: latency, not the op count or the card's bandwidth.
+// per world per step, 230 MB at 4096 worlds, above the 50 MB L2; 129 KB per
+// world for example 11's two flies) is served at that low occupancy:
+// latency, not the op count or the card's bandwidth.
 // Keeping rows in registers and shared memory and one warp per world are
 // later work.
 //
@@ -50,15 +54,20 @@
 // Pointers are device pointers; the kernel allocates nothing, launches on the
 // caller's stream, does not synchronise, and returns cudaGetLastError().
 
+// The model's tables live in __constant__ memory (MS_TABLE); a header whose
+// tables pass the 64 KB constant bank moves the ones read once per step per
+// candidate or body to global memory (MS_GTABLE), read through the L1.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define MS_FN __device__ __forceinline__
 #define MS_TABLE __constant__
+#define MS_GTABLE __device__ const
 #define MS_NOUNROLL _Pragma("unroll 1")
 #else
 #include <cmath>
 #define MS_FN inline
 #define MS_TABLE static const
+#define MS_GTABLE static const
 #define MS_NOUNROLL
 #endif
 
@@ -77,7 +86,19 @@
 constexpr bool kHasHfield = true;
 #else
 constexpr bool kHasHfield = false;
-constexpr int N_AUX = 0, S_FRAME = 0;
+constexpr int N_AUX = 0;
+#endif
+
+// Fly-fly pair rows (slice e; the header defines MS_PAIRS): candidates
+// [NGROUND, NCAND) are capsule against capsule. A pair row's DoF path is the
+// first body's DoFs with sign +1, then from kPairSplit on the second body's
+// with sign -1 (kPathDof past the bodies' paths, found by kCandSlot), and
+// the row keeps its contact frame in S_FRAME.
+#ifndef MS_PAIRS
+constexpr int NGROUND = NCAND;
+#endif
+#if !defined(MS_HFIELD) && !defined(MS_PAIRS)
+constexpr int S_FRAME = 0;
 #endif
 
 namespace {
@@ -223,17 +244,41 @@ constexpr int C_ACT = 0, C_IMP = 1, C_PERR = 2, C_D = 3, C_ADH = 4, C_CPOS = 5,
 
 MS_FN int cand_row(int c) { return S_CAND + 24 * c; }
 MS_FN int comp_row(int c, int i, int t) { return S_COMP + 3 * (MAXP * c + i) + t; }
+// Whether candidate c has a contact frame of its own (terrain or pair row;
+// flat ground rows contact along the world's axes), and its 9 rows.
+MS_FN bool has_frame(int c) { return kHasHfield || c >= NGROUND; }
+MS_FN int frame_row(int c) { return S_FRAME + 9 * (kHasHfield ? c : c - NGROUND); }
+
+// Candidate c's path: entries [path_begin(c), path_begin(c) + path_len(c))
+// of kPathDof, split at path_split(c) into the two bodies' parts (ground
+// rows have one); entry i has sign +1 in the first part and -1 in the
+// second. The Hessian keeps (path[i], path[j]), i <= j, where both lie in
+// one part; path[i] is then entry dof_depth(path[i], i) of path[j]'s column.
+#ifdef MS_PAIRS
+MS_FN int path_slot(int c) { return kCandSlot[c]; }
+MS_FN int path_split(int c) {
+  return c < NGROUND ? kPathPtr[kCandSlot[c] + 1] - kPathPtr[kCandSlot[c]] : kPairSplit[c - NGROUND];
+}
+MS_FN int dof_depth(int d, int) { return kDofDepth[d]; }
+#else
+MS_FN int path_slot(int c) { return kCandBody[c]; }
+MS_FN int path_split(int c) { return kPathPtr[kCandBody[c] + 1] - kPathPtr[kCandBody[c]]; }
+MS_FN int dof_depth(int, int i) { return i; }
+#endif
+MS_FN int path_begin(int c) { return kPathPtr[path_slot(c)]; }
+MS_FN int path_len(int c) { return kPathPtr[path_slot(c) + 1] - kPathPtr[path_slot(c)]; }
+MS_FN int path_dof(int p) { return kPathDof[p]; }
 
 // Direction products J_t · x along candidate c's path, t = n, t1, t2.
 MS_FN V3 products(const Rows& s, int c, int x_row) {
-  const int b = kCandBody[c], p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
-  const int d0 = kPathDof[p0];
+  const int p0 = path_begin(c), np = path_len(c);
+  const int d0 = path_dof(p0);
   float pn = s[comp_row(c, 0, 0)] * s[x_row + d0];
   float p1 = s[comp_row(c, 0, 1)] * s[x_row + d0];
   float p2 = s[comp_row(c, 0, 2)] * s[x_row + d0];
   MS_NOUNROLL
   for (int i = 1; i < np; ++i) {
-    const float xd = s[x_row + kPathDof[p0 + i]];
+    const float xd = s[x_row + path_dof(p0 + i)];
     pn = pn + s[comp_row(c, i, 0)] * xd;
     p1 = p1 + s[comp_row(c, i, 1)] * xd;
     p2 = p2 + s[comp_row(c, i, 2)] * xd;
@@ -264,10 +309,10 @@ MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
   }
   const float cn = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
   const float c1 = mu * (wk[0] - wk[1]), c2 = mu * (wk[2] - wk[3]);
-  const int b = kCandBody[c], p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+  const int p0 = path_begin(c), np = path_len(c);
   MS_NOUNROLL
   for (int i = 0; i < np; ++i) {
-    const int d = kPathDof[p0 + i];
+    const int d = path_dof(p0 + i);
     const float g =
         s[comp_row(c, i, 0)] * cn + s[comp_row(c, i, 1)] * c1 + s[comp_row(c, i, 2)] * c2;
     s[S_GC + d] = s[S_GC + d] + g;
@@ -286,15 +331,18 @@ MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
     u1[j] = nj * bt1 + d1 * wt1;
     u2[j] = nj * bt2 + d2 * wt2;
   }
-  // path[i] is an ancestor-or-self of path[j]: key (path[i], path[j]) is
-  // entry i of path[j]'s column.
+  // Within one body's part, path[i] is an ancestor-or-self of path[j]:
+  // key (path[i], path[j]) is entry dof_depth of path[j]'s column. Entries
+  // across the two parts are cross-tree fill-in, which is dropped.
+  const int split = path_split(c);
   MS_NOUNROLL
   for (int i = 0; i < np; ++i) {
     const float ni = s[comp_row(c, i, 0)], t1 = s[comp_row(c, i, 1)],
                 t2 = s[comp_row(c, i, 2)];
+    const int depth = dof_depth(path_dof(p0 + i), i), j_end = i < split ? split : np;
     MS_NOUNROLL
-    for (int j = i; j < np; ++j) {
-      const int k = S_H + kPkPtr[kPathDof[p0 + j]] + i;
+    for (int j = i; j < j_end; ++j) {
+      const int k = S_H + kPkPtr[path_dof(p0 + j)] + depth;
       s[k] = s[k] + (ni * un[j] + t1 * u1[j] + t2 * u2[j]);
     }
   }
@@ -551,7 +599,10 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     if (h >= 0) s[S_QFRC + kHingeV[h]] = s[S_QFRC + kHingeV[h]] + force;
   }
 
-  // ---------------- contact candidates (flat ground or terrain planes) ----
+  // ---------------- contact candidates ------------------------------------
+  // Ground rows against the flat plane or their terrain planes; pair rows
+  // capsule against capsule. Every thread of a warp takes the same
+  // candidate, so the branches do not diverge.
   MS_NOUNROLL
   for (int c = 0; c < NCAND; ++c) {
     const int b = kCandBody[c], cr = cand_row(c);
@@ -559,30 +610,65 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     const Q4 xq = ld4(s, S_XQUAT + 4 * b);
     const V3 gpos = add(xp, qrot(xq, TV3(kCandGPos, c)));
     const V3 zax = qrot(qmul(xq, TQ4(kCandGQuat, c)), V3{0.0f, 0.0f, 1.0f});
-    const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
     const float rad = kCandRad[c];
-    float dist;
-    V3 cpos, fn{}, f1{}, f2{};
-    if (kHasHfield) {
-      // Distance along the plane's normal; the frame as the emitter's
-      // _contact_frames builds it: t1 from the x axis (the y axis for a
-      // steep normal) made orthogonal to n, t2 = n x t1.
+    float dist = 0.0f;
+    V3 cpos{}, fn{};
+    if (c >= NGROUND) {
+#ifdef MS_PAIRS
+      // Closest points of the two capsule axes (the emitter's _cand_geom
+      // pair branch, the branchless Ericson clamp), the normal from geom2
+      // toward geom1, +z where the axes meet.
+      const int pi = c - NGROUND, b2 = kPairBody2[pi];
+      const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
+      const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kPairGPos2, pi)));
+      const V3 zax2 = qrot(qmul(xq2, TQ4(kPairGQuat2, pi)), V3{0.0f, 0.0f, 1.0f});
+      const float h1 = kPairH1[pi], h2 = kPairH2[pi];
+      const V3 a0 = sub(gpos, scale(zax, h1)), d1 = scale(zax, 2.0f * h1);
+      const V3 b0 = sub(gpos2, scale(zax2, h2)), d2 = scale(zax2, 2.0f * h2);
+      const V3 r = sub(a0, b0);
+      const float aq = dot(d1, d1), eq = dot(d2, d2), fq = dot(d2, r), cq = dot(d1, r),
+                  bq = dot(d1, d2);
+      const float denom = aq * eq - bq * bq;
+      float sp = denom > 1e-12f ? clampf((bq * fq - cq * eq) / fmaxf(denom, 1e-12f), 0.0f, 1.0f)
+                                : 0.0f;
+      float tp = eq > 1e-12f ? (bq * sp + fq) / fmaxf(eq, 1e-12f) : 0.0f;
+      tp = clampf(tp, 0.0f, 1.0f);
+      sp = aq > 1e-12f ? clampf((bq * tp - cq) / fmaxf(aq, 1e-12f), 0.0f, 1.0f) : 0.0f;
+      const V3 c1 = add(a0, scale(d1, sp)), c2 = add(b0, scale(d2, tp));
+      const V3 dv = sub(c1, c2);
+      const float dn = sqrtf(fmaxf(dot(dv, dv), 1e-18f));
+      const bool ok = dn > 1e-9f;
+      fn = V3{ok ? dv.x / dn : 0.0f, ok ? dv.y / dn : 0.0f, ok ? dv.z / dn : 1.0f};
+      dist = dn - rad - kPairR2[pi];
+      cpos = sub(c1, scale(fn, rad + 0.5f * dist));
+#endif
+    } else if (kHasHfield) {
+      // Distance along the plane's normal.
+      const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
       const int pr = NQ + NV + K * NU + NA + NV + 4 * c;
       const float h = in[pr];
       fn = V3{in[pr + 1], in[pr + 2], in[pr + 3]};
       dist = (ep.z - h) * fn.z - rad;
       cpos = sub(ep, scale(fn, rad + 0.5f * dist));
+    } else {
+      const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
+      dist = ep.z - kGroundZ - rad;
+      cpos = V3{ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+    }
+    const bool framed = has_frame(c);
+    V3 f1{}, f2{};
+    if (framed) {
+      // The frame as the emitter's _contact_frames builds it: t1 from the
+      // x axis (the y axis for a steep normal) made orthogonal to n,
+      // t2 = n x t1.
       const bool use_ey = fabsf(fn.x) > 0.9f;
       const V3 seed = {use_ey ? 0.0f : 1.0f, use_ey ? 1.0f : 0.0f, 0.0f};
       f1 = sub(seed, scale(fn, dot(seed, fn)));
       f1 = scale(f1, 1.0f / fmaxf(sqrtf(dot(f1, f1)), 1e-12f));
       f2 = cross(fn, f1);
-      st3(s, S_FRAME + 9 * c, fn);
-      st3(s, S_FRAME + 9 * c + 3, f1);
-      st3(s, S_FRAME + 9 * c + 6, f2);
-    } else {
-      dist = ep.z - kGroundZ - rad;
-      cpos = V3{ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+      st3(s, frame_row(c), fn);
+      st3(s, frame_row(c) + 3, f1);
+      st3(s, frame_row(c) + 6, f2);
     }
     const bool active = dist < kCandMargin[c];
     const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
@@ -597,16 +683,18 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     s[cr + C_D] = active ? 1.0f / fmaxf(R, 1e-12f) : 0.0f;
     s[cr + C_ADH] = 0.0f;
     st3(s, cr + C_CPOS, cpos);
-    // Jacobian direction components jp = S_v + S_w x rel along n, t1, t2:
-    // dots with the terrain frame, or the z, x, y components on flat ground.
+    // Jacobian direction components jp = sgn (S_v + S_w x rel) along n, t1,
+    // t2: dots with the contact frame, or the z, x, y components on flat
+    // ground; sgn = -1 (an exact negation) on the second body's DoFs.
     const V3 rel = sub(cpos, ref);
-    const int p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+    const int p0 = path_begin(c), np = path_len(c), split = path_split(c);
     for (int i = 0; i < np; ++i) {
-      const V6 sd = ld6(s, S_SM + 6 * kPathDof[p0 + i]);
+      const V6 sd = ld6(s, S_SM + 6 * path_dof(p0 + i));
       const V3 jp = add(sd.v, cross(sd.w, rel));
-      s[comp_row(c, i, 0)] = kHasHfield ? dot(jp, fn) : jp.z;
-      s[comp_row(c, i, 1)] = kHasHfield ? dot(jp, f1) : jp.x;
-      s[comp_row(c, i, 2)] = kHasHfield ? dot(jp, f2) : jp.y;
+      const float sg = i < split ? 1.0f : -1.0f;
+      s[comp_row(c, i, 0)] = sg * (framed ? dot(jp, fn) : jp.z);
+      s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
+      s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
     }
   }
   // Adhesion: each actuator's force split over its active candidates.
@@ -637,9 +725,9 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     for (int r = 0; r < 4; ++r)
       s[cr + C_AREF + r] = kNegBGain[c] * vel[r] - kimp * s[cr + C_PERR];
     const float adh = s[cr + C_ADH];
-    const int b = kCandBody[c], p0 = kPathPtr[b], np = kPathPtr[b + 1] - p0;
+    const int p0 = path_begin(c), np = path_len(c);
     for (int i = 0; i < np; ++i) {
-      const int d = S_QFRC + kPathDof[p0 + i];
+      const int d = S_QFRC + path_dof(p0 + i);
       s[d] = s[d] - s[comp_row(c, i, 0)] * adh;
     }
     row_combos(c, products(s, c, S_A), jr);
@@ -756,12 +844,12 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
         auto frame_force = [&](int c) { return scale(raw_force(c), s[cand_row(c) + C_ACT]); };
         // World force: the frame's axes weighted, or (t1, t2, n) = (x, y, z).
         auto world_force = [&](int c) {
-          if (!kHasHfield) {
+          if (!has_frame(c)) {
             const V3 f = frame_force(c);
             return V3{f.y, f.z, f.x};
           }
           const V3 f = raw_force(c);
-          const int fr = S_FRAME + 9 * c;
+          const int fr = frame_row(c);
           const V3 fw = add(add(scale(ld3(s, fr), f.x), scale(ld3(s, fr + 3), f.y)),
                             scale(ld3(s, fr + 6), f.z));
           return scale(fw, s[cand_row(c) + C_ACT]);
@@ -793,8 +881,8 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
           for (int j = j0; j < j1; ++j) {
             const int c = kSensCand[j];
             const float w = s[cand_row(c) + C_ACT];
-            nsum = add(nsum, scale(ld3(s, S_FRAME + 9 * c), w));
-            tsum = add(tsum, scale(ld3(s, S_FRAME + 9 * c + 3), w));
+            nsum = add(nsum, scale(ld3(s, frame_row(c)), w));
+            tsum = add(tsum, scale(ld3(s, frame_row(c) + 3), w));
           }
           const float nn = sqrtf(dot(nsum, nsum));
           const bool nok = nn > 1e-9f;

@@ -43,10 +43,11 @@ def root_offsets(n_worlds: int, generator: torch.Generator | None = None,
     return (2.0 * u - 1.0) * ROOT_OFFSET_MM
 
 
-def place_roots(sim: BatchSimulation, offsets: torch.Tensor) -> None:
-    """Move each world's free root by its (x, y) offset and redo the
-    forward kinematics the state caches."""
-    _body, qadr, _vadr = sim.model.free_joints[0]
+def place_roots(sim: BatchSimulation, offsets: torch.Tensor, root: int = 0) -> None:
+    """Move each world's free root (the world's ``root``-th free joint: its
+    first fly's by default) by its (x, y) offset and redo the forward
+    kinematics the state caches."""
+    _body, qadr, _vadr = sim.model.free_joints[root]
     qpos = sim.state.qpos.clone()
     qpos[:, qadr:qadr + 2] += offsets.to(qpos)
     xpos, xquat = forward_kinematics(sim.model, qpos)

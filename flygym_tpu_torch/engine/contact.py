@@ -1,10 +1,13 @@
 """Ground contacts, adhesion and the primal Newton contact solver, batch-first.
 
-Port of ``flygym_tpu/engine/contact.py`` (lines 46-85, 116-175, 256-357,
-441-753) for ground rows with condim 3:
+Port of ``flygym_tpu/engine/contact.py`` (lines 46-175, 256-357, 441-753)
+for condim 3:
 
-1. Capsule-end vs ground candidates from the static candidate table, on a
-   flat plane or on a heightfield (:func:`ground_height_normal`).
+1. Candidates from the static candidate table: capsule ends against a flat
+   plane or a heightfield (:func:`ground_height_normal`), and capsule
+   against capsule for fly-fly pair rows (:func:`segseg_closest`), whose
+   Jacobian rows take +1 on the DoFs that move the first body and -1 on
+   those that move the second.
 2. The ``ncon`` closest candidates go to the solver. They are chosen with a
    stable sort, which keeps the lower candidate index first among equal
    distances, as ``jax.lax.top_k`` does: at rest the left and right legs can
@@ -20,8 +23,8 @@ Port of ``flygym_tpu/engine/contact.py`` (lines 46-85, 116-175, 256-357,
    functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU), with the
    reference's bisection line search.
 
-Pair rows, PGS, ``solver_exact`` and condim other than 3 are refused when a
-model is loaded.
+Compressed pair rows (``pair_compress``), PGS, ``solver_exact`` and condim
+other than 3 are refused when a model is loaded.
 """
 
 import torch
@@ -34,6 +37,7 @@ from flygym_tpu_torch.ops import ldl
 __all__ = [
     "contact_candidates",
     "ground_height_normal",
+    "segseg_closest",
     "select_contacts",
     "solve_contacts",
     "ContactInfo",
@@ -93,15 +97,68 @@ def candidate_endpoints(model: PhysicsModel, gpos, gquat):
     return gpos[:, g] + model.can_end[:, None] * halflen[:, None] * z_all[:, g]
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis of (..., 3) vectors, summed in order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def segseg_closest(p1, q1, p2, q2):
+    """Closest points (c1, c2) between the segments [p1, q1] and [p2, q2]
+    of (..., 3) endpoints: Ericson's clamped solution written without
+    branches, safe for zero-length segments (spheres) and parallel ones
+    (the JAX ``_segseg_closest``, ``contact.py:88-113``)."""
+    d1 = q1 - p1
+    d2 = q2 - p2
+    r = p1 - p2
+    a, e = _dot(d1, d1), _dot(d2, d2)
+    f, c, b = _dot(d2, r), _dot(d1, r), _dot(d1, d2)
+    denom = a * e - b * b
+    s = torch.where(
+        denom > 1e-12,
+        torch.clamp((b * f - c * e) / torch.clamp(denom, min=1e-12), 0.0, 1.0),
+        0.0,
+    )
+    t = torch.where(e > 1e-12, (b * s + f) / torch.clamp(e, min=1e-12), 0.0)
+    t = torch.clamp(t, 0.0, 1.0)
+    s = torch.where(
+        a > 1e-12, torch.clamp((b * t - c) / torch.clamp(a, min=1e-12), 0.0, 1.0), 0.0
+    )
+    return p1 + s[..., None] * d1, p2 + t[..., None] * d2
+
+
 def contact_candidates(model: PhysicsModel, gpos, gquat):
     """Signed distances (B, ncand), positions and normals (B, ncand, 3) of
-    every capsule-end vs ground candidate, along the local ground normal."""
-    endpoint = candidate_endpoints(model, gpos, gquat)
-    radius = model.geom_size[model.can_geom, 0]
+    every candidate.
+
+    The first ``ncand - ncand_pair`` rows are capsule ends against the
+    ground, along the local ground normal. The last ``ncand_pair`` rows are
+    capsule against capsule (fly-fly contacts): the closest points of the
+    two axes, with the normal from geom2 toward geom1, or +z where the axes
+    meet (the JAX ``contact_candidates``, ``contact.py:116-174``).
+    """
+    ng = model.ncand - model.ncand_pair
+    endpoint = candidate_endpoints(model, gpos, gquat)[:, :ng]
+    radius = model.geom_size[model.can_geom[:ng], 0]
     h, n = ground_height_normal(model, endpoint[..., :2])
     dist = (endpoint[..., 2] - h) * n[..., 2] - radius
     cpos = endpoint - (radius + 0.5 * dist)[..., None] * n
-    return dist, cpos, n
+    if model.ncand_pair == 0:
+        return dist, cpos, n
+
+    ez = torch.cat([gpos.new_zeros(2), gpos.new_ones(1)])
+    z_all = quat_rotate(gquat, ez)
+    g1, g2 = model.can_geom[ng:], model.can_geom2[ng:]
+    r1, r2 = model.geom_size[g1, 0], model.geom_size[g2, 0]
+    h1, h2 = model.geom_size[g1, 1, None], model.geom_size[g2, 1, None]
+    c1, c2 = segseg_closest(gpos[:, g1] - h1 * z_all[:, g1], gpos[:, g1] + h1 * z_all[:, g1],
+                            gpos[:, g2] - h2 * z_all[:, g2], gpos[:, g2] + h2 * z_all[:, g2])
+    d = c1 - c2
+    dn = sqrt_rn(_dot(d, d))
+    n_p = torch.where((dn > 1e-9)[..., None], d / torch.clamp(dn, min=1e-9)[..., None], ez)
+    dist_p = dn - r1 - r2
+    cpos_p = c1 - (r1 + 0.5 * dist_p)[..., None] * n_p
+    return (torch.cat([dist, dist_p], dim=1), torch.cat([cpos, cpos_p], dim=1),
+            torch.cat([n, n_p], dim=1))
 
 
 def select_contacts(model: PhysicsModel, dist_all: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ from flygym_tpu_torch.compose.bridge import CompiledModel
 from flygym_tpu_torch.engine.maths import quat_rotate
 from flygym_tpu_torch.engine.model import State
 from flygym_tpu_torch.engine.step import step as engine_step
+from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
 
 __all__ = ["VectorFlyEnv"]
@@ -62,9 +63,7 @@ class VectorFlyEnv:
         env = compiled.env
         if env is None:
             raise ValueError("the compiled model carries no env metadata (meta['env'])")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        self.device = checked_device(device)
         supported = megastep_supported(compiled.model)
         if megastep is None:
             megastep = self.device.type == "cuda" and supported

@@ -4,16 +4,19 @@ Port of ``flygym_tpu/ops/megastep.py``, the JAX package's main-path kernel.
 Three parts:
 
 - :class:`_Static`, the model snapshot the emitter reads (the JAX
-  ``_Static``, ``megastep.py:715-888``, for ground rows only).
+  ``_Static``, ``megastep.py:715-888``, without compressed pair rows), with
+  each candidate's DoF path and signs.
 - :func:`emit_step`, the plain version of K2: the JAX emitter
   (``emit_step``, ``_cand_geom``, the fused ``_contacts_impl``, the tree
   LDLᵀ and ``_emit_sensors``) over lists of (B,) tensors, op for op and in
   the same order, with the same trace-time folding of the model's zeros and
   ±1s. On a heightfield world each candidate's ground is the local plane
   [h, nx, ny, nz] of its input rows, with a contact frame (n, t1, t2) per
-  candidate; on flat ground the frame is the world's axes.
-  :func:`megastep_plain` packs a :class:`State` into those lists and chains
-  K steps with one set of planes.
+  candidate; on flat ground the frame is the world's axes. Fly-fly pair
+  rows are capsule against capsule, with their own frame and both bodies'
+  DoFs (the second's with sign -1); their cross-tree Hessian fill is
+  dropped. :func:`megastep_plain` packs a :class:`State` into those lists
+  and chains K steps with one set of planes.
 - :func:`make_megastep`, the wrapper of the kernel in
   ``flygym_tpu_torch/csrc/megastep.cu``. The model's constants reach the
   kernel as a generated header (:func:`model_header`), built with the
@@ -26,8 +29,9 @@ Three parts:
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
 and gates, the streamed emitter, H0-matvec mode, sublane packing. Not yet
-ported (later slices of K2): other actuator kinds, pair rows,
-``solver_exact``; :func:`megastep_supported` refuses those models.
+ported (later slices of K2): other actuator kinds, compressed pair rows
+(``pair_compress``: the winner sampler and mask rows), ``solver_exact``;
+:func:`megastep_supported` refuses those models.
 """
 
 import numpy as np
@@ -311,7 +315,7 @@ def _qmul_sp(a, b, z):
 
 class _Static:
     """What the emitter and the kernel's header need, as numpy arrays and
-    Python structures (the JAX ``_Static``, ground rows only)."""
+    Python structures (the JAX ``_Static`` without compressed pair rows)."""
 
     def __init__(self, model: PhysicsModel):
         f = lambda x: x.detach().cpu().numpy()
@@ -398,6 +402,9 @@ class _Static:
         self.site_pos = f(model.site_pos) if self.nsite else np.zeros((0, 3))
 
         self.can_geom = f(model.can_geom)
+        self.can_geom2 = f(model.can_geom2)
+        self.ncand_pair = int(model.ncand_pair)
+        self.ng_rows = self.ncand - self.ncand_pair
         self.can_end = f(model.can_end)
         self.can_friction = f(model.can_friction)
         self.can_solref = f(model.can_solref)
@@ -409,6 +416,23 @@ class _Static:
         self.ground_z = float(f(model.ground_pos)[2])
         self.has_hfield = bool(model.has_hfield)
         self.nsensor = model.nsensor_contact
+
+        # Per candidate its DoF path and signs, in the JAX emitter's order
+        # (``megastep.py:1675-1691``): the first body's path DoFs with +1,
+        # then the second body's (pair rows) with -1; a DoF that moves both
+        # nets 0 and leaves the path. ``cand_split[c]`` is where the second
+        # body's DoFs start (the path's length on ground rows).
+        self.cand_paths, self.cand_signs, self.cand_split = [], [], []
+        for c in range(self.ncand):
+            first = self.body_path_dofs[int(self.geom_body[int(self.can_geom[c])])]
+            signs = dict.fromkeys(first, 1.0)
+            if c >= self.ng_rows:
+                for d in self.body_path_dofs[int(self.geom_body[int(self.can_geom2[c])])]:
+                    signs[d] = signs.get(d, 0.0) - 1.0
+            path = [d for d, sgn in signs.items() if sgn != 0.0]
+            self.cand_paths.append(path)
+            self.cand_signs.append([signs[d] for d in path])
+            self.cand_split.append(sum(signs[d] != 0.0 for d in first))
 
         # Candidates grouped by adhesion actuator and by sensor slot.
         self.adh_groups = {}
@@ -435,14 +459,16 @@ class _Static:
 def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
     (``megastep.py:934-989``) as far as this slice goes — Newton without
-    ``solver_exact``, no welds, no pair rows, condim 3, no
-    activation states, position and adhesion actuators only, and candidate
-    paths that run down one chain of the tree. There is no VMEM estimate."""
+    ``solver_exact``, no welds, uncompressed pair rows only (no
+    ``pair_compress``), condim 3, no activation states, position and
+    adhesion actuators only, candidate paths that run down one chain of the
+    tree per body, and pair rows without sensors or adhesion. There is no
+    VMEM estimate."""
     if (
         model.solver_type != "newton"
         or model.solver_exact
         or model.welds
-        or model.ncand_pair
+        or (model.pair_compress and model.ncand_pair)
         or model.condim != 3
         or model.na
         or model.ncand == 0
@@ -452,7 +478,12 @@ def megastep_supported(model: PhysicsModel) -> bool:
     if not kinds <= {ActKind.POSITION, ActKind.ADHESION}:
         return False
     st = _Static(model)
-    return all(_path_on_chain(st, int(st.geom_body[g])) for g in st.can_geom)
+    pairs = range(st.ng_rows, st.ncand)
+    if any(int(st.can_sensor[c]) >= 0 or int(st.can_adh_act[c]) >= 0 for c in pairs):
+        return False
+    bodies = {int(st.geom_body[int(g)]) for g in st.can_geom}
+    bodies |= {int(st.geom_body[int(st.can_geom2[c])]) for c in pairs}
+    return all(_path_on_chain(st, b) for b in bodies) and all(_fill_by_part(st, c) for c in pairs)
 
 
 def _path_on_chain(st: _Static, body: int) -> bool:
@@ -463,13 +494,35 @@ def _path_on_chain(st: _Static, body: int) -> bool:
     return all(st.dof_path[d] == path[: j + 1] for j, d in enumerate(path))
 
 
+def _fill_by_part(st: _Static, c: int) -> bool:
+    """On pair row ``c``, the signs are +1 on the first body's part of the
+    path and -1 on the second's, and the emitter's Hessian fill keeps
+    (path[i], path[j]), i <= j, exactly where both lie in the same part of the
+    path (cross-tree fill-in is dropped, ``megastep.py:1774-1783``), and
+    there path[i] is an ancestor-or-self of path[j], at depth
+    len(dof_chains[path[i]]) of path[j]'s column."""
+    path, split = st.cand_paths[c], st.cand_split[c]
+    if st.cand_signs[c] != [1.0] * split + [-1.0] * (len(path) - split):
+        return False
+    for i, a_ in enumerate(path):
+        for j in range(i, len(path)):
+            b_ = path[j]
+            kept = a_ == b_ or a_ in st.dof_chains[b_] or b_ in st.dof_chains[a_]
+            if kept != ((i < split) == (j < split)):
+                return False
+            if kept and (a_ not in st.dof_path[b_]
+                         or st.dof_path[b_].index(a_) != len(st.dof_chains[a_])):
+                return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # The plain version of K2: one physics step over lists of (B,) tensors
 # ---------------------------------------------------------------------------
 
 
 def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None):
-    """One physics step (the JAX ``emit_step`` for ground rows).
+    """One physics step (the JAX ``emit_step`` without compressed pair rows).
 
     Args:
         st: The static model snapshot.
@@ -774,12 +827,51 @@ def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None):
     )
 
 
+def _frame(n_c, z):
+    """The contact frame (n, t1, t2) of a normal, as the JAX
+    ``_contact_frames`` builds it: t1 from the x axis (the y axis where
+    |nx| > 0.9) made orthogonal to n and normalised, t2 = n × t1."""
+    use_ey = torch.abs(n_c[0]) > 0.9
+    seed = (torch.where(use_ey, 0.0, 1.0), torch.where(use_ey, 1.0, 0.0), z)
+    t1 = _sub3(seed, _scale3(n_c, _dot3(seed, n_c)))
+    t1n = torch.clamp(sqrt_rn(_dot3(t1, t1)), min=1e-12)
+    t1 = _scale3(t1, 1.0 / t1n)
+    return (n_c, t1, _cross(n_c, t1))
+
+
+def _segseg(gpos, zax, h1, gpos2, zax2, h2):
+    """Closest points (c1, c2) between the axes of two capsules, in the
+    JAX emitter's order of operations (``megastep.py:1596-1630``)."""
+    a0 = _sub3(gpos, _scale3(zax, h1))
+    d1 = _scale3(zax, 2.0 * h1)
+    b0 = _sub3(gpos2, _scale3(zax2, h2))
+    d2 = _scale3(zax2, 2.0 * h2)
+    r_ = _sub3(a0, b0)
+    a_q, e_q = _dot3(d1, d1), _dot3(d2, d2)
+    f_q, c_q, b_q = _dot3(d2, r_), _dot3(d1, r_), _dot3(d1, d2)
+    denom = a_q * e_q - b_q * b_q
+    s_p = torch.where(
+        denom > 1e-12,
+        torch.clamp((b_q * f_q - c_q * e_q) / torch.clamp(denom, min=1e-12), 0.0, 1.0),
+        0.0,
+    )
+    t_p = torch.where(e_q > 1e-12, (b_q * s_p + f_q) / torch.clamp(e_q, min=1e-12), 0.0)
+    t_p = torch.clamp(t_p, 0.0, 1.0)
+    s_p = torch.where(
+        a_q > 1e-12, torch.clamp((b_q * t_p - c_q) / torch.clamp(a_q, min=1e-12), 0.0, 1.0), 0.0
+    )
+    return _add3(a0, _scale3(d1, s_p)), _add3(b0, _scale3(d2, t_p))
+
+
 def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
-    """Ground-contact geometry and constraint-dynamics scalars of candidate
-    ``cidx``: a capsule end against the flat plane, whose contact frame is
-    the world's axes (n = z, t1 = x, t2 = y; ``frame`` None), or against its
-    local terrain plane, with the frame (n, t1, t2) built from the plane's
-    normal as the JAX ``_contact_frames`` builds it."""
+    """Contact geometry and constraint-dynamics scalars of candidate
+    ``cidx``. A ground row is a capsule end against the flat plane, whose
+    contact frame is the world's axes (n = z, t1 = x, t2 = y; ``frame``
+    None), or against its local terrain plane, with the frame built from the
+    plane's normal. A pair row (``cidx >= st.ng_rows``) is capsule against
+    capsule: the closest points of the two axes, the normal from geom2
+    toward geom1 (+z where the axes meet) and its frame; its path holds both
+    bodies' DoFs with their signs."""
 
     def geom_world_frame(gi):
         if gi in geom_cache:
@@ -795,26 +887,33 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
         return out
 
     gi = int(st.can_geom[cidx])
-    b, gpos, zax = geom_world_frame(gi)
+    _b, gpos, zax = geom_world_frame(gi)
     radius = float(st.geom_size[gi, 0])
     halflen = float(st.geom_size[gi, 1])
-    end = float(st.can_end[cidx])
-    ep = _add3(gpos, _scale3(zax, end * halflen))
-    if terrain is None:
+    if cidx >= st.ng_rows:
+        gi2 = int(st.can_geom2[cidx])
+        _b2, gpos2, zax2 = geom_world_frame(gi2)
+        c1, c2 = _segseg(gpos, zax, halflen, gpos2, zax2, float(st.geom_size[gi2, 1]))
+        dvec = _sub3(c1, c2)
+        dn = sqrt_rn(torch.clamp(_dot3(dvec, dvec), min=1e-18))
+        ok = dn > 1e-9
+        n_c = (torch.where(ok, dvec[0] / dn, 0.0), torch.where(ok, dvec[1] / dn, 0.0),
+               torch.where(ok, dvec[2] / dn, 1.0))
+        dist = dn - radius - float(st.geom_size[gi2, 0])
+        cpos = _sub3(c1, _scale3(n_c, radius + 0.5 * dist))
+        frame = _frame(n_c, z)
+    elif terrain is None:
+        ep = _add3(gpos, _scale3(zax, float(st.can_end[cidx]) * halflen))
         dist = ep[2] - st.ground_z - radius
         cpos = (ep[0], ep[1], ep[2] - (radius + 0.5 * dist))
         frame = None
     else:
+        ep = _add3(gpos, _scale3(zax, float(st.can_end[cidx]) * halflen))
         h_c, nx_c, ny_c, nz_c = terrain[cidx]
         n_c = (nx_c, ny_c, nz_c)
         dist = (ep[2] - h_c) * nz_c - radius
         cpos = _sub3(ep, _scale3(n_c, radius + 0.5 * dist))
-        use_ey = torch.abs(n_c[0]) > 0.9
-        seed = (torch.where(use_ey, 0.0, 1.0), torch.where(use_ey, 1.0, 0.0), z)
-        t1 = _sub3(seed, _scale3(n_c, _dot3(seed, n_c)))
-        t1n = torch.clamp(sqrt_rn(_dot3(t1, t1)), min=1e-12)
-        t1 = _scale3(t1, 1.0 / t1n)
-        frame = (n_c, t1, _cross(n_c, t1))
+        frame = _frame(n_c, z)
     margin = float(st.can_margin[cidx])
     active = dist < margin
 
@@ -828,7 +927,8 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
     imp = torch.clamp(dmin + y_ * (dmax - dmin), 1e-4, 0.9999)
     tc, dr = float(st.can_solref[cidx][0]), float(st.can_solref[cidx][1])
     return dict(
-        path=st.body_path_dofs[b],
+        path=st.cand_paths[cidx],
+        signs=st.cand_signs[cidx],
         cpos=cpos,
         rel=_sub3(cpos, ref),
         active=active,
@@ -870,31 +970,36 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
         c.setdefault("adh_force", z)
 
     def dof_components(c):
-        """Jacobian direction components along the path: jp_d = S_v[d] +
-        S_w[d] × rel in the contact frame. The flat frame (n = z, t1 = x,
-        t2 = y) picks components, and the free joint's translation columns
-        fold to Python floats 0/1; a terrain frame dots jp into n, t1, t2,
-        and a translation column picks the frame vectors' components."""
+        """Jacobian direction components along the path: jp_d = sgn_d (S_v[d]
+        + S_w[d] × rel) in the contact frame, sgn_d = ±1 the DoF's sign
+        (exact negation, as the JAX ``pick_signed`` and ``_scale3``). The
+        flat frame (n = z, t1 = x, t2 = y) picks components, and the free
+        joint's translation columns fold to Python floats 0/±1; a contact
+        frame dots jp into n, t1, t2, and a translation column picks the
+        frame vectors' components."""
         rel = c["rel"]
         frame = c["frame"]
         comps = {"n": [], "t1": [], "t2": []}
-        for d in c["path"]:
+        for d, sgn in zip(c["path"], c["signs"]):
             fa = st.free_dof_axis.get(d)
             if fa is not None and fa < 3:
                 if frame is not None:
                     for t, vec in zip(("n", "t1", "t2"), frame):
-                        comps[t].append(vec[fa])
+                        comps[t].append(vec[fa] if sgn == 1.0 else -vec[fa])
                     continue
                 e = [0.0, 0.0, 0.0]
-                e[fa] = 1.0
+                e[fa] = sgn
                 jp = e
-            elif fa is not None:
-                ec = [0.0, 0.0, 0.0]
-                ec[fa - 3] = 1.0
-                jp = _add3(S[d][1], _cross_cl(ec, rel, z))
             else:
-                w_, v_ = S[d]
-                jp = _add3(v_, _cross(w_, rel))
+                if fa is not None:
+                    ec = [0.0, 0.0, 0.0]
+                    ec[fa - 3] = 1.0
+                    jp = _add3(S[d][1], _cross_cl(ec, rel, z))
+                else:
+                    w_, v_ = S[d]
+                    jp = _add3(v_, _cross(w_, rel))
+                if sgn != 1.0:
+                    jp = _scale3(jp, sgn)
             if frame is None:
                 comps["n"].append(jp[2])
                 comps["t1"].append(jp[0])
@@ -979,15 +1084,16 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
                     un = _acc(un, _mul_cf(dj, Bt[t]))
                     u_of[t][j_] = _acc(_mul_cf(nj, Bt[t]), _mul_cf(dj, Wt[t]))
                 u_of["n"][j_] = un
-            # path[i_] is an ancestor-or-self of path[j_] (megastep_supported).
             for i_ in range(npath):
                 for j_ in range(i_, npath):
+                    k = _hkey(st, path[i_], path[j_])
+                    if k is None:  # cross-tree fill-in: dropped
+                        continue
                     val = _mul_cf(comps["n"][i_], u_of["n"][j_])
                     for t in tags:
                         val = _acc(val, _mul_cf(comps[t][i_], u_of[t][j_]))
                     if val is None:
                         continue
-                    k = (path[i_], path[j_])
                     H[k] = H[k] + val
 
     def Mh_mul(a_vec):
@@ -1087,6 +1193,17 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
                 (fn * n_f[i] + ft1 * t1_f[i] + ft2 * t2_f[i]) * act_m for i in range(3)
             )
     return a_vec, cons
+
+
+def _hkey(st, a_, b_):
+    """The tree-sparse key of the Hessian entry (a_, b_), or None where
+    neither DoF is an ancestor of the other (the JAX ``key``,
+    ``megastep.py:1774-1783``)."""
+    if a_ == b_ or a_ in st.dof_chains[b_]:
+        return (a_, b_)
+    if b_ in st.dof_chains[a_]:
+        return (b_, a_)
+    return None
 
 
 def _tree_ldl(st, A):
@@ -1331,6 +1448,18 @@ def _fold_quat(c) -> list:
     return [1.0, 0.0, 0.0, 0.0] if _is_ident_quat(c) else _fold(c)
 
 
+# The card's constant bank holds 64 KB; a header whose tables pass this
+# budget keeps the tables read once per candidate or body per step in global
+# memory (MS_GTABLE in csrc/megastep.cu).
+_CONST_BUDGET = 60 * 1024
+_COLD_TABLES = frozenset((
+    "kSolWidth", "kSolMid", "kSolPow", "kSolA", "kSolB", "kSolDmin", "kSolDmm", "kNegBGain",
+    "kKGain", "kInvW", "kCandGPos", "kCandGQuat", "kCandEndH", "kCandRad", "kCandMargin",
+    "kPairGPos2", "kPairGQuat2", "kPairR2", "kPairH1", "kPairH2", "kBodyInertia", "kBodyIPos",
+    "kBodyIQuat",
+))
+
+
 def model_header(model: PhysicsModel) -> tuple:
     """The model's part of K2: shape numbers, scratch layout and constant
     tables as a C++ header for ``csrc/megastep.cu``.
@@ -1356,18 +1485,21 @@ def model_header(model: PhysicsModel) -> tuple:
     def const(name, value):
         lines.append(f"constexpr int {name} = {int(value)};")
 
+    sizes = {}
+
     def table(name, ctype, values):
         values = list(values)
         if not values:
             values = [0]
         fmt = _f32 if ctype == "float" else (lambda x: str(int(x)))
         body = ", ".join(fmt(x) for x in values)
+        sizes[len(lines)] = (name, 4 * len(values))
         lines.append(f"MS_TABLE {ctype} {name}[{len(values)}] = {{{body}}};")
 
     nb, nv = st.nbody, st.nv
     cand_bodies = [int(st.geom_body[int(st.can_geom[c])]) for c in range(st.ncand)]
     paths = [st.body_path_dofs[b] for b in range(nb)]
-    maxp = max(len(paths[b]) for b in cand_bodies)
+    maxp = max(len(p) for p in st.cand_paths)
     adh = list(st.adh_groups.items())
     for name, value in (
         ("NQ", st.nq), ("NV", nv), ("NU", st.nu), ("NA", st.na), ("NBODY", nb),
@@ -1387,6 +1519,12 @@ def model_header(model: PhysicsModel) -> tuple:
         # rows of the input, and 9 frame rows per candidate the scratch.
         lines.append("#define MS_HFIELD 1")
         const("N_AUX", _n_aux(st))
+    if st.ncand_pair:
+        # Fly-fly pair rows follow the NGROUND ground rows; each keeps its
+        # contact frame in 9 scratch rows (unless the terrain rows do).
+        lines.append("#define MS_PAIRS 1")
+        const("NGROUND", st.ng_rows)
+        const("NPAIR", st.ncand_pair)
 
     # Scratch rows per world (world-minor in the kernel).
     layout = [
@@ -1400,6 +1538,8 @@ def model_header(model: PhysicsModel) -> tuple:
     ]
     if st.has_hfield:
         layout.append(("S_FRAME", 9 * st.ncand))
+    elif st.ncand_pair:
+        layout.append(("S_FRAME", 9 * st.ncand_pair))
     off = 0
     for name, n in layout:
         const(name, off)
@@ -1496,13 +1636,31 @@ def model_header(model: PhysicsModel) -> tuple:
                  iw="kInvW", mu="kMu", mu2="kMu2")
     for key, name in names.items():
         table(name, "float", sol[key])
+    # Path slots: one per body, then (pair rows) one per pair row.
     pptr, plist = [0], []
-    for b in range(nb):
-        plist += paths[b]
+    for path in paths + st.cand_paths[st.ng_rows:]:
+        plist += path
         pptr.append(len(plist))
     table("kPathPtr", "int", pptr)
     table("kPathDof", "int", plist)
     table("kDofFree", "int", [st.free_dof_axis.get(d, -1) for d in range(nv)])
+
+    if st.ncand_pair:
+        # Each candidate's path slot, where each pair row's second body's
+        # part starts, each DoF's depth (its row in a descendant's column);
+        # geom2 of each pair row and both capsules' half lengths.
+        table("kCandSlot", "int", cand_bodies[: st.ng_rows]
+              + [nb + i for i in range(st.ncand_pair)])
+        table("kPairSplit", "int", st.cand_split[st.ng_rows:])
+        table("kDofDepth", "int", [len(st.dof_chains[d]) for d in range(nv)])
+        g2 = [int(st.can_geom2[c]) for c in range(st.ng_rows, st.ncand)]
+        table("kPairBody2", "int", [int(st.geom_body[g]) for g in g2])
+        table("kPairGPos2", "float", [x for g in g2 for x in _fold(st.geom_pos[g])])
+        table("kPairGQuat2", "float", [x for g in g2 for x in _fold_quat(st.geom_quat[g])])
+        table("kPairR2", "float", [st.geom_size[g, 0] for g in g2])
+        table("kPairH1", "float", [st.geom_size[int(st.can_geom[c]), 1]
+                                   for c in range(st.ng_rows, st.ncand)])
+        table("kPairH2", "float", [st.geom_size[g, 1] for g in g2])
 
     # Adhesion groups and sensor groups.
     aptr, alist = [0], []
@@ -1522,6 +1680,12 @@ def model_header(model: PhysicsModel) -> tuple:
     # Sites.
     table("kSiteBody", "int", st.site_body)
     table("kSitePos", "float", [x for s in range(st.nsite) for x in _fold(st.site_pos[s])])
+    if sum(n for _name, n in sizes.values()) > _CONST_BUDGET:
+        for i, (name, _n) in sizes.items():
+            if name in _COLD_TABLES:
+                lines[i] = lines[i].replace("MS_TABLE", "MS_GTABLE", 1)
+        if sum(n for name, n in sizes.values() if name not in _COLD_TABLES) > _CONST_BUDGET:
+            raise NotImplementedError("the model's hot tables pass the constant bank")
     return "\n".join(lines) + "\n", off
 
 

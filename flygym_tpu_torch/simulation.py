@@ -22,6 +22,7 @@ import torch
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
 from flygym_tpu_torch.engine.step import rollout_batched
+from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
 
 __all__ = ["Simulation"]
@@ -58,11 +59,7 @@ class Simulation:
         if not compiled.flies:
             raise ValueError("The compiled world must contain at least one fly.")
         self.compiled = compiled
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
+        self.device = checked_device(device)
         if megastep_k < 1:
             raise ValueError(f"megastep_k must be >= 1, got {megastep_k}")
         supported = megastep_supported(compiled.model)

@@ -17,6 +17,7 @@ import torch
 from flygym_tpu_torch.compose.bridge import TERRAIN_FLY, load_compiled
 from flygym_tpu_torch.control import (
     CPGController,
+    CPGState,
     HybridController,
     HybridState,
     extract_preprogrammed_steps,
@@ -108,7 +109,7 @@ def test_cpg_matches_jax_over_200_steps(jax_steps, steps, start):
     cpg = CPGController(steps, timestep=1e-4, device="cpu")
     vcall = jax.vmap(jcpg)
     jstate = start[0].cpg
-    state = HybridState.from_numpy(start[1]).cpg
+    state = HybridState.from_numpy(start[1], device="cpu").cpg
     worst = 0.0
     for _ in range(N_STEPS):
         jstate, jt, ja = vcall(jstate)
@@ -130,7 +131,7 @@ def test_hybrid_matches_jax_over_200_steps(jax_steps, steps, start):
     jhyb = jax.vmap(JaxHybrid(cpg=JaxCPG(jax_steps, timestep=1e-4)))
     hyb = HybridController(cpg=CPGController(steps, timestep=1e-4, device="cpu"))
     tips, forces, heading = _inputs()
-    jstate, state = start[0], HybridState.from_numpy(start[1])
+    jstate, state = start[0], HybridState.from_numpy(start[1], device="cpu")
     worst, fired = 0.0, {"retraction": False, "stumbling": False, "release": False}
     for i in range(N_STEPS):
         jstate, jt, ja = jhyb(jstate, jnp.asarray(tips[i]), jnp.asarray(forces[i]),
@@ -156,6 +157,22 @@ def test_controller_defaults_to_the_card(steps):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CPGController(steps)
+
+
+@pytest.mark.parametrize("cls", ["CPGState", "HybridState"])
+def test_controller_state_from_numpy_defaults_to_the_card(start, cls):
+    """No device means CUDA: without a card ``from_numpy`` raises."""
+    arrays = start[1]
+    if cls == "HybridState":
+        make = lambda: HybridState.from_numpy(arrays).cpg
+    else:
+        make = lambda: CPGState.from_numpy(arrays["phase"], arrays["amplitude"],
+                                           arrays["damplitude"])
+    if torch.cuda.is_available():
+        assert make().phase.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_init_draws_phases_from_a_generator():

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from flygym_tpu_torch import BatchSimulation, load_compiled
-from flygym_tpu_torch.compose.bridge import ASSETS, load_golden
+from flygym_tpu_torch.compose.bridge import ASSETS, TWOFLY, load_golden
 from flygym_tpu_torch.ops import _build
 from flygym_tpu_torch.ops import megastep as ms
 
@@ -255,8 +255,13 @@ def test_batch_replays_k_chunks_through_the_plain_emitter(compiled):
     assert torch.isfinite(traj).all()
 
 
-def test_megastep_refuses_pair_rows(compiled):
-    bad = dataclasses.replace(compiled, model=dataclasses.replace(compiled.model, ncand_pair=3))
+def test_megastep_refuses_pair_rows():
+    """Compressed pair rows: example 11's world, whose 49 uncompressed pair
+    rows K2 takes, with them compressed to one winner per geom1 group
+    (``pair_compress``), which K2 does not take yet."""
+    twofly = load_compiled(TWOFLY)
+    assert ms.megastep_supported(twofly.model)
+    bad = dataclasses.replace(twofly, model=dataclasses.replace(twofly.model, pair_compress=True))
     assert not ms.megastep_supported(bad.model)
     with pytest.raises(NotImplementedError, match="mega-step"):
         BatchSimulation(bad, 2, device="cpu", megastep=True)

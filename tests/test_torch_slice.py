@@ -17,7 +17,7 @@ from flygym_tpu.compose.fly import ActuatorType
 from flygym_tpu.demo.benchmark import ReplayTargetData as JaxReplayTargetData
 
 from flygym_tpu_torch import BatchSimulation, Simulation, load_compiled, model_from_numpy
-from flygym_tpu_torch.compose.bridge import BENCHMARK_FLY, _read_npz, load_golden
+from flygym_tpu_torch.compose.bridge import BENCHMARK_FLY, TWOFLY, _read_npz, load_golden
 from flygym_tpu_torch.demo.benchmark import (
     GOLDEN_TOLERANCE,
     ReplayTargetData,
@@ -78,11 +78,12 @@ def test_fresh_export_loads_like_the_committed_one(fresh_export, compiled):
         ("condim", 4, "condim 4"),
         ("solver_type", "pgs", "PGS"),
         ("solver_exact", True, "solver_exact"),
-        ("ncand_pair", 3, "pair rows"),
+        ("pair_compress", True, "pair_compress"),
     ],
 )
 def test_unported_features_are_refused(key, value, what):
-    arrays, meta = _read_npz(BENCHMARK_FLY)
+    """On example 11's two-fly world, whose 49 uncompressed pair rows load."""
+    arrays, meta = _read_npz(TWOFLY)
     meta["model"][key] = value
     with pytest.raises(NotImplementedError, match=what):
         model_from_numpy(arrays, meta)
@@ -180,6 +181,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "loop = ht.HybridLoop(tsim)\n"
         "loop.run(loop.init_state(None), 2)\n"
         "assert np.isfinite(tsim.state.qpos.numpy()).all()\n"
+        "from flygym_tpu_torch.compose.bridge import TWOFLY\n"
+        "two = ft.BatchSimulation(ft.load_compiled(TWOFLY), 2, device='cpu')\n"
+        "two.rollout(None, 1, record_trajectory=False)\n"
+        "assert np.isfinite(two.state.qpos.numpy()).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flygym_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

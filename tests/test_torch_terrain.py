@@ -239,7 +239,8 @@ def _controlled(compiled, golden, settled):
     """The settled worlds with the first closed-loop controls (the port's
     hybrid controller from the golden's controller state)."""
     sim = BatchSimulation(compiled, B, device="cpu", megastep=False)
-    cs = HybridState.from_numpy({k: v[:B] for k, v in golden["controller"].items()})
+    cs = HybridState.from_numpy({k: v[:B] for k, v in golden["controller"].items()},
+                                device="cpu")
     state, _cs = HybridLoop(sim).control(settled, cs)
     return state
 
@@ -489,7 +490,8 @@ def test_closed_loop_tracks_the_jax_golden(compiled, golden, path):
 
     if path == "emitter":
         loop.sample_planes = golden_planes
-    cs = HybridState.from_numpy({k: v[:B] for k, v in golden["controller"].items()})
+    cs = HybridState.from_numpy({k: v[:B] for k, v in golden["controller"].items()},
+                                device="cpu")
     cs, rec = loop.run(cs, LOOP_STEPS, record=True)
     assert len(sampled) == (LOOP_STEPS // sim.terrain_resample if path == "emitter" else 0)
     want = golden[path]
