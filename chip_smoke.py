@@ -10,9 +10,10 @@ Phases (each failure ends the run with a non-zero exit code):
 0. The card (``nvidia-smi`` name and power limit) and the torch/CUDA versions.
 1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, all at
    once: the library of K1, K1b and the retina kernel K3, and the mega-step
-   kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly
-   and example 11's two flies (one generated header each); print each
-   build's seconds and the ptxas reports (registers, stack, spills).
+   kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly,
+   example 11's two flies, the default two-fly contact preset and the 3-fly
+   pile (one generated header each); print each build's seconds and the
+   ptxas reports (registers, stack, spills).
 2. Hold the tree-LDL factor (K1) and solve (K1b) kernels against their plain
    PyTorch versions at 4096 and at 1000 worlds, within 1e-5 of the largest
    plain value; time both, their plain versions and ``torch.linalg``'s
@@ -86,9 +87,31 @@ Phases (each failure ends the run with a non-zero exit code):
     engine path against the JAX engine golden within 3 times the spread of
     the golden's conditioning probe at each step (or the floors
     ``PROBE_FLOOR``): the stacked flies are ill-conditioned.
+16. Hold K2 built for compressed fly-fly pair rows against its plain
+    version: the default two-fly contact preset (55 x 55 pair rows, 55
+    groups) at 4096 worlds with one K = 1 and one K = 8 launch and at 1000
+    with one K = 1 launch, and the 3-fly pile (21 groups of 7) at 1000 with
+    one K = 1 and one K = 8 launch, from each golden's settled worlds with
+    seeded root and joint noise and the port's winner sampler's winners, to
+    ``K2_RTOL``; time the default preset's K = 1 and K = 8 launches and one
+    winner sample at 4096 worlds; K2's bound from its operations counted on
+    the CPU.
+17. The default two-fly preset at 4096 worlds: ``BatchSimulation`` with its
+    default step, the top fly moved by a seeded ±0.1 mm in xy per world,
+    adhesion on the bottom fly, a timed ``rollout(None, 800)``: launches K2
+    100 (K = 8), winner samples 100, K1/K1b 0; all state finite; in every
+    world the top fly rests on the bottom one; the share of worlds with an
+    active compressed row; world-steps/s and the card's busy share. Then the
+    engine path from the same drop, 40 steps: K1 40, K1b 80, K2 0.
+18. The goldens of both compressed presets, 8 worlds x 16 steps: the K2 path
+    fed the JAX emitter's stored winners against the JAX emitter golden to
+    ``GOLDEN_TOLERANCE``; the port's sampler on the same states against the
+    stored winners (but near-ties within 1e-6 mm); the engine path against
+    the JAX engine golden within the probe's bar, as in phase 15.
 
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+``[time]`` lines give the seconds since the start after each group of
+phases. The line before the last is a JSON summary of the kernels; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -119,6 +142,12 @@ SPLIT_STEPS = 16
 TWOFLY_STEPS = 800  # example 11's rollout: 100 K = 8 launches
 TWOFLY_ENGINE_STEPS = 40
 TOP_OFFSET_MM = 0.1
+REST_GAP_MM = 0.4  # example 11's check: the top root this far above the bottom's
+# The default two-fly preset's top fly slides off the bottom one in ~2% of
+# the worlds, in the JAX engine too (PERF.md §6): its root then lies this
+# far or farther from the bottom one's in xy.
+SLIDE_OFF_MM = 1.5
+NEAR_TIE_MM = 1e-6  # a group whose two nearest members lie this close may flip
 # The two-fly engine golden: |port - JAX engine| at each step within 3 times
 # |probe - JAX engine|, or these floors, as the JAX package's probe-gated
 # test of the stacked flies (tests/tpu/test_megastep_tpu.py:436-437).
@@ -146,6 +175,13 @@ TIMED_LAUNCHES = 20
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+
+
+START = time.perf_counter()
+
+
+def lap(what: str) -> None:
+    print(f"[time] {what} done at {time.perf_counter() - START:.1f} s", flush=True)
 
 
 class PhaseFailed(Exception):
@@ -187,13 +223,12 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_build(compiled, env_compiled, terrain_compiled, twofly_compiled) -> None:
-    """Every nvcc build at once, each timed."""
+def phase_build(worlds: dict) -> None:
+    """Every nvcc build at once, each timed: the model-independent library
+    and K2 for each of ``worlds`` (name: compiled world)."""
     from flygym_tpu_torch.ops import _build, megastep
 
-    headers = {name: megastep.model_header(c.model)[0]
-               for name, c in (("benchmark fly", compiled), ("env fly", env_compiled),
-                               ("terrain fly", terrain_compiled), ("two flies", twofly_compiled))}
+    headers = {name: megastep.model_header(c.model)[0] for name, c in worlds.items()}
 
     def timed(fn, *args):
         t0 = time.perf_counter()
@@ -315,12 +350,14 @@ def megastep_ops(model) -> int:
     s = make_initial_state(cpu, 1)
     cols = lambda x: [x[:, i] for i in range(x.shape[1])]
     args = [cols(s.qpos), cols(s.qvel), cols(s.ctrl), cols(s.act), cols(s.qacc)]
-    # A heightfield world's planes are inputs (level ground here: the count
-    # does not depend on their values).
+    # A heightfield world's planes and the compressed groups' winners are
+    # inputs (level ground, first members here: the count does not depend
+    # on their values).
     z, one = torch.zeros(1), torch.ones(1)
     terrain = [(z, z, z, one)] * st.ncand if st.has_hfield else None
+    widx = [z] * len(st.pair_comp_groups) if st.pair_comp_groups else None
     with Count():
-        megastep.emit_step(st, *args, terrain)
+        megastep.emit_step(st, *args, terrain, widx)
     return Count.n
 
 
@@ -339,48 +376,57 @@ def k2_inputs(compiled, golden, n_worlds: int, k_steps: int):
     return replace(state, ctrl=seq[0]), seq
 
 
-def k2_against_plain(label: str, model, inputs, note=None) -> dict:
+def k2_against_plain(label: str, model, inputs, note=None,
+                     checks=tuple((n, k) for n in CHECK_WORLDS for k in (1, MEGASTEP_K)),
+                     timed=True) -> dict:
     """K2 built for ``model`` at K = 1 and K = MEGASTEP_K against its plain
-    version at each of CHECK_WORLDS, on ``inputs(fn, n_worlds, k, seed) ->
-    (state, (K, B, nu) controls, planes or None)``, to K2_RTOL of the
-    largest plain value of each output; ``note(state, planes)`` adds a word
-    on the inputs to each line. Then the kernel's ms per launch at N_WORLDS
-    (CUDA events, two runs) beside its plain version's (the check's call at
-    N_WORLDS, host clock), and each launch's bound from the plain version's
-    operations."""
+    version at each (worlds, K) of ``checks``, on ``inputs(fn, n_worlds, k,
+    seed) -> (state, (K, B, nu) controls, planes or winners or None)``, to
+    K2_RTOL of the largest plain value of each output; ``note(state,
+    planes)`` adds a word on the inputs to each line. Then, if ``timed``,
+    the kernel's ms per launch at N_WORLDS (CUDA events, two runs) beside
+    its plain version's (the check's call at N_WORLDS, host clock; None
+    where ``checks`` lacks N_WORLDS), and each launch's bound from the plain
+    version's operations. The plain version runs one eager op per operation
+    of the kernel, so its time is the host's and hardly grows with the
+    worlds; it runs in inference mode, which saves autograd's bookkeeping."""
     import torch
 
     from flygym_tpu_torch.ops import megastep
 
     fns = {k: megastep.make_megastep(model, k) for k in (1, MEGASTEP_K)}
     fields = ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata")
-    worst, plain_ms = 0.0, {}
-    for n in CHECK_WORLDS:
-        for k, fn in fns.items():
-            state, seq, planes = inputs(fn, n, k, n + k)
-            got = fn(state, planes) if k == 1 else fn(state, seq, planes)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    worst, plain_ms = 0.0, {k: None for k in fns}
+    for n, k in checks:
+        fn = fns[k]
+        state, seq, planes = inputs(fn, n, k, n + k)
+        got = fn(state, planes) if k == 1 else fn(state, seq, planes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
             want = megastep.megastep_plain(fn.static, state, None if k == 1 else seq, planes)
-            torch.cuda.synchronize()
-            if n == N_WORLDS:
-                plain_ms[k] = (time.perf_counter() - t0) * 1e3
-            pairs = []
-            if k > 1:
-                (got, traj), (want, wtraj) = got, want
-                pairs.append(("qpos rows", traj, wtraj))
-            pairs += [(f, getattr(got, f), getattr(want, f)) for f in fields]
-            gaps = []
-            for name, a, b in pairs:
-                gap, scale = (a - b).abs().max().item(), b.abs().max().item()
-                check(bool(torch.isfinite(a).all()), f"{label} {name} not finite at B={n}, K={k}")
-                check(gap <= K2_RTOL * scale,
-                      f"{label} {name} at B={n}, K={k}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
-                worst = max(worst, gap)
-                gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
-            print(f"[{label}] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps)
-                  + (f"; {note(state, planes)}" if note else ""))
+        torch.cuda.synchronize()
+        if n == N_WORLDS:
+            plain_ms[k] = (time.perf_counter() - t0) * 1e3
+        pairs = []
+        if k > 1:
+            (got, traj), (want, wtraj) = got, want
+            pairs.append(("qpos rows", traj, wtraj))
+        pairs += [(f, getattr(got, f), getattr(want, f)) for f in fields
+                  if getattr(want, f).numel()]
+        gaps = []
+        for name, a, b in pairs:
+            gap, scale = (a - b).abs().max().item(), b.abs().max().item()
+            check(bool(torch.isfinite(a).all()), f"{label} {name} not finite at B={n}, K={k}")
+            check(gap <= K2_RTOL * scale,
+                  f"{label} {name} at B={n}, K={k}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
+            worst = max(worst, gap)
+            gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
+        print(f"[{label}] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps)
+              + (f"; {note(state, planes)}" if note else ""))
 
+    if not timed:
+        return {"err": worst, "fns": fns}
     times = {}
     for k, fn in fns.items():
         state, seq, planes = inputs(fn, N_WORLDS, k, 1)
@@ -388,8 +434,9 @@ def k2_against_plain(label: str, model, inputs, note=None) -> dict:
         k1 = time_ms(kernel, TIMED_LAUNCHES)
         k2 = time_ms(kernel, TIMED_LAUNCHES, warm_up=False)
         times[k] = (0.5 * (k1 + k2), plain_ms[k])
+        plain = "not timed" if plain_ms[k] is None else f"{plain_ms[k]:.1f} ms"
         print(f"[{label}] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
-              f"(runs {k1:.3f}/{k2:.3f}), plain {plain_ms[k]:.1f} ms")
+              f"(runs {k1:.3f}/{k2:.3f}), plain {plain}")
 
     ops = megastep_ops(model)
     bounds = {}
@@ -431,17 +478,21 @@ def phase_megastep(compiled, model) -> dict:
 
 
 def reset_counts() -> None:
+    from flygym_tpu_torch.engine import contact
     from flygym_tpu_torch.ops import ldl, megastep, retina
 
     ldl.reset_launches()
     megastep.reset_launches()
     retina.reset_launches()
+    contact.reset_samples()
 
 
 def read_counts() -> dict:
+    """Kernel launches, and the winner sampler's calls (``winners``)."""
+    from flygym_tpu_torch.engine import contact
     from flygym_tpu_torch.ops import ldl, megastep, retina
 
-    return {**ldl.launches, **megastep.launches, **retina.launches}
+    return {**ldl.launches, **megastep.launches, **retina.launches, **contact.samples}
 
 
 def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want: dict):
@@ -1025,16 +1076,67 @@ def phase_pairs_kernel(model) -> dict:
                                f"{active_pair_share(model, state):.4f}")
 
 
-def phase_twofly(twofly_compiled) -> dict:
-    """Example 11 at N_WORLDS through the default step, then the engine
-    path from the same drop; returns the mega path's launch counts."""
+def compressed_inputs(model, golden, n_worlds: int, k_steps: int, seed: int, fn):
+    """``twofly_inputs`` of a compressed golden, with the winners the port's
+    sampler gives under the noisy pose."""
+    import torch
+
+    state, seq = twofly_inputs(model, golden, n_worlds, k_steps, seed)
+    widx = fn.sample_planes(state)
+    check(bool(torch.isfinite(widx).all()), f"winners not finite at B={n_worlds}")
+    return state, seq, widx
+
+
+def phase_compressed_kernel(full_model, pile_model) -> dict:
+    """K2 with compressed pair rows against its plain version on the
+    default two-fly preset and the 3-fly pile; times of K2 and of the
+    winner sampler, and K2's bounds, at N_WORLDS (the default preset).
+
+    The plain version of the 55 x 55 preset takes ~17 s per step whatever
+    the worlds, so 1000 worlds are held at K = 1 only: 4096 worlds at K = 8
+    are the main path's launch, whose plain time the kernels line needs."""
+    from flygym_tpu_torch.compose.bridge import (
+        THREEFLY_GOLDEN, TWOFLY_FULL_GOLDEN, load_twofly_golden)
+
+    out = {}
+    for label, model, path, checks, timed in (
+        ("compressed kernel", full_model, TWOFLY_FULL_GOLDEN,
+         ((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)), True),
+        ("compressed kernel, 3-fly pile", pile_model, THREEFLY_GOLDEN,
+         ((1000, 1), (1000, MEGASTEP_K)), False),
+    ):
+        golden = load_twofly_golden(path)
+        out[label] = k2_against_plain(
+            label, model,
+            lambda fn, n, k, seed, model=model, golden=golden: compressed_inputs(
+                model, golden, n, k, seed, fn),
+            lambda state, _w, model=model: f"worlds with an active compressed row "
+                                           f"{active_pair_share(model, state):.4f}",
+            checks=checks, timed=timed)
+    k2 = out["compressed kernel"]
+    state = twofly_inputs(full_model, load_twofly_golden(TWOFLY_FULL_GOLDEN), N_WORLDS, 1, 1)[0]
+    k2["sample_ms"] = time_ms(lambda: k2["fns"][1].sample_planes(state), TIMED_LAUNCHES)
+    print(f"[compressed kernel] winner sampler at B={N_WORLDS}: {k2['sample_ms']:.4f} ms "
+          f"per sample")
+    return k2
+
+
+def phase_twofly(twofly_compiled, label="twofly", what="example 11", rest_mm=REST_GAP_MM,
+                 slide_off_mm=None):
+    """Two stacked flies at N_WORLDS through the default step, then the
+    engine path from the same drop; returns the mega path's counts
+    (launches, winner samples) and its walltime. The top fly must rest on
+    the bottom one in every world or, with ``slide_off_mm``, have slid off
+    it: its root that far from the bottom one's in xy. It must never sink
+    into the bottom fly."""
     import torch
 
     from flygym_tpu_torch import BatchSimulation
     from flygym_tpu_torch.demo.hybrid_terrain import place_roots
+    from flygym_tpu_torch.engine import contact
 
     sim = BatchSimulation(twofly_compiled, N_WORLDS)
-    check(sim.megastep, "example 11's default step is not the mega-step on the card")
+    check(sim.megastep, f"{what}'s default step is not the mega-step on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     offsets = (2.0 * torch.rand((N_WORLDS, 2), generator=gen, device="cuda") - 1.0) * TOP_OFFSET_MM
     place_roots(sim, offsets, root=1)
@@ -1047,25 +1149,39 @@ def phase_twofly(twofly_compiled) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    print(f"[twofly] example 11, {N_WORLDS} worlds: {TWOFLY_STEPS} steps in {wall:.3f} s; "
-          f"launches {counts}")
-    want = {"megastep": TWOFLY_STEPS // MEGASTEP_K, "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    print(f"[{label}] {what}, {N_WORLDS} worlds: {TWOFLY_STEPS} steps in {wall:.3f} s; "
+          f"counts {counts}")
+    compressed = sim.model.pair_compress
+    want = {"megastep": TWOFLY_STEPS // MEGASTEP_K, "tree_ldl_factor": 0, "tree_ldl_solve": 0,
+            "winners": TWOFLY_STEPS // MEGASTEP_K if compressed else 0}
     for name, n in want.items():
-        check(counts[name] == n, f"twofly: {name} launches {counts[name]} != {n}")
+        check(counts[name] == n, f"{label}: {name} {counts[name]} != {n}")
     st = sim.state
     for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata"):
-        check(bool(torch.isfinite(getattr(st, name)).all()), f"twofly: state.{name} not finite")
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"{label}: state.{name} not finite")
     (_b0, q_bottom, _v0), (_b1, q_top, _v1) = sim.model.free_joints
     lift = st.qpos[:, q_top + 2] - st.qpos[:, q_bottom + 2]
     share = active_pair_share(sim.model, st)
-    print(f"[twofly] top root z above the bottom's: min/mean/max {lift.min().item():.4f}/"
-          f"{lift.mean().item():.4f}/{lift.max().item():.4f} mm; worlds with an active pair "
-          f"row {share:.4f}; max|qvel| {st.qvel.abs().max().item():.2f}")
-    check(bool((lift > 0.4).all()), "twofly: the top fly does not rest on the bottom one "
-          f"in {int((lift <= 0.4).sum().item())} worlds")
-    check(share > 0.0, "twofly: no world has an active pair row")
+    rows = "compressed row (its group's winner)" if compressed else "pair row"
+    print(f"[{label}] top root z above the bottom's: min/mean/max {lift.min().item():.4f}/"
+          f"{lift.mean().item():.4f}/{lift.max().item():.4f} mm; worlds with an active {rows} "
+          f"{share:.4f}; max|qvel| {st.qvel.abs().max().item():.2f}")
+    low = lift <= rest_mm
+    if slide_off_mm is not None:
+        sep = (st.qpos[:, q_top:q_top + 2] - st.qpos[:, q_bottom:q_bottom + 2]).norm(dim=1)
+        off = low & (sep >= slide_off_mm)
+        print(f"[{label}] worlds whose top fly slid off the bottom one (root z less than "
+              f"{rest_mm} mm above it, {slide_off_mm} mm or more away in xy): "
+              f"{int(off.sum().item())} ({off.float().mean().item():.4f}); their xy "
+              f"distance min {sep[off].min().item() if off.any() else float('nan'):.3f} mm; "
+              f"lower worlds closer than that: {int((low & ~off).sum().item())}"
+              + (f", xy distance {sep[low & ~off].tolist()[:8]}" if (low & ~off).any() else ""))
+        low = low & ~off
+    check(not bool(low.any()), f"{label}: the top fly sinks into the bottom one "
+          f"in {int(low.sum().item())} worlds")
+    check(share > 0.0, f"{label}: no world has an active pair row")
     rate = TWOFLY_STEPS * N_WORLDS / wall
-    print(f"[twofly] {wall / TWOFLY_STEPS * 1e3:.3f} ms per step: {rate:.0f} world-steps/s "
+    print(f"[{label}] {wall / TWOFLY_STEPS * 1e3:.3f} ms per step: {rate:.0f} world-steps/s "
           f"(both flies) on {card_line()}")
 
     esim = BatchSimulation(twofly_compiled, N_WORLDS, megastep=False)
@@ -1077,40 +1193,73 @@ def phase_twofly(twofly_compiled) -> dict:
     torch.cuda.synchronize()
     ewall = time.perf_counter() - t0
     ecounts = read_counts()
-    print(f"[twofly engine] {N_WORLDS} worlds, {TWOFLY_ENGINE_STEPS} steps from the drop in "
-          f"{ewall:.3f} s ({ewall / TWOFLY_ENGINE_STEPS * 1e3:.3f} ms per step); launches "
+    print(f"[{label} engine] {N_WORLDS} worlds, {TWOFLY_ENGINE_STEPS} steps from the drop in "
+          f"{ewall:.3f} s ({ewall / TWOFLY_ENGINE_STEPS * 1e3:.3f} ms per step); counts "
           f"{ecounts}")
     want = {"megastep": 0, "tree_ldl_factor": TWOFLY_ENGINE_STEPS,
-            "tree_ldl_solve": 2 * TWOFLY_ENGINE_STEPS}
+            "tree_ldl_solve": 2 * TWOFLY_ENGINE_STEPS, "winners": 0}
     for name, n in want.items():
-        check(ecounts[name] == n, f"twofly engine: {name} launches {ecounts[name]} != {n}")
+        check(ecounts[name] == n, f"{label} engine: {name} {ecounts[name]} != {n}")
     for name in ("qpos", "qvel", "qacc", "xpos", "contact_sensordata"):
         check(bool(torch.isfinite(getattr(esim.state, name)).all()),
-              f"twofly engine: state.{name} not finite")
-    return counts
+              f"{label} engine: state.{name} not finite")
+    return counts, wall
 
 
-def phase_twofly_golden(twofly_compiled, *, label: str, megastep) -> None:
+def golden_winners(sim, golden, i: int, label: str) -> "torch.Tensor":
+    """The JAX emitter's stored winners for step ``i`` of a compressed
+    golden, on the card; at each chunk's first step the port's sampler on
+    the state must give them, but for groups whose two nearest members lie
+    within NEAR_TIE_MM (the sampler's distances equal JAX's to the last
+    bit on the CPU, tests/test_torch_compress.py)."""
+    import torch
+
+    from flygym_tpu_torch.engine import contact
+
+    k = golden["meta"]["winner_k"]
+    want = torch.as_tensor(golden["emitter"]["widx"][i // k]).cuda()
+    if i % k == 0:
+        sampler = contact.make_pair_winner_sampler(sim.model)
+        got = sampler(sim.state.xpos, sim.state.xquat)
+        dist = sampler.distances(sim.state.xpos, sim.state.xquat)
+        _start, idx, pad = contact._group_table(tuple(sim.model.pair_groups), dist.device)
+        two = torch.sort(dist[:, idx] + pad, dim=-1).values[..., :2]
+        tie = (two[..., 1] - two[..., 0]) <= NEAR_TIE_MM
+        differ = got != want
+        print(f"[{label}] step {i}: the port's sampler against the stored winners: "
+              f"{int(differ.sum().item())} of {differ.numel()} groups differ, "
+              f"{int(tie.sum().item())} groups within {NEAR_TIE_MM} mm of a tie")
+        check(bool((~differ | tie).all()), f"{label}: the port's winners differ at step {i}")
+    return want
+
+
+def phase_twofly_golden(twofly_compiled, *, label: str, megastep, golden_path=None) -> None:
     """8 worlds from the JAX settled state, 16 steps vs a JAX path: the K2
-    path to GOLDEN_TOLERANCE, the engine path within the probe's bar."""
+    path to GOLDEN_TOLERANCE (on a compressed world with the JAX emitter's
+    stored winners), the engine path within the probe's bar."""
     import numpy as np
 
     from flygym_tpu_torch import BatchSimulation
-    from flygym_tpu_torch.compose.bridge import load_twofly_golden
+    from flygym_tpu_torch.compose.bridge import TWOFLY_GOLDEN, load_twofly_golden
     from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
 
-    golden = load_twofly_golden()
+    golden = load_twofly_golden(golden_path or TWOFLY_GOLDEN)
     engine = megastep is False
     rec, probe = golden["engine" if engine else "emitter"], golden["probe"]
     n_worlds = golden["state"].qpos.shape[0]
     sim = BatchSimulation(twofly_compiled, n_worlds, megastep=megastep, megastep_k=1)
     check(sim.megastep == (not engine), f"{label}: wrong step")
     sim.state = golden["state"].to("cuda")
+    pinned = not engine and sim.model.pair_compress
+    fn = sim.step_fns(1)[0] if pinned else None
     worst = {"qpos": 0.0, "qvel": 0.0, "found_share": 0.0}
     ratio = {"qpos": 0.0, "qvel": 0.0}
     n_steps = rec["qpos"].shape[0]
     for i in range(n_steps):
-        sim.rollout(None, 1, record_trajectory=False)
+        if pinned:
+            sim.state = fn(sim.state, golden_winners(sim, golden, i, label))
+        else:
+            sim.rollout(None, 1, record_trajectory=False)
         for key in ("qpos", "qvel"):
             got = getattr(sim.state, key).cpu().numpy()
             gap = float(np.abs(got - rec[key][i]).max())
@@ -1144,13 +1293,20 @@ def main() -> int:
     try:
         import flygym_tpu_torch
         from flygym_tpu_torch.compose.bridge import (
-            ASSETS, BENCHMARK_GOLDEN, ENV_FLY, TERRAIN_FLY, TWOFLY)
+            ASSETS, BENCHMARK_GOLDEN, ENV_FLY, TERRAIN_FLY, THREEFLY, THREEFLY_GOLDEN, TWOFLY,
+            TWOFLY_FULL, TWOFLY_FULL_GOLDEN, read_meta)
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
         terrain_compiled = flygym_tpu_torch.load_compiled(TERRAIN_FLY)
         twofly_compiled = flygym_tpu_torch.load_compiled(TWOFLY)
-        phase_build(compiled, env_compiled, terrain_compiled, twofly_compiled)
+        full_compiled = flygym_tpu_torch.load_compiled(TWOFLY_FULL)
+        pile_compiled = flygym_tpu_torch.load_compiled(THREEFLY)
+        phase_build({"benchmark fly": compiled, "env fly": env_compiled,
+                     "terrain fly": terrain_compiled, "two flies": twofly_compiled,
+                     "two flies, 55 x 55 compressed": full_compiled,
+                     "3-fly pile, compressed": pile_compiled})
+        lap("phase 1 (build)")
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model)
         k2 = phase_megastep(compiled, model)
@@ -1173,18 +1329,43 @@ def main() -> int:
                      megastep=False)
         phase_golden(compiled, label="golden megastep",
                      golden_path=ASSETS / "benchmark_fly_megastep_golden.npz", megastep=True)
+        lap("phases 2-6 (K1, K1b, K2, the replay)")
         retina = phase_retina(env_compiled, env_compiled.model.to("cuda"))
         env_counts, _env_wall = phase_env(env_compiled)
         phase_env_golden(env_compiled, label="env golden megastep", megastep=None)
         phase_env_golden(env_compiled, label="env golden engine", megastep=False)
+        lap("phases 7-9 (K3, config 5)")
         k2_terrain = phase_terrain_kernel(terrain_compiled, terrain_compiled.model.to("cuda"))
         terrain_counts = phase_terrain(terrain_compiled)
         phase_terrain_golden(terrain_compiled, label="terrain golden megastep", megastep=None)
         phase_terrain_golden(terrain_compiled, label="terrain golden engine", megastep=False)
+        lap("phases 10-12 (config 3)")
         k2_pairs = phase_pairs_kernel(twofly_compiled.model.to("cuda"))
-        twofly_counts = phase_twofly(twofly_compiled)
+        twofly_counts, _wall = phase_twofly(twofly_compiled)
         phase_twofly_golden(twofly_compiled, label="twofly golden megastep", megastep=None)
         phase_twofly_golden(twofly_compiled, label="twofly golden engine", megastep=False)
+        lap("phases 13-15 (example 11)")
+        k2_comp = phase_compressed_kernel(full_compiled.model.to("cuda"),
+                                          pile_compiled.model.to("cuda"))
+        lap("phase 16 (K2 compressed)")
+        # The rest check, or the JAX engine's own smallest settled gap if
+        # that is smaller (scripts/export_compressed_golden.py).
+        rest = min(REST_GAP_MM, read_meta(TWOFLY_FULL_GOLDEN)["settled_gap_min"])
+        full_counts, full_wall = phase_twofly(
+            full_compiled, label="twofly full", what="the default two-fly preset", rest_mm=rest,
+            slide_off_mm=SLIDE_OFF_MM)
+        k8 = k2_comp["times"][MEGASTEP_K][0]
+        print(f"[twofly full] device busy share: "
+              f"{100 * full_counts['megastep'] * k8 / (full_wall * 1e3):.1f}% "
+              f"({full_counts['megastep']} launches x {k8:.3f} ms over {full_wall:.3f} s)")
+        lap("phase 17 (the default two-fly preset)")
+        for name, compiled_, path in (("twofly full", full_compiled, TWOFLY_FULL_GOLDEN),
+                                      ("threefly", pile_compiled, THREEFLY_GOLDEN)):
+            phase_twofly_golden(compiled_, label=f"{name} golden megastep", megastep=None,
+                                golden_path=path)
+            phase_twofly_golden(compiled_, label=f"{name} golden engine", megastep=False,
+                                golden_path=path)
+        lap("phase 18 (the compressed goldens)")
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1228,6 +1409,10 @@ def main() -> int:
     # its K = 8 launch, as the 800-step rollout makes it (100 launches).
     entries.append(k2_entry("megastep_terrain", k2_terrain, terrain_counts["megastep"], 1))
     entries.append(k2_entry("megastep_pairs", k2_pairs, twofly_counts["megastep"], MEGASTEP_K))
+    # For the default two-fly preset's compressed rows, its K = 8 launch, as
+    # its 800-step rollout makes it (100 launches).
+    entries.append(k2_entry("megastep_pairs_compressed", k2_comp, full_counts["megastep"],
+                            MEGASTEP_K))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

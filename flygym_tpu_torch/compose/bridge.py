@@ -12,6 +12,9 @@ blocks-terrain world of config 3 (``scripts/export_terrain_golden.py``)
 carries its height grid in the model's ``hfield_*`` fields. Example 11's two
 stacked flies (``scripts/export_twofly_golden.py``) carry their fly-fly pair
 rows in the candidate table (``can_geom2``, ``can_body2``, ``ncand_pair``).
+The default two-fly contact preset (55 x 55 pair rows) and the 3-fly pile
+(``scripts/export_compressed_golden.py``) add their compression: the pair
+rows' groups (``pair_groups``) and ``pair_compress``.
 
 Models that use a feature the port does not have yet are refused here,
 with ``NotImplementedError``, rather than simulated wrongly.
@@ -36,7 +39,11 @@ __all__ = [
     "ENV_GOLDEN",
     "TERRAIN_FLY",
     "TERRAIN_GOLDEN",
+    "THREEFLY",
+    "THREEFLY_GOLDEN",
     "TWOFLY",
+    "TWOFLY_FULL",
+    "TWOFLY_FULL_GOLDEN",
     "TWOFLY_GOLDEN",
     "load_env_golden",
     "load_terrain_golden",
@@ -56,6 +63,10 @@ TERRAIN_FLY = ASSETS / "terrain_fly.npz"
 TERRAIN_GOLDEN = ASSETS / "terrain_fly_golden.npz"
 TWOFLY = ASSETS / "twofly.npz"
 TWOFLY_GOLDEN = ASSETS / "twofly_golden.npz"
+TWOFLY_FULL = ASSETS / "twofly_full.npz"
+TWOFLY_FULL_GOLDEN = ASSETS / "twofly_full_golden.npz"
+THREEFLY = ASSETS / "threefly.npz"
+THREEFLY_GOLDEN = ASSETS / "threefly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -99,8 +110,6 @@ def _refuse_unported(static: dict, arrays: dict) -> None:
     checks = [
         (kinds <= set(SUPPORTED_KINDS), f"actuator kinds {sorted(kinds)}"),
         (static["na"] == 0, "activation states (na > 0)"),
-        (not (static["pair_compress"] and static["ncand_pair"]),
-         "compressed fly-fly contact pair rows (pair_compress)"),
         (static["solver_type"] != "pgs", "the PGS solver"),
         (not static["solver_exact"], "solver_exact"),
         (static["condim"] == 3, f"condim {static['condim']}"),
@@ -225,13 +234,19 @@ def load_terrain_golden(path=TERRAIN_GOLDEN) -> dict:
 
 
 def load_twofly_golden(path=TWOFLY_GOLDEN) -> dict:
-    """The JAX golden of example 11's stacked flies: ``state`` (the settled
-    batched :class:`State`), ``offsets`` (B, 2) of the top fly's root, and
-    for the JAX emitter, the JAX engine and the engine's conditioning probe
+    """The JAX golden of stacked flies: ``state`` (the settled batched
+    :class:`State`), ``offsets`` of the upper flies' roots, and for the JAX
+    emitter, the JAX engine and the engine's conditioning probe
     (``emitter``, ``engine``, ``probe``) per step ``qpos``, ``qvel`` and
-    ``sensordata``."""
+    ``sensordata``. The goldens of ``scripts/export_compressed_golden.py``
+    (:data:`TWOFLY_FULL_GOLDEN`, :data:`THREEFLY_GOLDEN`) add the winners
+    the JAX emitter was fed, ``emitter["widx"]`` (chunks, B, n_groups) with
+    a chunk per ``meta["winner_k"]`` steps, and ``settled_gap``, each
+    fly's root height above the fly below after the settle."""
     arrays, meta = _read_npz(path)
     out = {"state": _state_of(arrays), "meta": meta, "offsets": arrays["offsets"]}
+    if "settled_gap" in arrays:
+        out["settled_gap"] = arrays["settled_gap"]
     for key, value in arrays.items():
         head, _, rest = key.partition(".")
         if head in ("emitter", "engine", "probe"):

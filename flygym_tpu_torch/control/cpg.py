@@ -25,8 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from flygym_tpu_torch.engine.maths import sinf as _sinf
 from flygym_tpu_torch.ops import checked_device
-from flygym_tpu_torch.ops.megastep import _sinf
 
 __all__ = [
     "tripod_phase_biases",

@@ -11,7 +11,9 @@
 // inertias, CRBA and RNEA, position and adhesion actuator forces, every
 // contact candidate (no top-K): ground rows against the flat plane or, on a
 // heightfield world, their sampled local planes, and fly-fly pair rows
-// capsule against capsule with two-body (+1/-1) Jacobian rows; pyramid rows
+// capsule against capsule with two-body (+1/-1) Jacobian rows, compressed
+// or not (a compressed row's geom2 is its group's winner, sampled outside
+// the kernel and read by index); pyramid rows
 // with impedance and the adhesion split, primal Newton on the frozen
 // tree-LDL^T Hessian (cross-tree fill-in of pair rows dropped, as the
 // emitter drops it) with the bisection + regula-falsi line search,
@@ -86,7 +88,9 @@
 constexpr bool kHasHfield = true;
 #else
 constexpr bool kHasHfield = false;
+#ifndef MS_PAIRS_COMPRESSED
 constexpr int N_AUX = 0;
+#endif
 #endif
 
 // Fly-fly pair rows (slice e; the header defines MS_PAIRS): candidates
@@ -101,6 +105,21 @@ constexpr int NGROUND = NCAND;
 constexpr int S_FRAME = 0;
 #endif
 
+// Compressed pair rows (slice e compressed; the header also defines
+// MS_PAIRS_COMPRESSED): pair row NGROUND + g stands for group g, whose
+// members (kGroupBase[g] .. kGroupBase[g + 1] of the kMem* tables) are the
+// capsules of one opposing fly that face geom1. The group's winner, a
+// member index sampled outside the kernel from the cached pose (once per
+// launch, as the planes are), is input row NQ + NV + K NU + NA + NV + g
+// (N_AUX = NPAIR rows); run_world keeps it as a flat member index in
+// S_WIN. The row is the uncompressed pair row
+// with the winner's geom2: its frame, r2, h2 and inverse weight read by
+// index, which gives the bits of the plain version's one-hot blend (one
+// term times 1, the rest exact zeros). Its DoF path is geom1's body path
+// (+1), then the winner's (-1): the plain version walks the members' whole
+// DoF union in DoF order, where the other members' DoFs add exact zeros,
+// and megastep_supported checks that the winner's DoFs come in its body
+// path's order.
 namespace {
 
 constexpr int kThreads = 128;
@@ -147,11 +166,73 @@ MS_FN V6 scale6(V6 a, float s) { return {scale(a.w, s), scale(a.v, s)}; }
 MS_FN V6 cross6(V6 m, V6 o) { return {cross(m.w, o.w), add(cross(m.w, o.v), cross(m.v, o.w))}; }
 MS_FN float dot6(V6 a, V6 b) { return dot(a.w, b.w) + dot(a.v, b.v); }
 MS_FN float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
-// torch.pow(x, p) for a float scalar p (squares and cubes by multiplies).
-MS_FN float ms_pow(float x, float p) {
-  if (p == 2.0f) return x * x;
-  if (p == 3.0f) return x * x * x;
-  return powf(x, p);
+// powf(x, y) for x >= 0 and y > 0 as glibc computes it
+// (sysdeps/ieee754/flt-32/e_powf.c), which is how the JAX package's CPU
+// backend rounds pow: log2(x) from a 16-entry table and a float64
+// polynomial, times y, exp2 from a 32-entry table and a float64
+// polynomial, rounded to float32; subnormal arguments and results are 0, as
+// XLA's CPU backend flushes them. It is not correctly rounded, and x*x*x
+// differs from it in a quarter of arguments. The plain version
+// (engine/maths.py powf) is the same algorithm.
+MS_TABLE double kPowInvC[16] = {
+    0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0, 0x1.3c995b0b80385p+0,
+    0x1.30d190c8864a5p+0, 0x1.25e227b0b8ea0p+0, 0x1.1bb4a4a1a343fp+0, 0x1.12358f08ae5bap+0,
+    0x1.0953f419900a7p+0, 0x1.0000000000000p+0, 0x1.e608cfd9a47acp-1, 0x1.ca4b31f026aa0p-1,
+    0x1.b2036576afce6p-1, 0x1.9c2d163a1aa2dp-1, 0x1.886e6037841edp-1, 0x1.767dcf5534862p-1};
+MS_TABLE double kPowLogC[16] = {
+    -0x1.efec65b963019p-2, -0x1.b0b6832d4fca4p-2, -0x1.7418b0a1fb77bp-2, -0x1.39de91a6dcf7bp-2,
+    -0x1.01d9bf3f2b631p-2, -0x1.97c1d1b3b7af0p-3, -0x1.2f9e393af3c9fp-3, -0x1.960cbbf788d5cp-4,
+    -0x1.a6f9db6475fcep-5, 0x0.0p+0, 0x1.338ca9f24f53dp-4, 0x1.476a9543891bap-3,
+    0x1.e840b4ac4e4d2p-3, 0x1.40645f0c6651cp-2, 0x1.88e9c2c1b9ff8p-2, 0x1.ce0a44eb17bccp-2};
+MS_TABLE double kPowA[5] = {0x1.27616c9496e0bp-2, -0x1.71969a075c67ap-2, 0x1.ec70a6ca7baddp-2,
+                             -0x1.7154748bef6c8p-1, 0x1.71547652ab82bp+0};
+// 2^(i/32) as float64 bits, minus i << 47.
+MS_TABLE uint64_t kExp2Tab[32] = {
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f, 0x3fef9301d0125b51,
+    0x3fef72b83c7d517b, 0x3fef54873168b9aa, 0x3fef387a6e756238, 0x3fef1e9df51fdee1,
+    0x3fef06fe0a31b715, 0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429, 0x3feea47eb03a5585,
+    0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74, 0x3feea11473eb0187, 0x3feea589994cce13,
+    0x3feeace5422aa0db, 0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c, 0x3fef3720dcef9069,
+    0x3fef5818dcfba487, 0x3fef7c97337b9b5f, 0x3fefa4afa2a490da, 0x3fefd0765b6e4540};
+MS_TABLE double kExp2C[3] = {0x1.c6af84b912394p-5, 0x1.ebfce50fac4f3p-3, 0x1.62e42ff0c52d6p-1};
+constexpr double kExp2Shift = 0x1.8p52 / 32;
+
+MS_FN float ms_powf(float x, float y) {
+  uint32_t ix;
+  memcpy(&ix, &x, sizeof ix);
+  if (ix < 0x00800000u) return 0.0f;
+  const uint32_t tmp = ix - 0x3f330000u;
+  const int i = static_cast<int>((tmp >> 19) % 16);
+  const uint32_t top = tmp & 0xff800000u;
+  const uint32_t iz = ix - top;
+  const int k = static_cast<int32_t>(top) >> 23;
+  float zf;
+  memcpy(&zf, &iz, sizeof zf);
+  const double z = zf;
+  const double r = z * kPowInvC[i] - 1.0;
+  const double y0 = kPowLogC[i] + static_cast<double>(k);
+  const double r2 = r * r;
+  const double ya = kPowA[0] * r + kPowA[1];
+  const double p = kPowA[2] * r + kPowA[3];
+  const double r4 = r2 * r2;
+  double q = kPowA[4] * r + y0;
+  q = p * r2 + q;
+  const double ylogx = static_cast<double>(y) * (ya * r4 + q);
+  if (ylogx <= -150.0) return 0.0f;
+  double kd = ylogx + kExp2Shift;
+  uint64_t ki;
+  memcpy(&ki, &kd, sizeof ki);
+  kd -= kExp2Shift;
+  const double rr = ylogx - kd;
+  const uint64_t t = kExp2Tab[ki % 32] + (ki << 47);
+  double s;
+  memcpy(&s, &t, sizeof s);
+  const double zc = kExp2C[0] * rr + kExp2C[1];
+  const double yv = (zc * (rr * rr) + (kExp2C[2] * rr + 1.0)) * s;
+  const float out = static_cast<float>(yv);
+  return out < 0x1p-126f ? 0.0f : out;
 }
 
 // sinf and cosf as glibc computes them (sysdeps/ieee754/flt-32/s_sinf.c,
@@ -249,36 +330,57 @@ MS_FN int comp_row(int c, int i, int t) { return S_COMP + 3 * (MAXP * c + i) + t
 MS_FN bool has_frame(int c) { return kHasHfield || c >= NGROUND; }
 MS_FN int frame_row(int c) { return S_FRAME + 9 * (kHasHfield ? c : c - NGROUND); }
 
-// Candidate c's path: entries [path_begin(c), path_begin(c) + path_len(c))
-// of kPathDof, split at path_split(c) into the two bodies' parts (ground
-// rows have one); entry i has sign +1 in the first part and -1 in the
-// second. The Hessian keeps (path[i], path[j]), i <= j, where both lie in
-// one part; path[i] is then entry dof_depth(path[i], i) of path[j]'s column.
+#ifdef MS_PAIRS_COMPRESSED
+// Compressed pair row c's winner, as an index into the kMem* tables.
+MS_FN int winner(const Rows& s, int c) { return static_cast<int>(s[S_WIN + (c - NGROUND)]); }
+#endif
+
+// Candidate c's path: n DoFs, split at `split` into the two bodies' parts
+// (ground rows have one); entry i < split is kPathDof[p1 + i], entry i >=
+// split kPathDof[p2 + i - split] (p2 = p1 + split but on compressed rows).
+// Entry i has sign +1 in the first part and -1 in the second. The Hessian
+// keeps (path[i], path[j]), i <= j, where both lie in one part; path[i] is
+// then entry dof_depth(path[i], i) of path[j]'s column.
+struct CPath {
+  int p1, split, p2, n;
+};
 #ifdef MS_PAIRS
-MS_FN int path_slot(int c) { return kCandSlot[c]; }
-MS_FN int path_split(int c) {
-  return c < NGROUND ? kPathPtr[kCandSlot[c] + 1] - kPathPtr[kCandSlot[c]] : kPairSplit[c - NGROUND];
-}
 MS_FN int dof_depth(int d, int) { return kDofDepth[d]; }
 #else
-MS_FN int path_slot(int c) { return kCandBody[c]; }
-MS_FN int path_split(int c) { return kPathPtr[kCandBody[c] + 1] - kPathPtr[kCandBody[c]]; }
 MS_FN int dof_depth(int, int i) { return i; }
 #endif
-MS_FN int path_begin(int c) { return kPathPtr[path_slot(c)]; }
-MS_FN int path_len(int c) { return kPathPtr[path_slot(c) + 1] - kPathPtr[path_slot(c)]; }
-MS_FN int path_dof(int p) { return kPathDof[p]; }
+MS_FN CPath cand_path(const Rows& s, int c) {
+#if defined(MS_PAIRS_COMPRESSED)
+  const int b1 = kCandBody[c], p1 = kPathPtr[b1], n1 = kPathPtr[b1 + 1] - p1;
+  if (c < NGROUND) return {p1, n1, p1 + n1, n1};
+  const int b2 = kMemBody2[winner(s, c)], p2 = kPathPtr[b2];
+  return {p1, n1, p2, n1 + kPathPtr[b2 + 1] - p2};
+#elif defined(MS_PAIRS)
+  const int slot = kCandSlot[c], p = kPathPtr[slot], n = kPathPtr[slot + 1] - p;
+  return {p, c < NGROUND ? n : kPairSplit[c - NGROUND], p, n};
+#else
+  const int b = kCandBody[c], p = kPathPtr[b], n = kPathPtr[b + 1] - p;
+  return {p, n, p, n};
+#endif
+}
+MS_FN int path_dof(const CPath& cp, int i) {
+#ifdef MS_PAIRS_COMPRESSED
+  return kPathDof[i < cp.split ? cp.p1 + i : cp.p2 + (i - cp.split)];
+#else
+  return kPathDof[cp.p1 + i];
+#endif
+}
 
 // Direction products J_t · x along candidate c's path, t = n, t1, t2.
 MS_FN V3 products(const Rows& s, int c, int x_row) {
-  const int p0 = path_begin(c), np = path_len(c);
-  const int d0 = path_dof(p0);
+  const CPath cp = cand_path(s, c);
+  const int d0 = path_dof(cp, 0);
   float pn = s[comp_row(c, 0, 0)] * s[x_row + d0];
   float p1 = s[comp_row(c, 0, 1)] * s[x_row + d0];
   float p2 = s[comp_row(c, 0, 2)] * s[x_row + d0];
   MS_NOUNROLL
-  for (int i = 1; i < np; ++i) {
-    const float xd = s[x_row + path_dof(p0 + i)];
+  for (int i = 1; i < cp.n; ++i) {
+    const float xd = s[x_row + path_dof(cp, i)];
     pn = pn + s[comp_row(c, i, 0)] * xd;
     p1 = p1 + s[comp_row(c, i, 1)] * xd;
     p2 = p2 + s[comp_row(c, i, 2)] * xd;
@@ -309,10 +411,11 @@ MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
   }
   const float cn = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
   const float c1 = mu * (wk[0] - wk[1]), c2 = mu * (wk[2] - wk[3]);
-  const int p0 = path_begin(c), np = path_len(c);
+  const CPath cp = cand_path(s, c);
+  const int np = cp.n;
   MS_NOUNROLL
   for (int i = 0; i < np; ++i) {
-    const int d = path_dof(p0 + i);
+    const int d = path_dof(cp, i);
     const float g =
         s[comp_row(c, i, 0)] * cn + s[comp_row(c, i, 1)] * c1 + s[comp_row(c, i, 2)] * c2;
     s[S_GC + d] = s[S_GC + d] + g;
@@ -334,15 +437,15 @@ MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
   // Within one body's part, path[i] is an ancestor-or-self of path[j]:
   // key (path[i], path[j]) is entry dof_depth of path[j]'s column. Entries
   // across the two parts are cross-tree fill-in, which is dropped.
-  const int split = path_split(c);
+  const int split = cp.split;
   MS_NOUNROLL
   for (int i = 0; i < np; ++i) {
     const float ni = s[comp_row(c, i, 0)], t1 = s[comp_row(c, i, 1)],
                 t2 = s[comp_row(c, i, 2)];
-    const int depth = dof_depth(path_dof(p0 + i), i), j_end = i < split ? split : np;
+    const int depth = dof_depth(path_dof(cp, i), i), j_end = i < split ? split : np;
     MS_NOUNROLL
     for (int j = i; j < j_end; ++j) {
-      const int k = S_H + kPkPtr[path_dof(p0 + j)] + depth;
+      const int k = S_H + kPkPtr[path_dof(cp, j)] + depth;
       s[k] = s[k] + (ni * un[j] + t1 * u1[j] + t2 * u2[j]);
     }
   }
@@ -617,12 +720,21 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
 #ifdef MS_PAIRS
       // Closest points of the two capsule axes (the emitter's _cand_geom
       // pair branch, the branchless Ericson clamp), the normal from geom2
-      // toward geom1, +z where the axes meet.
+      // toward geom1, +z where the axes meet. geom2 is the winner's on a
+      // compressed row.
+#ifdef MS_PAIRS_COMPRESSED
+      const int pi = c - NGROUND, m = winner(s, c), b2 = kMemBody2[m];
+      const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
+      const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kMemGPos2, m)));
+      const V3 zax2 = qrot(qmul(xq2, TQ4(kMemGQuat2, m)), V3{0.0f, 0.0f, 1.0f});
+      const float h1 = kPairH1[pi], h2 = kMemH2[m], r2 = kMemR2[m];
+#else
       const int pi = c - NGROUND, b2 = kPairBody2[pi];
       const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
       const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kPairGPos2, pi)));
       const V3 zax2 = qrot(qmul(xq2, TQ4(kPairGQuat2, pi)), V3{0.0f, 0.0f, 1.0f});
-      const float h1 = kPairH1[pi], h2 = kPairH2[pi];
+      const float h1 = kPairH1[pi], h2 = kPairH2[pi], r2 = kPairR2[pi];
+#endif
       const V3 a0 = sub(gpos, scale(zax, h1)), d1 = scale(zax, 2.0f * h1);
       const V3 b0 = sub(gpos2, scale(zax2, h2)), d2 = scale(zax2, 2.0f * h2);
       const V3 r = sub(a0, b0);
@@ -639,7 +751,7 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
       const float dn = sqrtf(fmaxf(dot(dv, dv), 1e-18f));
       const bool ok = dn > 1e-9f;
       fn = V3{ok ? dv.x / dn : 0.0f, ok ? dv.y / dn : 0.0f, ok ? dv.z / dn : 1.0f};
-      dist = dn - rad - kPairR2[pi];
+      dist = dn - rad - r2;
       cpos = sub(c1, scale(fn, rad + 0.5f * dist));
 #endif
     } else if (kHasHfield) {
@@ -673,10 +785,15 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     const bool active = dist < kCandMargin[c];
     const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
     const float x = clampf(fabsf(pos_err) / kSolWidth[c], 0.0f, 1.0f);
-    const float y = x < kSolMid[c] ? kSolA[c] * ms_pow(x, kSolPow[c])
-                                   : 1.0f - kSolB[c] * ms_pow(1.0f - x, kSolPow[c]);
+    const float y = x < kSolMid[c] ? kSolA[c] * ms_powf(x, kSolPow[c])
+                                   : 1.0f - kSolB[c] * ms_powf(1.0f - x, kSolPow[c]);
     const float imp = clampf(kSolDmin[c] + y * kSolDmm[c], 1e-4f, 0.9999f);
-    const float R = (1.0f - imp) / imp * kInvW[c];
+#ifdef MS_PAIRS_COMPRESSED
+    const float invw = c < NGROUND ? kInvW[c] : kMemInvW[winner(s, c)];
+#else
+    const float invw = kInvW[c];
+#endif
+    const float R = (1.0f - imp) / imp * invw;
     s[cr + C_ACT] = active ? 1.0f : 0.0f;
     s[cr + C_IMP] = imp;
     s[cr + C_PERR] = pos_err;
@@ -687,11 +804,11 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     // t2: dots with the contact frame, or the z, x, y components on flat
     // ground; sgn = -1 (an exact negation) on the second body's DoFs.
     const V3 rel = sub(cpos, ref);
-    const int p0 = path_begin(c), np = path_len(c), split = path_split(c);
-    for (int i = 0; i < np; ++i) {
-      const V6 sd = ld6(s, S_SM + 6 * path_dof(p0 + i));
+    const CPath cp = cand_path(s, c);
+    for (int i = 0; i < cp.n; ++i) {
+      const V6 sd = ld6(s, S_SM + 6 * path_dof(cp, i));
       const V3 jp = add(sd.v, cross(sd.w, rel));
-      const float sg = i < split ? 1.0f : -1.0f;
+      const float sg = i < cp.split ? 1.0f : -1.0f;
       s[comp_row(c, i, 0)] = sg * (framed ? dot(jp, fn) : jp.z);
       s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
       s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
@@ -725,9 +842,9 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     for (int r = 0; r < 4; ++r)
       s[cr + C_AREF + r] = kNegBGain[c] * vel[r] - kimp * s[cr + C_PERR];
     const float adh = s[cr + C_ADH];
-    const int p0 = path_begin(c), np = path_len(c);
-    for (int i = 0; i < np; ++i) {
-      const int d = S_QFRC + path_dof(p0 + i);
+    const CPath cp = cand_path(s, c);
+    for (int i = 0; i < cp.n; ++i) {
+      const int d = S_QFRC + path_dof(cp, i);
       s[d] = s[d] - s[comp_row(c, i, 0)] * adh;
     }
     row_combos(c, products(s, c, S_A), jr);
@@ -951,6 +1068,12 @@ MS_FN void run_world(const float* in, float* out, float* scratch, int w, int B, 
   for (int i = 0; i < NQ; ++i) S[S_Q + i] = I[i];
   for (int i = 0; i < NV; ++i) S[S_V + i] = I[NQ + i];
   for (int i = 0; i < NV; ++i) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
+#ifdef MS_PAIRS_COMPRESSED
+  for (int g = 0; g < NPAIR; ++g) {
+    const int w_g = static_cast<int>(I[NQ + NV + K * NU + NA + NV + g]);
+    S[S_WIN + g] = static_cast<float>(kGroupBase[g] + w_g);
+  }
+#endif
   MS_NOUNROLL
   for (int k = 0; k < K; ++k) step_world(I, O, S, k, K);
 }

@@ -1,6 +1,6 @@
 """Ground contacts, adhesion and the primal Newton contact solver, batch-first.
 
-Port of ``flygym_tpu/engine/contact.py`` (lines 46-175, 256-357, 441-753)
+Port of ``flygym_tpu/engine/contact.py`` (lines 46-253, 256-357, 441-753)
 for condim 3:
 
 1. Candidates from the static candidate table: capsule ends against a flat
@@ -12,6 +12,11 @@ for condim 3:
    stable sort, which keeps the lower candidate index first among equal
    distances, as ``jax.lax.top_k`` does: at rest the left and right legs can
    give bit-equal distances, and ``torch.topk`` promises no order among ties.
+   With compressed pair rows (``pair_compress``) each group of pair rows
+   that share a geom1 and face one opposing fly offers only its nearest
+   member (the winner, picked in the step or pinned by the caller) to that
+   choice; :func:`make_pair_winner_sampler` picks the same winners outside
+   a step, from the cached pose, for the mega-step kernel.
 3. Pyramidal friction rows per contact in the reference's row order
    (contact-major, ``_pyramid_rows``), MuJoCo impedance and reference
    accelerations, inverse weights precomputed at the neutral pose.
@@ -23,20 +28,29 @@ for condim 3:
    functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU), with the
    reference's bisection line search.
 
-Compressed pair rows (``pair_compress``), PGS, ``solver_exact`` and condim
-other than 3 are refused when a model is loaded.
+PGS, ``solver_exact`` and condim other than 3 are refused when a model is
+loaded.
+
+``samples["winners"]`` counts calls of a winner sampler.
 """
+
+import functools
 
 import torch
 
 from flygym_tpu_torch.engine.actuation import clamp_ctrl
-from flygym_tpu_torch.engine.maths import cross, norm, quat_rotate, sqrt_rn
+from flygym_tpu_torch.engine.maths import (
+    cross, fma32, norm, powf, quat_mul, quat_rotate, sqrt_rn)
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel
 from flygym_tpu_torch.ops import ldl
 
 __all__ = [
     "contact_candidates",
     "ground_height_normal",
+    "make_pair_winner_sampler",
+    "pair_winners",
+    "reset_samples",
+    "samples",
     "segseg_closest",
     "select_contacts",
     "solve_contacts",
@@ -44,6 +58,12 @@ __all__ = [
 ]
 
 _NROWS = 4  # pyramid rows per condim-3 contact
+
+samples = {"winners": 0}
+
+
+def reset_samples() -> None:
+    samples["winners"] = 0
 
 
 class ContactInfo:
@@ -161,6 +181,85 @@ def contact_candidates(model: PhysicsModel, gpos, gquat):
             torch.cat([n, n_p], dim=1))
 
 
+@functools.lru_cache(maxsize=None)
+def _group_table(pair_groups: tuple, device: torch.device):
+    """Per compressed group its first pair row (n_groups,), and (n_groups,
+    gmax) pair-row indices of its members with a +inf pad where a group is
+    shorter than the longest, so that an argmin never picks a pad (the JAX
+    sampler's gather table, ``contact.py:221-230``); made once per device."""
+    gmax = max(size for _start, size in pair_groups)
+    idx = torch.zeros((len(pair_groups), gmax), dtype=torch.int64)
+    pad = torch.full((len(pair_groups), gmax), float("inf"))
+    for i, (start, size) in enumerate(pair_groups):
+        idx[i, :size] = start + torch.arange(size)
+        pad[i, :size] = 0.0
+    start = torch.tensor([start for start, _size in pair_groups], dtype=torch.int64)
+    return start.to(device), idx.to(device), pad.to(device)
+
+
+def _sum_sq_fma(d: torch.Tensor) -> torch.Tensor:
+    """x0² + x1² + x2² over the last axis of (..., 3) float32 vectors, as
+    XLA's CPU backend computes ``jnp.linalg.norm``'s sum: contracted into
+    fused multiply-adds, fma(x2, x2, fma(x1, x1, x0 * x0))."""
+    x0, x1, x2 = d.unbind(-1)
+    return fma32(x2, x2, fma32(x1, x1, x0 * x0))
+
+
+def pair_winners(model: PhysicsModel, pair_dist: torch.Tensor) -> torch.Tensor:
+    """(B, n_groups) group-local index of each compressed group's nearest
+    member, from the (B, ncand_pair) distances of the pair rows: the first
+    of equal minima, as ``jnp.argmin`` and ``torch.argmin`` both take."""
+    _start, idx, pad = _group_table(tuple(model.pair_groups), pair_dist.device)
+    return torch.argmin(pair_dist[:, idx] + pad, dim=-1)
+
+
+def make_pair_winner_sampler(model: PhysicsModel):
+    """``sample(xpos, xquat) -> (B, n_groups)`` float32 group-local winner
+    indices of the compressed pair groups, or None for a model without
+    compressed pair rows (the JAX ``make_pair_winner_sampler``,
+    ``contact.py:177-253``).
+
+    The mega-step kernel solves one capsule-capsule row per group, whose
+    geom2 is the group's nearest member at the batched body poses (B,
+    nbody, 3/4) it is given: the state's cached pose, sampled once per
+    launch of K steps. ``sample.distances(xpos, xquat)`` gives the (B,
+    ncand_pair) distances the argmin runs over, rounded as the JAX
+    sampler's: each geom's frame is ``xpos + quat_rotate(xquat, gpos)`` and
+    ``quat_rotate(quat_mul(xquat, gquat), ez)``, the closest points of the
+    two axes, then the norm of their difference (its sum as
+    :func:`_sum_sq_fma`, its sqrt rounded once) minus both radii.
+    """
+    if not (model.pair_compress and model.ncand_pair):
+        return None
+    ng = model.ncand - model.ncand_pair
+    g1, g2 = model.can_geom[ng:], model.can_geom2[ng:]
+    r1, r2 = model.geom_size[g1, 0], model.geom_size[g2, 0]
+    # Each capsule's axis ends once per geom, then gathered per pair row:
+    # the same operations on the same values as per pair row, so the same bits.
+    geoms, inv = torch.unique(torch.cat([g1, g2]), return_inverse=True)
+    i1, i2 = inv[: len(g1)], inv[len(g1):]
+    body, half = model.geom_body[geoms], model.geom_size[geoms, 1, None]
+    gpos_l, gquat_l = model.geom_pos[geoms], model.geom_quat[geoms]
+
+    def distances(xpos: torch.Tensor, xquat: torch.Tensor) -> torch.Tensor:
+        # The z axis made on the device: a copy from the host would wait
+        # for the card's queue to drain.
+        up = torch.cat([xpos.new_zeros(2), xpos.new_ones(1)])
+        q = xquat[:, body]
+        p = xpos[:, body] + quat_rotate(q, gpos_l)
+        z = quat_rotate(quat_mul(q, gquat_l), up)
+        lo, hi = p - half * z, p + half * z
+        s1, s2 = segseg_closest(lo[:, i1], hi[:, i1], lo[:, i2], hi[:, i2])
+        return sqrt_rn(_sum_sq_fma(s1 - s2)) - r1 - r2
+
+    def sample(xpos: torch.Tensor, xquat: torch.Tensor) -> torch.Tensor:
+        samples["winners"] += 1
+        return pair_winners(model, distances(xpos, xquat)).to(xpos.dtype)
+
+    sample.distances = distances
+    return sample
+
+
 def select_contacts(model: PhysicsModel, dist_all: torch.Tensor) -> torch.Tensor:
     """Indices (B, ncon) of the ``ncon`` closest candidates, closest first."""
     order = torch.sort(dist_all, dim=-1, stable=True).indices
@@ -168,15 +267,16 @@ def select_contacts(model: PhysicsModel, dist_all: torch.Tensor) -> torch.Tensor
 
 
 def _impedance(solimp: torch.Tensor, pos_err: torch.Tensor) -> torch.Tensor:
-    """MuJoCo solimp impedance d(r) as a function of constraint violation."""
+    """MuJoCo solimp impedance d(r) as a function of constraint violation;
+    its pow is glibc's powf, as the JAX engine's on the CPU."""
     dmin, dmax, width, mid, power = solimp.unbind(-1)
     x = torch.clamp(torch.abs(pos_err) / torch.clamp(width, min=1e-12), 0.0, 1.0)
-    a = 1.0 / torch.pow(mid, power - 1.0)
-    b = 1.0 / torch.pow(1.0 - mid, power - 1.0)
+    a = 1.0 / powf(mid, power - 1.0)
+    b = 1.0 / powf(1.0 - mid, power - 1.0)
     y = torch.where(
         x < mid,
-        a * torch.pow(x, power),
-        1.0 - b * torch.pow(1.0 - x, power),
+        a * powf(x, power),
+        1.0 - b * powf(1.0 - x, power),
     )
     return torch.clamp(dmin + y * (dmax - dmin), 1e-4, 0.9999)
 
@@ -226,13 +326,16 @@ def _pyramid_rows(J, fric):
 
 
 def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,
-                   S, gpos, gquat, ctrl, ref):
+                   S, gpos, gquat, ctrl, ref, widx=None):
     """Detect contacts, apply adhesion, solve the constraints.
 
     Args:
         Mh: (B, nv, nv) damping-augmented mass matrix.
         qfrc_smooth: (B, nv) smooth generalised forces without adhesion.
         qacc_warm: (B, nv) previous step's acceleration (active-set warm start).
+        widx: Optional (B, n_groups) pinned group-local winners of the
+            compressed pair groups; None picks each group's nearest member
+            from this step's distances.
 
     Returns:
         qacc: (B, nv) constrained acceleration.
@@ -244,7 +347,18 @@ def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,
 
     B, K, nv = Mh.shape[0], model.ncon, model.nv
     dist_all, cpos_all, normal_all = contact_candidates(model, gpos, gquat)
-    sel = select_contacts(model, dist_all)
+    if model.pair_compress and model.ncand_pair:
+        # Each group offers its winner only; top-K runs over the ground rows
+        # and the winners, in that order (``contact.py:494-517``).
+        ng = model.ncand - model.ncand_pair
+        if widx is None:
+            widx = pair_winners(model, dist_all[:, ng:])
+        start = _group_table(tuple(model.pair_groups), dist_all.device)[0]
+        eff = torch.cat([torch.arange(ng, device=dist_all.device).expand(B, ng),
+                         ng + start + widx.long()], dim=1)
+        sel = torch.gather(eff, 1, select_contacts(model, torch.gather(dist_all, 1, eff)))
+    else:
+        sel = select_contacts(model, dist_all)
     dist = torch.gather(dist_all, 1, sel)
     sel3 = sel[..., None].expand(B, K, 3)
     cpos = torch.gather(cpos_all, 1, sel3)

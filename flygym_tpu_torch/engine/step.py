@@ -28,8 +28,16 @@ from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State, compute_
 __all__ = ["step", "rollout_batched"]
 
 
-def step(model: PhysicsModel, state: State) -> State:
-    """Advance every world of ``state`` by one timestep."""
+def step(model: PhysicsModel, state: State, widx=None) -> State:
+    """Advance every world of ``state`` by one timestep.
+
+    Args:
+        widx: Optional (B, n_groups) pinned winners of the compressed pair
+            groups (group-local indices, e.g. from
+            :func:`~flygym_tpu_torch.engine.contact.make_pair_winner_sampler`);
+            None picks each group's nearest member in the step
+            (``flygym_tpu/engine/step.py:36-41``).
+    """
     dt = model.timestep
     qpos, qvel, ctrl = state.qpos, state.qvel, state.ctrl
 
@@ -59,7 +67,7 @@ def step(model: PhysicsModel, state: State) -> State:
 
     # ---- contacts (adds adhesion forces, solves constraints) ----
     qacc, con_info = contact.solve_contacts(
-        model, Mh, qfrc_smooth, qvel, state.qacc, xpos, S, gpos, gquat, ctrl, ref
+        model, Mh, qfrc_smooth, qvel, state.qacc, xpos, S, gpos, gquat, ctrl, ref, widx
     )
 
     # ---- integrate ----
@@ -128,13 +136,14 @@ def rollout_batched(
             ``n_steps`` must be a multiple of its ``k_steps``. The loop then
             makes n_steps / K launches, forward-filling the NaN controls of
             each chunk before its launch (``flygym_tpu/engine/step.py:256-277``).
-        terrain_resample: On a heightfield world a mega-step carries
-            ``sample_planes``. The K-chunk path samples the ground planes
-            once per chunk; the one-step path once every
-            ``terrain_resample`` steps when that number (> 1) divides
-            ``n_steps``, and otherwise the step samples them at every step
-            (``flygym_tpu/engine/step.py:269, 283-308``). Candidates move
-            ~1e-3 mm per step against 0.25 mm terrain cells.
+        terrain_resample: On a heightfield world, or one with compressed
+            pair rows, a mega-step carries ``sample_planes``: the ground
+            planes, or the pair groups' winners, it reads for all its steps.
+            The K-chunk path samples them once per chunk; the one-step path
+            once every ``terrain_resample`` steps when that number (> 1)
+            divides ``n_steps``, and otherwise the step samples them at
+            every step (``flygym_tpu/engine/step.py:269, 283-308``).
+            Candidates move ~1e-3 mm per step against 0.25 mm terrain cells.
 
     Returns:
         (final state, (n_steps, B, nq) qpos trajectory or None).

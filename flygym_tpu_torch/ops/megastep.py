@@ -4,8 +4,10 @@ Port of ``flygym_tpu/ops/megastep.py``, the JAX package's main-path kernel.
 Three parts:
 
 - :class:`_Static`, the model snapshot the emitter reads (the JAX
-  ``_Static``, ``megastep.py:715-888``, without compressed pair rows), with
-  each candidate's DoF path and signs.
+  ``_Static``, ``megastep.py:715-888``), with each candidate's DoF path and
+  signs. On a world with compressed pair rows (``pair_compress``) each
+  group of pair rows that share a geom1 and face one opposing fly becomes
+  one row (:func:`_pair_group_specs`).
 - :func:`emit_step`, the plain version of K2: the JAX emitter
   (``emit_step``, ``_cand_geom``, the fused ``_contacts_impl``, the tree
   LDLᵀ and ``_emit_sensors``) over lists of (B,) tensors, op for op and in
@@ -15,29 +17,41 @@ Three parts:
   candidate; on flat ground the frame is the world's axes. Fly-fly pair
   rows are capsule against capsule, with their own frame and both bodies'
   DoFs (the second's with sign -1); their cross-tree Hessian fill is
-  dropped. :func:`megastep_plain` packs a :class:`State` into those lists
-  and chains K steps with one set of planes.
+  dropped. A compressed row's geom2 is its group's winner, blended from
+  the members with the winner's one-hot, and its signs on the opposing
+  fly's DoFs are lane values. :func:`megastep_plain` packs a :class:`State`
+  into those lists and chains K steps with one set of planes or winners.
 - :func:`make_megastep`, the wrapper of the kernel in
   ``flygym_tpu_torch/csrc/megastep.cu``. The model's constants reach the
   kernel as a generated header (:func:`model_header`), built with the
   kernel by :mod:`flygym_tpu_torch.ops._build`. For a CPU tensor the wrapper
   runs :func:`megastep_plain`; for a CUDA tensor it launches K2 or raises.
   On a heightfield world it carries ``sample_planes`` (the plane sampler of
-  :mod:`flygym_tpu_torch.engine.terrain`) and takes ``terrain_planes=``.
+  :mod:`flygym_tpu_torch.engine.terrain`), on a world with compressed pair
+  rows the same name samples the groups' winners
+  (:func:`~flygym_tpu_torch.engine.contact.make_pair_winner_sampler`); it
+  takes either as ``terrain_planes=``.
 
 ``launches["megastep"]`` counts kernel launches; only a launch adds to it.
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
-and gates, the streamed emitter, H0-matvec mode, sublane packing. Not yet
-ported (later slices of K2): other actuator kinds, compressed pair rows
-(``pair_compress``: the winner sampler and mask rows), ``solver_exact``;
-:func:`megastep_supported` refuses those models.
+and gates, the streamed emitter, H0-matvec mode, sublane packing, the
+winners' expansion into mask rows. Not yet ported (later slices of K2):
+other actuator kinds, ``solver_exact``, and compressed pair rows on a
+heightfield world; :func:`megastep_supported` refuses those models.
 """
+
+import weakref
 
 import numpy as np
 import torch
 
-from flygym_tpu_torch.engine.maths import sqrt_rn
+from flygym_tpu_torch.engine.contact import make_pair_winner_sampler
+# sin, cos and pow as glibc rounds them (engine/maths.py), like the JAX
+# emitter on the CPU and K2's ms_sinf/ms_cosf/ms_powf.
+from flygym_tpu_torch.engine.maths import cosf as _cosf
+from flygym_tpu_torch.engine.maths import powf, sqrt_rn
+from flygym_tpu_torch.engine.maths import sinf as _sinf
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State
 from flygym_tpu_torch.engine.terrain import make_plane_sampler
 
@@ -64,73 +78,6 @@ launches = {"megastep": 0}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# float32 sin and cos as the JAX package's CPU backend rounds them
-# ---------------------------------------------------------------------------
-# XLA's CPU backend takes sin and cos of float32 from glibc's sinf/cosf
-# (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c, sincosf.h): a float64 range
-# reduction by pi/2 and a float64 polynomial, rounded to float32. torch.sin
-# rounds otherwise in ~5% of arguments on the CPU (CUDA's sinf is another
-# algorithm again), and those 1-ulp differences, amplified by the contact
-# solve, flip line-search brackets within tens of steps. The plain emitter and K2 (ms_sinf/ms_cosf in
-# csrc/megastep.cu) both use this algorithm, so they repeat the JAX
-# emitter's rounding (checked against libm for |x| <= 4 on 3e7 arguments).
-
-_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2^24
-_HPI = float.fromhex("0x1.921FB54442D18p0")  # pi/2
-_COS_C = [1.0] + [float.fromhex(h) for h in (
-    "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10",
-    "0x1.99343027bf8c3p-16")]
-_SIN_S = [float.fromhex(h) for h in (
-    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13")]
-
-
-def _top12(x: float) -> int:
-    return (int(np.float32(x).view(np.int32)) >> 20) & 0x7FF
-
-
-_TOP_TINY, _TOP_PIO4, _TOP_BIG = _top12(2.0**-12), _top12(float.fromhex("0x1.921FB6p-1")), _top12(120.0)
-
-
-def _sincos_poly(x, x2, odd):
-    """glibc's sinf_poly: the sine polynomial where ``odd`` is false, the
-    cosine polynomial where it is true (float64)."""
-    x3 = x * x2
-    s = x + x3 * _SIN_S[0]
-    sin_p = s + (x3 * x2) * (_SIN_S[1] + x2 * _SIN_S[2])
-    x4 = x2 * x2
-    c = (_COS_C[0] + x2 * _COS_C[1]) + x4 * _COS_C[2]
-    cos_p = c + (x4 * x2) * (_COS_C[3] + x2 * _COS_C[4])
-    return torch.where(odd, cos_p, sin_p)
-
-
-def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
-    """sinf(y) or cosf(y) of a float32 tensor, rounded as glibc rounds them.
-    Arguments of 120 or more in magnitude (glibc's slow reduction; joint
-    angles never get there) take float64 sin/cos rounded to float32."""
-    x = y.double()
-    top = (y.view(torch.int32) >> 20) & 0x7FF
-    n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
-    xr = x - n.double() * _HPI
-    sign = torch.where(((n & 3) == 1) | ((n & 3) == 2), -1.0, 1.0).double()
-    small = top < _TOP_PIO4
-    nq = torch.where(small, 0, n) ^ int(cos)
-    odd = (nq & 1) == 1
-    out = _sincos_poly(torch.where(small, x, xr * sign), torch.where(small, x * x, xr * xr), odd)
-    out = torch.where(~small & ((n & 2) == 2) & odd, -out, out).float()
-    far = torch.cos(x) if cos else torch.sin(x)
-    out = torch.where(top < _TOP_BIG, out, far.float())
-    return torch.where(top < _TOP_TINY, torch.ones_like(y) if cos else y, out)
-
-
-def _sinf(y):
-    return _sincosf(y, cos=False)
-
-
-def _cosf(y):
-    return _sincosf(y, cos=True)
 
 
 # ---------------------------------------------------------------------------
@@ -309,13 +256,111 @@ def _qmul_sp(a, b, z):
 
 
 # ---------------------------------------------------------------------------
+# Compressed pair groups
+# ---------------------------------------------------------------------------
+
+
+def _pair_group_specs(model: PhysicsModel):
+    """Static spec per compressed pair group (the JAX ``_pair_group_specs``,
+    ``megastep.py:82-217``), or ``([], None)`` without compressed rows.
+
+    Each group is a contiguous run of capsule-capsule candidate rows that
+    share one geom1 and face one opposing fly; it becomes one row whose
+    geom2 is the group's winner, picked outside the step. Returns (specs,
+    keep): ``keep`` selects the ground rows and each group's first row;
+    ``specs[g]`` holds ``members`` ([(geom2, body2)]), the members'
+    ``invw``, ``r2`` and ``h2``, ``dof_sign_spec`` ({DoF: "all" or the runs
+    of member indices whose path holds it} over the members' DoF union),
+    ``listed`` (the distinct runs, sorted) and ``dof_sign_idx`` (each
+    run-listed DoF's index into ``listed``).
+
+    Raises:
+        ValueError: a group mixes geom1 or contact parameters, or a member
+            shares a DoF with geom1 (one kinematic tree).
+    """
+    if not (model.pair_compress and model.ncand_pair):
+        return [], None
+    f = lambda x: x.detach().cpu().numpy()
+    body_parent = f(model.body_parent)
+    body_dofs = {b: [] for b in range(model.nbody)}
+    for h, b in enumerate(f(model.hinge_body)):
+        body_dofs[int(b)].append(int(f(model.hinge_vadr)[h]))
+    for b, _qa, va in model.free_joints:
+        body_dofs[int(b)] = list(range(int(va), int(va) + 6))
+
+    def path_dofs(b):
+        out = set()
+        while b != 0:
+            out.update(body_dofs[b])
+            b = int(body_parent[b])
+        return out
+
+    can_geom, can_geom2 = f(model.can_geom), f(model.can_geom2)
+    can_body, can_body2 = f(model.can_body), f(model.can_body2)
+    friction, solref, solimp = f(model.can_friction), f(model.can_solref), f(model.can_solimp)
+    margin, invweight, geom_size = f(model.can_margin), f(model.can_invweight), f(model.geom_size)
+    ng = model.ncand - model.ncand_pair
+    keep = list(range(ng))
+    specs = []
+    for start, size in model.pair_groups:
+        rows = [ng + start + j for j in range(size)]
+        r0 = rows[0]
+        for r in rows[1:]:
+            if int(can_geom[r]) != int(can_geom[r0]):
+                raise ValueError("pair group mixes geom1")
+            if not (np.array_equal(friction[r], friction[r0])
+                    and np.array_equal(solref[r], solref[r0])
+                    and np.array_equal(solimp[r], solimp[r0])
+                    and margin[r] == margin[r0]):
+                raise ValueError("pair group mixes contact params")
+        members = [(int(can_geom2[r]), int(can_body2[r])) for r in rows]
+        dof_members = {}
+        for j, (_g2, b2) in enumerate(members):
+            for d in path_dofs(b2):
+                dof_members.setdefault(d, []).append(j)
+        g1_path = path_dofs(int(can_body[r0]))
+        dof_sign_spec = {}
+        for d, js in sorted(dof_members.items()):
+            if d in g1_path:
+                raise ValueError("pair group geom2 shares DoFs with geom1 (same kinematic "
+                                 "tree): compression assumes disjoint trees")
+            if len(js) == size:
+                dof_sign_spec[d] = "all"
+                continue
+            runs = []
+            lo = prev = js[0]
+            for j in js[1:]:
+                if j == prev + 1:
+                    prev = j
+                    continue
+                runs.append((lo, prev))
+                lo = prev = j
+            runs.append((lo, prev))
+            dof_sign_spec[d] = tuple(runs)
+        listed = sorted({sp for sp in dof_sign_spec.values() if sp != "all"})
+        run_idx = {runs: k for k, runs in enumerate(listed)}
+        specs.append(dict(
+            row0=r0,
+            members=members,
+            invw=[float(invweight[r, 0]) for r in rows],
+            r2=[float(geom_size[g2, 0]) for g2, _b2 in members],
+            h2=[float(geom_size[g2, 1]) for g2, _b2 in members],
+            dof_sign_spec=dof_sign_spec,
+            listed=listed,
+            dof_sign_idx={d: run_idx[sp] for d, sp in dof_sign_spec.items() if sp != "all"},
+        ))
+        keep.append(r0)
+    return specs, np.asarray(keep, np.int64)
+
+
+# ---------------------------------------------------------------------------
 # Static model snapshot
 # ---------------------------------------------------------------------------
 
 
 class _Static:
     """What the emitter and the kernel's header need, as numpy arrays and
-    Python structures (the JAX ``_Static`` without compressed pair rows)."""
+    Python structures (the JAX ``_Static``)."""
 
     def __init__(self, model: PhysicsModel):
         f = lambda x: x.detach().cpu().numpy()
@@ -417,19 +462,39 @@ class _Static:
         self.has_hfield = bool(model.has_hfield)
         self.nsensor = model.nsensor_contact
 
+        # Compressed pair rows: the candidate table keeps the ground rows
+        # and one row per group (JAX ``megastep.py:837-861``).
+        self.pair_comp_groups, self.pair_keep = _pair_group_specs(model)
+        if self.pair_comp_groups:
+            keep = self.pair_keep
+            for name in ("can_geom", "can_geom2", "can_end", "can_friction", "can_solref",
+                         "can_solimp", "can_margin", "can_adh_act", "can_sensor",
+                         "can_invweight"):
+                setattr(self, name, getattr(self, name)[keep])
+            self.ncand_pair = len(self.pair_comp_groups)
+            self.ncand = self.ng_rows + self.ncand_pair
+
         # Per candidate its DoF path and signs, in the JAX emitter's order
         # (``megastep.py:1675-1691``): the first body's path DoFs with +1,
         # then the second body's (pair rows) with -1; a DoF that moves both
         # nets 0 and leaves the path. ``cand_split[c]`` is where the second
-        # body's DoFs start (the path's length on ground rows).
+        # body's DoFs start (the path's length on ground rows). A compressed
+        # row's second part is its members' DoF union in DoF order, -1 on
+        # the DoFs that move every member and otherwise the index of the
+        # DoF's run into ``listed``: the emitter makes those signs from the
+        # winner.
         self.cand_paths, self.cand_signs, self.cand_split = [], [], []
         for c in range(self.ncand):
             first = self.body_path_dofs[int(self.geom_body[int(self.can_geom[c])])]
             signs = dict.fromkeys(first, 1.0)
-            if c >= self.ng_rows:
+            if c >= self.ng_rows and self.pair_comp_groups:
+                grp = self.pair_comp_groups[c - self.ng_rows]
+                for d, spec in sorted(grp["dof_sign_spec"].items()):
+                    signs[d] = -1.0 if spec == "all" else grp["dof_sign_idx"][d]
+            elif c >= self.ng_rows:
                 for d in self.body_path_dofs[int(self.geom_body[int(self.can_geom2[c])])]:
                     signs[d] = signs.get(d, 0.0) - 1.0
-            path = [d for d, sgn in signs.items() if sgn != 0.0]
+            path = [d for d, sgn in signs.items() if not (isinstance(sgn, float) and sgn == 0.0)]
             self.cand_paths.append(path)
             self.cand_signs.append([signs[d] for d in path])
             self.cand_split.append(sum(signs[d] != 0.0 for d in first))
@@ -459,16 +524,17 @@ class _Static:
 def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
     (``megastep.py:934-989``) as far as this slice goes — Newton without
-    ``solver_exact``, no welds, uncompressed pair rows only (no
-    ``pair_compress``), condim 3, no activation states, position and
+    ``solver_exact``, no welds, condim 3, no activation states, position and
     adhesion actuators only, candidate paths that run down one chain of the
-    tree per body, and pair rows without sensors or adhesion. There is no
+    tree per body, pair rows without sensors or adhesion, and compressed
+    pair rows (:func:`_winner_paths_ok`) on flat ground only. There is no
     VMEM estimate."""
+    compressed = model.pair_compress and model.ncand_pair
     if (
         model.solver_type != "newton"
         or model.solver_exact
         or model.welds
-        or (model.pair_compress and model.ncand_pair)
+        or (compressed and model.has_hfield)
         or model.condim != 3
         or model.na
         or model.ncand == 0
@@ -477,11 +543,16 @@ def megastep_supported(model: PhysicsModel) -> bool:
     kinds = set(model.act_kind.tolist())
     if not kinds <= {ActKind.POSITION, ActKind.ADHESION}:
         return False
-    st = _Static(model)
+    try:
+        st = _Static(model)
+    except ValueError:  # a compressed group breaks its invariants
+        return False
     pairs = range(st.ng_rows, st.ncand)
     if any(int(st.can_sensor[c]) >= 0 or int(st.can_adh_act[c]) >= 0 for c in pairs):
         return False
     bodies = {int(st.geom_body[int(g)]) for g in st.can_geom}
+    if compressed:
+        return all(_path_on_chain(st, b) for b in bodies) and _winner_paths_ok(st)
     bodies |= {int(st.geom_body[int(st.can_geom2[c])]) for c in pairs}
     return all(_path_on_chain(st, b) for b in bodies) and all(_fill_by_part(st, c) for c in pairs)
 
@@ -492,6 +563,27 @@ def _path_on_chain(st: _Static, body: int) -> bool:
     column."""
     path = st.body_path_dofs[body]
     return all(st.dof_path[d] == path[: j + 1] for j, d in enumerate(path))
+
+
+def _winner_paths_ok(st: _Static) -> bool:
+    """On each compressed row and for each member as the winner, the path
+    the JAX emitter walks (geom1's path, then the DoF union in DoF order,
+    where the DoFs that do not move the winner add exact zeros) is geom1's
+    path at +1 then the winner's body path at -1, in that order, each on one
+    chain of its own tree: so K2 walks geom1's and the winner's body paths,
+    skips the other members' DoFs, and fills the Hessian within each part
+    only (the two flies' trees share no DoF)."""
+    for c, grp in zip(range(st.ng_rows, st.ncand), st.pair_comp_groups):
+        split = st.cand_split[c]
+        first, union = st.cand_paths[c][:split], st.cand_paths[c][split:]
+        for _g2, b2 in grp["members"]:
+            path = st.body_path_dofs[b2]
+            moves = set(path)
+            if set(first) & moves or not _path_on_chain(st, b2):
+                return False
+            if [d for d in union if d in moves] != path:
+                return False
+    return True
 
 
 def _fill_by_part(st: _Static, c: int) -> bool:
@@ -521,14 +613,16 @@ def _fill_by_part(st: _Static, c: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None):
-    """One physics step (the JAX ``emit_step`` without compressed pair rows).
+def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None, widx=None):
+    """One physics step (the JAX ``emit_step``).
 
     Args:
         st: The static model snapshot.
         q, v, ctrl, act, warm: Lists of (B,) tensors (nq, nv, nu, na, nv).
         terrain: Per candidate the local ground plane (h, nx, ny, nz) as
             (B,) tensors on a heightfield world; None on flat ground.
+        widx: Per compressed pair group its winner, a (B,) float tensor of
+            group-local member indices; None without compressed rows.
 
     Returns:
         dict of lists of (B,) tensors: qpos, qvel, act, qacc, xpos (nbody
@@ -780,7 +874,8 @@ def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None):
             qfrc[d] = qfrc[d] + force
 
     # ---------------- contacts --------------------------------------------
-    qacc, cons = _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
+    qacc, cons = _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
+                           widx)
 
     # ---------------- integrate -------------------------------------------
     v_new = [v[d] + dt * qacc[d] for d in range(st.nv)]
@@ -863,7 +958,33 @@ def _segseg(gpos, zax, h1, gpos2, zax2, h2):
     return _add3(a0, _scale3(d1, s_p)), _add3(b0, _scale3(d2, t_p))
 
 
-def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
+def _where_eq(w, j: int, val: float):
+    """``val`` where the winner ``w`` is member ``j``, else 0."""
+    return torch.where(w == float(j), val, 0.0)
+
+
+def _select(w, vals):
+    """The winner's value of per-member ``vals``: a sum of one-hot terms, as
+    the JAX ``_wmask_from_widx._sel`` (``megastep.py:1031-1036``)."""
+    acc = None
+    for j, val in enumerate(vals):
+        t = _where_eq(w, j, float(val))
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _run_mask(w, runs):
+    """1 where the winner ``w`` lies in one of the member-index ``runs``,
+    else 0 (the JAX ``_wmask_from_widx._mask``)."""
+    acc = None
+    for lo, hi in runs:
+        t = _where_eq(w, lo, 1.0) if lo == hi else torch.where(
+            (w >= float(lo)) & (w <= float(hi)), 1.0, 0.0)
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain, widx):
     """Contact geometry and constraint-dynamics scalars of candidate
     ``cidx``. A ground row is a capsule end against the flat plane, whose
     contact frame is the world's axes (n = z, t1 = x, t2 = y; ``frame``
@@ -871,7 +992,12 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
     plane's normal. A pair row (``cidx >= st.ng_rows``) is capsule against
     capsule: the closest points of the two axes, the normal from geom2
     toward geom1 (+z where the axes meet) and its frame; its path holds both
-    bodies' DoFs with their signs."""
+    bodies' DoFs with their signs. On a compressed row geom2 is the group's
+    winner: its world frame is the sum of the members' frames times the
+    winner's one-hot, its r2, h2 and inverse weight are the winner's, and
+    the signs on the members' DoF union are -1 where every member moves
+    the DoF and minus the winner's run mask elsewhere (the JAX ``_cand_geom``,
+    ``megastep.py:1561-1589``)."""
 
     def geom_world_frame(gi):
         if gi in geom_cache:
@@ -890,16 +1016,32 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
     _b, gpos, zax = geom_world_frame(gi)
     radius = float(st.geom_size[gi, 0])
     halflen = float(st.geom_size[gi, 1])
+    signs = st.cand_signs[cidx]
+    invweight = float(st.can_invweight[cidx, 0])
     if cidx >= st.ng_rows:
-        gi2 = int(st.can_geom2[cidx])
-        _b2, gpos2, zax2 = geom_world_frame(gi2)
-        c1, c2 = _segseg(gpos, zax, halflen, gpos2, zax2, float(st.geom_size[gi2, 1]))
+        if st.pair_comp_groups:
+            grp = st.pair_comp_groups[cidx - st.ng_rows]
+            w = widx[cidx - st.ng_rows]
+            gpos2, zax2 = (z, z, z), (z, z, z)
+            for j, (gi2_j, _b2_j) in enumerate(grp["members"]):
+                _bj, pj, zj = geom_world_frame(gi2_j)
+                e = _where_eq(w, j, 1.0)
+                gpos2 = _add3(gpos2, _scale3(pj, e))
+                zax2 = _add3(zax2, _scale3(zj, e))
+            r2, h2, invweight = _select(w, grp["r2"]), _select(w, grp["h2"]), _select(w, grp["invw"])
+            masks = [_run_mask(w, runs) for runs in grp["listed"]]
+            signs = [sg if isinstance(sg, float) else -masks[sg] for sg in signs]
+        else:
+            gi2 = int(st.can_geom2[cidx])
+            _b2, gpos2, zax2 = geom_world_frame(gi2)
+            r2, h2 = float(st.geom_size[gi2, 0]), float(st.geom_size[gi2, 1])
+        c1, c2 = _segseg(gpos, zax, halflen, gpos2, zax2, h2)
         dvec = _sub3(c1, c2)
         dn = sqrt_rn(torch.clamp(_dot3(dvec, dvec), min=1e-18))
         ok = dn > 1e-9
         n_c = (torch.where(ok, dvec[0] / dn, 0.0), torch.where(ok, dvec[1] / dn, 0.0),
                torch.where(ok, dvec[2] / dn, 1.0))
-        dist = dn - radius - float(st.geom_size[gi2, 0])
+        dist = dn - radius - r2
         cpos = _sub3(c1, _scale3(n_c, radius + 0.5 * dist))
         frame = _frame(n_c, z)
     elif terrain is None:
@@ -923,12 +1065,12 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
     x_ = torch.clamp(_div(torch.abs(pos_err), max(width, 1e-12)), 0.0, 1.0)
     a_c = 1.0 / mid ** (power - 1.0)
     b_c = 1.0 / (1.0 - mid) ** (power - 1.0)
-    y_ = torch.where(x_ < mid, a_c * x_**power, 1.0 - b_c * (1.0 - x_) ** power)
+    y_ = torch.where(x_ < mid, a_c * powf(x_, power), 1.0 - b_c * powf(1.0 - x_, power))
     imp = torch.clamp(dmin + y_ * (dmax - dmin), 1e-4, 0.9999)
     tc, dr = float(st.can_solref[cidx][0]), float(st.can_solref[cidx][1])
     return dict(
         path=st.cand_paths[cidx],
-        signs=st.cand_signs[cidx],
+        signs=signs,
         cpos=cpos,
         rel=_sub3(cpos, ref),
         active=active,
@@ -937,22 +1079,23 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain):
         b_gain=2.0 / (dmax * tc),
         k_gain=1.0 / (dmax * dmax * tc * tc * dr * dr),
         mu=float(st.can_friction[cidx][0]),
-        invweight=float(st.can_invweight[cidx, 0]),
+        invweight=invweight,
         frame=frame,
     )
 
 
-def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain):
+def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain, widx):
     """Candidate rows, tree LDLᵀ and frozen-Hessian primal Newton with the
     bisection line search (the JAX ``_contacts_impl``, fused, condim 3)."""
     nv = st.nv
     geom_cache = {}
-    cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache, terrain)
+    cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache, terrain, widx)
             for c in range(st.ncand)]
     tags = ["t1", "t2"]
 
     for c in cons:
-        iw = max(c["invweight"], 1e-12)
+        iw = c["invweight"]
+        iw = max(iw, 1e-12) if isinstance(iw, float) else torch.clamp(iw, min=1e-12)
         R_ = (1.0 - c["imp"]) / c["imp"] * iw
         c["D"] = torch.where(c["active"], 1.0 / torch.clamp(R_, min=1e-12), 0.0)
 
@@ -972,8 +1115,9 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
     def dof_components(c):
         """Jacobian direction components along the path: jp_d = sgn_d (S_v[d]
         + S_w[d] × rel) in the contact frame, sgn_d = ±1 the DoF's sign
-        (exact negation, as the JAX ``pick_signed`` and ``_scale3``). The
-        flat frame (n = z, t1 = x, t2 = y) picks components, and the free
+        (exact negation, as the JAX ``pick_signed`` and ``_scale3``), or on
+        a compressed row a lane value (-1 or -0), multiplied in. The flat
+        frame (n = z, t1 = x, t2 = y) picks components, and the free
         joint's translation columns fold to Python floats 0/±1; a contact
         frame dots jp into n, t1, t2, and a translation column picks the
         frame vectors' components."""
@@ -981,11 +1125,13 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
         frame = c["frame"]
         comps = {"n": [], "t1": [], "t2": []}
         for d, sgn in zip(c["path"], c["signs"]):
+            lane = isinstance(sgn, torch.Tensor)
             fa = st.free_dof_axis.get(d)
             if fa is not None and fa < 3:
                 if frame is not None:
                     for t, vec in zip(("n", "t1", "t2"), frame):
-                        comps[t].append(vec[fa] if sgn == 1.0 else -vec[fa])
+                        comps[t].append(vec[fa] * sgn if lane else
+                                        (vec[fa] if sgn == 1.0 else -vec[fa]))
                     continue
                 e = [0.0, 0.0, 0.0]
                 e[fa] = sgn
@@ -998,7 +1144,7 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain)
                 else:
                     w_, v_ = S[d]
                     jp = _add3(v_, _cross(w_, rel))
-                if sgn != 1.0:
+                if lane or sgn != 1.0:
                     jp = _scale3(jp, sgn)
             if frame is None:
                 comps["n"].append(jp[2])
@@ -1330,9 +1476,9 @@ def _emit_sensors(st, cons, z, one):
 def _io_rows(st: _Static, k_steps: int) -> tuple:
     """(n_in, n_out) rows of the kernel's input and output at K steps:
     in = qpos, qvel, K ctrl slices, act, qacc, then on a heightfield world
-    the 4 plane rows [h, nx, ny, nz] of each candidate; out = (K-1) qpos
-    rows, then qpos, qvel, act, qacc, xpos, xquat, site_xpos,
-    actuator_force, sensors."""
+    the 4 plane rows [h, nx, ny, nz] of each candidate, or with compressed
+    pair rows one winner row per group; out = (K-1) qpos rows, then qpos,
+    qvel, act, qacc, xpos, xquat, site_xpos, actuator_force, sensors."""
     n_in = st.nq + st.nv + k_steps * st.nu + st.na + st.nv + _n_aux(st)
     n_out = (
         (k_steps - 1) * st.nq + st.nq + 2 * st.nv + st.na
@@ -1342,8 +1488,25 @@ def _io_rows(st: _Static, k_steps: int) -> tuple:
 
 
 def _n_aux(st: _Static) -> int:
-    """Plane input rows of a heightfield world (JAX ``megastep.py:2457``)."""
-    return 4 * st.ncand if st.has_hfield else 0
+    """Input rows sampled outside the kernel: the planes of a heightfield
+    world (JAX ``megastep.py:2457``) or the winners of the compressed pair
+    groups, one row each (the JAX kernel expands them into mask rows)."""
+    return 4 * st.ncand if st.has_hfield else len(st.pair_comp_groups)
+
+
+def _aux_shape(st: _Static, B: int) -> tuple:
+    """The shape of ``terrain_planes``: (B, ncand, 4) planes or (B,
+    n_groups) winners."""
+    return (B, st.ncand, 4) if st.has_hfield else (B, len(st.pair_comp_groups))
+
+
+def _check_winners(st: _Static, widx: torch.Tensor) -> None:
+    """Refuse winners outside [0, group size) or not whole (reads the
+    tensor on the host)."""
+    sizes = torch.tensor([len(g["members"]) for g in st.pair_comp_groups], device=widx.device)
+    bad = (widx < 0) | (widx >= sizes) | (widx != torch.floor(widx))
+    if bool(bad.any()):
+        raise ValueError("pair winners must be whole member indices in [0, group size)")
 
 
 def _unpack(st: _Static, out: torch.Tensor, state: State, ctrl, k_steps: int):
@@ -1382,24 +1545,30 @@ def megastep_plain(st: _Static, state: State, ctrl_seq: torch.Tensor | None = No
     Args:
         ctrl_seq: (K, B, nu) controls of the K steps, NaN-free; None is one
             step with ``state.ctrl``.
-        terrain_planes: (B, ncand, 4) ground planes [h, nx, ny, nz] for all
-            K steps; required on a heightfield world, None on flat ground.
+        terrain_planes: What the K steps read from outside the kernel:
+            (B, ncand, 4) ground planes [h, nx, ny, nz] on a heightfield
+            world, (B, n_groups) group-local winners on a world with
+            compressed pair rows; None otherwise.
 
     Returns:
         The new State for one step; ``(state, (K, B, nq) qpos rows)`` with a
         ``ctrl_seq``.
     """
     cols = lambda x: [x[:, i] for i in range(x.shape[1])]
-    if st.has_hfield != (terrain_planes is not None):
-        raise ValueError("terrain planes are needed on a heightfield world, and only there")
-    terrain = None
-    if terrain_planes is not None:
+    if (_n_aux(st) > 0) != (terrain_planes is not None):
+        raise ValueError("planes or winners are needed on a heightfield world or one with "
+                         "compressed pair rows, and only there")
+    terrain = widx = None
+    if st.has_hfield:
         terrain = [tuple(terrain_planes[:, c, k] for k in range(4)) for c in range(st.ncand)]
+    elif terrain_planes is not None:
+        _check_winners(st, terrain_planes)
+        widx = cols(terrain_planes.float())
     q, v, act, warm = cols(state.qpos), cols(state.qvel), cols(state.act), cols(state.qacc)
     ctrls = [state.ctrl] if ctrl_seq is None else list(ctrl_seq)
     traj = []
     for ctrl in ctrls:
-        r = emit_step(st, q, v, cols(ctrl), act, warm, terrain)
+        r = emit_step(st, q, v, cols(ctrl), act, warm, terrain, widx)
         q, v, act, warm = r["qpos"], r["qvel"], r["act"], r["qacc"]
         traj.append(torch.stack(q, dim=1))
     B = state.qpos.shape[0]
@@ -1456,7 +1625,7 @@ _COLD_TABLES = frozenset((
     "kSolWidth", "kSolMid", "kSolPow", "kSolA", "kSolB", "kSolDmin", "kSolDmm", "kNegBGain",
     "kKGain", "kInvW", "kCandGPos", "kCandGQuat", "kCandEndH", "kCandRad", "kCandMargin",
     "kPairGPos2", "kPairGQuat2", "kPairR2", "kPairH1", "kPairH2", "kBodyInertia", "kBodyIPos",
-    "kBodyIQuat",
+    "kBodyIQuat", "kMemBody2", "kMemGPos2", "kMemGQuat2", "kMemR2", "kMemH2", "kMemInvW",
 ))
 
 
@@ -1499,7 +1668,14 @@ def model_header(model: PhysicsModel) -> tuple:
     nb, nv = st.nbody, st.nv
     cand_bodies = [int(st.geom_body[int(st.can_geom[c])]) for c in range(st.ncand)]
     paths = [st.body_path_dofs[b] for b in range(nb)]
-    maxp = max(len(p) for p in st.cand_paths)
+    comp = st.pair_comp_groups
+    if comp:
+        # A compressed row walks geom1's path, then its winner's.
+        maxp = max([len(paths[b]) for b in cand_bodies[: st.ng_rows]] + [
+            st.cand_split[st.ng_rows + g] + max(len(paths[b2]) for _g2, b2 in grp["members"])
+            for g, grp in enumerate(comp)])
+    else:
+        maxp = max(len(p) for p in st.cand_paths)
     adh = list(st.adh_groups.items())
     for name, value in (
         ("NQ", st.nq), ("NV", nv), ("NU", st.nu), ("NA", st.na), ("NBODY", nb),
@@ -1525,6 +1701,12 @@ def model_header(model: PhysicsModel) -> tuple:
         lines.append("#define MS_PAIRS 1")
         const("NGROUND", st.ng_rows)
         const("NPAIR", st.ncand_pair)
+    if comp:
+        # Compressed pair rows: one per group, whose geom2 is the group's
+        # winner, read from one input row per group after the state rows.
+        lines.append("#define MS_PAIRS_COMPRESSED 1")
+        const("N_AUX", _n_aux(st))
+        const("NMEMBER", sum(len(grp["members"]) for grp in comp))
 
     # Scratch rows per world (world-minor in the kernel).
     layout = [
@@ -1540,6 +1722,8 @@ def model_header(model: PhysicsModel) -> tuple:
         layout.append(("S_FRAME", 9 * st.ncand))
     elif st.ncand_pair:
         layout.append(("S_FRAME", 9 * st.ncand_pair))
+    if comp:
+        layout.append(("S_WIN", len(comp)))  # each group's winner, as a member index
     off = 0
     for name, n in layout:
         const(name, off)
@@ -1636,16 +1820,37 @@ def model_header(model: PhysicsModel) -> tuple:
                  iw="kInvW", mu="kMu", mu2="kMu2")
     for key, name in names.items():
         table(name, "float", sol[key])
-    # Path slots: one per body, then (pair rows) one per pair row.
+    # Path slots: one per body, then (uncompressed pair rows) one per pair
+    # row; a compressed row walks its geom1's and its winner's body slots.
     pptr, plist = [0], []
-    for path in paths + st.cand_paths[st.ng_rows:]:
+    for path in paths + ([] if comp else st.cand_paths[st.ng_rows:]):
         plist += path
         pptr.append(len(plist))
     table("kPathPtr", "int", pptr)
     table("kPathDof", "int", plist)
     table("kDofFree", "int", [st.free_dof_axis.get(d, -1) for d in range(nv)])
 
-    if st.ncand_pair:
+    if comp:
+        # Each DoF's depth (its row in a descendant's column), geom1's half
+        # length per group; per member (groups' members end to end, from
+        # kGroupBase) geom2's body, pose in the body, radius and half length,
+        # and the row's inverse weight were it the winner.
+        members = [m for grp in comp for m in grp["members"]]
+        base = [0]
+        for grp in comp:
+            base.append(base[-1] + len(grp["members"]))
+        table("kDofDepth", "int", [len(st.dof_chains[d]) for d in range(nv)])
+        table("kPairH1", "float", [st.geom_size[int(st.can_geom[c]), 1]
+                                   for c in range(st.ng_rows, st.ncand)])
+        table("kGroupBase", "int", base)
+        table("kMemBody2", "int", [b2 for _g2, b2 in members])
+        table("kMemGPos2", "float", [x for g2, _b2 in members for x in _fold(st.geom_pos[g2])])
+        table("kMemGQuat2", "float",
+              [x for g2, _b2 in members for x in _fold_quat(st.geom_quat[g2])])
+        table("kMemR2", "float", [r for grp in comp for r in grp["r2"]])
+        table("kMemH2", "float", [h for grp in comp for h in grp["h2"]])
+        table("kMemInvW", "float", [max(w, 1e-12) for grp in comp for w in grp["invw"]])
+    elif st.ncand_pair:
         # Each candidate's path slot, where each pair row's second body's
         # part starts, each DoF's depth (its row in a descendant's column);
         # geom2 of each pair row and both capsules' half lengths.
@@ -1701,11 +1906,15 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
     -> state``; with K > 1 it is ``fn(state, ctrl_seq, terrain_planes=None)
     -> (state, (K, B, nq) qpos rows)``, where ``ctrl_seq`` is (K, B, nu) of
     NaN-free controls (``make_megastep`` of the JAX package,
-    ``megastep.py:2422-2452``). On a heightfield world ``fn.sample_planes(
-    state)`` gives the (B, ncand, 4) ground planes under the state's cached
-    pose, which one launch reads for all its K steps; without
-    ``terrain_planes`` the function samples them itself. On flat ground
-    ``fn.sample_planes`` is None.
+    ``megastep.py:2422-2452``). ``fn.sample_planes(state)`` gives what one
+    launch reads for all its K steps from outside the kernel, under the
+    state's cached pose: on a heightfield world the (B, ncand, 4) ground
+    planes, on a world with compressed pair rows the (B, n_groups) winners
+    of the pair groups (JAX ``megastep.py:2656-2673``); without
+    ``terrain_planes`` the function samples them itself. Otherwise
+    ``fn.sample_planes`` is None. Winners that a caller passes are checked
+    on the host (a read of the tensor); those of ``fn.sample_planes`` are
+    not.
 
     For CPU tensors the function runs :func:`megastep_plain`. For CUDA
     tensors it packs the state world-minor, (n_in, B), launches K2 once on
@@ -1720,10 +1929,19 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
     st = _Static(model)
     n_in, n_out = _io_rows(st, K)
     built = {}
-    sampler = make_plane_sampler(model)
+    sampler = make_plane_sampler(model) or make_pair_winner_sampler(model)
+    sampled = {}  # id -> weak reference of each tensor sample_planes made
 
     def sample_planes(state: State) -> torch.Tensor:
-        return sampler(state.xpos, state.xquat)
+        aux = sampler(state.xpos, state.xquat)
+        for key in [key for key, ref in sampled.items() if ref() is None]:
+            del sampled[key]
+        sampled[id(aux)] = weakref.ref(aux)
+        return aux
+
+    def ours(aux) -> bool:
+        ref = sampled.get(id(aux))
+        return ref is not None and ref() is aux
 
     def run(state: State, ctrl_seq, terrain_planes):
         if ctrl_seq is not None and tuple(ctrl_seq.shape) != (K,) + tuple(state.ctrl.shape):
@@ -1732,12 +1950,15 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
         B = state.qpos.shape[0]
         if sampler is None:
             if terrain_planes is not None:
-                raise ValueError("terrain_planes given for a world without a heightfield")
+                raise ValueError("terrain_planes given for a world without a heightfield or "
+                                 "compressed pair rows")
         elif terrain_planes is None:
             terrain_planes = sample_planes(state)
-        elif tuple(terrain_planes.shape) != (B, st.ncand, 4):
-            raise ValueError(f"terrain_planes: expected {(B, st.ncand, 4)}, "
+        elif tuple(terrain_planes.shape) != _aux_shape(st, B):
+            raise ValueError(f"terrain_planes: expected {_aux_shape(st, B)}, "
                              f"got {tuple(terrain_planes.shape)}")
+        elif st.pair_comp_groups and not ours(terrain_planes):
+            _check_winners(st, terrain_planes)
         dev = state.qpos.device
         if dev.type == "cpu":
             return megastep_plain(st, state, ctrl_seq, terrain_planes)
@@ -1749,11 +1970,11 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
             header, n_scratch = model_header(model)
             built["lib"], built["n_scratch"] = load_megastep(header), n_scratch
         lib = built["lib"]
-        ctrl_rows = (state.ctrl if ctrl_seq is None else ctrl_seq).reshape(-1, B, st.nu)
+        ctrl_rows = (state.ctrl if ctrl_seq is None else ctrl_seq).reshape(K, B, st.nu)
         parts = [state.qpos.t(), state.qvel.t(),
                  ctrl_rows.permute(0, 2, 1).reshape(K * st.nu, B), state.act.t(), state.qacc.t()]
         if terrain_planes is not None:
-            parts.append(terrain_planes.reshape(B, 4 * st.ncand).t())
+            parts.append(terrain_planes.reshape(B, _n_aux(st)).t().to(torch.float32))
         packed = torch.cat(parts)
         if packed.dtype != torch.float32:
             raise TypeError(f"the mega-step kernel takes float32 state, got {packed.dtype}")

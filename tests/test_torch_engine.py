@@ -140,6 +140,35 @@ def test_maths_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
+def test_engine_sin_cos_round_as_jax():
+    """The engine's sin and cos (``quat_from_axis_angle``, used by the free
+    joints' integration) against the JAX package's jitted, to the last bit:
+    glibc's sinf/cosf algorithm, which XLA's CPU backend calls."""
+    rng = np.random.default_rng(0)
+    axis = _unit(rng.normal(size=(20000, 3))).astype(np.float32)
+    angle = np.concatenate([rng.uniform(-3.0, 3.0, 19000), rng.uniform(-1e-3, 1e-3, 1000)])
+    angle = angle.astype(np.float32)
+    want = np.asarray(jax.jit(j_maths.quat_from_axis_angle)(jnp.asarray(axis), jnp.asarray(angle)))
+    got = maths.quat_from_axis_angle(torch.from_numpy(axis), torch.from_numpy(angle))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("power", [3.0, 2.0, 1.5])
+def test_powf_rounds_as_jax(power):
+    """The impedance's pow against the JAX package's ``x ** power`` on the
+    CPU (glibc's powf), to the last bit, over [0, 1] with tiny and
+    subnormal-result arguments; with a float and with a tensor exponent."""
+    rng = np.random.default_rng(1)
+    x = rng.uniform(0.0, 1.0, 400000).astype(np.float32)
+    x[::7] *= 1e-6
+    x[::13] *= np.float32(2.0**-40)
+    x[:6] = [0.0, 1.0, 0.5, 1e-45, 3e-39, 2.0**-42]
+    want = np.asarray(jnp.asarray(x) ** power)
+    np.testing.assert_array_equal(maths.powf(torch.from_numpy(x), power).numpy(), want)
+    tensor_power = torch.full((x.size,), power)
+    np.testing.assert_array_equal(maths.powf(torch.from_numpy(x), tensor_power).numpy(), want)
+
+
 def test_initial_state_matches_jax(jax_model, model):
     _, s0 = jax_model
     st = make_initial_state(model, batch_size=1)

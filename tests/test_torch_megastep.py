@@ -207,6 +207,45 @@ def test_sin_cos_round_as_libm(name):
     np.testing.assert_allclose(got_far, [fn(float(v)) for v in far], atol=2e-7)
 
 
+def test_plain_emitter_inside_the_impedance_width_equals_jax(jax_model, compiled, static):
+    """32 worlds whose lowest capsule end sinks 0.5-9.5e-6 mm into the ground,
+    inside the impedance's width (1e-5 mm), where the impedance takes x^3 on
+    both sides of its midpoint: the plain emitter against JAX's emit_step to
+    the last bit. Its pow is glibc's powf, as JAX's; x*x*x, which differs
+    from powf in a quarter of arguments (``test_powf_rounds_as_jax``),
+    passes here too: dmin + y (dmax - dmin) rounds y's last bit away (no
+    impedance changed at 2048 depths of the benchmark fly)."""
+    import jax.numpy as jnp
+
+    from flygym_tpu.ops import megastep as jms
+
+    from flygym_tpu_torch.engine.contact import contact_candidates
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics, geom_poses
+
+    model = compiled.model
+    sink = torch.linspace(5e-7, 9.5e-6, 32)
+    state = compiled.initial_state.map(lambda x: x.expand((len(sink),) + x.shape[1:]).clone())
+    dist = contact_candidates(model, *geom_poses(model, state.xpos, state.xquat))[0]
+    qpos = state.qpos.clone()
+    qpos[:, 2] -= dist.min(dim=1).values + sink
+    xpos, xquat = forward_kinematics(model, qpos)
+    state = dataclasses.replace(state, qpos=qpos, xpos=xpos, xquat=xquat)
+    dist = contact_candidates(model, *geom_poses(model, xpos, xquat))[0]
+    lowest = dist.min(dim=1).values
+    width = float(static.can_solimp[0, 2])
+    assert bool(((lowest < 0) & (lowest > -width)).all()), lowest
+    plain = ms.megastep_plain(static, state)
+    cols = lambda x: [jnp.asarray(x[:, i].numpy()) for i in range(x.shape[1])]
+    r = jms.emit_step(jms._Static(jax_model), *(cols(getattr(state, k))
+                      for k in ("qpos", "qvel", "ctrl", "act", "qacc")))
+    for name in ("qpos", "qvel", "qacc"):
+        want = np.stack([np.asarray(v) for v in r[name]], axis=1)
+        np.testing.assert_array_equal(getattr(plain, name).numpy(), want, err_msg=name)
+    want = np.stack([np.stack([np.asarray(v) for v in s_], axis=1) for s_ in r["sensordata"]],
+                    axis=1)
+    np.testing.assert_array_equal(plain.contact_sensordata.numpy(), want)
+
+
 def test_mega_golden_first_steps_on_cpu(compiled, golden):
     """The mega-step path through BatchSimulation on the CPU tracks the JAX
     mega-step golden over its first 4 steps (2 worlds), within the golden
@@ -255,13 +294,13 @@ def test_batch_replays_k_chunks_through_the_plain_emitter(compiled):
     assert torch.isfinite(traj).all()
 
 
-def test_megastep_refuses_pair_rows():
-    """Compressed pair rows: example 11's world, whose 49 uncompressed pair
-    rows K2 takes, with them compressed to one winner per geom1 group
-    (``pair_compress``), which K2 does not take yet."""
+def test_megastep_refuses_solver_exact():
+    """``solver_exact``: example 11's world, whose pair rows K2 takes, with
+    the exact Newton solver (re-factored every iteration, K2 slice f), which
+    K2 does not take yet."""
     twofly = load_compiled(TWOFLY)
     assert ms.megastep_supported(twofly.model)
-    bad = dataclasses.replace(twofly, model=dataclasses.replace(twofly.model, pair_compress=True))
+    bad = dataclasses.replace(twofly, model=dataclasses.replace(twofly.model, solver_exact=True))
     assert not ms.megastep_supported(bad.model)
     with pytest.raises(NotImplementedError, match="mega-step"):
         BatchSimulation(bad, 2, device="cpu", megastep=True)

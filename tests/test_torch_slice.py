@@ -78,7 +78,7 @@ def test_fresh_export_loads_like_the_committed_one(fresh_export, compiled):
         ("condim", 4, "condim 4"),
         ("solver_type", "pgs", "PGS"),
         ("solver_exact", True, "solver_exact"),
-        ("pair_compress", True, "pair_compress"),
+        ("differentiable", True, "differentiable mode"),
     ],
 )
 def test_unported_features_are_refused(key, value, what):
@@ -185,6 +185,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "two = ft.BatchSimulation(ft.load_compiled(TWOFLY), 2, device='cpu')\n"
         "two.rollout(None, 1, record_trajectory=False)\n"
         "assert np.isfinite(two.state.qpos.numpy()).all()\n"
+        "from flygym_tpu_torch.compose.bridge import TWOFLY_FULL\n"
+        "full = ft.BatchSimulation(ft.load_compiled(TWOFLY_FULL), 2, device='cpu')\n"
+        "full.rollout(None, 1, record_trajectory=False)\n"
+        "assert np.isfinite(full.state.qpos.numpy()).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flygym_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

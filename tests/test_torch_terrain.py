@@ -188,10 +188,13 @@ def _posed(golden, compiled, n, seed):
     return forward_kinematics(compiled.model, qpos)
 
 
-@pytest.mark.parametrize("grid", ["blocks", "gapped"])
+@pytest.mark.parametrize("grid", ["blocks", "gapped", "golden"])
 def test_plane_sampler_matches_jax(jax_model, compiled, golden, grid):
     """The port's gather sampler against JAX's default (windowed one-hot)
-    sampler on posed batched states: within 1e-6 in h and the normal."""
+    sampler on posed batched states (``golden``: the golden's settled ones,
+    whose planes the JAX emitter golden was fed first), jitted as the JAX
+    package's rollouts run it: to the last bit in h and the normal."""
+    import jax
     import jax.numpy as jnp
 
     from flygym_tpu.engine.terrain import make_plane_sampler as jax_sampler
@@ -205,15 +208,20 @@ def test_plane_sampler_matches_jax(jax_model, compiled, golden, grid):
         model = dataclasses.replace(model, hfield_data=torch.tensor(heights),
                                     hfield_xy0=torch.tensor(np.float32(xy0)),
                                     hfield_cell=torch.tensor(np.float32(cell)))
-    xpos, xquat = _posed(golden, compiled, 6, seed=1)
+    if grid == "golden":
+        xpos, xquat = golden["state"].xpos, golden["state"].xquat
+    else:
+        xpos, xquat = _posed(golden, compiled, 6, seed=1)
     sample_j = jax_sampler(jm)
     assert sample_j.method == "window"
-    want = np.asarray(sample_j(jnp.asarray(xpos.numpy()), jnp.asarray(xquat.numpy())))
+    want = np.asarray(jax.jit(sample_j)(jnp.asarray(xpos.numpy()), jnp.asarray(xquat.numpy())))
     terrain.reset_samples()
     got = terrain.make_plane_sampler(model)(xpos, xquat)
     assert terrain.samples["planes"] == 1
-    assert got.shape == (6, model.ncand, 4)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert got.shape == (xpos.shape[0], model.ncand, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if grid == "golden":
+        np.testing.assert_array_equal(got.numpy(), golden["emitter"]["planes"][0])
 
 
 def test_contact_candidates_match_jax_engine(jax_model, compiled, settled):
@@ -470,15 +478,15 @@ def test_root_offsets_spread_the_worlds(compiled):
     torch.testing.assert_close(sim.state.xpos[..., 2], x0[..., 2])
 
 
-@pytest.mark.parametrize("path", ["emitter", "engine"])
+@pytest.mark.parametrize("path", ["emitter", "engine", "sampler"])
 def test_closed_loop_tracks_the_jax_golden(compiled, golden, path):
     """2 worlds x 8 closed-loop steps of config 3 on the CPU (the plain
     emitter with planes every 8 steps, or the engine step) against the JAX
     golden of that path, within ``GOLDEN_TOLERANCE``. The emitter path is
-    fed the planes the JAX sampler took: controller and emitter then repeat
-    the JAX run bit for bit (the port's own sampler rounds otherwise than
-    the jitted JAX one by up to ~6e-8, which the contact solve amplifies)."""
-    sim = BatchSimulation(compiled, B, device="cpu", megastep=path == "emitter")
+    fed the planes the JAX sampler took, or (``sampler``) takes its own
+    sampler's, which round as the jitted JAX one's: controller and emitter
+    then repeat the JAX run bit for bit."""
+    sim = BatchSimulation(compiled, B, device="cpu", megastep=path != "engine")
     sim.state = golden["state"].map(lambda x: x[:B].clone())
     loop = HybridLoop(sim)
     sampled = []
@@ -494,11 +502,11 @@ def test_closed_loop_tracks_the_jax_golden(compiled, golden, path):
                                 device="cpu")
     cs, rec = loop.run(cs, LOOP_STEPS, record=True)
     assert len(sampled) == (LOOP_STEPS // sim.terrain_resample if path == "emitter" else 0)
-    want = golden[path]
+    want = golden["engine" if path == "engine" else "emitter"]
     for key in ("qpos", "qvel"):
         gap = np.abs(rec[key].numpy() - want[key][:LOOP_STEPS, :B]).max()
         assert gap <= GOLDEN_TOLERANCE[key], (key, gap)
-        if path == "emitter":
+        if path != "engine":
             assert gap == 0.0, (key, gap)
     found = rec["sensordata"][..., 0].numpy() != want["sensordata"][:LOOP_STEPS, :B, :, 0]
     assert found.mean() <= GOLDEN_TOLERANCE["found_share"]
