@@ -19,10 +19,12 @@ Phases (each failure ends the run with a non-zero exit code):
    plain value; time both, their plain versions and ``torch.linalg``'s
    dense LDL at 4096 worlds with CUDA events.
 3. Hold K2 against its plain version (``ops/megastep.py:megastep_plain``)
-   at 1000 and 4096 worlds from the golden's settled state with the first
-   replay targets: one K = 1 launch against one plain step, one K = 8
-   launch against 8 chained plain steps (final state and qpos rows); time
-   K = 1 and K = 8 launches at 4096 worlds.
+   from the golden's settled state with the first replay targets: one K = 1
+   launch against one plain step and one K = 8 launch against 8 chained
+   plain steps (final state and qpos rows), each at 4096 and 1000 worlds;
+   time K = 1 and K = 8 launches at 4096 worlds. (The plain version takes
+   seconds per step whatever the worlds, so phases 10 and 13 hold K = 8 at
+   4096 worlds only, as phase 16 does.)
 4. The main path, the mega-step: the benchmark fly in ``BatchSimulation``
    with its default step at 4096 worlds, adhesion on, a 500-step settle (one
    step per launch: 8 does not divide 500) and a timed 1000-step replay of
@@ -54,9 +56,10 @@ Phases (each failure ends the run with a non-zero exit code):
    ``GOLDEN_TOLERANCE``, vision 99.5% within 1e-3, odor 1e-5 relative,
    reward 1e-6, done equal.
 10. Hold K2 built for config 3's terrain fly (heightfield plane rows)
-    against its plain version at 1000 and 4096 worlds (the terrain golden's
-    settled worlds with seeded root offsets and joint noise, planes from the
-    port's sampler): one K = 1 and one K = 8 launch, to ``K2_RTOL``; time
+    against its plain version (the terrain golden's settled worlds with
+    seeded root offsets and joint noise, planes from the port's sampler):
+    one K = 1 launch at 4096 and 1000 worlds, one K = 8 launch at 4096, to
+    ``K2_RTOL``; time
     K = 1 and K = 8 launches and the plane sampler at 4096 worlds; K2's
     bound from its operations counted on the CPU.
 11. Config 3 (the hybrid controller on blocks terrain) at 4096 worlds:
@@ -67,13 +70,13 @@ Phases (each failure ends the run with a non-zero exit code):
     K1/K1b 0; all state finite; distance walked, world-steps/s, the split
     of one step by CUDA events, and no host synchronisation in a step.
 12. The terrain goldens: 8 worlds from the JAX settled state, 48
-    closed-loop steps, the K2 path against the JAX emitter golden and the
-    engine path (K1/K1b) against the JAX engine golden, to
-    ``GOLDEN_TOLERANCE``.
+    closed-loop steps, the K2 path against the JAX emitter golden with 0
+    gaps (qpos, qvel, found flags, the CPG's phase) and the engine path
+    (K1/K1b) against the JAX engine golden, to ``GOLDEN_TOLERANCE``.
 13. Hold K2 built for example 11's two stacked flies (fly-fly pair rows)
-    against its plain version at 1000 and 4096 worlds (the two-fly
-    golden's settled worlds with seeded root and joint noise): one K = 1
-    and one K = 8 launch, to ``K2_RTOL``; time K = 1 and K = 8 launches at
+    against its plain version (the two-fly golden's settled worlds with
+    seeded root and joint noise): one K = 1 launch at 4096 and 1000 worlds,
+    one K = 8 launch at 4096, to ``K2_RTOL``; time K = 1 and K = 8 launches at
     4096 worlds; K2's bound from its operations counted on the CPU.
 14. Example 11 at 4096 worlds: ``BatchSimulation`` with its default step,
     the top fly moved by a seeded ±0.1 mm in xy per world, adhesion on the
@@ -108,6 +111,38 @@ Phases (each failure ends the run with a non-zero exit code):
     ``GOLDEN_TOLERANCE``; the port's sampler on the same states against the
     stored winners (but near-ties within 1e-6 mm); the engine path against
     the JAX engine golden within the probe's bar, as in phase 15.
+19. Hold K2 built for the strict replay's fly (``solver_exact``, 10 Newton
+    iterations, the Hessian re-filled and re-factored at each) against its
+    plain version: one K = 1 launch at 1000 worlds, one K = 8 launch at 4096
+    against 8 chained plain steps, from the strict golden's settled worlds
+    with seeded joint noise, to ``K2_RTOL``; time K = 1 and K = 8 launches
+    at 4096 worlds; K2's bound from its operations counted on the CPU.
+20. The strict replay at 4096 worlds: the replay protocol of phase 4 on the
+    strict fly (``load_compiled(STRICT_FLY)``, ``BatchSimulation``,
+    ``run_simulation``): launches K2 625, K1/K1b 0, all state finite. Then
+    its engine path at a small depth, 10 settle + 20 replay steps: 10 K1 and
+    10 K1b launches per step.
+21. Hold K2 built for the muscle-driven fly (42 muscles, na 42) and for the
+    mixed-kind fly (one actuator kind per leg, na 14) against their plain
+    versions, the activation rows compared too: for each, one K = 1 launch
+    at 1000 worlds and one K = 8 launch at 4096 (seeded joint noise and
+    activations in [0, 1]); time K = 1 and K = 8 launches at 4096 worlds.
+22. The muscle-driven fly at 4096 worlds: ``BatchSimulation``,
+    ``set_leg_adhesion_states``, ``set_actuator_inputs(fly, "muscle", ·)``
+    with a seeded uniform draw in [0.3, 1.0] per world and muscle, and a
+    timed ``rollout(None, 1000)`` from the drop: launches K2 125 (K = 8),
+    K1/K1b 0, all state finite, activations in [0, 1]. Then the mixed-kind
+    fly at 4096 worlds for 200 steps, each world holding one of the mixed
+    golden's controls: launches K2 25.
+23. The goldens of the three models, 8 worlds x 50 steps from the JAX
+    settled state with the golden's controls: the K2 path against the JAX
+    emitter with 0 gaps in qpos, qvel and the activations; the engine path
+    (K1/K1b) against the JAX engine at each step to ``GOLDEN_TOLERANCE`` or,
+    where the golden's conditioning probe spreads wider, to 3 times its
+    spread, but only at the steps where that bar stays within
+    ``PROBE_BAR_SHARE`` of the state's largest value (the mixed fly's
+    ringing legs spread the probe wider than the state itself after a few
+    steps; the steps held are printed); the activations within 1e-6.
 
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
@@ -147,6 +182,19 @@ REST_GAP_MM = 0.4  # example 11's check: the top root this far above the bottom'
 # the worlds, in the JAX engine too (PERF.md §6): its root then lies this
 # far or farther from the bottom one's in xy.
 SLIDE_OFF_MM = 1.5
+STRICT_ENGINE_SETTLE_STEPS = 10
+STRICT_ENGINE_STEPS = 20
+STRICT_ITERATIONS = 10  # Newton iterations of the strict fly: K1 and K1b launches per step
+MUSCLE_STEPS = 1000  # the muscle-driven rollout: 125 K = 8 launches
+MUSCLE_CTRL = (0.3, 1.0)
+MIXED_STEPS = 200
+ACT_ATOL = 1e-6  # the engine path's activations against the JAX engine's
+# The actuator goldens' engine path is held at a step only where its bar
+# (GOLDEN_TOLERANCE, or 3 times the conditioning probe's spread) is at most
+# GOLDEN_TOLERANCE or this share of the JAX engine's largest |value|: past
+# it the reference itself is not conditioned to tell a right step from a
+# wrong one.
+PROBE_BAR_SHARE = 0.1
 NEAR_TIE_MM = 1e-6  # a group whose two nearest members lie this close may flip
 # The two-fly engine golden: |port - JAX engine| at each step within 3 times
 # |probe - JAX engine|, or these floors, as the JAX package's probe-gated
@@ -377,7 +425,7 @@ def k2_inputs(compiled, golden, n_worlds: int, k_steps: int):
 
 
 def k2_against_plain(label: str, model, inputs, note=None,
-                     checks=tuple((n, k) for n in CHECK_WORLDS for k in (1, MEGASTEP_K)),
+                     checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)),
                      timed=True) -> dict:
     """K2 built for ``model`` at K = 1 and K = MEGASTEP_K against its plain
     version at each (worlds, K) of ``checks``, on ``inputs(fn, n_worlds, k,
@@ -385,8 +433,8 @@ def k2_against_plain(label: str, model, inputs, note=None,
     K2_RTOL of the largest plain value of each output; ``note(state,
     planes)`` adds a word on the inputs to each line. Then, if ``timed``,
     the kernel's ms per launch at N_WORLDS (CUDA events, two runs) beside
-    its plain version's (the check's call at N_WORLDS, host clock; None
-    where ``checks`` lacks N_WORLDS), and each launch's bound from the plain
+    its plain version's (the check's call at N_WORLDS, host clock;
+    None where ``checks`` lacks it), and each launch's bound from the plain
     version's operations. The plain version runs one eager op per operation
     of the kernel, so its time is the host's and hardly grows with the
     worlds; it runs in inference mode, which saves autograd's bookkeeping."""
@@ -395,7 +443,8 @@ def k2_against_plain(label: str, model, inputs, note=None,
     from flygym_tpu_torch.ops import megastep
 
     fns = {k: megastep.make_megastep(model, k) for k in (1, MEGASTEP_K)}
-    fields = ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata")
+    fields = ("qpos", "qvel", "qacc", "act", "xpos", "xquat", "actuator_force",
+              "contact_sensordata")
     worst, plain_ms = 0.0, {k: None for k in fns}
     for n, k in checks:
         fn = fns[k]
@@ -406,8 +455,9 @@ def k2_against_plain(label: str, model, inputs, note=None,
         with torch.inference_mode():
             want = megastep.megastep_plain(fn.static, state, None if k == 1 else seq, planes)
         torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
         if n == N_WORLDS:
-            plain_ms[k] = (time.perf_counter() - t0) * 1e3
+            plain_ms[k] = plain
         pairs = []
         if k > 1:
             (got, traj), (want, wtraj) = got, want
@@ -423,7 +473,7 @@ def k2_against_plain(label: str, model, inputs, note=None,
             worst = max(worst, gap)
             gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
         print(f"[{label}] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps)
-              + (f"; {note(state, planes)}" if note else ""))
+              + (f"; {note(state, planes)}" if note else "") + f"; plain {plain:.1f} ms")
 
     if not timed:
         return {"err": worst, "fns": fns}
@@ -474,7 +524,8 @@ def phase_megastep(compiled, model) -> dict:
 
     golden = load_golden()
     return k2_against_plain(
-        "megastep", model, lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None))
+        "megastep", model, lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None),
+        checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1), (1000, MEGASTEP_K)))
 
 
 def reset_counts() -> None:
@@ -1025,6 +1076,11 @@ def phase_terrain_golden(terrain_compiled, *, label: str, megastep) -> None:
           f"tolerances {GOLDEN_TOLERANCE}")
     for key, tol in GOLDEN_TOLERANCE.items():
         check(worst[key] <= tol, f"{label} {key}: {worst[key]:.3e} > {tol}")
+    if megastep is not False:
+        # The K2 path repeats the JAX emitter's loop to the last bit since the
+        # controller divides as JAX does on the card too (PERF.md §6).
+        check(worst == {"qpos": 0.0, "qvel": 0.0, "found_share": 0.0} and phase_gap == 0.0,
+              f"{label}: gaps {worst}, phase {phase_gap:.3e}; the K2 path must repeat JAX")
 
 
 def twofly_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
@@ -1280,6 +1336,195 @@ def phase_twofly_golden(twofly_compiled, *, label: str, megastep, golden_path=No
             check(worst[key] <= tol, f"{label} {key}: {worst[key]:.3e} > {tol}")
 
 
+def actuator_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
+    """The settled worlds of a golden of ``scripts/export_actuator_golden.py``
+    repeated to ``n_worlds`` on the card, joints moved by 0.01 rad and the
+    activations drawn uniform in [0, 1] (seeded), the forward kinematics
+    redone; the golden's first ``k_steps`` controls as a (K, B, nu)
+    sequence."""
+    import torch
+
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics
+
+    n_golden = golden["state"].qpos.shape[0]
+    idx = torch.arange(n_worlds) % n_golden
+    state = golden["state"].map(lambda x: x[idx].clone()).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qpos = state.qpos.clone()
+    hinges = model.hinge_qadr
+    qpos[:, hinges] += 0.01 * torch.randn((n_worlds, len(hinges)), generator=gen, device="cuda")
+    xpos, xquat = forward_kinematics(model, qpos)
+    act = torch.rand(state.act.shape, generator=gen, device="cuda")
+    seq = torch.as_tensor(golden["ctrl"][:k_steps])[:, idx].cuda()
+    return replace(state, qpos=qpos, xpos=xpos, xquat=xquat, act=act, ctrl=seq[0]), seq
+
+
+def phase_strict_kernel(model) -> dict:
+    """K2 with the exact Newton against its plain version; times and bounds
+    at N_WORLDS. The plain strict step takes ~8 s on the card whatever the
+    worlds, so K = 1 is held at 1000 worlds and K = 8 at 4096 only."""
+    from flygym_tpu_torch.compose.bridge import STRICT_GOLDEN, load_actuator_golden
+
+    golden = load_actuator_golden(STRICT_GOLDEN)
+    return k2_against_plain(
+        "strict kernel", model,
+        lambda fn, n, k, seed: (*actuator_inputs(model, golden, n, k, seed), None),
+        checks=((1000, 1), (N_WORLDS, MEGASTEP_K)))
+
+
+def phase_actuator_kernels(muscle_model, mixed_model) -> dict:
+    """K2 with every actuator kind and activation states against its plain
+    version, for the muscle fly and the mixed-kind fly: K = 1 held at 1000
+    worlds and K = 8 at N_WORLDS, as the strict fly; times and bounds at
+    N_WORLDS."""
+    from flygym_tpu_torch.compose.bridge import (
+        MIXED_GOLDEN, MUSCLE_GOLDEN, load_actuator_golden)
+
+    out = {}
+    for label, model, path in (("muscle kernel", muscle_model, MUSCLE_GOLDEN),
+                               ("mixed kernel", mixed_model, MIXED_GOLDEN)):
+        golden = load_actuator_golden(path)
+        out[label] = k2_against_plain(
+            label, model,
+            lambda fn, n, k, seed, model=model, golden=golden: (
+                *actuator_inputs(model, golden, n, k, seed), None),
+            lambda state, _p: f"activations in [{state.act.min().item():.3f}, "
+                              f"{state.act.max().item():.3f}]",
+            checks=((1000, 1), (N_WORLDS, MEGASTEP_K)))
+    return out
+
+
+def phase_actuated_rollout(compiled, *, label: str, n_steps: int, ctrl_fn) -> tuple:
+    """``compiled``'s fly at N_WORLDS through the default step from the
+    drop: adhesion on, ``ctrl_fn(sim, fly, gen)`` sets the actuators' inputs,
+    then a timed ``rollout(None, n_steps)``; returns the counts and the
+    walltime."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+
+    sim = BatchSimulation(compiled, N_WORLDS)
+    check(sim.megastep, f"{label}: the default step is not the mega-step on the card")
+    fly = compiled.fly_names[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
+    ctrl_fn(sim, fly, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.rollout(None, n_steps, record_trajectory=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[{label}] {N_WORLDS} worlds: {n_steps} steps in {wall:.3f} s; counts {counts}")
+    want = {"megastep": n_steps // MEGASTEP_K, "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"{label}: {name} {counts[name]} != {n}")
+    st = sim.state
+    for name in ("qpos", "qvel", "qacc", "act", "xpos", "xquat", "actuator_force",
+                 "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"{label}: state.{name} not finite")
+    check(abs(sim.time - n_steps * compiled.model.timestep) < 1e-3, f"{label}: time {sim.time}")
+    z = st.qpos[:, 2]
+    print(f"[{label}] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
+          f"{z.max().item():.4f} mm, contact found share "
+          f"{st.contact_sensordata[..., 0].mean().item():.3f}, max|qvel| "
+          f"{st.qvel.abs().max().item():.2f}, activations in [{st.act.min().item():.4f}, "
+          f"{st.act.max().item():.4f}]")
+    rate = n_steps * N_WORLDS / wall
+    print(f"[{label}] {wall / n_steps * 1e3:.3f} ms per step: {rate:.0f} world-steps/s on "
+          f"{card_line()}")
+    return counts, wall, sim
+
+
+def phase_muscle(muscle_compiled) -> tuple:
+    """The muscle-driven fly at N_WORLDS: each world's muscles hold a seeded
+    uniform draw in MUSCLE_CTRL."""
+    import torch
+
+    def muscles(sim, fly, gen):
+        n = len(sim.actuated_dofs(fly, "muscle"))
+        lo, hi = MUSCLE_CTRL
+        sim.set_actuator_inputs(
+            fly, "muscle", lo + (hi - lo) * torch.rand((N_WORLDS, n), generator=gen, device="cuda"))
+
+    counts, wall, sim = phase_actuated_rollout(muscle_compiled, label="muscle", n_steps=MUSCLE_STEPS,
+                                               ctrl_fn=muscles)
+    act = sim.state.act
+    check(bool(((act >= 0.0) & (act <= 1.0)).all()), "muscle: an activation outside [0, 1]")
+    return counts, wall
+
+
+def phase_mixed(mixed_compiled) -> dict:
+    """The mixed-kind fly at N_WORLDS: world w holds the controls of the
+    mixed golden's world w mod 8, set kind by kind by name."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import MIXED_GOLDEN, load_actuator_golden
+
+    golden = load_actuator_golden(MIXED_GOLDEN)
+
+    def kinds(sim, fly, _gen):
+        ctrl = torch.as_tensor(golden["ctrl"][0], device="cuda")
+        idx = torch.arange(N_WORLDS, device="cuda") % ctrl.shape[0]
+        for kind in sim.compiled.flies[fly]["act_ids"]:
+            if kind != "adhesion":
+                sim.set_actuator_inputs(fly, kind, ctrl[idx][:, sim.actuator_ids(fly, kind)])
+
+    counts, _wall, _sim = phase_actuated_rollout(mixed_compiled, label="mixed", n_steps=MIXED_STEPS,
+                                                 ctrl_fn=kinds)
+    return counts
+
+
+def phase_actuator_golden(compiled, golden_path, *, label: str) -> None:
+    """8 worlds from the JAX settled state, 50 steps of the golden's
+    controls: the K2 path against the JAX emitter with 0 gaps; the engine
+    path against the JAX engine at each step within GOLDEN_TOLERANCE or, where
+    the golden's conditioning probe spreads wider (the mixed fly's ringing
+    legs), 3 times the probe's spread, as phase 15 holds the stacked flies,
+    at the steps where that bar is GOLDEN_TOLERANCE or at most
+    PROBE_BAR_SHARE of the state's largest value; the activations within
+    ACT_ATOL at every step."""
+    import numpy as np
+
+    from flygym_tpu_torch.compose.bridge import load_actuator_golden
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE, track_controls
+
+    golden = load_actuator_golden(golden_path)
+    n_steps, n_worlds = golden["ctrl"].shape[:2]
+    for path, megastep, record in (("megastep", None, "emitter"), ("engine", False, "engine")):
+        gaps = track_controls(compiled, golden, record, device="cuda", megastep=megastep)
+        worst = {key: float(np.max(gap)) for key, gap in gaps.items()}
+        line = (f"[{label} golden {path}] {n_worlds} worlds x {n_steps} steps vs JAX {record}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        if megastep is None:
+            print(line)
+            for key, gap in worst.items():
+                check(gap == 0.0, f"{label} golden {path}: {key} {gap:.3e} != 0")
+            continue
+        ratios = []
+        for key in ("qpos", "qvel"):
+            spread = np.abs(golden["probe"][key] - golden["engine"][key]).reshape(n_steps, -1)
+            size = np.abs(golden["engine"][key]).reshape(n_steps, -1).max(axis=1)
+            tol = GOLDEN_TOLERANCE[key]
+            bar = np.maximum(tol, 3.0 * spread.max(axis=1))
+            held = np.flatnonzero((bar <= tol) | (bar <= PROBE_BAR_SHARE * size))
+            check(len(held) > 0, f"{label} golden {path} {key}: no step held")
+            free = np.setdiff1d(np.arange(n_steps), held)
+            ratios.append(f"{key} {float(np.max(gaps[key][held] / bar[held])):.3f} over "
+                          f"{len(held)} steps held (first not held: "
+                          f"{int(free[0]) if len(free) else None}; largest gap held "
+                          f"{float(np.max(gaps[key][held])):.3e})")
+            bad = held[gaps[key][held] > bar[held]]
+            check(not len(bad), f"{label} golden {path} {key} at step {bad[:1]}: "
+                                f"{gaps[key][bad[:1]]} > {bar[bad[:1]]}")
+        print(line + f"; largest gap / bar {'; '.join(ratios)} (bar: GOLDEN_TOLERANCE or 3x "
+                     f"the probe's spread, held where at most GOLDEN_TOLERANCE or "
+                     f"{PROBE_BAR_SHARE} of max|JAX engine|)")
+        check(worst["found_share"] <= GOLDEN_TOLERANCE["found_share"],
+              f"{label} golden {path} found_share {worst['found_share']:.3e}")
+        check(worst["act"] <= ACT_ATOL, f"{label} golden {path} act: {worst['act']:.3e}")
+
 def main() -> int:
     import torch
 
@@ -1293,8 +1538,9 @@ def main() -> int:
     try:
         import flygym_tpu_torch
         from flygym_tpu_torch.compose.bridge import (
-            ASSETS, BENCHMARK_GOLDEN, ENV_FLY, TERRAIN_FLY, THREEFLY, THREEFLY_GOLDEN, TWOFLY,
-            TWOFLY_FULL, TWOFLY_FULL_GOLDEN, read_meta)
+            ASSETS, BENCHMARK_GOLDEN, ENV_FLY, MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN,
+            STRICT_FLY, STRICT_GOLDEN, TERRAIN_FLY, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_FULL,
+            TWOFLY_FULL_GOLDEN, read_meta)
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
@@ -1302,10 +1548,15 @@ def main() -> int:
         twofly_compiled = flygym_tpu_torch.load_compiled(TWOFLY)
         full_compiled = flygym_tpu_torch.load_compiled(TWOFLY_FULL)
         pile_compiled = flygym_tpu_torch.load_compiled(THREEFLY)
+        strict_compiled = flygym_tpu_torch.load_compiled(STRICT_FLY)
+        muscle_compiled = flygym_tpu_torch.load_compiled(MUSCLE_FLY)
+        mixed_compiled = flygym_tpu_torch.load_compiled(MIXED_FLY)
         phase_build({"benchmark fly": compiled, "env fly": env_compiled,
                      "terrain fly": terrain_compiled, "two flies": twofly_compiled,
                      "two flies, 55 x 55 compressed": full_compiled,
-                     "3-fly pile, compressed": pile_compiled})
+                     "3-fly pile, compressed": pile_compiled,
+                     "strict fly, exact Newton": strict_compiled,
+                     "muscle fly": muscle_compiled, "mixed-kind fly": mixed_compiled})
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model)
@@ -1366,6 +1617,39 @@ def main() -> int:
             phase_twofly_golden(compiled_, label=f"{name} golden engine", megastep=False,
                                 golden_path=path)
         lap("phase 18 (the compressed goldens)")
+        k2_strict = phase_strict_kernel(strict_compiled.model.to("cuda"))
+        lap("phase 19 (K2 exact Newton)")
+        strict_counts, strict_wall = phase_slice(
+            strict_compiled, label="strict", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
+            want={"megastep": SETTLE_STEPS + N_STEPS // MEGASTEP_K,
+                  "tree_ldl_factor": 0, "tree_ldl_solve": 0})
+        k8 = k2_strict["times"][MEGASTEP_K][0]
+        print(f"[strict] device busy share of the replay: "
+              f"{(N_STEPS // MEGASTEP_K) * k8 / (strict_wall * 1e3):.3f} "
+              f"({N_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over {strict_wall:.3f} s)")
+        n_engine = STRICT_ENGINE_SETTLE_STEPS + STRICT_ENGINE_STEPS
+        phase_slice(
+            strict_compiled, label="strict engine", megastep=False,
+            settle=STRICT_ENGINE_SETTLE_STEPS, steps=STRICT_ENGINE_STEPS,
+            want={"megastep": 0, "tree_ldl_factor": STRICT_ITERATIONS * n_engine,
+                  "tree_ldl_solve": STRICT_ITERATIONS * n_engine})
+        print(f"[strict engine] K1 and K1b launches per step: {STRICT_ITERATIONS} each")
+        lap("phase 20 (the strict replay)")
+        k2_act = phase_actuator_kernels(muscle_compiled.model.to("cuda"),
+                                        mixed_compiled.model.to("cuda"))
+        lap("phase 21 (K2 actuator kinds)")
+        muscle_counts, muscle_wall = phase_muscle(muscle_compiled)
+        k8 = k2_act["muscle kernel"]["times"][MEGASTEP_K][0]
+        print(f"[muscle] device busy share: "
+              f"{muscle_counts['megastep'] * k8 / (muscle_wall * 1e3):.3f} "
+              f"({muscle_counts['megastep']} launches x {k8:.3f} ms over {muscle_wall:.3f} s)")
+        mixed_counts = phase_mixed(mixed_compiled)
+        lap("phase 22 (the muscle-driven and mixed-kind flies)")
+        for label, compiled_, path in (("strict", strict_compiled, STRICT_GOLDEN),
+                                       ("muscle", muscle_compiled, MUSCLE_GOLDEN),
+                                       ("mixed", mixed_compiled, MIXED_GOLDEN)):
+            phase_actuator_golden(compiled_, path, label=label)
+        lap("phase 23 (the actuator and strict goldens)")
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1412,6 +1696,14 @@ def main() -> int:
     # For the default two-fly preset's compressed rows, its K = 8 launch, as
     # its 800-step rollout makes it (100 launches).
     entries.append(k2_entry("megastep_pairs_compressed", k2_comp, full_counts["megastep"],
+                            MEGASTEP_K))
+    # The exact Newton's K = 8 launch, as the strict replay makes 125 of its
+    # 625; every actuator kind's, as the muscle-driven and mixed-kind
+    # rollouts make them.
+    entries.append(k2_entry("megastep_strict", k2_strict, strict_counts["megastep"], MEGASTEP_K))
+    entries.append(k2_entry("megastep_muscle", k2_act["muscle kernel"], muscle_counts["megastep"],
+                            MEGASTEP_K))
+    entries.append(k2_entry("megastep_mixed", k2_act["mixed kernel"], mixed_counts["megastep"],
                             MEGASTEP_K))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

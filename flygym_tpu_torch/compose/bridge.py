@@ -14,7 +14,11 @@ stacked flies (``scripts/export_twofly_golden.py``) carry their fly-fly pair
 rows in the candidate table (``can_geom2``, ``can_body2``, ``ncand_pair``).
 The default two-fly contact preset (55 x 55 pair rows) and the 3-fly pile
 (``scripts/export_compressed_golden.py``) add their compression: the pair
-rows' groups (``pair_groups``) and ``pair_compress``.
+rows' groups (``pair_groups``) and ``pair_compress``. The muscle-driven fly,
+the fly with one actuator kind per leg and the strict replay's fly
+(``scripts/export_actuator_golden.py``) carry every actuator kind, their
+activation states (``State.act``, ``act_actadr``, ``act_dynprm``,
+``act_muscleprm``, ``act_lengthrange``, ``act_acc0``) and ``solver_exact``.
 
 Models that use a feature the port does not have yet are refused here,
 with ``NotImplementedError``, rather than simulated wrongly.
@@ -27,7 +31,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from flygym_tpu_torch.engine.actuation import SUPPORTED_KINDS
 from flygym_tpu_torch.engine.linalg import LdlTables
 from flygym_tpu_torch.engine.model import PhysicsModel, State
 
@@ -37,6 +40,12 @@ __all__ = [
     "CompiledModel",
     "ENV_FLY",
     "ENV_GOLDEN",
+    "MIXED_FLY",
+    "MIXED_GOLDEN",
+    "MUSCLE_FLY",
+    "MUSCLE_GOLDEN",
+    "STRICT_FLY",
+    "STRICT_GOLDEN",
     "TERRAIN_FLY",
     "TERRAIN_GOLDEN",
     "THREEFLY",
@@ -45,6 +54,7 @@ __all__ = [
     "TWOFLY_FULL",
     "TWOFLY_FULL_GOLDEN",
     "TWOFLY_GOLDEN",
+    "load_actuator_golden",
     "load_env_golden",
     "load_terrain_golden",
     "load_twofly_golden",
@@ -67,6 +77,12 @@ TWOFLY_FULL = ASSETS / "twofly_full.npz"
 TWOFLY_FULL_GOLDEN = ASSETS / "twofly_full_golden.npz"
 THREEFLY = ASSETS / "threefly.npz"
 THREEFLY_GOLDEN = ASSETS / "threefly_golden.npz"
+STRICT_FLY = ASSETS / "strict_fly.npz"
+STRICT_GOLDEN = ASSETS / "strict_fly_golden.npz"
+MUSCLE_FLY = ASSETS / "muscle_fly.npz"
+MUSCLE_GOLDEN = ASSETS / "muscle_fly_golden.npz"
+MIXED_FLY = ASSETS / "mixed_fly.npz"
+MIXED_GOLDEN = ASSETS / "mixed_fly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -105,13 +121,9 @@ def _tuples(x):
     return tuple(_tuples(v) for v in x) if isinstance(x, list) else x
 
 
-def _refuse_unported(static: dict, arrays: dict) -> None:
-    kinds = set(np.unique(arrays["model.act_kind"]).tolist())
+def _refuse_unported(static: dict) -> None:
     checks = [
-        (kinds <= set(SUPPORTED_KINDS), f"actuator kinds {sorted(kinds)}"),
-        (static["na"] == 0, "activation states (na > 0)"),
         (static["solver_type"] != "pgs", "the PGS solver"),
-        (not static["solver_exact"], "solver_exact"),
         (static["condim"] == 3, f"condim {static['condim']}"),
         (not static["welds"], "weld constraints"),
         (not static["differentiable"], "differentiable mode"),
@@ -131,7 +143,7 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
         meta: ``{"model": static fields, "flies": per-fly index maps}``.
     """
     static = meta["model"]
-    _refuse_unported(static, arrays)
+    _refuse_unported(static)
     kw = {}
     for f in fields(PhysicsModel):
         if f.name == "ldl":
@@ -233,6 +245,20 @@ def load_terrain_golden(path=TERRAIN_GOLDEN) -> dict:
     return out
 
 
+def _load_probe_golden(path, keys) -> dict:
+    """A golden with a conditioning probe: ``state`` (the settled batched
+    :class:`State`), ``meta``, each of ``keys`` the file holds, and the
+    ``emitter``, ``engine`` and ``probe`` records, one dict each."""
+    arrays, meta = _read_npz(path)
+    out = {"state": _state_of(arrays), "meta": meta}
+    out.update({key: arrays[key] for key in keys if key in arrays})
+    for key, value in arrays.items():
+        head, _, rest = key.partition(".")
+        if head in ("emitter", "engine", "probe"):
+            out.setdefault(head, {})[rest] = value
+    return out
+
+
 def load_twofly_golden(path=TWOFLY_GOLDEN) -> dict:
     """The JAX golden of stacked flies: ``state`` (the settled batched
     :class:`State`), ``offsets`` of the upper flies' roots, and for the JAX
@@ -243,12 +269,14 @@ def load_twofly_golden(path=TWOFLY_GOLDEN) -> dict:
     the JAX emitter was fed, ``emitter["widx"]`` (chunks, B, n_groups) with
     a chunk per ``meta["winner_k"]`` steps, and ``settled_gap``, each
     fly's root height above the fly below after the settle."""
-    arrays, meta = _read_npz(path)
-    out = {"state": _state_of(arrays), "meta": meta, "offsets": arrays["offsets"]}
-    if "settled_gap" in arrays:
-        out["settled_gap"] = arrays["settled_gap"]
-    for key, value in arrays.items():
-        head, _, rest = key.partition(".")
-        if head in ("emitter", "engine", "probe"):
-            out.setdefault(head, {})[rest] = value
-    return out
+    return _load_probe_golden(path, ("offsets", "settled_gap"))
+
+
+def load_actuator_golden(path) -> dict:
+    """The JAX golden of a world of ``scripts/export_actuator_golden.py``
+    (:data:`STRICT_GOLDEN`, :data:`MUSCLE_GOLDEN`, :data:`MIXED_GOLDEN`):
+    ``state`` (the settled batched :class:`State`), ``ctrl`` (n_steps, B,
+    nu) the controls of each step, and for the JAX emitter, the JAX engine
+    and the engine's conditioning probe (``emitter``, ``engine``,
+    ``probe``) per step ``qpos``, ``qvel``, ``act`` and ``sensordata``."""
+    return _load_probe_golden(path, ("ctrl",))

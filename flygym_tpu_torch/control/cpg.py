@@ -247,7 +247,10 @@ class CPGController:
             (new state, joint targets (B, n_dofs), adhesion controls (B, 6)).
         """
         new = self.network.step(state, self.timestep, drive)
-        pos = new.phase / _f32(_TWO_PI) * float(self.n_bins)
+        # A true division: on the card torch divides a tensor by a Python
+        # float as a product with its reciprocal, which rounds otherwise
+        # than JAX's division (up to 6e-8 in the phase's bin position).
+        pos = new.phase / torch.full_like(new.phase, _f32(_TWO_PI)) * float(self.n_bins)
         fl = torch.floor(pos)
         b0 = torch.remainder(fl.to(torch.int32), self.n_bins).long()
         b1 = torch.remainder(b0 + 1, self.n_bins)

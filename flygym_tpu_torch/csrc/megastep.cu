@@ -8,18 +8,23 @@
 //
 // One step per world: FK over the tree (a forest where several flies share
 // the world), motion subspace, velocities and bias accelerations, spatial
-// inertias, CRBA and RNEA, position and adhesion actuator forces, every
+// inertias, CRBA and RNEA, the forces of every actuator kind (motor,
+// position, velocity, intvelocity, damper, cylinder, MuJoCo's muscle;
+// adhesion's force is applied by the solver) with their limits, every
 // contact candidate (no top-K): ground rows against the flat plane or, on a
 // heightfield world, their sampled local planes, and fly-fly pair rows
 // capsule against capsule with two-body (+1/-1) Jacobian rows, compressed
 // or not (a compressed row's geom2 is its group's winner, sampled outside
 // the kernel and read by index); pyramid rows
-// with impedance and the adhesion split, primal Newton on the frozen
-// tree-LDL^T Hessian (cross-tree fill-in of pair rows dropped, as the
-// emitter drops it) with the bisection + regula-falsi line search,
-// semi-implicit Euler and, on the last of the K fused steps only, the
-// outputs (state, FK, actuator forces, contact sensors). The K-1 inner steps
-// write their qpos rows only.
+// with impedance and the adhesion split, primal Newton on the tree-LDL^T
+// Hessian (cross-tree fill-in of pair rows dropped, as the emitter drops
+// it) with the bisection + regula-falsi line search: the Hessian factored
+// once per step, or with SOLVER_EXACT (MuJoCo's exact Newton) re-filled from
+// the current active set and re-factored at every iteration after the
+// first; semi-implicit Euler, the activation states (intvelocity's integral,
+// cylinder's filter, muscle activation) and, on the last of the K fused
+// steps only, the outputs (state, FK, actuator forces, contact sensors). The
+// K-1 inner steps write their qpos rows only.
 //
 // Design. The work of a world is a long chain of dependent scalar updates
 // over static tables, with no tile and no reduction across worlds, so each
@@ -123,6 +128,10 @@ constexpr int S_FRAME = 0;
 namespace {
 
 constexpr int kThreads = 128;
+constexpr bool kSolverExact = SOLVER_EXACT != 0;
+// Actuator kinds (flygym_tpu_torch/engine/model.py ActKind).
+constexpr int kMotor = 0, kPosition = 1, kVelocity = 2, kIntVelocity = 3, kDamper = 4,
+              kAdhesion = 5, kCylinder = 6, kMuscle = 7;
 
 // One world's column of a world-minor (rows, B) buffer.
 struct Rows {
@@ -525,8 +534,65 @@ MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero)
   return d;
 }
 
+// MuJoCo's muscle force of actuator u at tendon length len, velocity vel and
+// activation a (the emitter's _muscle_force_lane): the force-length curve
+// times the force-velocity curve times a, plus the passive force. kMus
+// holds the constants as the emitter's Python arithmetic folds them
+// (ops/megastep.py _MUSCLE_KEYS): lr0, L0, range0, the velocity scale, lmin,
+// a, b, lmax, the rise, plateau-low, plateau-high and fall widths, y, y's
+// floor, fvmax, -peak, -peak fpmax / 2, -peak fpmax. Each chain of selects
+// takes its one live branch; the branches have no side effects, so this
+// gives the bits of the emitter's select of every branch.
+MS_FN float muscle_force(int u, float len, float vel, float a) {
+  const int m = NMUS * u;
+  const float L = kMus[m + 2] + (len - kMus[m]) / kMus[m + 1];
+  const float V = vel / kMus[m + 3];
+  const float lmin = kMus[m + 4], la = kMus[m + 5], lb = kMus[m + 6], lmax = kMus[m + 7];
+  float gl = 0.0f;
+  if (L <= lmin) {
+    gl = 0.0f;
+  } else if (L <= la) {
+    const float x = (L - lmin) / kMus[m + 8];
+    gl = 0.5f * (x * x);
+  } else if (L <= 1.0f) {
+    const float x = (1.0f - L) / kMus[m + 9];
+    gl = 1.0f - 0.5f * (x * x);
+  } else if (L <= lb) {
+    const float x = (L - 1.0f) / kMus[m + 10];
+    gl = 1.0f - 0.5f * (x * x);
+  } else if (L <= lmax) {
+    const float x = (lmax - L) / kMus[m + 11];
+    gl = 0.5f * (x * x);
+  }
+  const float y = kMus[m + 12], fvmax = kMus[m + 14];
+  float gv;
+  if (V <= -1.0f) {
+    gv = 0.0f;
+  } else if (V <= 0.0f) {
+    const float x = V + 1.0f;
+    gv = x * x;
+  } else if (V <= y) {
+    const float x = y - V;
+    gv = fvmax - (x * x) / kMus[m + 13];
+  } else {
+    gv = fvmax;
+  }
+  const float gain = kMus[m + 15] * gl * gv;
+  float bias = 0.0f;
+  if (L <= 1.0f) {
+    bias = 0.0f;
+  } else if (L <= lb) {
+    const float x = (L - 1.0f) / kMus[m + 10];
+    bias = kMus[m + 16] * (x * x);
+  } else {
+    bias = kMus[m + 17] * (0.5f + (L - lb) / kMus[m + 10]);
+  }
+  return gain * a + bias;
+}
+
 // One physics step of one world: state in scratch rows S_Q, S_V, S_A (warm
-// start), controls from input rows of step k; the last step writes outputs.
+// start) and S_ACT (activations), controls from input rows of step k; the
+// last step writes outputs.
 MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int K) {
   const bool last = k == K - 1;
 
@@ -689,14 +755,27 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     float c = in[NQ + NV + k * NU + u];
     if (kCtrlLim[u]) c = clampf(c, kCtrlRange[2 * u], kCtrlRange[2 * u + 1]);
     s[S_CCL + u] = c;
-    if (kActKind[u] != 1) {  // adhesion: the commanded force, applied by the solver
-      s[S_AF + u] = kActGain[u] * c;
+    const int kind = kActKind[u];
+    const float gain = kActGain[u];
+    if (kind == kAdhesion) {  // the commanded force, applied by the solver
+      s[S_AF + u] = gain * c;
       continue;
     }
-    const int h = kActHinge[u];
+    const int h = kActHinge[u], adr = kActAdr[u];
     const float qh = h >= 0 ? s[S_Q + kHingeQ[h]] : 0.0f;
     const float vh = h >= 0 ? s[S_V + kHingeV[h]] : 0.0f;
-    float force = kActGain[u] * (c - qh) - kActKv[u] * vh;
+    const float a = adr >= 0 ? s[S_ACT + adr] : 0.0f;
+    float force = 0.0f;
+    switch (kind) {
+      case kMotor: force = gain * c; break;
+      case kPosition: force = gain * (c - qh) - kActKv[u] * vh; break;
+      case kVelocity: force = gain * (c - vh); break;
+      case kIntVelocity: force = gain * (a - qh) - kActKv[u] * vh; break;
+      case kDamper: force = -gain * c * vh; break;
+      case kCylinder: force = gain * a; break;
+      case kMuscle: force = muscle_force(u, qh, vh, a); break;
+      default: break;
+    }
     if (kForceLim[u]) force = clampf(force, kForceRange[2 * u], kForceRange[2 * u + 1]);
     s[S_AF + u] = force;
     if (h >= 0) s[S_QFRC + kHingeV[h]] = s[S_QFRC + kHingeV[h]] + force;
@@ -858,14 +937,28 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
   }
   tree_ldl(s);
 
-  // ---------------- Newton on the frozen Hessian --------------------------
+  // ---------------- Newton: frozen Hessian, or exact (SOLVER_EXACT) -------
+  // The exact Newton re-fills the Hessian from Mh (S_MH, which the factor
+  // leaves intact) at the current active set and re-factors it in S_H.
   mh_mul(s, S_A, S_MA);
   MS_NOUNROLL
   for (int it = 0; it < NEWTON_ITERS; ++it) {
     if (it > 0) {
       for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
+      if (kSolverExact) {
+        MS_NOUNROLL
+        for (int e = 0; e < NPK; ++e) s[S_H + e] = s[S_MH + e];
+      }
       MS_NOUNROLL
-      for (int c = 0; c < NCAND; ++c) grad_pass(s, c, false);
+      for (int c = 0; c < NCAND; ++c) grad_pass(s, c, kSolverExact);
+      if (kSolverExact) {
+        MS_NOUNROLL
+        for (int d = 0; d < NV; ++d) {
+          const int k2 = S_H + kPkPtr[d + 1] - 1;
+          s[k2] = s[k2] + 1e-9f;
+        }
+        tree_ldl(s);
+      }
     }
     for (int d = 0; d < NV; ++d) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
     tree_solve(s, S_DEL);
@@ -1051,13 +1144,33 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     st4(s, qa + 3, Q4{nq.w / norm, nq.x / norm, nq.y / norm, nq.z / norm});
   }
 
+  // ---------------- activation dynamics -----------------------------------
+  // From the clamped controls and the activations at the start of the step
+  // (each slot belongs to one actuator, so the update is in place).
+  MS_NOUNROLL
+  for (int u = 0; u < NU; ++u) {
+    const int adr = kActAdr[u];
+    if (adr < 0) continue;
+    const int kind = kActKind[u];
+    const float c = s[S_CCL + u], a = s[S_ACT + adr];
+    if (kind == kIntVelocity) {
+      s[S_ACT + adr] = a + kDt * c;
+    } else if (kind == kCylinder) {
+      s[S_ACT + adr] = a + kDt * (c - a) / kActTau0[u];
+    } else if (kind == kMuscle) {
+      const float cm = clampf(c, 0.0f, 1.0f), sc = 0.5f + 1.5f * a;
+      const float tau = cm > a ? kActTau0[u] * sc : kActTau1[u] / sc;
+      s[S_ACT + adr] = clampf(a + kDt * (cm - a) / fmaxf(tau, 1e-9f), 0.0f, 1.0f);
+    }
+  }
+
   if (!last) {
     for (int i = 0; i < NQ; ++i) out[k * NQ + i] = s[S_Q + i];
     return;
   }
   for (int i = 0; i < NQ; ++i) out[o0 + i] = s[S_Q + i];
   for (int i = 0; i < NV; ++i) out[o0 + NQ + i] = s[S_V + i];
-  for (int i = 0; i < NA; ++i) out[o0 + NQ + NV + i] = in[NQ + NV + K * NU + i];
+  for (int i = 0; i < NA; ++i) out[o0 + NQ + NV + i] = s[S_ACT + i];
   for (int i = 0; i < NV; ++i) out[o0 + NQ + NV + NA + i] = s[S_A + i];
 }
 
@@ -1067,6 +1180,7 @@ MS_FN void run_world(const float* in, float* out, float* scratch, int w, int B, 
   const Rows I{const_cast<float*>(in) + w, sB}, O{out + w, sB}, S{scratch + w, sB};
   for (int i = 0; i < NQ; ++i) S[S_Q + i] = I[i];
   for (int i = 0; i < NV; ++i) S[S_V + i] = I[NQ + i];
+  for (int i = 0; i < NA; ++i) S[S_ACT + i] = I[NQ + NV + K * NU + i];
   for (int i = 0; i < NV; ++i) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
 #ifdef MS_PAIRS_COMPRESSED
   for (int g = 0; g < NPAIR; ++g) {

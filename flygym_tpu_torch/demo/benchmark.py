@@ -29,6 +29,7 @@ __all__ = [
     "ReplayTargetData",
     "replay_episode",
     "run_simulation",
+    "track_controls",
     "track_golden",
 ]
 
@@ -161,3 +162,36 @@ def track_golden(compiled: CompiledModel, golden: dict, *, device="cuda", n_worl
     act_ids = sim.actuator_ids(compiled.fly_names[0], "position")
     replay_episode(sim, state, targets, act_ids, n_steps, on_step=on_step)
     return worst
+
+
+def track_controls(compiled: CompiledModel, golden: dict, record: str, *, device="cuda",
+                   n_worlds=None, n_steps=None, megastep: bool | None = None) -> dict:
+    """Step the golden's settled state with its per-step controls
+    (``golden["ctrl"]``, (n_steps, B, nu), as
+    :func:`~flygym_tpu_torch.compose.bridge.load_actuator_golden` gives it)
+    one step per launch on ``device``, the path chosen by ``megastep`` as for
+    :class:`BatchSimulation`, against the JAX trajectory ``golden[record]``.
+
+    Returns, over the first ``n_steps`` steps (all by default), per step the
+    largest |port - JAX| of ``qpos``, ``qvel`` and ``act`` as (n_steps,)
+    arrays, and ``found_share``, the share of contact found flags that
+    differ.
+    """
+    rec = golden[record]
+    n_worlds = n_worlds or golden["ctrl"].shape[1]
+    n_steps = n_steps or golden["ctrl"].shape[0]
+    sim = BatchSimulation(compiled, n_worlds, device=device, megastep=megastep, megastep_k=1)
+    dev = sim.device
+    sim.state = golden["state"].map(lambda x: x[:n_worlds].clone()).to(dev)
+    ctrl = torch.as_tensor(golden["ctrl"][:n_steps, :n_worlds], device=dev)
+    gaps = {key: np.zeros(n_steps) for key in ("qpos", "qvel", "act")}
+    found = 0.0
+    for i in range(n_steps):
+        sim.rollout(ctrl[i:i + 1], 1, record_trajectory=False)
+        for key, gap in gaps.items():
+            want = torch.as_tensor(rec[key][i, :n_worlds], device=dev)
+            if want.numel():
+                gap[i] = (getattr(sim.state, key) - want).abs().max().item()
+        want = torch.as_tensor(rec["sensordata"][i, :n_worlds, :, 0], device=dev)
+        found += (sim.state.contact_sensordata[..., 0] != want).float().mean().item() / n_steps
+    return {**gaps, "found_share": found}

@@ -22,14 +22,15 @@ for condim 3:
    accelerations, inverse weights precomputed at the neutral pose.
 4. Adhesion as a generalised force along the inward normals, split over the
    body's active contacts.
-5. Frozen-Hessian primal Newton: the Hessian is factored once per step by
-   the tree-LDL factor op and every iteration solves with it
+5. Primal Newton with the reference's bisection line search. By default
+   the Hessian is factored once per step, at the warm start's active set,
+   by the tree-LDL factor op, and every iteration solves with that factor
    (:mod:`flygym_tpu_torch.ops.ldl`: CUDA kernels on the card, the plain
-   functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU), with the
-   reference's bisection line search.
+   functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU). With
+   ``solver_exact`` (MuJoCo's exact Newton, for parity studies) every
+   iteration after the first re-factors it from the current active set.
 
-PGS, ``solver_exact`` and condim other than 3 are refused when a model is
-loaded.
+PGS and condim other than 3 are refused when a model is loaded.
 
 ``samples["winners"]`` counts calls of a winner sampler.
 """
@@ -449,31 +450,39 @@ def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _solve_primal_newton(model: PhysicsModel, Mh, Jp, D, aref, qfrc, qacc_warm):
-    """Warm-started primal Newton with one Hessian factorization per step.
+    """Warm-started primal Newton (``flygym_tpu/engine/contact.py:640-703``).
 
     Cost: c(a) = ½ aᵀ Mh a − aᵀ qfrc + Σ_r ½ D_r jar_r² [jar_r < 0],
     jar = Jp a − aref. The active set at the warm start fixes the Hessian
     Mh + JpᵀWJp + 1e-9·I, factored once (one tree-LDL factor launch); each
-    of the ``solver_iterations`` refinements solves with that factor (one
-    solve launch each) and takes a near-exact line search step.
+    of the ``solver_iterations`` refinements solves with the factor (one
+    solve launch each) and takes a near-exact line search step. With
+    ``solver_exact`` each iteration after the first re-factors the Hessian
+    from the current active set first: as many factor launches per step as
+    solve launches.
     """
     nv = model.nv
     mv = lambda A, x: (A @ x[..., None])[..., 0]
     JpT = Jp.transpose(-1, -2)
+    eye = torch.eye(nv, dtype=Mh.dtype, device=Mh.device)
 
     def jar_active(a):
         jar = mv(Jp, a) - aref
         act = (jar < 0.0).to(Jp.dtype) * (D > 0.0)
         return jar, act
 
+    def factor_at(act):
+        H = Mh + (JpT * (D * act)[:, None, :]) @ Jp
+        return ldl.tree_ldl_factor(model.ldl, H + 1e-9 * eye)
+
     _, act_w = jar_active(qacc_warm)
-    H = Mh + (JpT * (D * act_w)[:, None, :]) @ Jp
-    H = H + 1e-9 * torch.eye(nv, dtype=Mh.dtype, device=Mh.device)
-    L_fac, d_fac = ldl.tree_ldl_factor(model.ldl, H)
+    L_fac, d_fac = factor_at(act_w)
 
     a = qacc_warm
-    for _ in range(max(model.solver_iterations, 1)):
+    for it in range(max(model.solver_iterations, 1)):
         jar, act = jar_active(a)
+        if model.solver_exact and it > 0:
+            L_fac, d_fac = factor_at(act)
         grad = mv(Mh, a) - qfrc + mv(JpT, D * act * jar)
         delta = -ldl.tree_ldl_solve(model.ldl, L_fac, d_fac, grad)
 

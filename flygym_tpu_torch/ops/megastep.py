@@ -36,9 +36,9 @@ Three parts:
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
 and gates, the streamed emitter, H0-matvec mode, sublane packing, the
-winners' expansion into mask rows. Not yet ported (later slices of K2):
-other actuator kinds, ``solver_exact``, and compressed pair rows on a
-heightfield world; :func:`megastep_supported` refuses those models.
+winners' expansion into mask rows. Not yet ported (K2 slice g): worlds with
+no contact candidate and compressed pair rows on a heightfield world;
+:func:`megastep_supported` refuses those models.
 """
 
 import weakref
@@ -188,6 +188,12 @@ def _div(x, c: float):
     ``x / python_float`` as x times the float's reciprocal, which rounds
     otherwise than the JAX emitter and K2 do."""
     return x / torch.full_like(x, c)
+
+
+def _rdiv(c: float, x):
+    """c / x rounded as a division: torch computes ``python_float / x`` as
+    x's reciprocal times the float."""
+    return torch.full_like(x, c) / x
 
 
 def _mul_cf(coef, x):
@@ -372,6 +378,7 @@ class _Static:
         self.condim = model.condim
         self.timestep = float(model.timestep)
         self.solver_iterations = int(model.solver_iterations)
+        self.solver_exact = bool(model.solver_exact)
         self.ref_body = int(model.ref_body)
         self.gravity = f(model.gravity)
 
@@ -519,29 +526,29 @@ class _Static:
         self.act_ctrllimited = f(model.act_ctrllimited)
         self.act_forcerange = f(model.act_forcerange)
         self.act_forcelimited = f(model.act_forcelimited)
+        self.act_actadr = f(model.act_actadr)
+        self.act_dynprm = f(model.act_dynprm)
+        self.act_muscleprm = f(model.act_muscleprm)
+        self.act_lengthrange = f(model.act_lengthrange)
+        self.act_acc0 = f(model.act_acc0)
 
 
 def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
-    (``megastep.py:934-989``) as far as this slice goes — Newton without
-    ``solver_exact``, no welds, condim 3, no activation states, position and
-    adhesion actuators only, candidate paths that run down one chain of the
-    tree per body, pair rows without sensors or adhesion, and compressed
-    pair rows (:func:`_winner_paths_ok`) on flat ground only. There is no
-    VMEM estimate."""
+    (``megastep.py:934-989``) as far as the port goes — Newton (frozen or
+    ``solver_exact``), no welds, condim 3, every actuator kind with its
+    activation states, at least one contact candidate, candidate paths that
+    run down one chain of the tree per body, pair rows without sensors or
+    adhesion, and compressed pair rows (:func:`_winner_paths_ok`) on flat
+    ground only. There is no VMEM estimate."""
     compressed = model.pair_compress and model.ncand_pair
     if (
         model.solver_type != "newton"
-        or model.solver_exact
         or model.welds
         or (compressed and model.has_hfield)
         or model.condim != 3
-        or model.na
         or model.ncand == 0
     ):
-        return False
-    kinds = set(model.act_kind.tolist())
-    if not kinds <= {ActKind.POSITION, ActKind.ADHESION}:
         return False
     try:
         st = _Static(model)
@@ -855,15 +862,27 @@ def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None, widx=None):
         kind = int(st.act_kind[u])
         gain, kv = float(st.act_gain[u]), float(st.act_kv[u])
         h = int(st.act_hinge[u])
-        if kind == ActKind.ADHESION:
-            # The readout is the commanded force; the solver applies it.
-            actuator_force[u] = gain * c_
-            continue
-        if kind != ActKind.POSITION:
-            raise NotImplementedError(f"actuator kind {kind} in the mega-step")
         qh = q[int(st.hinge_qadr[h])] if h >= 0 else z
         vh = v[int(st.hinge_vadr[h])] if h >= 0 else z
-        force = gain * (c_ - qh) - kv * vh
+        adr = int(st.act_actadr[u])
+        a_slot = act[adr] if adr >= 0 else z
+        if kind == ActKind.MOTOR:
+            force = gain * c_
+        elif kind == ActKind.POSITION:
+            force = gain * (c_ - qh) - kv * vh
+        elif kind == ActKind.VELOCITY:
+            force = gain * (c_ - vh)
+        elif kind == ActKind.INTVELOCITY:
+            force = gain * (a_slot - qh) - kv * vh
+        elif kind == ActKind.DAMPER:
+            force = -gain * c_ * vh
+        elif kind == ActKind.CYLINDER:
+            force = gain * a_slot
+        elif kind == ActKind.MUSCLE:
+            force = _muscle_force_lane(st, u, qh, vh, a_slot)
+        else:  # adhesion: the readout is the commanded force; the solver applies it
+            actuator_force[u] = gain * c_
+            continue
         if st.act_forcelimited[u] > 0:
             force = torch.clamp(
                 force, float(st.act_forcerange[u, 0]), float(st.act_forcerange[u, 1])
@@ -899,6 +918,27 @@ def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None, widx=None):
         for i in range(4):
             q_new[qa + 3 + i] = nq_[i] / norm
 
+    # ---------------- activation dynamics ------------------------------------
+    # From the clamped controls and the activations at the start of the step.
+    act_new = list(act)
+    for u in range(st.nu):
+        adr = int(st.act_actadr[u])
+        if adr < 0:
+            continue
+        kind = int(st.act_kind[u])
+        c_, a_ = c_clamped[u], act[adr]
+        if kind == ActKind.INTVELOCITY:
+            act_new[adr] = a_ + dt * c_
+        elif kind == ActKind.CYLINDER:
+            act_new[adr] = a_ + _div(dt * (c_ - a_), max(float(st.act_dynprm[u, 0]), _EPS))
+        elif kind == ActKind.MUSCLE:
+            cm = torch.clamp(c_, 0.0, 1.0)
+            tau_act = max(float(st.act_dynprm[u, 0]), _EPS)
+            tau_deact = max(float(st.act_dynprm[u, 1]), _EPS)
+            s_ = 0.5 + 1.5 * a_
+            tau = torch.where(cm > a_, tau_act * s_, _rdiv(tau_deact, s_))
+            act_new[adr] = torch.clamp(a_ + dt * (cm - a_) / torch.clamp(tau, min=_EPS), 0.0, 1.0)
+
     # ---------------- sites + sensors --------------------------------------
     site_xpos = []
     for s in range(st.nsite):
@@ -912,7 +952,7 @@ def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None, widx=None):
     return dict(
         qpos=q_new,
         qvel=v_new,
-        act=list(act),
+        act=act_new,
         qacc=qacc,
         xpos=xpos,
         xquat=xquat,
@@ -920,6 +960,69 @@ def emit_step(st: _Static, q, v, ctrl, act, warm, terrain=None, widx=None):
         actuator_force=actuator_force,
         sensordata=_emit_sensors(st, cons, z, one),
     )
+
+
+def _sq(x):
+    return x * x
+
+
+def _muscle_consts(st, u) -> dict:
+    """The constants of muscle ``u``'s force as the JAX emitter's Python
+    arithmetic folds them (``_muscle_force_lane``, ``megastep.py:1453-1500``):
+    doubles, rounded to float32 where they meet a tensor."""
+    prm = [float(x) for x in st.act_muscleprm[u]]
+    range0, range1, force, scale, lmin, lmax, vmax, fpmax, fvmax = prm[:9]
+    lr0, lr1 = float(st.act_lengthrange[u, 0]), float(st.act_lengthrange[u, 1])
+    L0 = (lr1 - lr0) / max(range1 - range0, _EPS)
+    acc0 = float(st.act_acc0[u]) if st.act_acc0.size else 1.0
+    peak = scale / max(acc0, _EPS) if force < 0 else force
+    a_, b_ = 0.5 * (lmin + 1.0), 0.5 * (1.0 + lmax)
+    y = fvmax - 1.0
+    return dict(
+        lr0=lr0, l0=max(L0, _EPS), range0=range0, vden=max(L0 * vmax, _EPS),
+        lmin=lmin, a=a_, b=b_, lmax=lmax,
+        d_rise=max(a_ - lmin, _EPS), d_plo=max(1.0 - a_, _EPS), d_phi=max(b_ - 1.0, _EPS),
+        d_fall=max(lmax - b_, _EPS), y=y, d_y=max(y, _EPS), fvmax=fvmax,
+        neg_peak=-peak, c_ramp=-peak * fpmax * 0.5, c_lin=-peak * fpmax,
+    )
+
+
+# The order of the muscle constants in K2's table kMus (model_header).
+_MUSCLE_KEYS = ("lr0", "l0", "range0", "vden", "lmin", "a", "b", "lmax", "d_rise", "d_plo",
+                "d_phi", "d_fall", "y", "d_y", "fvmax", "neg_peak", "c_ramp", "c_lin")
+
+
+def _le(x, c: float):
+    """x <= c with c rounded to float32, as JAX compares with a weak scalar."""
+    return x <= float(np.float32(c))
+
+
+def _muscle_force_lane(st, u, length, vel, a_slot):
+    """MuJoCo's muscle force of actuator ``u``: the force-length-velocity
+    gain times the activation, plus the passive bias (the JAX
+    ``_muscle_force_lane``, op for op; each branch of the curves' chain of
+    selects is evaluated, as ``jnp.where`` does)."""
+    k = _muscle_consts(st, u)
+    L = k["range0"] + _div(length - k["lr0"], k["l0"])
+    V = _div(vel, k["vden"])
+    x_rise = _div(L - k["lmin"], k["d_rise"])
+    x_plo = _div(1.0 - L, k["d_plo"])
+    x_phi = _div(L - 1.0, k["d_phi"])
+    x_fall = _div(k["lmax"] - L, k["d_fall"])
+    gl = torch.where(_le(L, k["lmin"]), 0.0, torch.where(
+        _le(L, k["a"]), 0.5 * _sq(x_rise), torch.where(
+            _le(L, 1.0), 1.0 - 0.5 * _sq(x_plo), torch.where(
+                _le(L, k["b"]), 1.0 - 0.5 * _sq(x_phi), torch.where(
+                    _le(L, k["lmax"]), 0.5 * _sq(x_fall), 0.0)))))
+    gv = torch.where(_le(V, -1.0), 0.0, torch.where(
+        _le(V, 0.0), _sq(V + 1.0), torch.where(
+            _le(V, k["y"]), k["fvmax"] - _div(_sq(k["y"] - V), k["d_y"]), k["fvmax"])))
+    gain = k["neg_peak"] * gl * gv
+    x_ramp = _div(L - 1.0, k["d_phi"])
+    x_lin = _div(L - k["b"], k["d_phi"])
+    bias = torch.where(_le(L, 1.0), 0.0, torch.where(
+        _le(L, k["b"]), k["c_ramp"] * _sq(x_ramp), k["c_lin"] * (0.5 + x_lin)))
+    return gain * a_slot + bias
 
 
 def _frame(n_c, z):
@@ -1085,8 +1188,9 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain, widx):
 
 
 def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain, widx):
-    """Candidate rows, tree LDLᵀ and frozen-Hessian primal Newton with the
-    bisection line search (the JAX ``_contacts_impl``, fused, condim 3)."""
+    """Candidate rows, tree LDLᵀ and primal Newton with the bisection line
+    search, on the frozen Hessian or, with ``solver_exact``, re-factored at
+    every iteration (the JAX ``_contacts_impl``, fused, condim 3)."""
     nv = st.nv
     geom_cache = {}
     cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache, terrain, widx)
@@ -1264,13 +1368,22 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
         H[(d, d)] = H[(d, d)] + 1e-9
     Ld, dd = _tree_ldl(st, H)
 
-    # ---- Newton iterations on the frozen Hessian ----
+    # ---- Newton iterations: on the frozen Hessian, or (solver_exact) on
+    # the Hessian re-filled from the current active set and re-factored ----
     Ma = Mh_mul(a_vec)
     for it in range(max(st.solver_iterations, 1)):
         if it > 0:
             grad_con = [z] * nv
-            for c in cons:
-                jar_grad_pass(c, a_vec, grad_con, use_cached_jar=True)
+            if st.solver_exact:
+                H = dict(Mh)
+                for c in cons:
+                    jar_grad_pass(c, a_vec, grad_con, with_hessian=H, use_cached_jar=True)
+                for d in range(nv):
+                    H[(d, d)] = H[(d, d)] + 1e-9
+                Ld, dd = _tree_ldl(st, H)
+            else:
+                for c in cons:
+                    jar_grad_pass(c, a_vec, grad_con, use_cached_jar=True)
         grad = [Ma[d] - qfrc[d] + grad_con[d] for d in range(nv)]
         delta = [-x for x in _tree_solve(st, Ld, dd, grad)]
 
@@ -1626,6 +1739,7 @@ _COLD_TABLES = frozenset((
     "kKGain", "kInvW", "kCandGPos", "kCandGQuat", "kCandEndH", "kCandRad", "kCandMargin",
     "kPairGPos2", "kPairGQuat2", "kPairR2", "kPairH1", "kPairH2", "kBodyInertia", "kBodyIPos",
     "kBodyIQuat", "kMemBody2", "kMemGPos2", "kMemGQuat2", "kMemR2", "kMemH2", "kMemInvW",
+    "kMus",
 ))
 
 
@@ -1683,7 +1797,8 @@ def model_header(model: PhysicsModel) -> tuple:
         ("NCAND", st.ncand), ("NSENSOR", st.nsensor), ("NPK", len(st.pair_keys)),
         ("MAXP", maxp), ("NFREE", len(st.free_joints)), ("NADH", len(adh)),
         ("REF_BODY", st.ref_body), ("NEWTON_ITERS", max(st.solver_iterations, 1)),
-        ("LS_BISECT", _LS_BISECT_ITERS),
+        ("SOLVER_EXACT", st.solver_exact), ("LS_BISECT", _LS_BISECT_ITERS),
+        ("NMUS", len(_MUSCLE_KEYS)),
     ):
         const(name, value)
     lines.append(f"constexpr float kDt = {_f32(dt)};")
@@ -1715,7 +1830,7 @@ def model_header(model: PhysicsModel) -> tuple:
         ("S_CVEL", 6 * nb), ("S_CACC", 6 * nb), ("S_IB", 9 * nb), ("S_IC", 9 * nb),
         ("S_FSUB", 6 * nb), ("S_MH", len(st.pair_keys)), ("S_H", len(st.pair_keys)),
         ("S_QFRC", nv), ("S_MA", nv), ("S_GC", nv), ("S_DEL", nv), ("S_MD", nv),
-        ("S_AF", max(st.nu, 1)), ("S_CCL", max(st.nu, 1)),
+        ("S_AF", max(st.nu, 1)), ("S_CCL", max(st.nu, 1)), ("S_ACT", st.na),
         ("S_COMP", 3 * maxp * st.ncand), ("S_CAND", 24 * st.ncand),
     ]
     if st.has_hfield:
@@ -1787,6 +1902,17 @@ def model_header(model: PhysicsModel) -> tuple:
     table("kCtrlRange", "float", st.act_ctrlrange.reshape(-1))
     table("kForceLim", "int", st.act_forcelimited > 0)
     table("kForceRange", "float", st.act_forcerange.reshape(-1))
+    # Activation slots; the time constants (cylinder: dynprm[0]; muscle:
+    # activation dynprm[0], deactivation dynprm[1]); per muscle its folded
+    # constants (_MUSCLE_KEYS), zeros for the other kinds.
+    table("kActAdr", "int", st.act_actadr)
+    table("kActTau0", "float", [max(float(x), _EPS) for x in st.act_dynprm[:, 0]])
+    table("kActTau1", "float", [max(float(x), _EPS) for x in st.act_dynprm[:, 1]])
+    muscles = [int(k) == ActKind.MUSCLE for k in st.act_kind]
+    table("kMus", "float", [
+        x for u in range(st.nu) for x in (
+            [_muscle_consts(st, u)[key] for key in _MUSCLE_KEYS] if muscles[u]
+            else [0.0] * len(_MUSCLE_KEYS))])
 
     # Candidates: geometry, constraint dynamics, paths.
     cg = [int(g) for g in st.can_geom]

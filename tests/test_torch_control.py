@@ -183,3 +183,31 @@ def test_init_draws_phases_from_a_generator():
     assert a.cpg.phase.shape == (5, 6)
     assert float(a.cpg.phase.min()) >= 0.0 and float(a.cpg.phase.max()) < 2 * np.pi
     assert not a.retraction.any() and not a.cpg.amplitude.any()
+
+
+@pytest.mark.cuda
+def test_controller_on_the_card_equals_the_cpu(steps):
+    """200 steps of the hybrid controller on CUDA tensors and on CPU tensors
+    from one state and the same seeded readouts, bit for bit: on the card
+    torch divides a tensor by a Python float as a product with the float's
+    reciprocal, which moved the CPG's bin position by up to 6e-8, so the
+    controller divides by a tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tips, forces, heading = _inputs(seed=1)
+    init = HybridState.init(B, torch.Generator().manual_seed(0), device="cpu")
+    arrays = {"phase": init.cpg.phase, "amplitude": init.cpg.amplitude,
+              "damplitude": init.cpg.damplitude, "retraction": init.retraction,
+              "stumbling": init.stumbling}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        hyb = HybridController(cpg=CPGController(steps, timestep=1e-4, device=dev))
+        state = HybridState.from_numpy({k: v.numpy() for k, v in arrays.items()}, device=dev)
+        out = []
+        for i in range(N_STEPS):
+            state, t, a = hyb(state, torch.from_numpy(tips[i]).to(dev),
+                              torch.from_numpy(forces[i]).to(dev), torch.from_numpy(heading).to(dev))
+            out += [t.cpu(), a.cpu(), state.cpg.phase.cpu(), state.retraction.cpu()]
+        runs[dev] = out
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(got, want)

@@ -294,13 +294,46 @@ def test_batch_replays_k_chunks_through_the_plain_emitter(compiled):
     assert torch.isfinite(traj).all()
 
 
-def test_megastep_refuses_solver_exact():
-    """``solver_exact``: example 11's world, whose pair rows K2 takes, with
-    the exact Newton solver (re-factored every iteration, K2 slice f), which
-    K2 does not take yet."""
+def test_megastep_takes_solver_exact():
+    """``solver_exact`` (K2 slice f) on example 11's world, whose pair rows
+    K2 takes, with 4 Newton iterations (3 re-factored), from the two-fly golden's settled
+    state with seeded velocity noise, so that the active set changes within
+    the step: K2's host build (g++) equals the plain version to the last
+    bit, and the exact Newton moves the result away from the frozen one."""
+    from flygym_tpu_torch.compose.bridge import load_twofly_golden
+
     twofly = load_compiled(TWOFLY)
-    assert ms.megastep_supported(twofly.model)
-    bad = dataclasses.replace(twofly, model=dataclasses.replace(twofly.model, solver_exact=True))
+    model = dataclasses.replace(twofly.model, solver_exact=True, solver_iterations=4)
+    assert ms.megastep_supported(model)
+    static = ms._Static(model)
+    header, n_scratch = ms.model_header(model)
+    assert "constexpr int SOLVER_EXACT = 1;" in header
+    lib = _build.build_megastep_host(header)
+    s = load_twofly_golden()["state"].map(lambda x: x[:B].clone())
+    rng = np.random.default_rng(5)
+    s = dataclasses.replace(s, qvel=s.qvel + torch.as_tensor(
+        rng.normal(0.0, 2.0, s.qvel.shape), dtype=torch.float32))
+    want = ms.megastep_plain(static, s)
+    n_in, n_out = ms._io_rows(static, 1)
+    packed = torch.cat([s.qpos.t(), s.qvel.t(), s.ctrl.t(), s.act.t(), s.qacc.t()]).contiguous()
+    assert packed.shape == (n_in, B)
+    out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    got, _traj = ms._unpack(static, out, s, s.ctrl, 1)
+    for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force",
+                 "contact_sensordata"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    frozen = ms.megastep_plain(ms._Static(dataclasses.replace(model, solver_exact=False)), s)
+    assert not torch.equal(frozen.qacc, want.qacc)
+
+
+def test_megastep_refuses_worlds_without_candidates():
+    """A world without contact candidates (a tethered fly with a hard weld
+    compiles to none; here the benchmark fly with ``ncand`` 0) is not K2's
+    yet (slice g): refused when asked for, the engine step by default."""
+    compiled = load_compiled()
+    assert ms.megastep_supported(compiled.model)
+    bad = dataclasses.replace(compiled, model=dataclasses.replace(compiled.model, ncand=0))
     assert not ms.megastep_supported(bad.model)
     with pytest.raises(NotImplementedError, match="mega-step"):
         BatchSimulation(bad, 2, device="cpu", megastep=True)

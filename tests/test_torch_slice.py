@@ -77,7 +77,7 @@ def test_fresh_export_loads_like_the_committed_one(fresh_export, compiled):
     [
         ("condim", 4, "condim 4"),
         ("solver_type", "pgs", "PGS"),
-        ("solver_exact", True, "solver_exact"),
+        ("condim", 1, "condim 1"),
         ("differentiable", True, "differentiable mode"),
     ],
 )
