@@ -11,9 +11,16 @@ Phases (each failure ends the run with a non-zero exit code):
 1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, all at
    once: the library of K1, K1b and the retina kernel K3, and the mega-step
    kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly,
-   example 11's two flies, the default two-fly contact preset and the 3-fly
-   pile (one generated header each); print each build's seconds and the
-   ptxas reports (registers, stack, spills).
+   example 11's two flies, the default two-fly contact preset, the 3-fly
+   pile, the strict, muscle-driven and mixed-kind flies (one generated
+   header each), and for the benchmark fly K2's profile build (clock64
+   phase counters), its builds at the other threads per block of
+   ``SWEEP_THREADS`` and the profile build of K2 as it stood before its
+   redesign (``scripts/k2_before_redesign``: one world per thread, scratch
+   rows in global memory); print each build's seconds and the ptxas reports
+   (registers, stack, spills), and for each header K2's threads per block,
+   shared bytes per block, its scratch split between shared and global
+   memory (floats per world) and the blocks per SM the card keeps resident.
 2. Hold the tree-LDL factor (K1) and solve (K1b) kernels against their plain
    PyTorch versions at 4096 and at 1000 worlds, within 1e-5 of the largest
    plain value; time both, their plain versions and ``torch.linalg``'s
@@ -22,9 +29,15 @@ Phases (each failure ends the run with a non-zero exit code):
    from the golden's settled state with the first replay targets: one K = 1
    launch against one plain step and one K = 8 launch against 8 chained
    plain steps (final state and qpos rows), each at 4096 and 1000 worlds;
-   time K = 1 and K = 8 launches at 4096 worlds. (The plain version takes
-   seconds per step whatever the worlds, so phases 10 and 13 hold K = 8 at
-   4096 worlds only, as phase 16 does.)
+   time K = 1 and K = 8 launches at 4096 worlds, and the K = 8 launch at
+   1024 and 16384 worlds (kernel only). Build K2 with 32, 64 and 128
+   threads per block (one world per block), hold each against the shipped
+   build and time their K = 8 launches at 4096 worlds in turns; print the
+   share of each phase of K2's step from the profile build's counters,
+   beside the shares of K2 before its redesign on the same launch (its
+   outputs held equal to the shipped build's).
+   (The plain version takes seconds per step whatever the worlds, so
+   phases 10 and 13 hold K = 8 at 4096 worlds only, as phase 16 does.)
 4. The main path, the mega-step: the benchmark fly in ``BatchSimulation``
    with its default step at 4096 worlds, adhesion on, a 500-step settle (one
    step per launch: 8 does not divide 500) and a timed 1000-step replay of
@@ -96,9 +109,9 @@ Phases (each failure ends the run with a non-zero exit code):
     with one K = 1 launch, and the 3-fly pile (21 groups of 7) at 1000 with
     one K = 1 and one K = 8 launch, from each golden's settled worlds with
     seeded root and joint noise and the port's winner sampler's winners, to
-    ``K2_RTOL``; time the default preset's K = 1 and K = 8 launches and one
-    winner sample at 4096 worlds; K2's bound from its operations counted on
-    the CPU.
+    ``K2_RTOL``; time both worlds' K = 1 and K = 8 launches (the pile's
+    kernel only) and one winner sample at 4096 worlds; K2's bounds from
+    their operations counted on the CPU.
 17. The default two-fly preset at 4096 worlds: ``BatchSimulation`` with its
     default step, the top fly moved by a seeded ±0.1 mm in xy per world,
     adhesion on the bottom fly, a timed ``rollout(None, 800)``: launches K2
@@ -219,6 +232,13 @@ RETINA_BRANCHES = {"cone": None, "hard": 0.0}  # acceptance_fwhm_deg
 # qvel 1e-3, qacc rtol 6e-3 / atol 0.2, actuator_force 1e-4, sensors 2e-3).
 K2_RTOL = 1e-6
 TIMED_LAUNCHES = 20
+# K2's flat K = 8 launch is also timed at these widths, and built and timed
+# at each of these threads per block (phase 3).
+SWEEP_WORLDS = (1024, 16384)
+SWEEP_THREADS = (32, 64, 128)
+# K2 as it stood before its redesign, with its flat benchmark fly's header,
+# profiled beside the shipped build (phase 3).
+BEFORE_REDESIGN = Path(__file__).resolve().parent / "scripts" / "k2_before_redesign"
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -271,22 +291,36 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_build(worlds: dict) -> None:
-    """Every nvcc build at once, each timed: the model-independent library
-    and K2 for each of ``worlds`` (name: compiled world)."""
+def phase_build(worlds: dict, flat_model) -> None:
+    """Every nvcc build at once, each timed: the model-independent library,
+    K2 for each of ``worlds`` (name: compiled world), and for the flat
+    benchmark fly ``flat_model`` K2's profile build, its builds at the
+    other threads per block of SWEEP_THREADS and the profile build of K2
+    before its redesign (BEFORE_REDESIGN). Then K2's launch for each
+    world: threads per block, shared bytes per block, the scratch split
+    between shared and global memory, resident blocks per SM."""
     from flygym_tpu_torch.ops import _build, megastep
 
     headers = {name: megastep.model_header(c.model)[0] for name, c in worlds.items()}
+    extra = {f"benchmark fly, T={t}": (megastep.model_header(flat_model, t)[0], False, None)
+             for t in SWEEP_THREADS if t != megastep.THREADS}
+    extra["benchmark fly, profile"] = (headers["benchmark fly"], True, None)
+    extra["benchmark fly, profile, before the redesign"] = (
+        (BEFORE_REDESIGN / "megastep_model.h").read_text(), True,
+        BEFORE_REDESIGN / "megastep.cu")
 
     def timed(fn, *args):
         t0 = time.perf_counter()
         path = fn(*args)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=1 + len(headers)) as pool:
+    with ThreadPoolExecutor(max_workers=1 + len(headers) + len(extra)) as pool:
         jobs = {"K1, K1b, K3": pool.submit(timed, _build.build)}
         for name, header in headers.items():
             jobs[f"K2, {name}"] = pool.submit(timed, _build.build_megastep, header)
+        for name, (header, profile, source) in extra.items():
+            jobs[f"K2, {name}"] = pool.submit(timed, _build.build_megastep, header, profile,
+                                              source)
         done = {name: job.result() for name, job in jobs.items()}
     _build.load_library()
     for header in headers.values():
@@ -299,6 +333,14 @@ def phase_build(worlds: dict) -> None:
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
                 print(f"[build] {name} ptxas: {line.strip()}")
+    for name, c in worlds.items():
+        layout = megastep.scratch_layout(c.model)
+        shape = megastep.kernel_shape(c.model)
+        check(shape["shared_bytes"] == 4 * layout["n_shared"] <= megastep.SHARED_LIMIT
+              and shape["blocks_per_sm"] >= 1, f"K2 {name}: launch shape {shape}")
+        print(f"[build] K2 {name}: T={shape['threads']}, {shape['shared_bytes']} shared bytes "
+              f"per block, scratch {layout['n_shared']} shared + {layout['n_global']} global "
+              f"floats per world, {shape['blocks_per_sm']} blocks per SM")
 
 
 def ldl_work(tables, B: int) -> dict:
@@ -519,13 +561,107 @@ def k2_entry(name: str, k2: dict, launches: int, k: int) -> dict:
 
 
 def phase_megastep(compiled, model) -> dict:
-    """K2 against its plain version; times and bounds at N_WORLDS."""
+    """K2 against its plain version; times and bounds at N_WORLDS; then the
+    K = 8 launch at other widths and other threads per block, and its phase
+    profile."""
     from flygym_tpu_torch.compose.bridge import load_golden
 
     golden = load_golden()
-    return k2_against_plain(
+    k2 = k2_against_plain(
         "megastep", model, lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None),
         checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1), (1000, MEGASTEP_K)))
+    fn = k2["fns"][MEGASTEP_K]
+    for n in SWEEP_WORLDS:
+        state, seq = k2_inputs(compiled, golden, n, MEGASTEP_K)
+        ms_ = time_ms(lambda: fn(state, seq), TIMED_LAUNCHES)
+        print(f"[megastep] K={MEGASTEP_K} at B={n}: kernel {ms_:.3f} ms per launch, "
+              f"{n * MEGASTEP_K / ms_ * 1e3:.0f} world-steps/s of the kernel alone")
+    state, seq = k2_inputs(compiled, golden, N_WORLDS, MEGASTEP_K)
+    want = fn(state, seq)[0]
+    thread_sweep(compiled.model, state, seq, want)
+    k2_profile(model, state, seq, want)
+    return k2
+
+
+def thread_sweep(model, state, seq, want) -> None:
+    """The flat K = 8 launch at N_WORLDS built for each of SWEEP_THREADS
+    threads per block, called through its C function (not counted), timed
+    in turns; each equal to the shipped build's result."""
+    import torch
+
+    from flygym_tpu_torch.ops import _build, megastep
+
+    st = megastep._Static(model)
+    packed = megastep._pack(st, state, seq, None, MEGASTEP_K)
+    n_out = megastep._io_rows(st, MEGASTEP_K)[1]
+    calls = {}
+    for t in SWEEP_THREADS:
+        lib = _build.load_megastep(megastep.model_header(model, t)[0])
+        out = torch.empty((n_out, N_WORLDS), device="cuda")
+        scratch = torch.empty((N_WORLDS, max(megastep.scratch_layout(model, t)["n_global"], 1)),
+                              device="cuda")
+
+        def call(lib=lib, out=out, scratch=scratch):
+            megastep._raise_on_error(lib, lib.megastep_f32(
+                packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), N_WORLDS, MEGASTEP_K,
+                torch.cuda.current_stream().cuda_stream))
+            return out
+
+        got = megastep._unpack(st, call(), state, seq[-1], MEGASTEP_K)[0]
+        for name in ("qpos", "qvel", "qacc", "contact_sensordata"):
+            check(torch.equal(getattr(got, name), getattr(want, name)),
+                  f"K2 built with T={t}: {name} differs from the T={megastep.THREADS} build")
+        calls[t] = call
+    times = {t: [] for t in SWEEP_THREADS}
+    for order in (SWEEP_THREADS, SWEEP_THREADS[::-1]):
+        for t in order:
+            times[t].append(time_ms(calls[t], TIMED_LAUNCHES // 2))
+    for t in SWEEP_THREADS:
+        shipped = " (shipped)" if t == megastep.THREADS else ""
+        print(f"[megastep] T={t}{shipped}: K={MEGASTEP_K} at B={N_WORLDS}: "
+              f"{'/'.join(f'{x:.3f}' for x in times[t])} ms per launch")
+
+
+def k2_profile(model, state, seq, want) -> None:
+    """Each phase's share of K2's step: the profile build's clock64()
+    counters (one block's), the flat K = 8 launch at N_WORLDS, beside those
+    of K2 before its redesign (one thread's), whose outputs must equal
+    ``want``, the shipped build's (not counted)."""
+    import re
+
+    import torch
+
+    from flygym_tpu_torch.ops import _build, megastep
+
+    after = megastep.profile_megastep(model, state, seq)
+    header = (BEFORE_REDESIGN / "megastep_model.h").read_text()
+    lib = _build.load_megastep(header, profile=True, source=BEFORE_REDESIGN / "megastep.cu")
+    n_scratch = int(re.search(r"N_SCRATCH = (\d+);", header).group(1))
+    st = megastep._Static(model)
+    packed = megastep._pack(st, state, seq, None, MEGASTEP_K)
+    out = torch.empty((megastep._io_rows(st, MEGASTEP_K)[1], N_WORLDS), device="cuda")
+    scratch = torch.empty((n_scratch, N_WORLDS), device="cuda")
+    prof = torch.zeros((len(megastep.PROFILE_PHASES), N_WORLDS), dtype=torch.int64,
+                       device="cuda")
+    megastep._raise_on_error(lib, lib.megastep_profile_f32(
+        packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), prof.data_ptr(), N_WORLDS,
+        MEGASTEP_K, torch.cuda.current_stream().cuda_stream))
+    got = megastep._unpack(st, out, state, seq[-1], MEGASTEP_K)[0]
+    for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force",
+                 "contact_sensordata"):
+        check(torch.equal(getattr(got, name), getattr(want, name)),
+              f"K2 before its redesign: {name} differs from the shipped build")
+    before = dict(zip(megastep.PROFILE_PHASES, prof.sum(dim=1).tolist()))
+    totals = {"after": sum(after.values()), "before": sum(before.values())}
+    check(min(totals.values()) > 0, "K2's profile counted no cycles")
+    per_step = N_WORLDS * MEGASTEP_K
+    print(f"[megastep] phase profile, K={MEGASTEP_K} at B={N_WORLDS}, outputs of K2 before "
+          f"its redesign equal to the shipped build's: cycles per world-step "
+          f"{totals['before'] / per_step:.0f} before (one thread's), "
+          f"{totals['after'] / per_step:.0f} after (one block's)")
+    for name, n in sorted(after.items(), key=lambda kv: -kv[1]):
+        print(f"[megastep]   {name}: before {before[name] / totals['before']:.4f}, "
+              f"after {n / totals['after']:.4f} ({n / per_step:.0f} cycles per world-step)")
 
 
 def reset_counts() -> None:
@@ -1145,8 +1281,9 @@ def compressed_inputs(model, golden, n_worlds: int, k_steps: int, seed: int, fn)
 
 def phase_compressed_kernel(full_model, pile_model) -> dict:
     """K2 with compressed pair rows against its plain version on the
-    default two-fly preset and the 3-fly pile; times of K2 and of the
-    winner sampler, and K2's bounds, at N_WORLDS (the default preset).
+    default two-fly preset and the 3-fly pile; times of K2 and its bounds
+    at N_WORLDS (the pile's kernel only), and of the winner sampler (the
+    default preset).
 
     The plain version of the 55 x 55 preset takes ~17 s per step whatever
     the worlds, so 1000 worlds are held at K = 1 only: 4096 worlds at K = 8
@@ -1159,7 +1296,7 @@ def phase_compressed_kernel(full_model, pile_model) -> dict:
         ("compressed kernel", full_model, TWOFLY_FULL_GOLDEN,
          ((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)), True),
         ("compressed kernel, 3-fly pile", pile_model, THREEFLY_GOLDEN,
-         ((1000, 1), (1000, MEGASTEP_K)), False),
+         ((1000, 1), (1000, MEGASTEP_K)), True),
     ):
         golden = load_twofly_golden(path)
         out[label] = k2_against_plain(
@@ -1556,7 +1693,8 @@ def main() -> int:
                      "two flies, 55 x 55 compressed": full_compiled,
                      "3-fly pile, compressed": pile_compiled,
                      "strict fly, exact Newton": strict_compiled,
-                     "muscle fly": muscle_compiled, "mixed-kind fly": mixed_compiled})
+                     "muscle fly": muscle_compiled, "mixed-kind fly": mixed_compiled},
+                    compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model)

@@ -1,5 +1,5 @@
-// Mega-step kernel K2: whole physics steps of one world per CUDA thread, for
-// NVIDIA Hopper (sm_90a).
+// Mega-step kernel K2: whole physics steps of one world per CUDA thread
+// block, for NVIDIA Hopper (sm_90a).
 //
 // Replaces (TPU kernel of the JAX package): flygym_tpu/ops/megastep.py
 // make_megastep.<kernel> (body emit_step), launched by pallas_call in
@@ -26,16 +26,38 @@
 // steps only, the outputs (state, FK, actuator forces, contact sensors). The
 // K-1 inner steps write their qpos rows only.
 //
-// Design. The work of a world is a long chain of dependent scalar updates
-// over static tables, with no tile and no reduction across worlds, so each
-// thread owns one world. The repeated structure stays runtime loops over
-// the model's constant tables (generated header megastep_model.h, in
-// __constant__ memory: every thread of a warp reads the same entry, a
-// broadcast), so the source stays small and builds in seconds, where the
-// emitter unrolls to ~2.8e5 straight-line ops. Per-world arrays (FK, S,
-// inertias, the 813 tree-sparse entries of Mh and of the Hessian, the
-// contact rows) live in a world-minor scratch buffer (rows, B) that the
-// wrapper allocates: a warp's access to one row is one coalesced line.
+// Design. One world per thread block of THREADS threads (32, 64 or 128,
+// from the generated header megastep_model.h; 128 ships), one block per
+// world. The world's arrays (FK, S, inertias, the tree-sparse entries of Mh
+// and of the Hessian, the contact rows) live in the block's dynamic shared
+// memory, ordered by how often a step reads them; a header whose arrays
+// pass the 227 KB a block may hold keeps its coldest rows in a world-major
+// global buffer that the wrapper allocates (ops/megastep.py:scratch_layout).
+// The body arrays of the dynamics and the Newton loop's rows share rows:
+// the first are dead once the candidates are built, the second live only
+// after. The loops of the step are spread over the block: one thread per
+// body of a tree level, per DoF, per Hessian entry, per candidate, per
+// actuator or per sensor, with barriers between phases. Every value is
+// computed by the same operations in the same order as the serial loop
+// computed it; only the thread changes. A sum whose terms come from
+// several candidates or columns has one owner thread that adds them in the
+// serial order, walking a transposed table of the header (the candidates
+// of each DoF, the mh_mul terms of each output, the factor's updates of
+// each entry, each body's children): no atomics and no shuffle or tree
+// reductions, which would change the bits. Where the serial chain is long
+// (the line search's 4 NCAND terms; the factor's and the forward solve's
+// terms of one depth group of the tree), the terms are computed in
+// parallel into the shared rows S_TERM first and the owner only adds them.
+// The factor and both passes of the solve run by depth group of the DoF
+// tree, one barrier each, instead of column by column.
+//
+// What bounds it on the H100: the dependent chains of each world's step
+// (the ordered sums, the tree's levels and depth groups, 17 each for a fly)
+// at the latency of shared memory and of the tables' reads, which miss the
+// L1 left beside 4 blocks of 53 KB: 4 blocks of 4 warps per SM for the
+// one-fly headers, 1-2 for the multi-fly ones. The operation bound is 0.13
+// ms per K = 8 launch at 4096 worlds; PERF.md has the times and the
+// profile build's phase shares.
 //
 // Numerics. Built with -fmad=false and IEEE div and sqrt, and the header's
 // constants are the float32 values the emitter's Python arithmetic gives, so
@@ -45,37 +67,37 @@
 // sin and cos are glibc's algorithm (ms_sincosf), as the JAX package's CPU
 // backend and the plain version round them, so the kernel repeats both.
 //
-// What bounds it on the H100: at 4096 worlds, 32 blocks of 128 threads fill
-// a quarter of the 132 SMs with 4 warps each, and the scratch traffic (~56 KB
-// per world per step, 230 MB at 4096 worlds, above the 50 MB L2; 129 KB per
-// world for example 11's two flies) is served at that low occupancy:
-// latency, not the op count or the card's bandwidth.
-// Keeping rows in registers and shared memory and one warp per world are
-// later work.
-//
-// The same file compiles as host C++ (g++ -x c++), where the kernel becomes
-// a loop over worlds (megastep_host_f32), so its arithmetic is tested on the
-// CPU against the plain version.
+// The same file compiles as host C++ (g++ -x c++), where a block becomes a
+// loop over worlds and each parallel loop a serial one, run in order or
+// reversed (megastep_host_f32's `order`): a loop whose result depends on
+// the order of its indices is a race on the card, and shows on the CPU as
+// a gap to the plain version.
 //
 // Interface: plain C, bound with ctypes (flygym_tpu_torch/ops/_build.py).
 // Pointers are device pointers; the kernel allocates nothing, launches on the
-// caller's stream, does not synchronise, and returns cudaGetLastError().
+// caller's stream, does not synchronise, and returns the first CUDA error
+// (the shared-memory attribute's, set at the first launch, or the
+// launch's). The profile build (-DMS_PROFILE) times the step's phases with
+// clock64() into one more buffer (megastep_profile_f32).
 
-// The model's tables live in __constant__ memory (MS_TABLE); a header whose
-// tables pass the 64 KB constant bank moves the ones read once per step per
-// candidate or body to global memory (MS_GTABLE), read through the L1.
+// The model's tables live in global memory, read through the L1: the
+// threads of a warp read different entries.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define MS_FN __device__ __forceinline__
-#define MS_TABLE __constant__
-#define MS_GTABLE __device__ const
+#define MS_TABLE __device__ const
 #define MS_NOUNROLL _Pragma("unroll 1")
+#define MS_UNROLL4 _Pragma("unroll 4")
+#define MS_SYNC() __syncthreads()
 #else
 #include <cmath>
 #define MS_FN inline
 #define MS_TABLE static const
-#define MS_GTABLE static const
 #define MS_NOUNROLL
+#define MS_UNROLL4
+#define MS_SYNC() \
+  do {            \
+  } while (0)
 #endif
 
 #include <cstddef>
@@ -127,18 +149,87 @@ constexpr int S_FRAME = 0;
 // path's order.
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = THREADS;
+static_assert(kThreads == 32 || kThreads == 64 || kThreads == 128, "THREADS: 32, 64 or 128");
 constexpr bool kSolverExact = SOLVER_EXACT != 0;
 // Actuator kinds (flygym_tpu_torch/engine/model.py ActKind).
 constexpr int kMotor = 0, kPosition = 1, kVelocity = 2, kIntVelocity = 3, kDamper = 4,
               kAdhesion = 5, kCylinder = 6, kMuscle = 7;
 
-// One world's column of a world-minor (rows, B) buffer.
+// The indices of a loop spread over the block: on the card thread t takes
+// t, t + THREADS, ...; on the host every index, in order or reversed.
+struct ParIt {
+  int i, step;
+  MS_FN int operator*() const { return i; }
+  MS_FN ParIt& operator++() {
+    i += step;
+    return *this;
+  }
+  MS_FN bool operator!=(const ParIt& e) const { return step > 0 ? i < e.i : i > e.i; }
+};
+struct Par {
+  int b, e, step;
+  MS_FN ParIt begin() const { return {b, step}; }
+  MS_FN ParIt end() const { return {e, step}; }
+};
+#ifdef __CUDACC__
+MS_FN Par par(int n) { return {static_cast<int>(threadIdx.x), n, kThreads}; }
+// Whether this thread runs the block's serial sections.
+MS_FN bool lead() { return threadIdx.x == 0; }
+#else
+bool g_reversed = false;
+MS_FN Par par(int n) { return g_reversed ? Par{n - 1, -1, -1} : Par{0, n, 1}; }
+MS_FN bool lead() { return true; }
+#endif
+
+// One world's scratch rows: [0, N_SHARED) in the block's shared memory,
+// the rest in its world-major global row.
 struct Rows {
+  float* sh;
+  float* gl;
+  MS_FN float& operator[](int r) const {
+    return (N_GLOBAL == 0 || r < N_SHARED) ? sh[r] : gl[r - N_SHARED];
+  }
+};
+// One world's column of a world-minor (rows, B) input or output buffer.
+struct Col {
   float* p;
   size_t stride;
   MS_FN float& operator[](int r) const { return p[static_cast<size_t>(r) * stride]; }
 };
+
+// The profile build's per-phase clock counters (the block's first thread's,
+// read just after a barrier), in the order of ops/megastep.py
+// PROFILE_PHASES.
+enum Phase {
+  kPhDynamics, kPhForces, kPhCandidates, kPhFirstPass, kPhRefill, kPhSolve, kPhMhMul,
+  kPhJd, kPhLineSearch, kPhUpdate, kPhOutputs, kPhEuler, kNumPhases
+};
+#if defined(MS_PROFILE) && defined(__CUDACC__)
+MS_FN long long ms_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct Prof {
+  long long acc[kNumPhases];
+  long long t;
+  MS_FN Prof() : t(ms_clock()) {
+    for (int i = 0; i < kNumPhases; ++i) acc[i] = 0;
+  }
+  MS_FN void mark(int p) {
+    const long long now = ms_clock();
+    acc[p] += now - t;
+    t = now;
+  }
+};
+#else
+struct Prof {
+  MS_FN void mark(int) {}
+};
+#endif
 
 struct V3 {
   float x, y, z;
@@ -328,11 +419,10 @@ MS_FN V6 inertia_mul(const Rows& s, int r, float m, V6 x) {
   return {{n[0], n[1], n[2]}, {f[0], f[1], f[2]}};
 }
 
-// Candidate scalar rows (S_CAND + 24 * c + ...).
-constexpr int C_ACT = 0, C_IMP = 1, C_PERR = 2, C_D = 3, C_ADH = 4, C_CPOS = 5,
-              C_AREF = 8, C_JAR = 12, C_JD = 16, C_DJD = 20;
-
-MS_FN int cand_row(int c) { return S_CAND + 24 * c; }
+// Candidate c's rows: S_JAR, S_JD (4 each: the pyramid rows), S_CD (the
+// constraint's D), S_CACT (active), S_CADH (adhesion force), S_CPOS (3),
+// S_COEF (8: the gradient's and the Hessian's weights of its rows, see
+// coef), S_COMP (its path's Jacobian components along n, t1, t2).
 MS_FN int comp_row(int c, int i, int t) { return S_COMP + 3 * (MAXP * c + i) + t; }
 // Whether candidate c has a contact frame of its own (terrain or pair row;
 // flat ground rows contact along the world's axes), and its 9 rows.
@@ -347,17 +437,13 @@ MS_FN int winner(const Rows& s, int c) { return static_cast<int>(s[S_WIN + (c - 
 // Candidate c's path: n DoFs, split at `split` into the two bodies' parts
 // (ground rows have one); entry i < split is kPathDof[p1 + i], entry i >=
 // split kPathDof[p2 + i - split] (p2 = p1 + split but on compressed rows).
-// Entry i has sign +1 in the first part and -1 in the second. The Hessian
-// keeps (path[i], path[j]), i <= j, where both lie in one part; path[i] is
-// then entry dof_depth(path[i], i) of path[j]'s column.
+// Entry i has sign +1 in the first part and -1 in the second. Each part
+// runs down one chain of its tree, so DoF d lies at entry (the part's
+// start) + its number of ancestors, and the Hessian keeps (path[i],
+// path[j]), i <= j, where both lie in one part.
 struct CPath {
   int p1, split, p2, n;
 };
-#ifdef MS_PAIRS
-MS_FN int dof_depth(int d, int) { return kDofDepth[d]; }
-#else
-MS_FN int dof_depth(int, int i) { return i; }
-#endif
 MS_FN CPath cand_path(const Rows& s, int c) {
 #if defined(MS_PAIRS_COMPRESSED)
   const int b1 = kCandBody[c], p1 = kPathPtr[b1], n1 = kPathPtr[b1 + 1] - p1;
@@ -365,9 +451,11 @@ MS_FN CPath cand_path(const Rows& s, int c) {
   const int b2 = kMemBody2[winner(s, c)], p2 = kPathPtr[b2];
   return {p1, n1, p2, n1 + kPathPtr[b2 + 1] - p2};
 #elif defined(MS_PAIRS)
+  (void)s;
   const int slot = kCandSlot[c], p = kPathPtr[slot], n = kPathPtr[slot + 1] - p;
   return {p, c < NGROUND ? n : kPairSplit[c - NGROUND], p, n};
 #else
+  (void)s;
   const int b = kCandBody[c], p = kPathPtr[b], n = kPathPtr[b + 1] - p;
   return {p, n, p, n};
 #endif
@@ -380,6 +468,29 @@ MS_FN int path_dof(const CPath& cp, int i) {
 #endif
 }
 
+// Where DoF d lies in the path of candidate c of its list (kDc*), whose
+// part starts at off: off plus dep, d's number of ancestors; -1 where d is
+// not on the path (off -1: the second part of a compressed row, whose
+// winner's body path may lack d).
+MS_FN int dc_pos(const Rows& s, int c, int off, int d, int dep) {
+#ifdef MS_PAIRS_COMPRESSED
+  if (off < 0) {
+    const int b2 = kMemBody2[winner(s, c)], p2 = kPathPtr[b2];
+    if (dep >= kPathPtr[b2 + 1] - p2 || kPathDof[p2 + dep] != d) return -1;
+    const int b1 = kCandBody[c];
+    return kPathPtr[b1 + 1] - kPathPtr[b1] + dep;
+  }
+#else
+  (void)s;
+  (void)c;
+  (void)d;
+#endif
+  return off + dep;
+}
+// The halves of a packed walk entry (model_header's _pack16).
+MS_FN int lo16(int v) { return v & 0xffff; }
+MS_FN int hi16(int v) { return v >> 16; }
+
 // Direction products J_t · x along candidate c's path, t = n, t1, t2.
 MS_FN V3 products(const Rows& s, int c, int x_row) {
   const CPath cp = cand_path(s, c);
@@ -387,7 +498,7 @@ MS_FN V3 products(const Rows& s, int c, int x_row) {
   float pn = s[comp_row(c, 0, 0)] * s[x_row + d0];
   float p1 = s[comp_row(c, 0, 1)] * s[x_row + d0];
   float p2 = s[comp_row(c, 0, 2)] * s[x_row + d0];
-  MS_NOUNROLL
+  MS_UNROLL4
   for (int i = 1; i < cp.n; ++i) {
     const float xd = s[x_row + path_dof(cp, i)];
     pn = pn + s[comp_row(c, i, 0)] * xd;
@@ -406,132 +517,211 @@ MS_FN void row_combos(int c, V3 p, float out[4]) {
   out[3] = p.x - mu * p.z;
 }
 
-// Contact gradient J^T (D m jar) of candidate c into S_GC, and with
-// `hessian` its fill J^T Σ J into the tree-sparse Hessian S_H.
-MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
-  const int cr = cand_row(c);
-  const float D = s[cr + C_D], mu = kMu[c];
-  float jar[4], wk[4], wa[4];
+// Candidate c's weights in the gradient J^T (D m jar) (cn, c1, c2) and in
+// the Hessian fill J^T Σ J (W, bt1, bt2, wt1, wt2), from its rows.
+MS_FN void coef(const Rows& s, int c) {
+  const float D = s[S_CD + c], mu = kMu[c], mu2 = kMu2[c];
+  float wk[4], wa[4];
   for (int r = 0; r < 4; ++r) {
-    jar[r] = s[cr + C_JAR + r];
-    const float m = jar[r] < 0.0f ? 1.0f : 0.0f;
-    wk[r] = D * m * jar[r];
+    const float jar = s[S_JAR + 4 * c + r];
+    const float m = jar < 0.0f ? 1.0f : 0.0f;
+    wk[r] = D * m * jar;
     wa[r] = D * m;
   }
-  const float cn = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
-  const float c1 = mu * (wk[0] - wk[1]), c2 = mu * (wk[2] - wk[3]);
-  const CPath cp = cand_path(s, c);
-  const int np = cp.n;
-  MS_NOUNROLL
-  for (int i = 0; i < np; ++i) {
-    const int d = path_dof(cp, i);
-    const float g =
-        s[comp_row(c, i, 0)] * cn + s[comp_row(c, i, 1)] * c1 + s[comp_row(c, i, 2)] * c2;
-    s[S_GC + d] = s[S_GC + d] + g;
-  }
-  if (!hessian) return;
-  const float W = 0.0f + wa[0] + wa[1] + wa[2] + wa[3];
-  const float bt1 = mu * (wa[0] - wa[1]), bt2 = mu * (wa[2] - wa[3]);
-  const float mu2 = kMu2[c];
-  const float wt1 = mu2 * (wa[0] + wa[1]), wt2 = mu2 * (wa[2] + wa[3]);
-  float un[MAXP], u1[MAXP], u2[MAXP];
-  MS_NOUNROLL
-  for (int j = 0; j < np; ++j) {
-    const float nj = s[comp_row(c, j, 0)], d1 = s[comp_row(c, j, 1)],
-                d2 = s[comp_row(c, j, 2)];
-    un[j] = nj * W + d1 * bt1 + d2 * bt2;
-    u1[j] = nj * bt1 + d1 * wt1;
-    u2[j] = nj * bt2 + d2 * wt2;
-  }
-  // Within one body's part, path[i] is an ancestor-or-self of path[j]:
-  // key (path[i], path[j]) is entry dof_depth of path[j]'s column. Entries
-  // across the two parts are cross-tree fill-in, which is dropped.
-  const int split = cp.split;
-  MS_NOUNROLL
-  for (int i = 0; i < np; ++i) {
-    const float ni = s[comp_row(c, i, 0)], t1 = s[comp_row(c, i, 1)],
-                t2 = s[comp_row(c, i, 2)];
-    const int depth = dof_depth(path_dof(cp, i), i), j_end = i < split ? split : np;
-    MS_NOUNROLL
-    for (int j = i; j < j_end; ++j) {
-      const int k = S_H + kPkPtr[path_dof(cp, j)] + depth;
-      s[k] = s[k] + (ni * un[j] + t1 * u1[j] + t2 * u2[j]);
+  const int o = S_COEF + 8 * c;
+  s[o] = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
+  s[o + 1] = mu * (wk[0] - wk[1]);
+  s[o + 2] = mu * (wk[2] - wk[3]);
+  s[o + 3] = 0.0f + wa[0] + wa[1] + wa[2] + wa[3];
+  s[o + 4] = mu * (wa[0] - wa[1]);
+  s[o + 5] = mu * (wa[2] - wa[3]);
+  s[o + 6] = mu2 * (wa[0] + wa[1]);
+  s[o + 7] = mu2 * (wa[2] + wa[3]);
+}
+
+// The contact gradient S_GC = J^T (D m jar), and with `first` the adhesion
+// forces taken from S_QFRC, one thread per DoF adding its candidates' terms
+// in candidate order.
+MS_FN void dof_sums(const Rows& s, bool first) {
+  for (int d : par(NV)) {
+    const int dep = kPkPtr[d + 1] - 1 - kPkPtr[d];
+    float qf = first ? s[S_QFRC + d] : 0.0f, g = 0.0f;
+    MS_UNROLL4
+    for (int e = kDcPtr[d]; e < kDcPtr[d + 1]; ++e) {
+      const int c = lo16(kDcCO[e]), j = dc_pos(s, c, hi16(kDcCO[e]) - 1, d, dep);
+      if (j < 0) continue;
+      const int o = S_COEF + 8 * c;
+      const float n = s[comp_row(c, j, 0)];
+      if (first) qf = qf - n * s[S_CADH + c];
+      g = g + (n * s[o] + s[comp_row(c, j, 1)] * s[o + 1] + s[comp_row(c, j, 2)] * s[o + 2]);
     }
+    if (first) s[S_QFRC + d] = qf;
+    s[S_GC + d] = g;
   }
 }
 
-// out = Mh x over the tree-sparse entries.
-MS_FN void mh_mul(const Rows& s, int x_row, int out_row) {
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) s[out_row + d] = s[S_MH + kPkPtr[d + 1] - 1] * s[x_row + d];
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) {
-    const int base = kPkPtr[d], n = kPkPtr[d + 1] - base - 1;
-    for (int ia = 0; ia < n; ++ia) {
-      const int a = kPkRow[base + ia];
-      const float val = s[S_MH + base + ia];
-      s[out_row + d] = s[out_row + d] + val * s[x_row + a];
-      s[out_row + a] = s[out_row + a] + val * s[x_row + d];
+// The Hessian S_H = Mh + J^T Σ J + 1e-9 I over the tree-sparse entries, one
+// thread per entry (a, d) adding the terms of the candidates on d's path in
+// candidate order (a, an ancestor-or-self of d, lies in the same part). The
+// entries are dealt to the threads longest first (kHf: thread t takes
+// positions t, t + THREADS, ...; -1 pads).
+MS_FN void hess_fill(const Rows& s) {
+  for (int p : par(NHF)) {
+    const int k = kHf[p];
+    if (k < 0) continue;
+    const int d = kPkCol[k], dep = kPkPtr[d + 1] - 1 - kPkPtr[d], ia = k - kPkPtr[d];
+    float h = s[S_MH + k];
+    MS_UNROLL4
+    for (int e = kDcPtr[d]; e < kDcPtr[d + 1]; ++e) {
+      const int c = lo16(kDcCO[e]), j = dc_pos(s, c, hi16(kDcCO[e]) - 1, d, dep);
+      if (j < 0) continue;
+      const int i = j - dep + ia, o = S_COEF + 8 * c;
+      const float W = s[o + 3], bt1 = s[o + 4], bt2 = s[o + 5], wt1 = s[o + 6],
+                  wt2 = s[o + 7];
+      const float nj = s[comp_row(c, j, 0)], d1 = s[comp_row(c, j, 1)],
+                  d2 = s[comp_row(c, j, 2)];
+      const float un = nj * W + d1 * bt1 + d2 * bt2;
+      const float u1 = nj * bt1 + d1 * wt1;
+      const float u2 = nj * bt2 + d2 * wt2;
+      h = h + (s[comp_row(c, i, 0)] * un + s[comp_row(c, i, 1)] * u1 +
+               s[comp_row(c, i, 2)] * u2);
     }
+    if (ia == dep) h = h + 1e-9f;
+    s[S_H + k] = h;
   }
+}
+
+// out = Mh x over the tree-sparse entries: one thread per output DoF, its
+// diagonal term first, then its terms (kMv*) in the serial loop's order.
+MS_FN void mh_mul(const Rows& s, int x_row, int out_row) {
+  for (int o : par(NV)) {
+    float acc = s[S_MH + kPkPtr[o + 1] - 1] * s[x_row + o];
+    MS_UNROLL4
+    for (int e = kMvPtr[o]; e < kMvPtr[o + 1]; ++e)
+      acc = acc + s[S_MH + lo16(kMvKX[e])] * s[x_row + hi16(kMvKX[e])];
+    s[out_row + o] = acc;
+  }
+  MS_SYNC();
 }
 
 // Tree LDL^T of S_H in place: column i's ancestor entries become L, its
-// diagonal entry d_i. DoFs are eliminated leaves first (kElim).
+// diagonal entry d_i. The serial loop eliminated the DoFs leaves first,
+// each column updating its ancestors' entries. Here each entry
+// takes all its updates at once, in the same order (kLu*), from columns
+// that are final: the DoFs' depth groups run deepest first, and in each
+// the updates' terms are computed in parallel into S_TERM, then each entry
+// of the group's columns subtracts its own in order; 1 / d_i is taken once,
+// into S_INV, by the thread of the diagonal. Each entry of L is then its
+// column's entry times 1 / d_i, as the serial loop scaled it.
 MS_FN void tree_ldl(const Rows& s) {
-  float li[MAXP];
   MS_NOUNROLL
-  for (int e = 0; e < NV; ++e) {
-    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
-    const float inv = 1.0f / s[S_H + base + n];
-    for (int ia = 0; ia < n; ++ia) li[ia] = s[S_H + base + ia] * inv;
-    for (int ia = 0; ia < n; ++ia) {
-      const float ra = s[S_H + base + ia];
-      for (int ib = ia; ib < n; ++ib) {
-        const int k = S_H + kPkPtr[kPkRow[base + ib]] + ia;
-        s[k] = s[k] - li[ib] * ra;
+  for (int gi = NDG - 1; gi >= 0; --gi) {
+    const int p0 = kGePtr[gi], p1 = kGePtr[gi + 1], u0 = kLuPtr[p0], nu = kLuPtr[p1] - u0;
+    if (nu > 0) {
+      for (int u : par(nu)) {
+        const int ba = kLuBA[u0 + u];
+        s[S_TERM + u] = (s[S_H + lo16(ba)] * s[S_INV + kLuCol[u0 + u]]) * s[S_H + hi16(ba)];
       }
+      MS_SYNC();
     }
-    for (int ia = 0; ia < n; ++ia) s[S_H + base + ia] = li[ia];
+    for (int j : par(p1 - p0)) {
+      const int p = p0 + j, k = kGe[p];
+      float acc = s[S_H + k];
+      MS_UNROLL4
+      for (int u = kLuPtr[p] - u0; u < kLuPtr[p + 1] - u0; ++u) acc = acc - s[S_TERM + u];
+      s[S_H + k] = acc;
+      const int d = kPkCol[k];
+      if (k == kPkPtr[d + 1] - 1) s[S_INV + d] = 1.0f / acc;
+    }
+    MS_SYNC();
   }
+  for (int k : par(NPK)) {
+    const int d = kPkCol[k];
+    if (k != kPkPtr[d + 1] - 1) s[S_H + k] = s[S_H + k] * s[S_INV + d];
+  }
+  MS_SYNC();
 }
 
-// Solve with the factor in S_H, in place on the rows at y_row.
+// Solve with the factor in S_H, in place on the rows at y_row. Forward:
+// each DoF takes the terms of the DoFs below it in elimination order
+// (kFw*), depth groups deepest first, each group's terms computed in
+// parallel into S_TERM and subtracted in order by their DoF's thread; the
+// diagonal; backward: each DoF its ancestors' terms (kBw*), depth groups
+// shallowest first, in the same two steps.
 MS_FN void tree_solve(const Rows& s, int y_row) {
   MS_NOUNROLL
-  for (int e = 0; e < NV; ++e) {
-    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
-    const float yi = s[y_row + i];
-    for (int ia = 0; ia < n; ++ia) {
-      const int a = y_row + kPkRow[base + ia];
-      s[a] = s[a] - s[S_H + base + ia] * yi;
+  for (int gi = NDG - 1; gi >= 0; --gi) {
+    const int p0 = kDgPtr[gi], p1 = kDgPtr[gi + 1], u0 = kFwPtr[p0], nu = kFwPtr[p1] - u0;
+    if (nu == 0) continue;
+    for (int u : par(nu)) {
+      const int v = kFwKI[u0 + u];
+      s[S_TERM + u] = s[S_H + lo16(v)] * s[y_row + hi16(v)];
     }
+    MS_SYNC();
+    for (int j : par(p1 - p0)) {
+      const int p = p0 + j, a = kDgDof[p];
+      float acc = s[y_row + a];
+      MS_UNROLL4
+      for (int u = kFwPtr[p] - u0; u < kFwPtr[p + 1] - u0; ++u) acc = acc - s[S_TERM + u];
+      s[y_row + a] = acc;
+    }
+    MS_SYNC();
   }
+  for (int i : par(NV)) s[y_row + i] = s[y_row + i] / s[S_H + kPkPtr[i + 1] - 1];
+  MS_SYNC();
   MS_NOUNROLL
-  for (int i = 0; i < NV; ++i) s[y_row + i] = s[y_row + i] / s[S_H + kPkPtr[i + 1] - 1];
-  MS_NOUNROLL
-  for (int e = NV - 1; e >= 0; --e) {
-    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
-    float acc = s[y_row + i];
-    for (int ia = 0; ia < n; ++ia) acc = acc - s[S_H + base + ia] * s[y_row + kPkRow[base + ia]];
-    s[y_row + i] = acc;
+  for (int gi = 0; gi < NDG; ++gi) {
+    const int p0 = kDgPtr[gi], p1 = kDgPtr[gi + 1], u0 = kBwPtr[p0], nu = kBwPtr[p1] - u0;
+    if (nu == 0) continue;
+    for (int u : par(nu)) {
+      const int v = kBwKA[u0 + u];
+      s[S_TERM + u] = s[S_H + lo16(v)] * s[y_row + hi16(v)];
+    }
+    MS_SYNC();
+    for (int j : par(p1 - p0)) {
+      const int p = p0 + j, i = kDgDof[p];
+      float acc = s[y_row + i];
+      MS_UNROLL4
+      for (int u = kBwPtr[p] - u0; u < kBwPtr[p + 1] - u0; ++u) acc = acc - s[S_TERM + u];
+      s[y_row + i] = acc;
+    }
+    MS_SYNC();
   }
 }
 
-// φ'(α) of the line search along delta.
-MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero) {
-  float d = at_zero ? gMd : gMd + alpha * dMd;
-  MS_NOUNROLL
-  for (int c = 0; c < NCAND; ++c) {
-    const int cr = cand_row(c);
+// φ'(α) of the line search along delta: each candidate's 4 terms into the
+// rows of S_TERM, then their sum in the serial order by the lead thread,
+// its result through S_RED to the block. Both rows are double: calls take them
+// in turn, so that a call's writes never meet the previous call's reads.
+MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero, int& turn) {
+  const int t0 = S_TERM + 4 * NCAND * (turn & 1), r0 = S_RED + (turn & 1);
+  ++turn;
+  for (int c : par(NCAND)) {
+    const float D = s[S_CD + c];
     for (int r = 0; r < 4; ++r) {
-      const float jr = s[cr + C_JAR + r];
-      const float ja = at_zero ? jr : jr + alpha * s[cr + C_JD + r];
+      const float jr = s[S_JAR + 4 * c + r], jd = s[S_JD + 4 * c + r];
+      const float ja = at_zero ? jr : jr + alpha * jd;
       const float m = ja < 0.0f ? 1.0f : 0.0f;
-      d = d + m * s[cr + C_DJD + r] * ja;
+      s[t0 + 4 * c + r] = m * (D * jd) * ja;
     }
   }
-  return d;
+  MS_SYNC();
+  if (lead()) {
+    // In runs of 16: the loads of a run issue together, the adds follow in
+    // order.
+    float d = at_zero ? gMd : gMd + alpha * dMd;
+    constexpr int kRun = 16, kTerms = 4 * NCAND, kFull = kTerms - kTerms % kRun;
+    MS_NOUNROLL
+    for (int e = 0; e < kFull; e += kRun) {
+      float v[kRun];
+      for (int j = 0; j < kRun; ++j) v[j] = s[t0 + e + j];
+      for (int j = 0; j < kRun; ++j) d = d + v[j];
+    }
+    for (int e = kFull; e < kTerms; ++e) d = d + s[t0 + e];
+    s[r0] = d;
+  }
+  MS_SYNC();
+  return s[r0];
 }
 
 // MuJoCo's muscle force of actuator u at tendon length len, velocity vel and
@@ -590,51 +780,369 @@ MS_FN float muscle_force(int u, float len, float vel, float a) {
   return gain * a + bias;
 }
 
+// FK of body b from its parent's pose: a free joint's pose from qpos, else
+// the hinges' rotations in slot order (their half-angle cosines and sines
+// in S_HCS); the world hinge axes into S_HAX.
+MS_FN void fk_body(const Rows& s, int b) {
+  const int p = kParent[b];
+  if (kFreeQ[b] >= 0) {
+    const int qa = S_Q + kFreeQ[b];
+    st3(s, S_XPOS + 3 * b, ld3(s, qa));
+    st4(s, S_XQUAT + 4 * b, ld4(s, qa + 3));
+    return;
+  }
+  const Q4 qp = ld4(s, S_XQUAT + 4 * p);
+  Q4 cur = qmul(qp, TQ4(kBodyQuat, b));
+  for (int hi = kBodyHingePtr[b]; hi < kBodyHingePtr[b + 1]; ++hi) {
+    const int h = kBodyHinge[hi];
+    const V3 ax = TV3(kHingeAxis, h);
+    // The world hinge axis uses the rotation before the hinge.
+    st3(s, S_HAX + 3 * h, qrot(cur, ax));
+    const float ch = s[S_HCS + 2 * h], sh = s[S_HCS + 2 * h + 1];
+    cur = qmul(cur, Q4{ch, sh * ax.x, sh * ax.y, sh * ax.z});
+  }
+  st4(s, S_XQUAT + 4 * b, cur);
+  st3(s, S_XPOS + 3 * b, add(ld3(s, S_XPOS + 3 * p), qrot(qp, TV3(kBodyPos, b))));
+}
+
+// Body b's spatial velocity and bias acceleration from its parent's.
+MS_FN void vel_body(const Rows& s, int b) {
+  const int p = kParent[b];
+  V6 vel = ld6(s, S_CVEL + 6 * p), acc = ld6(s, S_CACC + 6 * p);
+  if (kFreeV[b] >= 0) {
+    const int va = kFreeV[b];
+    for (int i = 0; i < 6; ++i)
+      vel = add6(vel, scale6(ld6(s, S_SM + 6 * (va + i)), s[S_V + va + i]));
+    const V3 vlin = ld3(s, S_V + va), omg = ld3(s, S_V + va + 3);
+    acc = add6(acc, V6{{0.0f, 0.0f, 0.0f}, cross(vlin, omg)});
+  } else {
+    for (int di = kBodyDofPtr[b]; di < kBodyDofPtr[b + 1]; ++di) {
+      const int d = kBodyDof[di];
+      const V6 sd = scale6(ld6(s, S_SM + 6 * d), s[S_V + d]);
+      acc = add6(acc, cross6(vel, sd));
+      vel = add6(vel, sd);
+    }
+  }
+  st6(s, S_CVEL + 6 * b, vel);
+  st6(s, S_CACC + 6 * b, acc);
+}
+
+// Body b's spatial inertia about ref (S_IB), and a copy that becomes its
+// composite inertia (S_IC).
+MS_FN void inertia_body(const Rows& s, int b, V3 ref) {
+  const Q4 xq = ld4(s, S_XQUAT + 4 * b);
+  const Q4 qi = qmul(xq, TQ4(kBodyIQuat, b));
+  const float w = qi.w, x = qi.x, y = qi.y, z = qi.z;
+  const float R[3][3] = {
+      {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y - w * z), 2.0f * (x * z + w * y)},
+      {2.0f * (x * y + w * z), 1.0f - 2.0f * (x * x + z * z), 2.0f * (y * z - w * x)},
+      {2.0f * (x * z - w * y), 2.0f * (y * z + w * x), 1.0f - 2.0f * (x * x + y * y)}};
+  const float I1 = kBodyInertia[3 * b], I2 = kBodyInertia[3 * b + 1],
+              I3 = kBodyInertia[3 * b + 2];
+  float ib[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = i; j < 3; ++j)
+      ib[i][j] = R[i][0] * R[j][0] * I1 + R[i][1] * R[j][1] * I2 + R[i][2] * R[j][2] * I3;
+  const float m = kBodyMass[b];
+  const V3 com = add(ld3(s, S_XPOS + 3 * b), qrot(xq, TV3(kBodyIPos, b)));
+  const V3 c = sub(com, ref);
+  const float c2 = c.x * c.x + c.y * c.y + c.z * c.z;
+  const float v[9] = {ib[0][0] + m * (c2 - c.x * c.x), ib[0][1] - m * c.x * c.y,
+                      ib[0][2] - m * c.x * c.z,         ib[1][1] + m * (c2 - c.y * c.y),
+                      ib[1][2] - m * c.y * c.z,         ib[2][2] + m * (c2 - c.z * c.z),
+                      -m * c.z,                         m * c.y,
+                      -m * c.x};
+  for (int e = 0; e < 9; ++e) {
+    s[S_IB + 9 * b + e] = v[e];
+    s[S_IC + 9 * b + e] = v[e];
+  }
+}
+
+// Rows [row + n b, row + n b + n) of body b plus those of its children, in
+// reverse topological order (composite inertias, subtree forces).
+MS_FN void add_children(const Rows& s, int row, int n, int b) {
+  for (int e = 0; e < n; ++e) {
+    float acc = s[row + n * b + e];
+    for (int ci = kChildPtr[b]; ci < kChildPtr[b + 1]; ++ci)
+      acc = acc + s[row + n * kChild[ci] + e];
+    s[row + n * b + e] = acc;
+  }
+}
+
+// Actuator u's force (S_AF) from its clamped control (S_CCL) at step k.
+MS_FN void actuator(const Col& in, const Rows& s, int u, int k) {
+  float c = in[NQ + NV + k * NU + u];
+  if (kCtrlLim[u]) c = clampf(c, kCtrlRange[2 * u], kCtrlRange[2 * u + 1]);
+  s[S_CCL + u] = c;
+  const int kind = kActKind[u];
+  const float gain = kActGain[u];
+  if (kind == kAdhesion) {  // the commanded force, applied by the solver
+    s[S_AF + u] = gain * c;
+    return;
+  }
+  const int h = kActHinge[u], adr = kActAdr[u];
+  const float qh = h >= 0 ? s[S_Q + kHingeQ[h]] : 0.0f;
+  const float vh = h >= 0 ? s[S_V + kHingeV[h]] : 0.0f;
+  const float a = adr >= 0 ? s[S_ACT + adr] : 0.0f;
+  float force = 0.0f;
+  switch (kind) {
+    case kMotor: force = gain * c; break;
+    case kPosition: force = gain * (c - qh) - kActKv[u] * vh; break;
+    case kVelocity: force = gain * (c - vh); break;
+    case kIntVelocity: force = gain * (a - qh) - kActKv[u] * vh; break;
+    case kDamper: force = -gain * c * vh; break;
+    case kCylinder: force = gain * a; break;
+    case kMuscle: force = muscle_force(u, qh, vh, a); break;
+    default: break;
+  }
+  if (kForceLim[u]) force = clampf(force, kForceRange[2 * u], kForceRange[2 * u + 1]);
+  s[S_AF + u] = force;
+}
+
+// Contact candidate c: ground row against the flat plane or its terrain
+// plane, or pair row capsule against capsule; its frame, impedance, D,
+// Jacobian components along its path, reference acceleration and rows
+// jar = J a - aref from the warm start, and its weights (coef).
+MS_FN void candidate(const Col& in, const Rows& s, int c, int K, V3 ref) {
+  const int b = kCandBody[c];
+  const V3 xp = ld3(s, S_XPOS + 3 * b);
+  const Q4 xq = ld4(s, S_XQUAT + 4 * b);
+  const V3 gpos = add(xp, qrot(xq, TV3(kCandGPos, c)));
+  const V3 zax = qrot(qmul(xq, TQ4(kCandGQuat, c)), V3{0.0f, 0.0f, 1.0f});
+  const float rad = kCandRad[c];
+  float dist = 0.0f;
+  V3 cpos{}, fn{};
+  if (c >= NGROUND) {
+#ifdef MS_PAIRS
+    // Closest points of the two capsule axes (the emitter's _cand_geom
+    // pair branch, the branchless Ericson clamp), the normal from geom2
+    // toward geom1, +z where the axes meet. geom2 is the winner's on a
+    // compressed row.
+#ifdef MS_PAIRS_COMPRESSED
+    const int pi = c - NGROUND, m = winner(s, c), b2 = kMemBody2[m];
+    const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
+    const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kMemGPos2, m)));
+    const V3 zax2 = qrot(qmul(xq2, TQ4(kMemGQuat2, m)), V3{0.0f, 0.0f, 1.0f});
+    const float h1 = kPairH1[pi], h2 = kMemH2[m], r2 = kMemR2[m];
+#else
+    const int pi = c - NGROUND, b2 = kPairBody2[pi];
+    const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
+    const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kPairGPos2, pi)));
+    const V3 zax2 = qrot(qmul(xq2, TQ4(kPairGQuat2, pi)), V3{0.0f, 0.0f, 1.0f});
+    const float h1 = kPairH1[pi], h2 = kPairH2[pi], r2 = kPairR2[pi];
+#endif
+    const V3 a0 = sub(gpos, scale(zax, h1)), d1 = scale(zax, 2.0f * h1);
+    const V3 b0 = sub(gpos2, scale(zax2, h2)), d2 = scale(zax2, 2.0f * h2);
+    const V3 r = sub(a0, b0);
+    const float aq = dot(d1, d1), eq = dot(d2, d2), fq = dot(d2, r), cq = dot(d1, r),
+                bq = dot(d1, d2);
+    const float denom = aq * eq - bq * bq;
+    float sp = denom > 1e-12f ? clampf((bq * fq - cq * eq) / fmaxf(denom, 1e-12f), 0.0f, 1.0f)
+                              : 0.0f;
+    float tp = eq > 1e-12f ? (bq * sp + fq) / fmaxf(eq, 1e-12f) : 0.0f;
+    tp = clampf(tp, 0.0f, 1.0f);
+    sp = aq > 1e-12f ? clampf((bq * tp - cq) / fmaxf(aq, 1e-12f), 0.0f, 1.0f) : 0.0f;
+    const V3 c1 = add(a0, scale(d1, sp)), c2 = add(b0, scale(d2, tp));
+    const V3 dv = sub(c1, c2);
+    const float dn = sqrtf(fmaxf(dot(dv, dv), 1e-18f));
+    const bool ok = dn > 1e-9f;
+    fn = V3{ok ? dv.x / dn : 0.0f, ok ? dv.y / dn : 0.0f, ok ? dv.z / dn : 1.0f};
+    dist = dn - rad - r2;
+    cpos = sub(c1, scale(fn, rad + 0.5f * dist));
+#endif
+  } else if (kHasHfield) {
+    // Distance along the plane's normal.
+    const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
+    const int pr = NQ + NV + K * NU + NA + NV + 4 * c;
+    const float h = in[pr];
+    fn = V3{in[pr + 1], in[pr + 2], in[pr + 3]};
+    dist = (ep.z - h) * fn.z - rad;
+    cpos = sub(ep, scale(fn, rad + 0.5f * dist));
+  } else {
+    const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
+    dist = ep.z - kGroundZ - rad;
+    cpos = V3{ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+  }
+  const bool framed = has_frame(c);
+  V3 f1{}, f2{};
+  if (framed) {
+    // The frame as the emitter's _contact_frames builds it: t1 from the
+    // x axis (the y axis for a steep normal) made orthogonal to n,
+    // t2 = n x t1.
+    const bool use_ey = fabsf(fn.x) > 0.9f;
+    const V3 seed = {use_ey ? 0.0f : 1.0f, use_ey ? 1.0f : 0.0f, 0.0f};
+    f1 = sub(seed, scale(fn, dot(seed, fn)));
+    f1 = scale(f1, 1.0f / fmaxf(sqrtf(dot(f1, f1)), 1e-12f));
+    f2 = cross(fn, f1);
+    st3(s, frame_row(c), fn);
+    st3(s, frame_row(c) + 3, f1);
+    st3(s, frame_row(c) + 6, f2);
+  }
+  const bool active = dist < kCandMargin[c];
+  const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
+  const float x = clampf(fabsf(pos_err) / kSolWidth[c], 0.0f, 1.0f);
+  const float y = x < kSolMid[c] ? kSolA[c] * ms_powf(x, kSolPow[c])
+                                 : 1.0f - kSolB[c] * ms_powf(1.0f - x, kSolPow[c]);
+  const float imp = clampf(kSolDmin[c] + y * kSolDmm[c], 1e-4f, 0.9999f);
+#ifdef MS_PAIRS_COMPRESSED
+  const float invw = c < NGROUND ? kInvW[c] : kMemInvW[winner(s, c)];
+#else
+  const float invw = kInvW[c];
+#endif
+  const float R = (1.0f - imp) / imp * invw;
+  s[S_CACT + c] = active ? 1.0f : 0.0f;
+  s[S_CD + c] = active ? 1.0f / fmaxf(R, 1e-12f) : 0.0f;
+  s[S_CADH + c] = 0.0f;
+  st3(s, S_CPOS + 3 * c, cpos);
+  // Jacobian direction components jp = sgn (S_v + S_w x rel) along n, t1,
+  // t2: dots with the contact frame, or the z, x, y components on flat
+  // ground; sgn = -1 (an exact negation) on the second body's DoFs.
+  const V3 rel = sub(cpos, ref);
+  const CPath cp = cand_path(s, c);
+  for (int i = 0; i < cp.n; ++i) {
+    const V6 sd = ld6(s, S_SM + 6 * path_dof(cp, i));
+    const V3 jp = add(sd.v, cross(sd.w, rel));
+    const float sg = i < cp.split ? 1.0f : -1.0f;
+    s[comp_row(c, i, 0)] = sg * (framed ? dot(jp, fn) : jp.z);
+    s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
+    s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
+  }
+  // The reference acceleration and the rows at the warm start.
+  float vel[4], jr[4];
+  row_combos(c, products(s, c, S_V), vel);
+  const float kimp = kKGain[c] * imp;
+  row_combos(c, products(s, c, S_A), jr);
+  for (int r = 0; r < 4; ++r)
+    s[S_JAR + 4 * c + r] = jr[r] - (kNegBGain[c] * vel[r] - kimp * pos_err);
+  coef(s, c);
+}
+
+// Per-leg 16-value net-force sensor sn into its output rows.
+MS_FN void sensor(const Col& out, const Rows& s, int sn, int o_sens) {
+  const int r0 = o_sens + 16 * sn;
+  float row[16] = {};
+  const int j0 = kSensPtr[sn], j1 = kSensPtr[sn + 1];
+  if (j1 > j0) {
+    float count = 0.0f, fmag = 0.0f;
+    V3 ff = {0.0f, 0.0f, 0.0f}, posw = ff, posp = ff, tw = ff;
+    for (int j = j0; j < j1; ++j) count = count + s[S_CACT + kSensCand[j]];
+    // Contact-frame force (n, t1, t2) of a candidate from its final rows,
+    // before and after the active mask.
+    auto raw_force = [&](int c) {
+      const float D = s[S_CD + c];
+      float lam[4];
+      for (int r = 0; r < 4; ++r) {
+        const float jr = s[S_JAR + 4 * c + r];
+        lam[r] = fmaxf(-D * (jr < 0.0f ? 1.0f : 0.0f) * jr, 0.0f);
+      }
+      const float fn = 0.0f + lam[0] + lam[1] + lam[2] + lam[3];
+      return V3{fn, kMu[c] * (lam[0] - lam[1]), kMu[c] * (lam[2] - lam[3])};
+    };
+    auto frame_force = [&](int c) { return scale(raw_force(c), s[S_CACT + c]); };
+    // World force: the frame's axes weighted, or (t1, t2, n) = (x, y, z).
+    auto world_force = [&](int c) {
+      if (!has_frame(c)) {
+        const V3 f = frame_force(c);
+        return V3{f.y, f.z, f.x};
+      }
+      const V3 f = raw_force(c);
+      const int fr = frame_row(c);
+      const V3 fw = add(add(scale(ld3(s, fr), f.x), scale(ld3(s, fr + 3), f.y)),
+                        scale(ld3(s, fr + 6), f.z));
+      return scale(fw, s[S_CACT + c]);
+    };
+    for (int j = j0; j < j1; ++j) {
+      const int c = kSensCand[j];
+      ff = add(ff, scale(frame_force(c), s[S_CACT + c]));
+    }
+    for (int j = j0; j < j1; ++j) {
+      const int c = kSensCand[j];
+      const float w = s[S_CACT + c];
+      const float fm = fabsf(frame_force(c).x) * w;
+      const V3 cp = ld3(s, S_CPOS + 3 * c);
+      fmag = fmag + fm;
+      posw = add(posw, scale(cp, fm));
+      posp = add(posp, scale(cp, w));
+    }
+    const bool by_force = fmag > 1e-12f;
+    const float fden = fmaxf(fmag, 1e-12f), cden = fmaxf(count, 1.0f);
+    const V3 pos = {by_force ? posw.x / fden : posp.x / cden,
+                    by_force ? posw.y / fden : posp.y / cden,
+                    by_force ? posw.z / fden : posp.z / cden};
+    // The sensor frame. Flat ground: normal z, tangent x. Terrain: the
+    // weighted mean normal and the mean t1 made orthogonal to it.
+    V3 nrm = {0.0f, 0.0f, 1.0f}, tan = {1.0f, 0.0f, 0.0f};
+    if (kHasHfield) {
+      V3 nsum = {0.0f, 0.0f, 0.0f}, tsum = nsum;
+      for (int j = j0; j < j1; ++j) {
+        const int c = kSensCand[j];
+        const float w = s[S_CACT + c];
+        nsum = add(nsum, scale(ld3(s, frame_row(c)), w));
+        tsum = add(tsum, scale(ld3(s, frame_row(c) + 3), w));
+      }
+      const float nn = sqrtf(dot(nsum, nsum));
+      const bool nok = nn > 1e-9f;
+      const float nden = fmaxf(nn, 1e-12f);
+      nrm = V3{nok ? nsum.x / nden : 0.0f, nok ? nsum.y / nden : 0.0f,
+               nok ? nsum.z / nden : 1.0f};
+      tsum = sub(tsum, scale(nrm, dot(tsum, nrm)));
+      const float tn = sqrtf(dot(tsum, tsum));
+      const bool tok = tn > 1e-9f;
+      const float tden = fmaxf(tn, 1e-12f);
+      tan = V3{tok ? tsum.x / tden : 1.0f, tok ? tsum.y / tden : 0.0f,
+               tok ? tsum.z / tden : 0.0f};
+    }
+    for (int j = j0; j < j1; ++j) {
+      const int c = kSensCand[j];
+      const float w = s[S_CACT + c];
+      const V3 tq = cross(sub(ld3(s, S_CPOS + 3 * c), pos), world_force(c));
+      tw = add(tw, scale(tq, w));
+    }
+    const V3 t2 = cross(nrm, tan);
+    const float vals[16] = {count > 0.0f ? 1.0f : 0.0f, ff.x, ff.y, ff.z,
+                            dot(tw, nrm), dot(tw, tan), dot(tw, t2),
+                            pos.x, pos.y, pos.z, nrm.x, nrm.y, nrm.z, tan.x, tan.y, tan.z};
+    for (int r = 0; r < 16; ++r) row[r] = vals[r];
+  }
+  for (int r = 0; r < 16; ++r) out[r0 + r] = row[r];
+}
+
 // One physics step of one world: state in scratch rows S_Q, S_V, S_A (warm
 // start) and S_ACT (activations), controls from input rows of step k; the
-// last step writes outputs.
-MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int K) {
+// last step writes outputs. Every thread of the block runs it; the loops
+// over bodies, DoFs, entries, candidates, actuators and sensors are spread
+// over the block, with a barrier where a loop reads what another wrote.
+MS_FN void step_world(const Col& in, const Col& out, const Rows& s, int k, int K, Prof& prof) {
   const bool last = k == K - 1;
 
-  // ---------------- FK: parent -> child over the tree ----------------
-  st3(s, S_XPOS, V3{0.0f, 0.0f, 0.0f});
-  st4(s, S_XQUAT, Q4{1.0f, 0.0f, 0.0f, 0.0f});
-  MS_NOUNROLL
-  for (int ti = 0; ti < NTOPO; ++ti) {
-    const int b = kTopo[ti], p = kParent[b];
-    if (kFreeQ[b] >= 0) {
-      const int qa = S_Q + kFreeQ[b];
-      st3(s, S_XPOS + 3 * b, ld3(s, qa));
-      st4(s, S_XQUAT + 4 * b, ld4(s, qa + 3));
-      continue;
-    }
-    const Q4 qp = ld4(s, S_XQUAT + 4 * p);
-    Q4 cur = qmul(qp, TQ4(kBodyQuat, b));
-    for (int hi = kBodyHingePtr[b]; hi < kBodyHingePtr[b + 1]; ++hi) {
-      const int h = kBodyHinge[hi];
-      const V3 ax = TV3(kHingeAxis, h);
-      // The world hinge axis uses the rotation before the hinge.
-      st3(s, S_HAX + 3 * h, qrot(cur, ax));
-      const float half = 0.5f * s[S_Q + kHingeQ[h]];
-      const float ch = ms_cosf(half), sh = ms_sinf(half);
-      cur = qmul(cur, Q4{ch, sh * ax.x, sh * ax.y, sh * ax.z});
-    }
-    st4(s, S_XQUAT + 4 * b, cur);
-    st3(s, S_XPOS + 3 * b, add(ld3(s, S_XPOS + 3 * p), qrot(qp, TV3(kBodyPos, b))));
+  // ---------------- FK: parent -> child, one tree level at a time --------
+  // The hinges' half-angle cosines and sines first, all at once.
+  for (int h : par(NHINGE)) {
+    const float half = 0.5f * s[S_Q + kHingeQ[h]];
+    s[S_HCS + 2 * h] = ms_cosf(half);
+    s[S_HCS + 2 * h + 1] = ms_sinf(half);
   }
+  if (lead()) {
+    st3(s, S_XPOS, V3{0.0f, 0.0f, 0.0f});
+    st4(s, S_XQUAT, Q4{1.0f, 0.0f, 0.0f, 0.0f});
+  }
+  MS_NOUNROLL
+  for (int l = 0; l < NLEVEL; ++l) {
+    MS_SYNC();
+    for (int j : par(kLevelPtr[l + 1] - kLevelPtr[l])) fk_body(s, kLevelBody[kLevelPtr[l] + j]);
+  }
+  MS_SYNC();
   const V3 ref = ld3(s, S_XPOS + 3 * REF_BODY);
 
-  // ---------------- motion subspace S = (angular, linear) at ref --------
-  MS_NOUNROLL
-  for (int h = 0; h < NHINGE; ++h) {
+  // ---------------- motion subspace S = (angular, linear) at ref, and the
+  // spatial inertias about ref --------------------------------------------
+  for (int h : par(NHINGE)) {
     const V3 aw = ld3(s, S_HAX + 3 * h);
     const V3 anchor = sub(ld3(s, S_XPOS + 3 * kHingeBody[h]), ref);
     st6(s, S_SM + 6 * kHingeV[h], V6{aw, cross(anchor, aw)});
   }
-  MS_NOUNROLL
-  for (int b = 0; b < NBODY; ++b) {
-    if (kFreeV[b] < 0) continue;
-    const int va = kFreeV[b];
+  for (int j : par(NFREE)) {
+    const int b = kFreeBody[j], va = kFreeV[b];
     const V3 p = sub(ld3(s, S_XPOS + 3 * b), ref);
     for (int i = 0; i < 3; ++i) {
       const V3 e = {i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f, i == 2 ? 1.0f : 0.0f};
@@ -642,76 +1150,26 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
       st6(s, S_SM + 6 * (va + 3 + i), V6{e, cross(p, e)});
     }
   }
+  for (int ti : par(NTOPO)) inertia_body(s, kTopo[ti], ref);
+  if (lead()) {
+    st6(s, S_CVEL, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+    st6(s, S_CACC, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+  }
+  MS_SYNC();
 
-  // ---------------- velocities and bias accelerations --------------------
-  st6(s, S_CVEL, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
-  st6(s, S_CACC, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+  // ---------------- velocities top-down, composite inertias bottom-up ----
   MS_NOUNROLL
-  for (int ti = 0; ti < NTOPO; ++ti) {
-    const int b = kTopo[ti], p = kParent[b];
-    V6 vel = ld6(s, S_CVEL + 6 * p), acc = ld6(s, S_CACC + 6 * p);
-    if (kFreeV[b] >= 0) {
-      const int va = kFreeV[b];
-      for (int i = 0; i < 6; ++i)
-        vel = add6(vel, scale6(ld6(s, S_SM + 6 * (va + i)), s[S_V + va + i]));
-      const V3 vlin = ld3(s, S_V + va), omg = ld3(s, S_V + va + 3);
-      acc = add6(acc, V6{{0.0f, 0.0f, 0.0f}, cross(vlin, omg)});
-    } else {
-      for (int di = kBodyDofPtr[b]; di < kBodyDofPtr[b + 1]; ++di) {
-        const int d = kBodyDof[di];
-        const V6 sd = scale6(ld6(s, S_SM + 6 * d), s[S_V + d]);
-        acc = add6(acc, cross6(vel, sd));
-        vel = add6(vel, sd);
-      }
-    }
-    st6(s, S_CVEL + 6 * b, vel);
-    st6(s, S_CACC + 6 * b, acc);
+  for (int l = 0; l < NLEVEL; ++l) {
+    for (int j : par(kLevelPtr[l + 1] - kLevelPtr[l])) vel_body(s, kLevelBody[kLevelPtr[l] + j]);
+    const int lu = NLEVEL - 1 - l;
+    for (int j : par(kLevelPtr[lu + 1] - kLevelPtr[lu]))
+      add_children(s, S_IC, 9, kLevelBody[kLevelPtr[lu] + j]);
+    MS_SYNC();
   }
 
-  // ---------------- spatial inertias about ref ---------------------------
-  MS_NOUNROLL
-  for (int ti = 0; ti < NTOPO; ++ti) {
-    const int b = kTopo[ti];
-    const Q4 xq = ld4(s, S_XQUAT + 4 * b);
-    const Q4 qi = qmul(xq, TQ4(kBodyIQuat, b));
-    const float w = qi.w, x = qi.x, y = qi.y, z = qi.z;
-    const float R[3][3] = {
-        {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y - w * z), 2.0f * (x * z + w * y)},
-        {2.0f * (x * y + w * z), 1.0f - 2.0f * (x * x + z * z), 2.0f * (y * z - w * x)},
-        {2.0f * (x * z - w * y), 2.0f * (y * z + w * x), 1.0f - 2.0f * (x * x + y * y)}};
-    const float I1 = kBodyInertia[3 * b], I2 = kBodyInertia[3 * b + 1],
-                I3 = kBodyInertia[3 * b + 2];
-    float ib[3][3];
-    for (int i = 0; i < 3; ++i)
-      for (int j = i; j < 3; ++j)
-        ib[i][j] = R[i][0] * R[j][0] * I1 + R[i][1] * R[j][1] * I2 + R[i][2] * R[j][2] * I3;
-    const float m = kBodyMass[b];
-    const V3 com = add(ld3(s, S_XPOS + 3 * b), qrot(xq, TV3(kBodyIPos, b)));
-    const V3 c = sub(com, ref);
-    const float c2 = c.x * c.x + c.y * c.y + c.z * c.z;
-    const int r = S_IB + 9 * b;
-    s[r] = ib[0][0] + m * (c2 - c.x * c.x);
-    s[r + 1] = ib[0][1] - m * c.x * c.y;
-    s[r + 2] = ib[0][2] - m * c.x * c.z;
-    s[r + 3] = ib[1][1] + m * (c2 - c.y * c.y);
-    s[r + 4] = ib[1][2] - m * c.y * c.z;
-    s[r + 5] = ib[2][2] + m * (c2 - c.z * c.z);
-    s[r + 6] = -m * c.z;
-    s[r + 7] = m * c.y;
-    s[r + 8] = -m * c.x;
-    for (int e = 0; e < 9; ++e) s[S_IC + 9 * b + e] = s[r + e];
-  }
-  // Composite inertias: children into parents, reverse topological order.
-  MS_NOUNROLL
-  for (int ti = NTOPO - 1; ti >= 0; --ti) {
-    const int b = kTopo[ti], p = kParent[b];
-    if (p == 0) continue;
-    for (int e = 0; e < 9; ++e) s[S_IC + 9 * p + e] = s[S_IC + 9 * p + e] + s[S_IC + 9 * b + e];
-  }
-
-  // ---------------- CRBA: tree-sparse Mh = M + armature + dt*damping ------
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) {
+  // ---------------- CRBA: tree-sparse Mh = M + armature + dt*damping; RNEA's
+  // body forces ----------------------------------------------------------
+  for (int d : par(NV)) {
     const int bd = kDofBody[d];
     const V6 F = inertia_mul(s, S_IC + 9 * bd, kCompMass[bd], ld6(s, S_SM + 6 * d));
     for (int idx = kPkPtr[d]; idx < kPkPtr[d + 1]; ++idx) {
@@ -721,11 +1179,8 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
       s[S_MH + idx] = val;
     }
   }
-
-  // ---------------- RNEA bias ---------------------------------------------
   const V3 g = {kGrav[0], kGrav[1], kGrav[2]};
-  MS_NOUNROLL
-  for (int ti = 0; ti < NTOPO; ++ti) {
+  for (int ti : par(NTOPO)) {
     const int b = kTopo[ti];
     const V6 cv = ld6(s, S_CVEL + 6 * b), ca = ld6(s, S_CACC + 6 * b);
     const V6 Ia = inertia_mul(s, S_IB + 9 * b, kBodyMass[b], V6{ca.w, sub(ca.v, g)});
@@ -734,261 +1189,103 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     st6(s, S_FSUB + 6 * b, add6(Ia, fc));
   }
   MS_NOUNROLL
-  for (int ti = NTOPO - 1; ti >= 0; --ti) {
-    const int b = kTopo[ti], p = kParent[b];
-    if (p != 0) st6(s, S_FSUB + 6 * p, add6(ld6(s, S_FSUB + 6 * p), ld6(s, S_FSUB + 6 * b)));
+  for (int l = NLEVEL - 1; l >= 0; --l) {
+    MS_SYNC();
+    for (int j : par(kLevelPtr[l + 1] - kLevelPtr[l]))
+      add_children(s, S_FSUB, 6, kLevelBody[kLevelPtr[l] + j]);
   }
+  MS_SYNC();
+  prof.mark(kPhDynamics);
 
   // ---------------- passive + actuator forces -----------------------------
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) {
+  for (int d : par(NV)) {
     const float bias = dot6(ld6(s, S_SM + 6 * d), ld6(s, S_FSUB + 6 * kDofBody[d]));
-    s[S_QFRC + d] = kDofNegDamp[d] * s[S_V + d] - bias;
+    float f = kDofNegDamp[d] * s[S_V + d] - bias;
+    const int h = kDofHinge[d];
+    if (h >= 0) f = f - kHingeK[h] * (s[S_Q + kHingeQ[h]] - kHingeRef[h]);
+    s[S_QFRC + d] = f;
   }
-  MS_NOUNROLL
-  for (int h = 0; h < NHINGE; ++h) {
-    const int d = S_QFRC + kHingeV[h];
-    s[d] = s[d] - kHingeK[h] * (s[S_Q + kHingeQ[h]] - kHingeRef[h]);
+  for (int u : par(NU)) actuator(in, s, u, k);
+  MS_SYNC();
+  for (int d : par(NV)) {
+    float f = s[S_QFRC + d];
+    for (int j = kDofActPtr[d]; j < kDofActPtr[d + 1]; ++j) f = f + s[S_AF + kDofAct[j]];
+    s[S_QFRC + d] = f;
   }
-  MS_NOUNROLL
-  for (int u = 0; u < NU; ++u) {
-    float c = in[NQ + NV + k * NU + u];
-    if (kCtrlLim[u]) c = clampf(c, kCtrlRange[2 * u], kCtrlRange[2 * u + 1]);
-    s[S_CCL + u] = c;
-    const int kind = kActKind[u];
-    const float gain = kActGain[u];
-    if (kind == kAdhesion) {  // the commanded force, applied by the solver
-      s[S_AF + u] = gain * c;
-      continue;
-    }
-    const int h = kActHinge[u], adr = kActAdr[u];
-    const float qh = h >= 0 ? s[S_Q + kHingeQ[h]] : 0.0f;
-    const float vh = h >= 0 ? s[S_V + kHingeV[h]] : 0.0f;
-    const float a = adr >= 0 ? s[S_ACT + adr] : 0.0f;
-    float force = 0.0f;
-    switch (kind) {
-      case kMotor: force = gain * c; break;
-      case kPosition: force = gain * (c - qh) - kActKv[u] * vh; break;
-      case kVelocity: force = gain * (c - vh); break;
-      case kIntVelocity: force = gain * (a - qh) - kActKv[u] * vh; break;
-      case kDamper: force = -gain * c * vh; break;
-      case kCylinder: force = gain * a; break;
-      case kMuscle: force = muscle_force(u, qh, vh, a); break;
-      default: break;
-    }
-    if (kForceLim[u]) force = clampf(force, kForceRange[2 * u], kForceRange[2 * u + 1]);
-    s[S_AF + u] = force;
-    if (h >= 0) s[S_QFRC + kHingeV[h]] = s[S_QFRC + kHingeV[h]] + force;
-  }
+  MS_SYNC();
+  prof.mark(kPhForces);
 
   // ---------------- contact candidates ------------------------------------
-  // Ground rows against the flat plane or their terrain planes; pair rows
-  // capsule against capsule. Every thread of a warp takes the same
-  // candidate, so the branches do not diverge.
-  MS_NOUNROLL
-  for (int c = 0; c < NCAND; ++c) {
-    const int b = kCandBody[c], cr = cand_row(c);
-    const V3 xp = ld3(s, S_XPOS + 3 * b);
-    const Q4 xq = ld4(s, S_XQUAT + 4 * b);
-    const V3 gpos = add(xp, qrot(xq, TV3(kCandGPos, c)));
-    const V3 zax = qrot(qmul(xq, TQ4(kCandGQuat, c)), V3{0.0f, 0.0f, 1.0f});
-    const float rad = kCandRad[c];
-    float dist = 0.0f;
-    V3 cpos{}, fn{};
-    if (c >= NGROUND) {
-#ifdef MS_PAIRS
-      // Closest points of the two capsule axes (the emitter's _cand_geom
-      // pair branch, the branchless Ericson clamp), the normal from geom2
-      // toward geom1, +z where the axes meet. geom2 is the winner's on a
-      // compressed row.
-#ifdef MS_PAIRS_COMPRESSED
-      const int pi = c - NGROUND, m = winner(s, c), b2 = kMemBody2[m];
-      const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
-      const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kMemGPos2, m)));
-      const V3 zax2 = qrot(qmul(xq2, TQ4(kMemGQuat2, m)), V3{0.0f, 0.0f, 1.0f});
-      const float h1 = kPairH1[pi], h2 = kMemH2[m], r2 = kMemR2[m];
-#else
-      const int pi = c - NGROUND, b2 = kPairBody2[pi];
-      const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
-      const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kPairGPos2, pi)));
-      const V3 zax2 = qrot(qmul(xq2, TQ4(kPairGQuat2, pi)), V3{0.0f, 0.0f, 1.0f});
-      const float h1 = kPairH1[pi], h2 = kPairH2[pi], r2 = kPairR2[pi];
-#endif
-      const V3 a0 = sub(gpos, scale(zax, h1)), d1 = scale(zax, 2.0f * h1);
-      const V3 b0 = sub(gpos2, scale(zax2, h2)), d2 = scale(zax2, 2.0f * h2);
-      const V3 r = sub(a0, b0);
-      const float aq = dot(d1, d1), eq = dot(d2, d2), fq = dot(d2, r), cq = dot(d1, r),
-                  bq = dot(d1, d2);
-      const float denom = aq * eq - bq * bq;
-      float sp = denom > 1e-12f ? clampf((bq * fq - cq * eq) / fmaxf(denom, 1e-12f), 0.0f, 1.0f)
-                                : 0.0f;
-      float tp = eq > 1e-12f ? (bq * sp + fq) / fmaxf(eq, 1e-12f) : 0.0f;
-      tp = clampf(tp, 0.0f, 1.0f);
-      sp = aq > 1e-12f ? clampf((bq * tp - cq) / fmaxf(aq, 1e-12f), 0.0f, 1.0f) : 0.0f;
-      const V3 c1 = add(a0, scale(d1, sp)), c2 = add(b0, scale(d2, tp));
-      const V3 dv = sub(c1, c2);
-      const float dn = sqrtf(fmaxf(dot(dv, dv), 1e-18f));
-      const bool ok = dn > 1e-9f;
-      fn = V3{ok ? dv.x / dn : 0.0f, ok ? dv.y / dn : 0.0f, ok ? dv.z / dn : 1.0f};
-      dist = dn - rad - r2;
-      cpos = sub(c1, scale(fn, rad + 0.5f * dist));
-#endif
-    } else if (kHasHfield) {
-      // Distance along the plane's normal.
-      const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
-      const int pr = NQ + NV + K * NU + NA + NV + 4 * c;
-      const float h = in[pr];
-      fn = V3{in[pr + 1], in[pr + 2], in[pr + 3]};
-      dist = (ep.z - h) * fn.z - rad;
-      cpos = sub(ep, scale(fn, rad + 0.5f * dist));
-    } else {
-      const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
-      dist = ep.z - kGroundZ - rad;
-      cpos = V3{ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
-    }
-    const bool framed = has_frame(c);
-    V3 f1{}, f2{};
-    if (framed) {
-      // The frame as the emitter's _contact_frames builds it: t1 from the
-      // x axis (the y axis for a steep normal) made orthogonal to n,
-      // t2 = n x t1.
-      const bool use_ey = fabsf(fn.x) > 0.9f;
-      const V3 seed = {use_ey ? 0.0f : 1.0f, use_ey ? 1.0f : 0.0f, 0.0f};
-      f1 = sub(seed, scale(fn, dot(seed, fn)));
-      f1 = scale(f1, 1.0f / fmaxf(sqrtf(dot(f1, f1)), 1e-12f));
-      f2 = cross(fn, f1);
-      st3(s, frame_row(c), fn);
-      st3(s, frame_row(c) + 3, f1);
-      st3(s, frame_row(c) + 6, f2);
-    }
-    const bool active = dist < kCandMargin[c];
-    const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
-    const float x = clampf(fabsf(pos_err) / kSolWidth[c], 0.0f, 1.0f);
-    const float y = x < kSolMid[c] ? kSolA[c] * ms_powf(x, kSolPow[c])
-                                   : 1.0f - kSolB[c] * ms_powf(1.0f - x, kSolPow[c]);
-    const float imp = clampf(kSolDmin[c] + y * kSolDmm[c], 1e-4f, 0.9999f);
-#ifdef MS_PAIRS_COMPRESSED
-    const float invw = c < NGROUND ? kInvW[c] : kMemInvW[winner(s, c)];
-#else
-    const float invw = kInvW[c];
-#endif
-    const float R = (1.0f - imp) / imp * invw;
-    s[cr + C_ACT] = active ? 1.0f : 0.0f;
-    s[cr + C_IMP] = imp;
-    s[cr + C_PERR] = pos_err;
-    s[cr + C_D] = active ? 1.0f / fmaxf(R, 1e-12f) : 0.0f;
-    s[cr + C_ADH] = 0.0f;
-    st3(s, cr + C_CPOS, cpos);
-    // Jacobian direction components jp = sgn (S_v + S_w x rel) along n, t1,
-    // t2: dots with the contact frame, or the z, x, y components on flat
-    // ground; sgn = -1 (an exact negation) on the second body's DoFs.
-    const V3 rel = sub(cpos, ref);
-    const CPath cp = cand_path(s, c);
-    for (int i = 0; i < cp.n; ++i) {
-      const V6 sd = ld6(s, S_SM + 6 * path_dof(cp, i));
-      const V3 jp = add(sd.v, cross(sd.w, rel));
-      const float sg = i < cp.split ? 1.0f : -1.0f;
-      s[comp_row(c, i, 0)] = sg * (framed ? dot(jp, fn) : jp.z);
-      s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
-      s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
-    }
-  }
+  for (int c : par(NCAND)) candidate(in, s, c, K, ref);
+  MS_SYNC();
   // Adhesion: each actuator's force split over its active candidates.
-  MS_NOUNROLL
-  for (int gi = 0; gi < NADH; ++gi) {
+  for (int gi : par(NADH)) {
     const int u = kAdhAct[gi];
     const float total = kActGain[u] * s[S_CCL + u];
     float count = 0.0f;
-    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) count = count + s[cand_row(kAdhCand[j]) + C_ACT];
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) count = count + s[S_CACT + kAdhCand[j]];
     const float per = total / fmaxf(count, 1.0f);
     for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) {
-      const int cr = cand_row(kAdhCand[j]);
-      s[cr + C_ADH] = s[cr + C_ACT] != 0.0f ? per : 0.0f;
+      const int c = kAdhCand[j];
+      s[S_CADH + c] = s[S_CACT + c] != 0.0f ? per : 0.0f;
     }
   }
+  MS_SYNC();
+  prof.mark(kPhCandidates);
 
-  // ---------------- first pass: aref, adhesion, jar, gradient, Hessian ----
-  MS_NOUNROLL
-  for (int e = 0; e < NPK; ++e) s[S_H + e] = s[S_MH + e];
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
-  MS_NOUNROLL
-  for (int c = 0; c < NCAND; ++c) {
-    const int cr = cand_row(c);
-    float vel[4], jr[4];
-    row_combos(c, products(s, c, S_V), vel);
-    const float kimp = kKGain[c] * s[cr + C_IMP];
-    for (int r = 0; r < 4; ++r)
-      s[cr + C_AREF + r] = kNegBGain[c] * vel[r] - kimp * s[cr + C_PERR];
-    const float adh = s[cr + C_ADH];
-    const CPath cp = cand_path(s, c);
-    for (int i = 0; i < cp.n; ++i) {
-      const int d = S_QFRC + path_dof(cp, i);
-      s[d] = s[d] - s[comp_row(c, i, 0)] * adh;
-    }
-    row_combos(c, products(s, c, S_A), jr);
-    for (int r = 0; r < 4; ++r) s[cr + C_JAR + r] = jr[r] - s[cr + C_AREF + r];
-    grad_pass(s, c, true);
-  }
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) {
-    const int k2 = S_H + kPkPtr[d + 1] - 1;
-    s[k2] = s[k2] + 1e-9f;
-  }
+  // ---------------- first pass: adhesion, gradient, Hessian, factor ------
+  dof_sums(s, true);
+  hess_fill(s);
+  MS_SYNC();
   tree_ldl(s);
+  prof.mark(kPhFirstPass);
 
   // ---------------- Newton: frozen Hessian, or exact (SOLVER_EXACT) -------
   // The exact Newton re-fills the Hessian from Mh (S_MH, which the factor
   // leaves intact) at the current active set and re-factors it in S_H.
   mh_mul(s, S_A, S_MA);
+  prof.mark(kPhMhMul);
+  int turn = 0;
   MS_NOUNROLL
   for (int it = 0; it < NEWTON_ITERS; ++it) {
     if (it > 0) {
-      for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
-      if (kSolverExact) {
-        MS_NOUNROLL
-        for (int e = 0; e < NPK; ++e) s[S_H + e] = s[S_MH + e];
-      }
-      MS_NOUNROLL
-      for (int c = 0; c < NCAND; ++c) grad_pass(s, c, kSolverExact);
-      if (kSolverExact) {
-        MS_NOUNROLL
-        for (int d = 0; d < NV; ++d) {
-          const int k2 = S_H + kPkPtr[d + 1] - 1;
-          s[k2] = s[k2] + 1e-9f;
-        }
-        tree_ldl(s);
-      }
+      dof_sums(s, false);
+      if (kSolverExact) hess_fill(s);
+      MS_SYNC();
+      if (kSolverExact) tree_ldl(s);
     }
-    for (int d = 0; d < NV; ++d) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
+    prof.mark(kPhRefill);
+    for (int d : par(NV)) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
+    MS_SYNC();
     tree_solve(s, S_DEL);
-    for (int d = 0; d < NV; ++d) s[S_DEL + d] = -s[S_DEL + d];
+    for (int d : par(NV)) s[S_DEL + d] = -s[S_DEL + d];
+    MS_SYNC();
+    prof.mark(kPhSolve);
     mh_mul(s, S_DEL, S_MD);
+    prof.mark(kPhMhMul);
     float dMd = 0.0f, gMd = 0.0f;
+    MS_UNROLL4
     for (int d = 0; d < NV; ++d) {
       const float del = s[S_DEL + d], md = s[S_MD + d];
       dMd = dMd + del * md;
       gMd = gMd + s[S_A + d] * md - s[S_QFRC + d] * del;
     }
-    MS_NOUNROLL
-    for (int c = 0; c < NCAND; ++c) {
-      const int cr = cand_row(c);
+    for (int c : par(NCAND)) {
       float jd[4];
       row_combos(c, products(s, c, S_DEL), jd);
-      for (int r = 0; r < 4; ++r) {
-        s[cr + C_JD + r] = jd[r];
-        s[cr + C_DJD + r] = s[cr + C_D] * jd[r];
-      }
+      for (int r = 0; r < 4; ++r) s[S_JD + 4 * c + r] = jd[r];
     }
+    MS_SYNC();
+    prof.mark(kPhJd);
     // Bisection with a final regula falsi: only the sign of φ' feeds back.
-    float dlo = dphi(s, gMd, dMd, 0.0f, true);
+    float dlo = dphi(s, gMd, dMd, 0.0f, true, turn);
     const float d0 = dlo;
-    float dhi = dphi(s, gMd, dMd, 0.0f + kAlphaMax, false);
+    float dhi = dphi(s, gMd, dMd, 0.0f + kAlphaMax, false, turn);
     float lo = 0.0f, hi = 0.0f + kAlphaMax;
     MS_NOUNROLL
     for (int kb = 0; kb < LS_BISECT; ++kb) {
       const float mid = 0.5f * (lo + hi);
-      const float dm = dphi(s, gMd, dMd, mid, false);
+      const float dm = dphi(s, gMd, dMd, mid, false, turn);
       const bool neg = dm < 0.0f;
       lo = neg ? mid : lo;
       dlo = neg ? dm : dlo;
@@ -998,16 +1295,18 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
     const float t = -dlo / fmaxf(dhi - dlo, 1e-12f);
     float alpha = lo + clampf(t, 0.0f, 1.0f) * (hi - lo);
     alpha = d0 < 0.0f ? alpha : 0.0f;
-    for (int d = 0; d < NV; ++d) {
+    prof.mark(kPhLineSearch);
+    for (int d : par(NV)) {
       s[S_A + d] = s[S_A + d] + alpha * s[S_DEL + d];
       s[S_MA + d] = s[S_MA + d] + alpha * s[S_MD + d];
     }
-    MS_NOUNROLL
-    for (int c = 0; c < NCAND; ++c) {
-      const int cr = cand_row(c);
+    for (int c : par(NCAND)) {
       for (int r = 0; r < 4; ++r)
-        s[cr + C_JAR + r] = s[cr + C_JAR + r] + alpha * s[cr + C_JD + r];
+        s[S_JAR + 4 * c + r] = s[S_JAR + 4 * c + r] + alpha * s[S_JD + 4 * c + r];
+      coef(s, c);
     }
+    MS_SYNC();
+    prof.mark(kPhUpdate);
   }
 
   // ---------------- outputs of the last step (pre-integration FK) ---------
@@ -1018,122 +1317,29 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
   const int o_af = o_site + 3 * NSITE;
   const int o_sens = o_af + NU;
   if (last) {
-    for (int r = 0; r < 3 * NBODY; ++r) out[o_xpos + r] = s[S_XPOS + r];
-    for (int r = 0; r < 4 * NBODY; ++r) out[o_xquat + r] = s[S_XQUAT + r];
-    for (int si = 0; si < NSITE; ++si) {
+    for (int r : par(3 * NBODY)) out[o_xpos + r] = s[S_XPOS + r];
+    for (int r : par(4 * NBODY)) out[o_xquat + r] = s[S_XQUAT + r];
+    for (int si : par(NSITE)) {
       const int b = kSiteBody[si];
       const V3 sp = add(ld3(s, S_XPOS + 3 * b), qrot(ld4(s, S_XQUAT + 4 * b), TV3(kSitePos, si)));
       out[o_site + 3 * si] = sp.x;
       out[o_site + 3 * si + 1] = sp.y;
       out[o_site + 3 * si + 2] = sp.z;
     }
-    for (int u = 0; u < NU; ++u) out[o_af + u] = s[S_AF + u];
-    // Per-leg 16-value net-force sensors.
-    MS_NOUNROLL
-    for (int sn = 0; sn < NSENSOR; ++sn) {
-      const int r0 = o_sens + 16 * sn;
-      float row[16] = {};
-      const int j0 = kSensPtr[sn], j1 = kSensPtr[sn + 1];
-      if (j1 > j0) {
-        float count = 0.0f, fmag = 0.0f;
-        V3 ff = {0.0f, 0.0f, 0.0f}, posw = ff, posp = ff, tw = ff;
-        for (int j = j0; j < j1; ++j) count = count + s[cand_row(kSensCand[j]) + C_ACT];
-        // Contact-frame force (n, t1, t2) of a candidate from its final
-        // rows, before and after the active mask.
-        auto raw_force = [&](int c) {
-          const int cr = cand_row(c);
-          const float D = s[cr + C_D];
-          float lam[4];
-          for (int r = 0; r < 4; ++r) {
-            const float jr = s[cr + C_JAR + r];
-            lam[r] = fmaxf(-D * (jr < 0.0f ? 1.0f : 0.0f) * jr, 0.0f);
-          }
-          const float fn = 0.0f + lam[0] + lam[1] + lam[2] + lam[3];
-          return V3{fn, kMu[c] * (lam[0] - lam[1]), kMu[c] * (lam[2] - lam[3])};
-        };
-        auto frame_force = [&](int c) { return scale(raw_force(c), s[cand_row(c) + C_ACT]); };
-        // World force: the frame's axes weighted, or (t1, t2, n) = (x, y, z).
-        auto world_force = [&](int c) {
-          if (!has_frame(c)) {
-            const V3 f = frame_force(c);
-            return V3{f.y, f.z, f.x};
-          }
-          const V3 f = raw_force(c);
-          const int fr = frame_row(c);
-          const V3 fw = add(add(scale(ld3(s, fr), f.x), scale(ld3(s, fr + 3), f.y)),
-                            scale(ld3(s, fr + 6), f.z));
-          return scale(fw, s[cand_row(c) + C_ACT]);
-        };
-        for (int j = j0; j < j1; ++j) {
-          const int c = kSensCand[j];
-          const float w = s[cand_row(c) + C_ACT];
-          ff = add(ff, scale(frame_force(c), w));
-        }
-        for (int j = j0; j < j1; ++j) {
-          const int c = kSensCand[j], cr = cand_row(c);
-          const float w = s[cr + C_ACT];
-          const float fm = fabsf(frame_force(c).x) * w;
-          const V3 cp = ld3(s, cr + C_CPOS);
-          fmag = fmag + fm;
-          posw = add(posw, scale(cp, fm));
-          posp = add(posp, scale(cp, w));
-        }
-        const bool by_force = fmag > 1e-12f;
-        const float fden = fmaxf(fmag, 1e-12f), cden = fmaxf(count, 1.0f);
-        const V3 pos = {by_force ? posw.x / fden : posp.x / cden,
-                        by_force ? posw.y / fden : posp.y / cden,
-                        by_force ? posw.z / fden : posp.z / cden};
-        // The sensor frame. Flat ground: normal z, tangent x. Terrain: the
-        // weighted mean normal and the mean t1 made orthogonal to it.
-        V3 nrm = {0.0f, 0.0f, 1.0f}, tan = {1.0f, 0.0f, 0.0f};
-        if (kHasHfield) {
-          V3 nsum = {0.0f, 0.0f, 0.0f}, tsum = nsum;
-          for (int j = j0; j < j1; ++j) {
-            const int c = kSensCand[j];
-            const float w = s[cand_row(c) + C_ACT];
-            nsum = add(nsum, scale(ld3(s, frame_row(c)), w));
-            tsum = add(tsum, scale(ld3(s, frame_row(c) + 3), w));
-          }
-          const float nn = sqrtf(dot(nsum, nsum));
-          const bool nok = nn > 1e-9f;
-          const float nden = fmaxf(nn, 1e-12f);
-          nrm = V3{nok ? nsum.x / nden : 0.0f, nok ? nsum.y / nden : 0.0f,
-                   nok ? nsum.z / nden : 1.0f};
-          tsum = sub(tsum, scale(nrm, dot(tsum, nrm)));
-          const float tn = sqrtf(dot(tsum, tsum));
-          const bool tok = tn > 1e-9f;
-          const float tden = fmaxf(tn, 1e-12f);
-          tan = V3{tok ? tsum.x / tden : 1.0f, tok ? tsum.y / tden : 0.0f,
-                   tok ? tsum.z / tden : 0.0f};
-        }
-        for (int j = j0; j < j1; ++j) {
-          const int c = kSensCand[j], cr = cand_row(c);
-          const float w = s[cr + C_ACT];
-          const V3 tq = cross(sub(ld3(s, cr + C_CPOS), pos), world_force(c));
-          tw = add(tw, scale(tq, w));
-        }
-        const V3 t2 = cross(nrm, tan);
-        const float vals[16] = {count > 0.0f ? 1.0f : 0.0f, ff.x, ff.y, ff.z,
-                                dot(tw, nrm), dot(tw, tan), dot(tw, t2),
-                                pos.x, pos.y, pos.z, nrm.x, nrm.y, nrm.z, tan.x, tan.y, tan.z};
-        for (int r = 0; r < 16; ++r) row[r] = vals[r];
-      }
-      for (int r = 0; r < 16; ++r) out[r0 + r] = row[r];
-    }
+    for (int u : par(NU)) out[o_af + u] = s[S_AF + u];
+    for (int sn : par(NSENSOR)) sensor(out, s, sn, o_sens);
   }
+  prof.mark(kPhOutputs);
 
   // ---------------- semi-implicit Euler -----------------------------------
-  MS_NOUNROLL
-  for (int d = 0; d < NV; ++d) s[S_V + d] = s[S_V + d] + kDt * s[S_A + d];
-  MS_NOUNROLL
-  for (int h = 0; h < NHINGE; ++h) {
+  for (int d : par(NV)) s[S_V + d] = s[S_V + d] + kDt * s[S_A + d];
+  MS_SYNC();
+  for (int h : par(NHINGE)) {
     const int qa = S_Q + kHingeQ[h];
     s[qa] = s[qa] + kDt * s[S_V + kHingeV[h]];
   }
-  MS_NOUNROLL
-  for (int b = 0; b < NBODY; ++b) {
-    if (kFreeV[b] < 0) continue;
-    const int qa = S_Q + kFreeQ[b], va = S_V + kFreeV[b];
+  for (int j : par(NFREE)) {
+    const int b = kFreeBody[j], qa = S_Q + kFreeQ[b], va = S_V + kFreeV[b];
     for (int i = 0; i < 3; ++i) s[qa + i] = s[qa + i] + kDt * s[va + i];
     const V3 om = ld3(s, va + 3);
     const float ang = sqrtf(dot(om, om) + 1e-24f) * kDt;
@@ -1147,8 +1353,7 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
   // ---------------- activation dynamics -----------------------------------
   // From the clamped controls and the activations at the start of the step
   // (each slot belongs to one actuator, so the update is in place).
-  MS_NOUNROLL
-  for (int u = 0; u < NU; ++u) {
+  for (int u : par(NU)) {
     const int adr = kActAdr[u];
     if (adr < 0) continue;
     const int kind = kActKind[u];
@@ -1163,42 +1368,79 @@ MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int
       s[S_ACT + adr] = clampf(a + kDt * (cm - a) / fmaxf(tau, 1e-9f), 0.0f, 1.0f);
     }
   }
+  MS_SYNC();
 
   if (!last) {
-    for (int i = 0; i < NQ; ++i) out[k * NQ + i] = s[S_Q + i];
-    return;
+    for (int i : par(NQ)) out[k * NQ + i] = s[S_Q + i];
+  } else {
+    for (int i : par(NQ)) out[o0 + i] = s[S_Q + i];
+    for (int i : par(NV)) out[o0 + NQ + i] = s[S_V + i];
+    for (int i : par(NA)) out[o0 + NQ + NV + i] = s[S_ACT + i];
+    for (int i : par(NV)) out[o0 + NQ + NV + NA + i] = s[S_A + i];
   }
-  for (int i = 0; i < NQ; ++i) out[o0 + i] = s[S_Q + i];
-  for (int i = 0; i < NV; ++i) out[o0 + NQ + i] = s[S_V + i];
-  for (int i = 0; i < NA; ++i) out[o0 + NQ + NV + i] = s[S_ACT + i];
-  for (int i = 0; i < NV; ++i) out[o0 + NQ + NV + NA + i] = s[S_A + i];
+  prof.mark(kPhEuler);
 }
 
-// K steps of world w: in (n_in, B), out (n_out, B), scratch (N_SCRATCH, B).
-MS_FN void run_world(const float* in, float* out, float* scratch, int w, int B, int K) {
+// K steps of world w: in (n_in, B), out (n_out, B) world-minor.
+MS_FN void run_world(const float* in, float* out, const Rows& S, int w, int B, int K,
+                     Prof& prof) {
   const size_t sB = static_cast<size_t>(B);
-  const Rows I{const_cast<float*>(in) + w, sB}, O{out + w, sB}, S{scratch + w, sB};
-  for (int i = 0; i < NQ; ++i) S[S_Q + i] = I[i];
-  for (int i = 0; i < NV; ++i) S[S_V + i] = I[NQ + i];
-  for (int i = 0; i < NA; ++i) S[S_ACT + i] = I[NQ + NV + K * NU + i];
-  for (int i = 0; i < NV; ++i) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
+  const Col I{const_cast<float*>(in) + w, sB}, O{out + w, sB};
+  for (int i : par(NQ)) S[S_Q + i] = I[i];
+  for (int i : par(NV)) S[S_V + i] = I[NQ + i];
+  for (int i : par(NA)) S[S_ACT + i] = I[NQ + NV + K * NU + i];
+  for (int i : par(NV)) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
 #ifdef MS_PAIRS_COMPRESSED
-  for (int g = 0; g < NPAIR; ++g) {
+  for (int g : par(NPAIR)) {
     const int w_g = static_cast<int>(I[NQ + NV + K * NU + NA + NV + g]);
     S[S_WIN + g] = static_cast<float>(kGroupBase[g] + w_g);
   }
 #endif
+  MS_SYNC();
   MS_NOUNROLL
-  for (int k = 0; k < K; ++k) step_world(I, O, S, k, K);
+  for (int k = 0; k < K; ++k) step_world(I, O, S, k, K, prof);
 }
 
+constexpr size_t kSharedBytes = sizeof(float) * static_cast<size_t>(N_SHARED);
+
 #ifdef __CUDACC__
+// One block per world; its rows [0, N_SHARED) in dynamic shared memory,
+// the rest at scratch + w N_GLOBAL. prof (the profile build's) is
+// (kNumPhases, B) clock cycles.
 __global__ void __launch_bounds__(kThreads)
 megastep_kernel(const float* __restrict__ in, float* __restrict__ out,
-                float* __restrict__ scratch, int B, int K) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= B) return;
-  run_world(in, out, scratch, w, B, K);
+                float* __restrict__ scratch, long long* __restrict__ prof, int B, int K) {
+  extern __shared__ float sh[];
+  const int w = blockIdx.x;
+  const Rows S{sh, scratch + static_cast<size_t>(w) * N_GLOBAL};
+  Prof p;
+  run_world(in, out, S, w, B, K, p);
+#ifdef MS_PROFILE
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kNumPhases; ++i) prof[static_cast<size_t>(i) * B + w] = p.acc[i];
+#else
+  (void)prof;
+#endif
+}
+
+// The kernel's dynamic shared memory above the default 48 KB.
+cudaError_t set_attributes() {
+  return cudaFuncSetAttribute(megastep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kSharedBytes));
+}
+
+int launch(const void* in, void* out, void* scratch, void* prof, int B, int K, void* stream) {
+  if (B <= 0 || K < 1) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = set_attributes();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  megastep_kernel<<<B, kThreads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out), static_cast<float*>(scratch),
+      static_cast<long long*>(prof), B, K);
+  return static_cast<int>(cudaGetLastError());
 }
 #endif
 
@@ -1207,21 +1449,47 @@ megastep_kernel(const float* __restrict__ in, float* __restrict__ out,
 #ifdef __CUDACC__
 extern "C" int megastep_f32(const void* in, void* out, void* scratch, int B, int K,
                             void* stream) {
-  if (B <= 0 || K < 1) return cudaErrorInvalidValue;
-  megastep_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out),
-      static_cast<float*>(scratch), B, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch(in, out, scratch, nullptr, B, K, stream);
+}
+
+#ifdef MS_PROFILE
+extern "C" int megastep_profile_f32(const void* in, void* out, void* scratch, void* prof, int B,
+                                    int K, void* stream) {
+  return launch(in, out, scratch, prof, B, K, stream);
+}
+#endif
+
+// The launch's shape: threads per block, dynamic shared bytes per block,
+// global scratch floats per world, and the blocks per SM the card can keep
+// resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor) in out[3].
+extern "C" int megastep_shape(int* shape) {
+  shape[0] = kThreads;
+  shape[1] = static_cast<int>(kSharedBytes);
+  shape[2] = N_GLOBAL;
+  cudaError_t err = set_attributes();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape[3], megastep_kernel, kThreads,
+                                                        kSharedBytes);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 #else
-extern "C" int megastep_host_f32(const float* in, float* out, float* scratch, int B, int K) {
-  if (B <= 0 || K < 1) return 1;
-  for (int w = 0; w < B; ++w) run_world(in, out, scratch, w, B, K);
+// The kernel's blocks as a loop over worlds, each parallel loop run in
+// order (order 0) or reversed (order 1). scratch holds B N_SHARED floats
+// that stand for the blocks' shared memory, then B N_GLOBAL.
+extern "C" int megastep_host_f32(const float* in, float* out, float* scratch, int B, int K,
+                                 int order) {
+  if (B <= 0 || K < 1 || (order != 0 && order != 1)) return 1;
+  g_reversed = order == 1;
+  for (int w = 0; w < B; ++w) {
+    const Rows S{scratch + static_cast<size_t>(w) * N_SHARED,
+                 scratch + static_cast<size_t>(B) * N_SHARED + static_cast<size_t>(w) * N_GLOBAL};
+    Prof p;
+    run_world(in, out, S, w, B, K, p);
+  }
   return 0;
 }
 #endif

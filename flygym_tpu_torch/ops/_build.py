@@ -9,7 +9,8 @@ Two builds, both at first use, under ``flygym_tpu_torch/_build/``:
 - The mega-step kernel K2 (:func:`build_megastep`, :func:`load_megastep`):
   ``csrc/megastep.cu`` with the model's generated header
   ``megastep_model.h`` (``ops/megastep.py:model_header``), one library per
-  model.
+  model, and on request its profile build (``-DMS_PROFILE``: clock64
+  counters of the step's phases).
 
 nvcc's ``-Xptxas -v`` report of each build is kept beside it
 (:func:`ptxas_report`). Each library's name carries a hash of its sources,
@@ -134,9 +135,9 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def _megastep_dir(header: str, flags) -> Path:
+def _megastep_dir(header: str, flags, source: Path = MEGASTEP_SRC) -> Path:
     """The build directory of K2 for one model header: holds the header."""
-    d = BUILD / f"megastep_{_digest(flags, [MEGASTEP_SRC], header)}"
+    d = BUILD / f"megastep_{_digest(flags, [source], header)}"
     d.mkdir(parents=True, exist_ok=True)
     path = d / "megastep_model.h"
     if not path.exists() or path.read_text() != header:
@@ -147,13 +148,19 @@ def _megastep_dir(header: str, flags) -> Path:
     return d
 
 
-def build_megastep(header: str) -> Path:
+def build_megastep(header: str, profile: bool = False, source: Path | None = None) -> Path:
     """Compile K2 for the model whose header is ``header``; return the
-    library's path, with nvcc's ptxas report beside it."""
-    d = _megastep_dir(header, NVCC_FLAGS)
+    library's path, with nvcc's ptxas report beside it. ``profile`` builds
+    the variant with ``clock64`` phase counters (``-DMS_PROFILE``), whose
+    ``megastep_profile_f32`` takes one more buffer. ``source`` replaces
+    ``csrc/megastep.cu``: ``chip_smoke.py`` profiles K2 as it stood before
+    its redesign (``scripts/k2_before_redesign``) with its own header."""
+    src = MEGASTEP_SRC if source is None else Path(source)
+    flags = (*NVCC_FLAGS, "-DMS_PROFILE=1") if profile else NVCC_FLAGS
+    d = _megastep_dir(header, flags, src)
     out = d / "libmegastep.so"
     if not out.exists():
-        log = _compile([_nvcc(), *NVCC_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
+        log = _compile([_nvcc(), *flags, "-I", str(d)], out, [src])
         _ptxas_path(out).write_text(log)
     return out
 
@@ -165,15 +172,22 @@ def ptxas_report(header: str | None = None) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def load_megastep(header: str) -> ctypes.CDLL:
-    """K2 for one model, built on the first call."""
-    path = build_megastep(header)
+def load_megastep(header: str, profile: bool = False, source: Path | None = None) -> ctypes.CDLL:
+    """K2 for one model, built on the first call (``build_megastep``'s
+    arguments)."""
+    path = build_megastep(header, profile, source)
     lib = _megastep_libs.get(path)
     if lib is None:
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.megastep_f32.argtypes = [p, p, p, i, i, p]
-        lib.megastep_f32.restype = i
+        if profile:
+            lib.megastep_profile_f32.argtypes = [p, p, p, p, i, i, p]
+            lib.megastep_profile_f32.restype = i
+        else:
+            lib.megastep_f32.argtypes = [p, p, p, i, i, p]
+            lib.megastep_f32.restype = i
+            lib.megastep_shape.argtypes = [p]
+            lib.megastep_shape.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _megastep_libs[path] = lib
@@ -188,8 +202,10 @@ def _gxx() -> str:
 
 
 def build_megastep_host(header: str) -> ctypes.CDLL:
-    """K2's source compiled as host C++ with g++ (``megastep_host_f32``: the
-    kernel's per-world body in a loop over worlds), loaded."""
+    """K2's source compiled as host C++ with g++, loaded:
+    ``megastep_host_f32(in, out, scratch, B, K, order)`` runs the kernel's
+    blocks as a loop over worlds and each of their parallel loops serially,
+    in order (``order`` 0) or reversed (1)."""
     gxx = _gxx()
     d = _megastep_dir(header, GXX_FLAGS)
     out = d / "libmegastep_host.so"
@@ -197,7 +213,7 @@ def build_megastep_host(header: str) -> ctypes.CDLL:
         _compile([gxx, *GXX_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megastep_host_f32.argtypes = [p, p, p, i, i]
+    lib.megastep_host_f32.argtypes = [p, p, p, i, i, i]
     lib.megastep_host_f32.restype = i
     return lib
 

@@ -1,4 +1,4 @@
-"""Mega-step (K2): the whole physics step of one world in one CUDA thread.
+"""Mega-step (K2): whole physics steps of one world in one CUDA thread block.
 
 Port of ``flygym_tpu/ops/megastep.py``, the JAX package's main-path kernel.
 Three parts:
@@ -22,10 +22,15 @@ Three parts:
   fly's DoFs are lane values. :func:`megastep_plain` packs a :class:`State`
   into those lists and chains K steps with one set of planes or winners.
 - :func:`make_megastep`, the wrapper of the kernel in
-  ``flygym_tpu_torch/csrc/megastep.cu``. The model's constants reach the
-  kernel as a generated header (:func:`model_header`), built with the
-  kernel by :mod:`flygym_tpu_torch.ops._build`. For a CPU tensor the wrapper
-  runs :func:`megastep_plain`; for a CUDA tensor it launches K2 or raises.
+  ``flygym_tpu_torch/csrc/megastep.cu``. The model's constants, its
+  scratch layout (:func:`scratch_layout`: which rows live in the block's
+  shared memory) and the transposed tables the block's ordered sums walk
+  reach the kernel as a generated header (:func:`model_header`), built
+  with the kernel by :mod:`flygym_tpu_torch.ops._build`.
+  :func:`kernel_shape` reads the launch's shape from the card and
+  :func:`profile_megastep` the profile build's phase counters. For a CPU
+  tensor the wrapper runs :func:`megastep_plain`; for a CUDA tensor it
+  launches K2 or raises.
   On a heightfield world it carries ``sample_planes`` (the plane sampler of
   :mod:`flygym_tpu_torch.engine.terrain`), on a world with compressed pair
   rows the same name samples the groups' winners
@@ -58,11 +63,14 @@ from flygym_tpu_torch.engine.terrain import make_plane_sampler
 __all__ = [
     "emit_step",
     "launches",
+    "kernel_shape",
     "make_megastep",
     "megastep_plain",
     "megastep_supported",
     "model_header",
+    "profile_megastep",
     "reset_launches",
+    "scratch_layout",
 ]
 
 _EPS = 1e-9
@@ -70,7 +78,6 @@ _EPS = 1e-9
 _LS_BISECT_ITERS = 8
 _LS_ALPHA_MAX = 2.0
 _C_EPS = 1e-12
-THREADS = 128  # kThreads in megastep.cu: worlds per block
 
 launches = {"megastep": 0}
 
@@ -1730,35 +1737,208 @@ def _fold_quat(c) -> list:
     return [1.0, 0.0, 0.0, 0.0] if _is_ident_quat(c) else _fold(c)
 
 
-# The card's constant bank holds 64 KB; a header whose tables pass this
-# budget keeps the tables read once per candidate or body per step in global
-# memory (MS_GTABLE in csrc/megastep.cu).
-_CONST_BUDGET = 60 * 1024
-_COLD_TABLES = frozenset((
-    "kSolWidth", "kSolMid", "kSolPow", "kSolA", "kSolB", "kSolDmin", "kSolDmm", "kNegBGain",
-    "kKGain", "kInvW", "kCandGPos", "kCandGQuat", "kCandEndH", "kCandRad", "kCandMargin",
-    "kPairGPos2", "kPairGQuat2", "kPairR2", "kPairH1", "kPairH2", "kBodyInertia", "kBodyIPos",
-    "kBodyIQuat", "kMemBody2", "kMemGPos2", "kMemGQuat2", "kMemR2", "kMemH2", "kMemInvW",
-    "kMus",
-))
+# Shared memory a block of K2 may use (the H100's 227 KB), and what the SM
+# holds for all its blocks (228 KB, 1 KB of it reserved per block).
+SHARED_LIMIT = 232448
+_SM_SHARED = 233472
+_BLOCK_RESERVED = 1024
 
 
-def model_header(model: PhysicsModel) -> tuple:
-    """The model's part of K2: shape numbers, scratch layout and constant
-    tables as a C++ header for ``csrc/megastep.cu``.
+# K2's threads per block (one world per block): the fastest of 32, 64 and
+# 128 on the flat header's K = 8 launch at 4096 worlds (chip_smoke.py phase
+# 3; PERF.md §6 has the sweep). The multi-fly headers take it unmeasured.
+THREADS = 128
+
+
+def _blocks_per_sm(n_shared_bytes: int) -> int:
+    return _SM_SHARED // (n_shared_bytes + _BLOCK_RESERVED)
+
+
+def scratch_layout(model: PhysicsModel, threads: int | None = None) -> dict:
+    """K2's scratch rows of one world and where they live.
+
+    The rows come in slots, ordered by how often a step reads them: the
+    Newton loop's candidate rows, then a slot shared by the body arrays of
+    the dynamics (dead once the candidates are built) and the Newton loop's
+    coefficient and line-search rows (live only after), then the Hessian,
+    Mh, the DoF vectors, the motion subspace, the poses and the rest. A slot
+    with two sides holds both in the same rows. The block's dynamic shared
+    memory takes whole slots from the first while they fit in
+    ``SHARED_LIMIT``, and leaves the last, coldest slot out where that lets
+    more blocks share an SM; the rest live in a world-major global buffer.
+
+    Returns:
+        dict with ``slots`` (list of (offset, size, sides), each side a list
+        of (name, offset, size)), ``n_scratch``, ``n_shared``, ``n_global``
+        (floats per world), ``threads`` and ``blocks_per_sm`` (as shared
+        memory allows).
+    """
+    st = _Static(model)
+    nb, nv, nc = st.nbody, st.nv, st.ncand
+    maxp = _max_path(st)
+    npk = len(st.pair_keys)
+    tail = [("S_CACT", nc), ("S_CADH", nc), ("S_CPOS", 3 * nc)]
+    if st.has_hfield:
+        tail.append(("S_FRAME", 9 * nc))
+    elif st.ncand_pair:
+        tail.append(("S_FRAME", 9 * st.ncand_pair))
+    tail += [("S_AF", max(st.nu, 1)), ("S_CCL", max(st.nu, 1))]
+    if st.pair_comp_groups:
+        tail.append(("S_WIN", len(st.pair_comp_groups)))  # each group's winner, a member index
+    slot_specs = [
+        [[("S_JAR", 4 * nc), ("S_JD", 4 * nc), ("S_CD", nc), ("S_RED", 2)]],
+        [[("S_TERM", _term_rows(st)), ("S_COEF", 8 * nc)],
+         [("S_CVEL", 6 * nb), ("S_CACC", 6 * nb), ("S_IB", 9 * nb), ("S_IC", 9 * nb),
+          ("S_FSUB", 6 * nb), ("S_HCS", 2 * max(st.nhinge, 1))]],
+        [[("S_COMP", 3 * maxp * nc), ("S_H", npk), ("S_MH", npk)]],
+        [[("S_QFRC", nv), ("S_MA", nv), ("S_GC", nv), ("S_DEL", nv), ("S_MD", nv), ("S_A", nv),
+          ("S_V", nv), ("S_Q", st.nq), ("S_ACT", st.na), ("S_INV", nv)]],
+        [[("S_SM", 6 * nv)]],
+        [[("S_XPOS", 3 * nb), ("S_XQUAT", 4 * nb), ("S_HAX", 3 * max(st.nhinge, 1))]],
+        [tail],
+    ]
+    slots, off = [], 0
+    for sides in slot_specs:
+        placed, size = [], 0
+        for side in sides:
+            o, rows = off, []
+            for name, n in side:
+                rows.append((name, o, n))
+                o += n
+            placed.append(rows)
+            size = max(size, o - off)
+        slots.append((off, size, placed))
+        off += size
+    n_shared = 0
+    for o, size, _sides in slots:
+        if 4 * (o + size) > SHARED_LIMIT:
+            break
+        n_shared = o + size
+    # The last slot (written once per step and read by the sensors) goes to
+    # global memory where that lets more blocks share an SM.
+    cold = slots[-1][0]
+    if _blocks_per_sm(4 * cold) > _blocks_per_sm(4 * n_shared):
+        n_shared = cold
+    threads = THREADS if threads is None else int(threads)
+    if threads not in (32, 64, 128):
+        raise ValueError(f"K2 runs 32, 64 or 128 threads per block, not {threads}")
+    return dict(slots=slots, n_scratch=off, n_shared=n_shared, n_global=off - n_shared,
+                threads=threads, blocks_per_sm=_blocks_per_sm(4 * n_shared))
+
+
+def _max_path(st: _Static) -> int:
+    cand_bodies = [int(st.geom_body[int(st.can_geom[c])]) for c in range(st.ncand)]
+    paths = [st.body_path_dofs[b] for b in range(st.nbody)]
+    if st.pair_comp_groups:
+        # A compressed row walks geom1's path, then its winner's.
+        return max([len(paths[b]) for b in cand_bodies[: st.ng_rows]] + [
+            st.cand_split[st.ng_rows + g] + max(len(paths[b2]) for _g2, b2 in grp["members"])
+            for g, grp in enumerate(st.pair_comp_groups)])
+    return max(len(p) for p in st.cand_paths)
+
+
+def _dof_candidates(st: _Static) -> list:
+    """Per DoF d, the candidates whose path holds d, in candidate order, as
+    (candidate, offset of d's part in the path): d is path entry offset +
+    len(dof_chains[d]). Offset -1 is the second part of a compressed row,
+    where d lies in one member's body path and the kernel checks the winner.
+    The per-DoF and per-entry sums of K2 walk these lists, so that each sum
+    adds its terms in the candidates' order, as the serial loop did."""
+    lists = [[] for _ in range(st.nv)]
+    for c in range(st.ncand):
+        split = st.cand_split[c]
+        if c >= st.ng_rows and st.pair_comp_groups:
+            grp = st.pair_comp_groups[c - st.ng_rows]
+            first = st.cand_paths[c][:split]
+            for d in first:
+                lists[d].append((c, 0))
+            for d in sorted({d for _g2, b2 in grp["members"] for d in st.body_path_dofs[b2]}):
+                lists[d].append((c, -1))
+            entries = [(0, i, d) for i, d in enumerate(first)]
+        else:
+            path = st.cand_paths[c]
+            entries = [(0 if i < split else split, i, d) for i, d in enumerate(path)]
+            for off, _i, d in entries:
+                lists[d].append((c, off))
+        for off, i, d in entries:
+            if i - off != len(st.dof_chains[d]):
+                raise NotImplementedError(f"candidate {c}'s path is not a chain at DoF {d}")
+    return lists
+
+
+def _ldl_terms(st: _Static, pk_ptr: list, pk_row: list) -> tuple:
+    """The tree factor's updates of each Hessian entry, (column i, entry b,
+    entry a) in elimination order, and the forward solve's terms of each
+    DoF, (entry, DoF i) in elimination order."""
+    upd = [[] for _ in range(len(pk_row))]
+    fwd = [[] for _ in range(st.nv)]
+    for i in st.elim_order:
+        base, n = pk_ptr[i], pk_ptr[i + 1] - pk_ptr[i] - 1
+        for ia in range(n):
+            fwd[pk_row[base + ia]].append((base + ia, i))
+            for ib in range(ia, n):
+                upd[pk_ptr[pk_row[base + ib]] + ia].append((i, base + ib, base + ia))
+    return upd, fwd
+
+
+def _term_rows(st: _Static) -> int:
+    """Rows of S_TERM: the line search's two buffers of 4 NCAND terms, or
+    the most terms of one depth group in the factor or a pass of the
+    solve."""
+    pk_ptr = np.cumsum([0] + [len(st.dof_path[d]) for d in range(st.nv)]).tolist()
+    upd, fwd = _ldl_terms(st, pk_ptr, [a_ for a_, _d in st.pair_keys])
+    depth = [len(st.dof_chains[d]) for d in range(st.nv)]
+    most = 0
+    for g in range(max(depth) + 1):
+        dofs = [d for d in range(st.nv) if depth[d] == g]
+        most = max(most, sum(len(fwd[d]) for d in dofs), g * len(dofs),
+                   sum(len(upd[k]) for d in dofs for k in range(pk_ptr[d], pk_ptr[d + 1])))
+    return max(8 * st.ncand, most)
+
+
+def _deal(work: list, threads: int) -> list:
+    """Items dealt to ``threads`` threads, the longest first to the least
+    loaded, as positions t, t + threads, ... of thread t (-1 pads)."""
+    load, lists = [0] * threads, [[] for _ in range(threads)]
+    for item in sorted(range(len(work)), key=lambda i: (-work[i], i)):
+        t = min(range(threads), key=lambda t: (load[t], t))
+        load[t] += work[item]
+        lists[t].append(item)
+    rounds = max(len(x) for x in lists)
+    return [lists[t][j] if j < len(lists[t]) else -1
+            for j in range(rounds) for t in range(threads)]
+
+
+def _pack16(lo: int, hi: int) -> int:
+    """Two table values of the ordered walks in one int (one load a term):
+    ``lo`` in the low 16 bits, ``hi`` above."""
+    if not (0 <= lo < 1 << 16 and 0 <= hi < 1 << 15):
+        raise NotImplementedError("the model's tables pass K2's 16-bit walk indices")
+    return int(lo) | int(hi) << 16
+
+
+def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
+    """The model's part of K2: shape numbers, scratch layout and tables as a
+    C++ header for ``csrc/megastep.cu``.
 
     Each constant is the float32 value the emitter's Python arithmetic gives
     it (products of Python floats are taken in double, then rounded), and the
     constant frames are folded as the emitter folds them, so that the
     kernel's dense arithmetic repeats the emitter's bit for bit up to
-    summation order.
+    summation order. The kernel spreads each world's loops over a block of
+    ``threads`` (default ``THREADS``); the transposed tables (tree levels,
+    each body's children, each DoF's candidates, the mh_mul terms of each
+    output, the factor's and the solve's terms by depth group) let each sum
+    keep the serial order of its terms.
 
     Returns:
-        (header text, scratch rows per world).
+        (header text, scratch floats per world).
     """
     if not megastep_supported(model):
         raise NotImplementedError("the mega-step kernel does not support this model")
     st = _Static(model)
+    layout = scratch_layout(model, threads)
+    dc = _dof_candidates(st)
     dt = st.timestep
     lines = [
         "// Generated by flygym_tpu_torch/ops/megastep.py:model_header. Do not edit.",
@@ -1768,37 +1948,31 @@ def model_header(model: PhysicsModel) -> tuple:
     def const(name, value):
         lines.append(f"constexpr int {name} = {int(value)};")
 
-    sizes = {}
-
     def table(name, ctype, values):
         values = list(values)
         if not values:
             values = [0]
         fmt = _f32 if ctype == "float" else (lambda x: str(int(x)))
         body = ", ".join(fmt(x) for x in values)
-        sizes[len(lines)] = (name, 4 * len(values))
         lines.append(f"MS_TABLE {ctype} {name}[{len(values)}] = {{{body}}};")
 
     nb, nv = st.nbody, st.nv
     cand_bodies = [int(st.geom_body[int(st.can_geom[c])]) for c in range(st.ncand)]
     paths = [st.body_path_dofs[b] for b in range(nb)]
     comp = st.pair_comp_groups
-    if comp:
-        # A compressed row walks geom1's path, then its winner's.
-        maxp = max([len(paths[b]) for b in cand_bodies[: st.ng_rows]] + [
-            st.cand_split[st.ng_rows + g] + max(len(paths[b2]) for _g2, b2 in grp["members"])
-            for g, grp in enumerate(comp)])
-    else:
-        maxp = max(len(p) for p in st.cand_paths)
     adh = list(st.adh_groups.items())
+    depth = {0: 0}
+    for b in st.topo:
+        depth[b] = depth[int(st.body_parent[b])] + 1
+    n_level = max(depth.values())
     for name, value in (
         ("NQ", st.nq), ("NV", nv), ("NU", st.nu), ("NA", st.na), ("NBODY", nb),
         ("NTOPO", len(st.topo)), ("NHINGE", st.nhinge), ("NSITE", st.nsite),
         ("NCAND", st.ncand), ("NSENSOR", st.nsensor), ("NPK", len(st.pair_keys)),
-        ("MAXP", maxp), ("NFREE", len(st.free_joints)), ("NADH", len(adh)),
+        ("MAXP", _max_path(st)), ("NFREE", len(st.free_joints)), ("NADH", len(adh)),
         ("REF_BODY", st.ref_body), ("NEWTON_ITERS", max(st.solver_iterations, 1)),
         ("SOLVER_EXACT", st.solver_exact), ("LS_BISECT", _LS_BISECT_ITERS),
-        ("NMUS", len(_MUSCLE_KEYS)),
+        ("NMUS", len(_MUSCLE_KEYS)), ("NLEVEL", n_level), ("THREADS", layout["threads"]),
     ):
         const(name, value)
     lines.append(f"constexpr float kDt = {_f32(dt)};")
@@ -1821,36 +1995,42 @@ def model_header(model: PhysicsModel) -> tuple:
         # winner, read from one input row per group after the state rows.
         lines.append("#define MS_PAIRS_COMPRESSED 1")
         const("N_AUX", _n_aux(st))
-        const("NMEMBER", sum(len(grp["members"]) for grp in comp))
 
-    # Scratch rows per world (world-minor in the kernel).
-    layout = [
-        ("S_Q", st.nq), ("S_V", nv), ("S_A", nv), ("S_XPOS", 3 * nb),
-        ("S_XQUAT", 4 * nb), ("S_HAX", 3 * max(st.nhinge, 1)), ("S_SM", 6 * nv),
-        ("S_CVEL", 6 * nb), ("S_CACC", 6 * nb), ("S_IB", 9 * nb), ("S_IC", 9 * nb),
-        ("S_FSUB", 6 * nb), ("S_MH", len(st.pair_keys)), ("S_H", len(st.pair_keys)),
-        ("S_QFRC", nv), ("S_MA", nv), ("S_GC", nv), ("S_DEL", nv), ("S_MD", nv),
-        ("S_AF", max(st.nu, 1)), ("S_CCL", max(st.nu, 1)), ("S_ACT", st.na),
-        ("S_COMP", 3 * maxp * st.ncand), ("S_CAND", 24 * st.ncand),
-    ]
-    if st.has_hfield:
-        layout.append(("S_FRAME", 9 * st.ncand))
-    elif st.ncand_pair:
-        layout.append(("S_FRAME", 9 * st.ncand_pair))
-    if comp:
-        layout.append(("S_WIN", len(comp)))  # each group's winner, as a member index
-    off = 0
-    for name, n in layout:
-        const(name, off)
-        off += n
-    const("N_SCRATCH", off)
+    # Scratch rows per world (scratch_layout): rows [0, N_SHARED) in the
+    # block's shared memory, the rest world-major in global memory.
+    for _o, _size, sides in layout["slots"]:
+        for side in sides:
+            for name, off, _n in side:
+                const(name, off)
+    const("N_SCRATCH", layout["n_scratch"])
+    const("N_SHARED", layout["n_shared"])
+    const("N_GLOBAL", layout["n_global"])
 
-    # Bodies.
+    # Bodies; the tree's levels (depth 1, 2, ...) and each body's children
+    # in reverse topological order (the order the serial sums added them).
     free_of = {b: (qa, va) for b, qa, va in st.free_joints}
     table("kTopo", "int", st.topo)
     table("kParent", "int", st.body_parent)
     table("kFreeQ", "int", [free_of.get(b, (-1, -1))[0] for b in range(nb)])
     table("kFreeV", "int", [free_of.get(b, (-1, -1))[1] for b in range(nb)])
+    table("kFreeBody", "int", [b for b, _qa, _va in st.free_joints])
+    lptr, lbody = [0], []
+    for lev in range(1, n_level + 1):
+        lbody += [b for b in st.topo if depth[b] == lev]
+        lptr.append(len(lbody))
+    table("kLevelPtr", "int", lptr)
+    table("kLevelBody", "int", lbody)
+    children = {b: [] for b in range(nb)}
+    for b in reversed(st.topo):
+        p = int(st.body_parent[b])
+        if p != 0:
+            children[p].append(b)
+    cptr, clist = [0], []
+    for b in range(nb):
+        clist += children[b]
+        cptr.append(len(clist))
+    table("kChildPtr", "int", cptr)
+    table("kChild", "int", clist)
     table("kBodyQuat", "float", [x for b in range(nb) for x in _fold_quat(st.body_quat[b])])
     table("kBodyPos", "float", [x for b in range(nb) for x in _fold(st.body_pos[b])])
     table("kBodyIQuat", "float", [x for b in range(nb) for x in _fold_quat(st.body_iquat[b])])
@@ -1882,16 +2062,71 @@ def model_header(model: PhysicsModel) -> tuple:
     table("kHingeBody", "int", st.hinge_body)
     table("kHingeK", "float", st.hinge_stiffness)
     table("kHingeRef", "float", st.hinge_springref)
+    dof_hinge = [-1] * nv
+    for h in range(st.nhinge):
+        dof_hinge[int(st.hinge_vadr[h])] = h
+    table("kDofHinge", "int", dof_hinge)
     table("kDofBody", "int", st.dof_body)
     table("kDofNegDamp", "float", [-float(x) for x in st.dof_damping])
     table("kDofArm", "float", st.dof_armature)
     table("kDofDtDamp", "float", [dt * float(x) for x in st.dof_damping])
-    table("kElim", "int", st.elim_order)
     pk_ptr = [0]
     for d in range(nv):
         pk_ptr.append(pk_ptr[-1] + len(st.dof_path[d]))
+    pk_row = [a_ for a_, _d in st.pair_keys]
     table("kPkPtr", "int", pk_ptr)
-    table("kPkRow", "int", [a_ for a_, _d in st.pair_keys])
+    table("kPkRow", "int", pk_row)
+    table("kPkCol", "int", [d for _a, d in st.pair_keys])
+    # mh_mul's terms of each output DoF, in the order the serial loop (over
+    # columns d, then d's ancestor entries) added them.
+    mv = [[] for _ in range(nv)]
+    for d in range(nv):
+        for idx in range(pk_ptr[d], pk_ptr[d + 1] - 1):
+            mv[d].append((idx, pk_row[idx]))
+            mv[pk_row[idx]].append((idx, d))
+    mptr = [0]
+    for terms in mv:
+        mptr.append(mptr[-1] + len(terms))
+    table("kMvPtr", "int", mptr)
+    table("kMvKX", "int", [_pack16(k, x) for terms in mv for k, x in terms])
+    # The DoFs by depth (number of ancestors), shallowest first: the factor
+    # and the forward solve take the groups deepest first, the backward
+    # solve shallowest first, each DoF's values depending only on deeper
+    # (shallower) groups. Per group its columns' Hessian entries.
+    n_anc = [len(st.dof_chains[d]) for d in range(nv)]
+    groups = [[d for d in range(nv) if n_anc[d] == g] for g in range(max(n_anc) + 1)]
+    const("NDG", len(groups))
+    table("kDgPtr", "int", np.cumsum([0] + [len(g) for g in groups]))
+    table("kDgDof", "int", [d for g in groups for d in g])
+    ge = [k for g in groups for d in g for k in range(pk_ptr[d], pk_ptr[d + 1])]
+    table("kGePtr", "int", np.cumsum(
+        [0] + [sum(pk_ptr[d + 1] - pk_ptr[d] for d in g) for g in groups]))
+    table("kGe", "int", ge)
+    # The factor's updates of each entry in the serial elimination's order
+    # (leaves first, elim_order): entry -= (entry b * (1 / diagonal of
+    # column i)) * entry a, from each eliminated column i below it; and the
+    # forward solve's terms of each DoF a: y[a] -= (entry k) * y[i], i below
+    # a, in elimination order. Both listed by position in kGe (kDgDof), so
+    # that a depth group's terms are one run.
+    upd, fwd = _ldl_terms(st, pk_ptr, pk_row)
+    table("kLuPtr", "int", np.cumsum([0] + [len(upd[k]) for k in ge]))
+    table("kLuCol", "int", [i for k in ge for i, _b, _a in upd[k]])
+    table("kLuBA", "int", [_pack16(b, a) for k in ge for _i, b, a in upd[k]])
+    dg_dof = [d for g in groups for d in g]
+    table("kFwPtr", "int", np.cumsum([0] + [len(fwd[d]) for d in dg_dof]))
+    table("kFwKI", "int", [_pack16(k, i) for d in dg_dof for k, i in fwd[d]])
+    # The backward solve's terms of each DoF: its column's ancestor entries
+    # and the ancestors, in the column's order.
+    table("kBwPtr", "int", np.cumsum([0] + [pk_ptr[d + 1] - 1 - pk_ptr[d] for d in dg_dof]))
+    table("kBwKA", "int", [_pack16(k, pk_row[k]) for d in dg_dof
+                           for k in range(pk_ptr[d], pk_ptr[d + 1] - 1)])
+    # The Hessian fill's entries dealt to the block's threads, longest
+    # first to the least loaded (an entry's work: the candidates on its
+    # column's DoF), interleaved so that thread t takes positions t, t + T,
+    # ...; -1 pads.
+    hf = _deal([len(dc[d]) for _a, d in st.pair_keys], layout["threads"])
+    const("NHF", len(hf))
+    table("kHf", "int", hf)
 
     # Actuators.
     table("kActKind", "int", st.act_kind)
@@ -1902,6 +2137,17 @@ def model_header(model: PhysicsModel) -> tuple:
     table("kCtrlRange", "float", st.act_ctrlrange.reshape(-1))
     table("kForceLim", "int", st.act_forcelimited > 0)
     table("kForceRange", "float", st.act_forcerange.reshape(-1))
+    # The actuators whose force each DoF takes, in actuator order.
+    dof_act = [[] for _ in range(nv)]
+    for u in range(st.nu):
+        h = int(st.act_hinge[u])
+        if int(st.act_kind[u]) != ActKind.ADHESION and h >= 0:
+            dof_act[int(st.hinge_vadr[h])].append(u)
+    aptr = [0]
+    for us in dof_act:
+        aptr.append(aptr[-1] + len(us))
+    table("kDofActPtr", "int", aptr)
+    table("kDofAct", "int", [u for us in dof_act for u in us])
     # Activation slots; the time constants (cylinder: dynprm[0]; muscle:
     # activation dynprm[0], deactivation dynprm[1]); per muscle its folded
     # constants (_MUSCLE_KEYS), zeros for the other kinds.
@@ -1954,18 +2200,15 @@ def model_header(model: PhysicsModel) -> tuple:
         pptr.append(len(plist))
     table("kPathPtr", "int", pptr)
     table("kPathDof", "int", plist)
-    table("kDofFree", "int", [st.free_dof_axis.get(d, -1) for d in range(nv)])
 
     if comp:
-        # Each DoF's depth (its row in a descendant's column), geom1's half
-        # length per group; per member (groups' members end to end, from
-        # kGroupBase) geom2's body, pose in the body, radius and half length,
-        # and the row's inverse weight were it the winner.
+        # geom1's half length per group; per member (groups' members end to
+        # end, from kGroupBase) geom2's body, pose in the body, radius and
+        # half length, and the row's inverse weight were it the winner.
         members = [m for grp in comp for m in grp["members"]]
         base = [0]
         for grp in comp:
             base.append(base[-1] + len(grp["members"]))
-        table("kDofDepth", "int", [len(st.dof_chains[d]) for d in range(nv)])
         table("kPairH1", "float", [st.geom_size[int(st.can_geom[c]), 1]
                                    for c in range(st.ng_rows, st.ncand)])
         table("kGroupBase", "int", base)
@@ -1978,12 +2221,11 @@ def model_header(model: PhysicsModel) -> tuple:
         table("kMemInvW", "float", [max(w, 1e-12) for grp in comp for w in grp["invw"]])
     elif st.ncand_pair:
         # Each candidate's path slot, where each pair row's second body's
-        # part starts, each DoF's depth (its row in a descendant's column);
-        # geom2 of each pair row and both capsules' half lengths.
+        # part starts; geom2 of each pair row and both capsules' half
+        # lengths.
         table("kCandSlot", "int", cand_bodies[: st.ng_rows]
               + [nb + i for i in range(st.ncand_pair)])
         table("kPairSplit", "int", st.cand_split[st.ng_rows:])
-        table("kDofDepth", "int", [len(st.dof_chains[d]) for d in range(nv)])
         g2 = [int(st.can_geom2[c]) for c in range(st.ng_rows, st.ncand)]
         table("kPairBody2", "int", [int(st.geom_body[g]) for g in g2])
         table("kPairGPos2", "float", [x for g in g2 for x in _fold(st.geom_pos[g])])
@@ -2008,16 +2250,88 @@ def model_header(model: PhysicsModel) -> tuple:
     table("kSensPtr", "int", sptr)
     table("kSensCand", "int", slist)
 
+    # Per DoF the candidates whose path holds it (_dof_candidates).
+    dptr = [0]
+    for entries in dc:
+        dptr.append(dptr[-1] + len(entries))
+    table("kDcPtr", "int", dptr)
+    table("kDcCO", "int", [_pack16(c, off + 1) for entries in dc for c, off in entries])
+
     # Sites.
     table("kSiteBody", "int", st.site_body)
     table("kSitePos", "float", [x for s in range(st.nsite) for x in _fold(st.site_pos[s])])
-    if sum(n for _name, n in sizes.values()) > _CONST_BUDGET:
-        for i, (name, _n) in sizes.items():
-            if name in _COLD_TABLES:
-                lines[i] = lines[i].replace("MS_TABLE", "MS_GTABLE", 1)
-        if sum(n for name, n in sizes.values() if name not in _COLD_TABLES) > _CONST_BUDGET:
-            raise NotImplementedError("the model's hot tables pass the constant bank")
-    return "\n".join(lines) + "\n", off
+    return "\n".join(lines) + "\n", layout["n_scratch"]
+
+
+def _pack(st: _Static, state: State, ctrl_seq, terrain_planes, K: int) -> torch.Tensor:
+    """The kernel's world-minor (n_in, B) input rows (``_io_rows``)."""
+    B = state.qpos.shape[0]
+    ctrl_rows = (state.ctrl if ctrl_seq is None else ctrl_seq).reshape(K, B, st.nu)
+    parts = [state.qpos.t(), state.qvel.t(),
+             ctrl_rows.permute(0, 2, 1).reshape(K * st.nu, B), state.act.t(), state.qacc.t()]
+    if terrain_planes is not None:
+        parts.append(terrain_planes.reshape(B, _n_aux(st)).t().to(torch.float32))
+    packed = torch.cat(parts)
+    if packed.dtype != torch.float32:
+        raise TypeError(f"the mega-step kernel takes float32 state, got {packed.dtype}")
+    n_in = _io_rows(st, K)[0]
+    if packed.shape[0] != n_in:
+        raise ValueError(f"state packs into {packed.shape[0]} rows, the model needs {n_in}")
+    return packed
+
+
+# The phases of K2's step that its profile build (-DMS_PROFILE) times with
+# clock64(), in the order of its counters.
+PROFILE_PHASES = (
+    "FK, velocities, inertias, CRBA, RNEA", "forces and actuators",
+    "contact candidates and adhesion", "first pass and factor", "Newton: re-fill and factor",
+    "Newton: solve", "Newton: mh_mul", "Newton: JD rows", "Newton: line search (dphi)",
+    "Newton: update", "outputs and sensors", "Euler and activations",
+)
+
+
+def profile_megastep(model: PhysicsModel, state: State, ctrl_seq: torch.Tensor) -> dict:
+    """Clock cycles of each of K2's ``PROFILE_PHASES`` in one K-step launch
+    on the card (K = ``ctrl_seq.shape[0]``), summed over the worlds, from
+    the profile build of K2 (``_build.build_megastep(profile=True)``; the
+    kernel's outputs are those of the plain build), for a model without
+    terrain planes or pair winners. Not counted in ``launches``."""
+    from flygym_tpu_torch.ops._build import load_megastep
+
+    st = _Static(model)
+    K, B = int(ctrl_seq.shape[0]), state.qpos.shape[0]
+    dev = state.qpos.device
+    if dev.type != "cuda":
+        raise RuntimeError("the profile build runs on the card")
+    if _n_aux(st) > 0:
+        raise ValueError("profile_megastep: the model reads terrain planes or pair winners")
+    lib = load_megastep(model_header(model)[0], profile=True)
+    packed = _pack(st, state, ctrl_seq, None, K)
+    out = torch.empty((_io_rows(st, K)[1], B), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B, max(scratch_layout(model)["n_global"], 1)),
+                          dtype=torch.float32, device=dev)
+    prof = torch.zeros((len(PROFILE_PHASES), B), dtype=torch.int64, device=dev)
+    err = lib.megastep_profile_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                   prof.data_ptr(), B, K,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(lib, err)
+    cycles = prof.sum(dim=1).tolist()
+    return dict(zip(PROFILE_PHASES, cycles))
+
+
+def kernel_shape(model: PhysicsModel) -> dict:
+    """K2's launch for ``model`` as the card takes it (builds the kernel):
+    threads per block, dynamic shared bytes per block, global scratch floats
+    per world, and the blocks per SM that can be resident
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    from flygym_tpu_torch.ops._build import load_megastep
+
+    lib = load_megastep(model_header(model)[0])
+    shape = (ctypes.c_int * 4)()
+    _raise_on_error(lib, lib.megastep_shape(shape))
+    return dict(zip(("threads", "shared_bytes", "n_global", "blocks_per_sm"), shape))
 
 
 def _raise_on_error(lib, err: int) -> None:
@@ -2044,8 +2358,10 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
 
     For CPU tensors the function runs :func:`megastep_plain`. For CUDA
     tensors it packs the state world-minor, (n_in, B), launches K2 once on
-    the current stream and unpacks its (n_out, B) rows; the kernel is built
-    at the first launch and a build or launch failure raises.
+    the current stream (one block per world, its rows in shared memory and,
+    past :func:`scratch_layout`'s budget, in a (B, n_global) scratch buffer)
+    and unpacks its (n_out, B) rows; the kernel is built at the first launch
+    and a build or launch failure raises.
     """
     K = int(k_steps)
     if K < 1:
@@ -2093,21 +2409,13 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
         if not built:
             from flygym_tpu_torch.ops._build import load_megastep
 
-            header, n_scratch = model_header(model)
-            built["lib"], built["n_scratch"] = load_megastep(header), n_scratch
+            header, _n = model_header(model)
+            built["lib"] = load_megastep(header)
+            built["n_global"] = scratch_layout(model)["n_global"]
         lib = built["lib"]
-        ctrl_rows = (state.ctrl if ctrl_seq is None else ctrl_seq).reshape(K, B, st.nu)
-        parts = [state.qpos.t(), state.qvel.t(),
-                 ctrl_rows.permute(0, 2, 1).reshape(K * st.nu, B), state.act.t(), state.qacc.t()]
-        if terrain_planes is not None:
-            parts.append(terrain_planes.reshape(B, _n_aux(st)).t().to(torch.float32))
-        packed = torch.cat(parts)
-        if packed.dtype != torch.float32:
-            raise TypeError(f"the mega-step kernel takes float32 state, got {packed.dtype}")
-        if packed.shape[0] != n_in:
-            raise ValueError(f"state packs into {packed.shape[0]} rows, the model needs {n_in}")
+        packed = _pack(st, state, ctrl_seq, terrain_planes, K)
         out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
-        scratch = torch.empty((built["n_scratch"], B), dtype=torch.float32, device=dev)
+        scratch = torch.empty((B, max(built["n_global"], 1)), dtype=torch.float32, device=dev)
         if B:
             err = lib.megastep_f32(
                 packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, K,

@@ -1,0 +1,1309 @@
+// The mega-step kernel K2 as it stood before its redesign for the H100
+// (flygym_tpu_torch/csrc/megastep.cu now): one world per CUDA thread, every
+// per-world array in a world-minor global scratch buffer. Kept, with its
+// model header for the flat benchmark fly (megastep_model.h beside it), to
+// profile the old design beside the new one: built with -DMS_PROFILE it
+// adds clock64() counters at the phase boundaries of the current kernel's
+// profile build (ops/megastep.py PROFILE_PHASES, in that order) and
+// megastep_profile_f32(in, out, scratch, prof, B, K, stream), scratch
+// (N_SCRATCH, B), prof (12, B) cycles of each world's thread.
+// chip_smoke.py (phase 3) builds and runs it with the same input pack as
+// the current kernel and holds its outputs equal to the current kernel's.
+// Its text below is otherwise the old kernel's.
+//
+// Mega-step kernel K2: whole physics steps of one world per CUDA thread, for
+// NVIDIA Hopper (sm_90a).
+//
+// Replaces (TPU kernel of the JAX package): flygym_tpu/ops/megastep.py
+// make_megastep.<kernel> (body emit_step), launched by pallas_call in
+// _megastep_impl. Its plain PyTorch version, used for CPU tensors and as the
+// oracle on the card, is flygym_tpu_torch/ops/megastep.py emit_step.
+//
+// One step per world: FK over the tree (a forest where several flies share
+// the world), motion subspace, velocities and bias accelerations, spatial
+// inertias, CRBA and RNEA, the forces of every actuator kind (motor,
+// position, velocity, intvelocity, damper, cylinder, MuJoCo's muscle;
+// adhesion's force is applied by the solver) with their limits, every
+// contact candidate (no top-K): ground rows against the flat plane or, on a
+// heightfield world, their sampled local planes, and fly-fly pair rows
+// capsule against capsule with two-body (+1/-1) Jacobian rows, compressed
+// or not (a compressed row's geom2 is its group's winner, sampled outside
+// the kernel and read by index); pyramid rows
+// with impedance and the adhesion split, primal Newton on the tree-LDL^T
+// Hessian (cross-tree fill-in of pair rows dropped, as the emitter drops
+// it) with the bisection + regula-falsi line search: the Hessian factored
+// once per step, or with SOLVER_EXACT (MuJoCo's exact Newton) re-filled from
+// the current active set and re-factored at every iteration after the
+// first; semi-implicit Euler, the activation states (intvelocity's integral,
+// cylinder's filter, muscle activation) and, on the last of the K fused
+// steps only, the outputs (state, FK, actuator forces, contact sensors). The
+// K-1 inner steps write their qpos rows only.
+//
+// Design. The work of a world is a long chain of dependent scalar updates
+// over static tables, with no tile and no reduction across worlds, so each
+// thread owns one world. The repeated structure stays runtime loops over
+// the model's constant tables (generated header megastep_model.h, in
+// __constant__ memory: every thread of a warp reads the same entry, a
+// broadcast), so the source stays small and builds in seconds, where the
+// emitter unrolls to ~2.8e5 straight-line ops. Per-world arrays (FK, S,
+// inertias, the 813 tree-sparse entries of Mh and of the Hessian, the
+// contact rows) live in a world-minor scratch buffer (rows, B) that the
+// wrapper allocates: a warp's access to one row is one coalesced line.
+//
+// Numerics. Built with -fmad=false and IEEE div and sqrt, and the header's
+// constants are the float32 values the emitter's Python arithmetic gives, so
+// the arithmetic is the emitter's, term for term and in the same order. The
+// emitter folds multiplies by the model's structural 0 and 1 at trace time;
+// this code multiplies densely, and x*0 = 0, x*1 = x, x + 0 = x are exact.
+// sin and cos are glibc's algorithm (ms_sincosf), as the JAX package's CPU
+// backend and the plain version round them, so the kernel repeats both.
+//
+// What bounds it on the H100: at 4096 worlds, 32 blocks of 128 threads fill
+// a quarter of the 132 SMs with 4 warps each, and the scratch traffic (~56 KB
+// per world per step, 230 MB at 4096 worlds, above the 50 MB L2; 129 KB per
+// world for example 11's two flies) is served at that low occupancy:
+// latency, not the op count or the card's bandwidth.
+// Keeping rows in registers and shared memory and one warp per world are
+// later work.
+//
+// The same file compiles as host C++ (g++ -x c++), where the kernel becomes
+// a loop over worlds (megastep_host_f32), so its arithmetic is tested on the
+// CPU against the plain version.
+//
+// Interface: plain C, bound with ctypes (flygym_tpu_torch/ops/_build.py).
+// Pointers are device pointers; the kernel allocates nothing, launches on the
+// caller's stream, does not synchronise, and returns cudaGetLastError().
+
+// The model's tables live in __constant__ memory (MS_TABLE); a header whose
+// tables pass the 64 KB constant bank moves the ones read once per step per
+// candidate or body to global memory (MS_GTABLE), read through the L1.
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define MS_FN __device__ __forceinline__
+#define MS_TABLE __constant__
+#define MS_GTABLE __device__ const
+#define MS_NOUNROLL _Pragma("unroll 1")
+#else
+#include <cmath>
+#define MS_FN inline
+#define MS_TABLE static const
+#define MS_GTABLE static const
+#define MS_NOUNROLL
+#endif
+
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+
+#include "megastep_model.h"
+
+// Heightfield worlds (slice d; the header defines MS_HFIELD): the local
+// ground plane [h, nx, ny, nz] of each candidate follows the state rows of
+// the input (N_AUX = 4 NCAND rows, sampled outside the kernel and read for
+// all K steps), and each candidate's contact frame (n, t1, t2) is kept in
+// the scratch rows S_FRAME. Flat worlds contact along the world's axes.
+#ifdef MS_HFIELD
+constexpr bool kHasHfield = true;
+#else
+constexpr bool kHasHfield = false;
+#ifndef MS_PAIRS_COMPRESSED
+constexpr int N_AUX = 0;
+#endif
+#endif
+
+// Fly-fly pair rows (slice e; the header defines MS_PAIRS): candidates
+// [NGROUND, NCAND) are capsule against capsule. A pair row's DoF path is the
+// first body's DoFs with sign +1, then from kPairSplit on the second body's
+// with sign -1 (kPathDof past the bodies' paths, found by kCandSlot), and
+// the row keeps its contact frame in S_FRAME.
+#ifndef MS_PAIRS
+constexpr int NGROUND = NCAND;
+#endif
+#if !defined(MS_HFIELD) && !defined(MS_PAIRS)
+constexpr int S_FRAME = 0;
+#endif
+
+// Compressed pair rows (slice e compressed; the header also defines
+// MS_PAIRS_COMPRESSED): pair row NGROUND + g stands for group g, whose
+// members (kGroupBase[g] .. kGroupBase[g + 1] of the kMem* tables) are the
+// capsules of one opposing fly that face geom1. The group's winner, a
+// member index sampled outside the kernel from the cached pose (once per
+// launch, as the planes are), is input row NQ + NV + K NU + NA + NV + g
+// (N_AUX = NPAIR rows); run_world keeps it as a flat member index in
+// S_WIN. The row is the uncompressed pair row
+// with the winner's geom2: its frame, r2, h2 and inverse weight read by
+// index, which gives the bits of the plain version's one-hot blend (one
+// term times 1, the rest exact zeros). Its DoF path is geom1's body path
+// (+1), then the winner's (-1): the plain version walks the members' whole
+// DoF union in DoF order, where the other members' DoFs add exact zeros,
+// and megastep_supported checks that the winner's DoFs come in its body
+// path's order.
+namespace {
+
+constexpr int kThreads = 128;
+constexpr bool kSolverExact = SOLVER_EXACT != 0;
+// Actuator kinds (flygym_tpu_torch/engine/model.py ActKind).
+constexpr int kMotor = 0, kPosition = 1, kVelocity = 2, kIntVelocity = 3, kDamper = 4,
+              kAdhesion = 5, kCylinder = 6, kMuscle = 7;
+
+// One world's column of a world-minor (rows, B) buffer.
+struct Rows {
+  float* p;
+  size_t stride;
+  MS_FN float& operator[](int r) const { return p[static_cast<size_t>(r) * stride]; }
+};
+
+// The profile build's per-phase clock counters (each world's thread's), in
+// the order of ops/megastep.py PROFILE_PHASES.
+enum Phase {
+  kPhDynamics, kPhForces, kPhCandidates, kPhFirstPass, kPhRefill, kPhSolve, kPhMhMul,
+  kPhJd, kPhLineSearch, kPhUpdate, kPhOutputs, kPhEuler, kNumPhases
+};
+#if defined(MS_PROFILE) && defined(__CUDACC__)
+MS_FN long long ms_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct Prof {
+  long long acc[kNumPhases];
+  long long t;
+  MS_FN Prof() : t(ms_clock()) {
+    for (int i = 0; i < kNumPhases; ++i) acc[i] = 0;
+  }
+  MS_FN void mark(int p) {
+    const long long now = ms_clock();
+    acc[p] += now - t;
+    t = now;
+  }
+};
+#else
+struct Prof {
+  MS_FN void mark(int) {}
+};
+#endif
+
+struct V3 {
+  float x, y, z;
+};
+struct Q4 {
+  float w, x, y, z;
+};
+struct V6 {  // (angular, linear) motion or (moment, force) force vector
+  V3 w, v;
+};
+
+MS_FN V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+MS_FN V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+MS_FN V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+MS_FN V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+MS_FN float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+MS_FN Q4 qmul(Q4 a, Q4 b) {
+  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
+          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
+          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
+          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
+}
+// Rotate c by q (the emitter's _qrot_c, densely).
+MS_FN V3 qrot(Q4 q, V3 c) {
+  const V3 qv = {q.x, q.y, q.z};
+  const V3 t = scale(cross(qv, c), 2.0f);
+  const V3 u = cross(qv, t);
+  return {q.w * t.x + u.x + c.x, q.w * t.y + u.y + c.y, q.w * t.z + u.z + c.z};
+}
+MS_FN V6 add6(V6 a, V6 b) { return {add(a.w, b.w), add(a.v, b.v)}; }
+MS_FN V6 scale6(V6 a, float s) { return {scale(a.w, s), scale(a.v, s)}; }
+MS_FN V6 cross6(V6 m, V6 o) { return {cross(m.w, o.w), add(cross(m.w, o.v), cross(m.v, o.w))}; }
+MS_FN float dot6(V6 a, V6 b) { return dot(a.w, b.w) + dot(a.v, b.v); }
+MS_FN float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+// powf(x, y) for x >= 0 and y > 0 as glibc computes it
+// (sysdeps/ieee754/flt-32/e_powf.c), which is how the JAX package's CPU
+// backend rounds pow: log2(x) from a 16-entry table and a float64
+// polynomial, times y, exp2 from a 32-entry table and a float64
+// polynomial, rounded to float32; subnormal arguments and results are 0, as
+// XLA's CPU backend flushes them. It is not correctly rounded, and x*x*x
+// differs from it in a quarter of arguments. The plain version
+// (engine/maths.py powf) is the same algorithm.
+MS_TABLE double kPowInvC[16] = {
+    0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0, 0x1.3c995b0b80385p+0,
+    0x1.30d190c8864a5p+0, 0x1.25e227b0b8ea0p+0, 0x1.1bb4a4a1a343fp+0, 0x1.12358f08ae5bap+0,
+    0x1.0953f419900a7p+0, 0x1.0000000000000p+0, 0x1.e608cfd9a47acp-1, 0x1.ca4b31f026aa0p-1,
+    0x1.b2036576afce6p-1, 0x1.9c2d163a1aa2dp-1, 0x1.886e6037841edp-1, 0x1.767dcf5534862p-1};
+MS_TABLE double kPowLogC[16] = {
+    -0x1.efec65b963019p-2, -0x1.b0b6832d4fca4p-2, -0x1.7418b0a1fb77bp-2, -0x1.39de91a6dcf7bp-2,
+    -0x1.01d9bf3f2b631p-2, -0x1.97c1d1b3b7af0p-3, -0x1.2f9e393af3c9fp-3, -0x1.960cbbf788d5cp-4,
+    -0x1.a6f9db6475fcep-5, 0x0.0p+0, 0x1.338ca9f24f53dp-4, 0x1.476a9543891bap-3,
+    0x1.e840b4ac4e4d2p-3, 0x1.40645f0c6651cp-2, 0x1.88e9c2c1b9ff8p-2, 0x1.ce0a44eb17bccp-2};
+MS_TABLE double kPowA[5] = {0x1.27616c9496e0bp-2, -0x1.71969a075c67ap-2, 0x1.ec70a6ca7baddp-2,
+                             -0x1.7154748bef6c8p-1, 0x1.71547652ab82bp+0};
+// 2^(i/32) as float64 bits, minus i << 47.
+MS_TABLE uint64_t kExp2Tab[32] = {
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f, 0x3fef9301d0125b51,
+    0x3fef72b83c7d517b, 0x3fef54873168b9aa, 0x3fef387a6e756238, 0x3fef1e9df51fdee1,
+    0x3fef06fe0a31b715, 0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429, 0x3feea47eb03a5585,
+    0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74, 0x3feea11473eb0187, 0x3feea589994cce13,
+    0x3feeace5422aa0db, 0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c, 0x3fef3720dcef9069,
+    0x3fef5818dcfba487, 0x3fef7c97337b9b5f, 0x3fefa4afa2a490da, 0x3fefd0765b6e4540};
+MS_TABLE double kExp2C[3] = {0x1.c6af84b912394p-5, 0x1.ebfce50fac4f3p-3, 0x1.62e42ff0c52d6p-1};
+constexpr double kExp2Shift = 0x1.8p52 / 32;
+
+MS_FN float ms_powf(float x, float y) {
+  uint32_t ix;
+  memcpy(&ix, &x, sizeof ix);
+  if (ix < 0x00800000u) return 0.0f;
+  const uint32_t tmp = ix - 0x3f330000u;
+  const int i = static_cast<int>((tmp >> 19) % 16);
+  const uint32_t top = tmp & 0xff800000u;
+  const uint32_t iz = ix - top;
+  const int k = static_cast<int32_t>(top) >> 23;
+  float zf;
+  memcpy(&zf, &iz, sizeof zf);
+  const double z = zf;
+  const double r = z * kPowInvC[i] - 1.0;
+  const double y0 = kPowLogC[i] + static_cast<double>(k);
+  const double r2 = r * r;
+  const double ya = kPowA[0] * r + kPowA[1];
+  const double p = kPowA[2] * r + kPowA[3];
+  const double r4 = r2 * r2;
+  double q = kPowA[4] * r + y0;
+  q = p * r2 + q;
+  const double ylogx = static_cast<double>(y) * (ya * r4 + q);
+  if (ylogx <= -150.0) return 0.0f;
+  double kd = ylogx + kExp2Shift;
+  uint64_t ki;
+  memcpy(&ki, &kd, sizeof ki);
+  kd -= kExp2Shift;
+  const double rr = ylogx - kd;
+  const uint64_t t = kExp2Tab[ki % 32] + (ki << 47);
+  double s;
+  memcpy(&s, &t, sizeof s);
+  const double zc = kExp2C[0] * rr + kExp2C[1];
+  const double yv = (zc * (rr * rr) + (kExp2C[2] * rr + 1.0)) * s;
+  const float out = static_cast<float>(yv);
+  return out < 0x1p-126f ? 0.0f : out;
+}
+
+// sinf and cosf as glibc computes them (sysdeps/ieee754/flt-32/s_sinf.c,
+// s_cosf.c, sincosf.h), which is how the JAX package's CPU backend rounds
+// them: reduce by pi/2 in float64, a float64 polynomial, round to float32.
+// CUDA's sinf is another algorithm; its 1-ulp differences, amplified by the
+// contact solve, flip line-search brackets within tens of steps. The plain version (ops/megastep.py _sincosf) is the same algorithm.
+constexpr double kHpiInv = 0x1.45F306DC9C883p+23;  // 2/pi * 2^24
+constexpr double kHpi = 0x1.921FB54442D18p0;       // pi/2
+constexpr double kC0 = 1.0, kC1 = -0x1.ffffffd0c621cp-2, kC2 = 0x1.55553e1068f19p-5,
+                 kC3 = -0x1.6c087e89a359dp-10, kC4 = 0x1.99343027bf8c3p-16;
+constexpr double kS1 = -0x1.555545995a603p-3, kS2 = 0x1.1107605230bc4p-7,
+                 kS3 = -0x1.994eb3774cf24p-13;
+constexpr uint32_t kTopTiny = 0x39800000u >> 20, kTopPio4 = 0x3f490fdbu >> 20,
+                   kTopBig = 0x42f00000u >> 20;  // 2^-12, pi/4, 120
+
+MS_FN double sincos_poly(double x, double x2, bool odd) {
+  if (!odd) {
+    const double x3 = x * x2;
+    const double s = x + x3 * kS1;
+    return s + (x3 * x2) * (kS2 + x2 * kS3);
+  }
+  const double x4 = x2 * x2;
+  const double c = (kC0 + x2 * kC1) + x4 * kC2;
+  return c + (x4 * x2) * (kC3 + x2 * kC4);
+}
+
+MS_FN float ms_sincosf(float y, bool want_cos) {
+  uint32_t bits;
+  memcpy(&bits, &y, sizeof bits);
+  const uint32_t top = (bits >> 20) & 0x7ffu;
+  const double x = y;
+  if (top < kTopTiny) return want_cos ? 1.0f : y;
+  if (top < kTopPio4) return static_cast<float>(sincos_poly(x, x * x, want_cos));
+  if (top >= kTopBig) return static_cast<float>(want_cos ? cos(x) : sin(x));
+  const int n = (static_cast<int32_t>(x * kHpiInv) + 0x800000) >> 24;
+  const double xr = x - n * kHpi;
+  const double sign = ((n & 3) == 1 || (n & 3) == 2) ? -1.0 : 1.0;
+  const bool odd = ((n ^ static_cast<int>(want_cos)) & 1) != 0;
+  const double v = sincos_poly(xr * sign, xr * xr, odd);
+  return static_cast<float>(((n & 2) && odd) ? -v : v);
+}
+MS_FN float ms_sinf(float y) { return ms_sincosf(y, false); }
+MS_FN float ms_cosf(float y) { return ms_sincosf(y, true); }
+
+MS_FN V3 ld3(const Rows& s, int r) { return {s[r], s[r + 1], s[r + 2]}; }
+MS_FN void st3(const Rows& s, int r, V3 a) {
+  s[r] = a.x;
+  s[r + 1] = a.y;
+  s[r + 2] = a.z;
+}
+MS_FN Q4 ld4(const Rows& s, int r) { return {s[r], s[r + 1], s[r + 2], s[r + 3]}; }
+MS_FN void st4(const Rows& s, int r, Q4 a) {
+  s[r] = a.w;
+  s[r + 1] = a.x;
+  s[r + 2] = a.y;
+  s[r + 3] = a.z;
+}
+MS_FN V6 ld6(const Rows& s, int r) { return {ld3(s, r), ld3(s, r + 3)}; }
+MS_FN void st6(const Rows& s, int r, V6 a) {
+  st3(s, r, a.w);
+  st3(s, r + 3, a.v);
+}
+
+#define TV3(tab, i) (V3{tab[3 * (i)], tab[3 * (i) + 1], tab[3 * (i) + 2]})
+#define TQ4(tab, i) (Q4{tab[4 * (i)], tab[4 * (i) + 1], tab[4 * (i) + 2], tab[4 * (i) + 3]})
+
+// Spatial inertia about ref in world axes, stored as 9 rows: TL (00, 01, 02,
+// 11, 12, 22) and the top-right block m c× by its entries 01, 02, 12
+// (TR10 = -TR01, TR20 = -TR02, TR21 = -TR12, zero diagonal).
+MS_FN V6 inertia_mul(const Rows& s, int r, float m, V6 x) {
+  const float tl[3][3] = {{s[r], s[r + 1], s[r + 2]},
+                          {s[r + 1], s[r + 3], s[r + 4]},
+                          {s[r + 2], s[r + 4], s[r + 5]}};
+  const float a = s[r + 6], b = s[r + 7], c = s[r + 8];
+  const float tr[3][3] = {{0.0f, a, b}, {-a, 0.0f, c}, {-b, -c, 0.0f}};
+  const float w[3] = {x.w.x, x.w.y, x.w.z}, v[3] = {x.v.x, x.v.y, x.v.z};
+  float n[3], f[3];
+  for (int i = 0; i < 3; ++i) {
+    n[i] = tl[i][0] * w[0] + tl[i][1] * w[1] + tl[i][2] * w[2] + tr[i][0] * v[0] +
+           tr[i][1] * v[1] + tr[i][2] * v[2];
+    f[i] = tr[0][i] * w[0] + tr[1][i] * w[1] + tr[2][i] * w[2] + m * v[i];
+  }
+  return {{n[0], n[1], n[2]}, {f[0], f[1], f[2]}};
+}
+
+// Candidate scalar rows (S_CAND + 24 * c + ...).
+constexpr int C_ACT = 0, C_IMP = 1, C_PERR = 2, C_D = 3, C_ADH = 4, C_CPOS = 5,
+              C_AREF = 8, C_JAR = 12, C_JD = 16, C_DJD = 20;
+
+MS_FN int cand_row(int c) { return S_CAND + 24 * c; }
+MS_FN int comp_row(int c, int i, int t) { return S_COMP + 3 * (MAXP * c + i) + t; }
+// Whether candidate c has a contact frame of its own (terrain or pair row;
+// flat ground rows contact along the world's axes), and its 9 rows.
+MS_FN bool has_frame(int c) { return kHasHfield || c >= NGROUND; }
+MS_FN int frame_row(int c) { return S_FRAME + 9 * (kHasHfield ? c : c - NGROUND); }
+
+#ifdef MS_PAIRS_COMPRESSED
+// Compressed pair row c's winner, as an index into the kMem* tables.
+MS_FN int winner(const Rows& s, int c) { return static_cast<int>(s[S_WIN + (c - NGROUND)]); }
+#endif
+
+// Candidate c's path: n DoFs, split at `split` into the two bodies' parts
+// (ground rows have one); entry i < split is kPathDof[p1 + i], entry i >=
+// split kPathDof[p2 + i - split] (p2 = p1 + split but on compressed rows).
+// Entry i has sign +1 in the first part and -1 in the second. The Hessian
+// keeps (path[i], path[j]), i <= j, where both lie in one part; path[i] is
+// then entry dof_depth(path[i], i) of path[j]'s column.
+struct CPath {
+  int p1, split, p2, n;
+};
+#ifdef MS_PAIRS
+MS_FN int dof_depth(int d, int) { return kDofDepth[d]; }
+#else
+MS_FN int dof_depth(int, int i) { return i; }
+#endif
+MS_FN CPath cand_path(const Rows& s, int c) {
+#if defined(MS_PAIRS_COMPRESSED)
+  const int b1 = kCandBody[c], p1 = kPathPtr[b1], n1 = kPathPtr[b1 + 1] - p1;
+  if (c < NGROUND) return {p1, n1, p1 + n1, n1};
+  const int b2 = kMemBody2[winner(s, c)], p2 = kPathPtr[b2];
+  return {p1, n1, p2, n1 + kPathPtr[b2 + 1] - p2};
+#elif defined(MS_PAIRS)
+  const int slot = kCandSlot[c], p = kPathPtr[slot], n = kPathPtr[slot + 1] - p;
+  return {p, c < NGROUND ? n : kPairSplit[c - NGROUND], p, n};
+#else
+  const int b = kCandBody[c], p = kPathPtr[b], n = kPathPtr[b + 1] - p;
+  return {p, n, p, n};
+#endif
+}
+MS_FN int path_dof(const CPath& cp, int i) {
+#ifdef MS_PAIRS_COMPRESSED
+  return kPathDof[i < cp.split ? cp.p1 + i : cp.p2 + (i - cp.split)];
+#else
+  return kPathDof[cp.p1 + i];
+#endif
+}
+
+// Direction products J_t · x along candidate c's path, t = n, t1, t2.
+MS_FN V3 products(const Rows& s, int c, int x_row) {
+  const CPath cp = cand_path(s, c);
+  const int d0 = path_dof(cp, 0);
+  float pn = s[comp_row(c, 0, 0)] * s[x_row + d0];
+  float p1 = s[comp_row(c, 0, 1)] * s[x_row + d0];
+  float p2 = s[comp_row(c, 0, 2)] * s[x_row + d0];
+  MS_NOUNROLL
+  for (int i = 1; i < cp.n; ++i) {
+    const float xd = s[x_row + path_dof(cp, i)];
+    pn = pn + s[comp_row(c, i, 0)] * xd;
+    p1 = p1 + s[comp_row(c, i, 1)] * xd;
+    p2 = p2 + s[comp_row(c, i, 2)] * xd;
+  }
+  return {pn, p1, p2};
+}
+
+// Pyramid rows [n + mu t1, n - mu t1, n + mu t2, n - mu t2].
+MS_FN void row_combos(int c, V3 p, float out[4]) {
+  const float mu = kMu[c];
+  out[0] = p.x + mu * p.y;
+  out[1] = p.x - mu * p.y;
+  out[2] = p.x + mu * p.z;
+  out[3] = p.x - mu * p.z;
+}
+
+// Contact gradient J^T (D m jar) of candidate c into S_GC, and with
+// `hessian` its fill J^T Σ J into the tree-sparse Hessian S_H.
+MS_FN void grad_pass(const Rows& s, int c, bool hessian) {
+  const int cr = cand_row(c);
+  const float D = s[cr + C_D], mu = kMu[c];
+  float jar[4], wk[4], wa[4];
+  for (int r = 0; r < 4; ++r) {
+    jar[r] = s[cr + C_JAR + r];
+    const float m = jar[r] < 0.0f ? 1.0f : 0.0f;
+    wk[r] = D * m * jar[r];
+    wa[r] = D * m;
+  }
+  const float cn = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
+  const float c1 = mu * (wk[0] - wk[1]), c2 = mu * (wk[2] - wk[3]);
+  const CPath cp = cand_path(s, c);
+  const int np = cp.n;
+  MS_NOUNROLL
+  for (int i = 0; i < np; ++i) {
+    const int d = path_dof(cp, i);
+    const float g =
+        s[comp_row(c, i, 0)] * cn + s[comp_row(c, i, 1)] * c1 + s[comp_row(c, i, 2)] * c2;
+    s[S_GC + d] = s[S_GC + d] + g;
+  }
+  if (!hessian) return;
+  const float W = 0.0f + wa[0] + wa[1] + wa[2] + wa[3];
+  const float bt1 = mu * (wa[0] - wa[1]), bt2 = mu * (wa[2] - wa[3]);
+  const float mu2 = kMu2[c];
+  const float wt1 = mu2 * (wa[0] + wa[1]), wt2 = mu2 * (wa[2] + wa[3]);
+  float un[MAXP], u1[MAXP], u2[MAXP];
+  MS_NOUNROLL
+  for (int j = 0; j < np; ++j) {
+    const float nj = s[comp_row(c, j, 0)], d1 = s[comp_row(c, j, 1)],
+                d2 = s[comp_row(c, j, 2)];
+    un[j] = nj * W + d1 * bt1 + d2 * bt2;
+    u1[j] = nj * bt1 + d1 * wt1;
+    u2[j] = nj * bt2 + d2 * wt2;
+  }
+  // Within one body's part, path[i] is an ancestor-or-self of path[j]:
+  // key (path[i], path[j]) is entry dof_depth of path[j]'s column. Entries
+  // across the two parts are cross-tree fill-in, which is dropped.
+  const int split = cp.split;
+  MS_NOUNROLL
+  for (int i = 0; i < np; ++i) {
+    const float ni = s[comp_row(c, i, 0)], t1 = s[comp_row(c, i, 1)],
+                t2 = s[comp_row(c, i, 2)];
+    const int depth = dof_depth(path_dof(cp, i), i), j_end = i < split ? split : np;
+    MS_NOUNROLL
+    for (int j = i; j < j_end; ++j) {
+      const int k = S_H + kPkPtr[path_dof(cp, j)] + depth;
+      s[k] = s[k] + (ni * un[j] + t1 * u1[j] + t2 * u2[j]);
+    }
+  }
+}
+
+// out = Mh x over the tree-sparse entries.
+MS_FN void mh_mul(const Rows& s, int x_row, int out_row) {
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) s[out_row + d] = s[S_MH + kPkPtr[d + 1] - 1] * s[x_row + d];
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const int base = kPkPtr[d], n = kPkPtr[d + 1] - base - 1;
+    for (int ia = 0; ia < n; ++ia) {
+      const int a = kPkRow[base + ia];
+      const float val = s[S_MH + base + ia];
+      s[out_row + d] = s[out_row + d] + val * s[x_row + a];
+      s[out_row + a] = s[out_row + a] + val * s[x_row + d];
+    }
+  }
+}
+
+// Tree LDL^T of S_H in place: column i's ancestor entries become L, its
+// diagonal entry d_i. DoFs are eliminated leaves first (kElim).
+MS_FN void tree_ldl(const Rows& s) {
+  float li[MAXP];
+  MS_NOUNROLL
+  for (int e = 0; e < NV; ++e) {
+    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
+    const float inv = 1.0f / s[S_H + base + n];
+    for (int ia = 0; ia < n; ++ia) li[ia] = s[S_H + base + ia] * inv;
+    for (int ia = 0; ia < n; ++ia) {
+      const float ra = s[S_H + base + ia];
+      for (int ib = ia; ib < n; ++ib) {
+        const int k = S_H + kPkPtr[kPkRow[base + ib]] + ia;
+        s[k] = s[k] - li[ib] * ra;
+      }
+    }
+    for (int ia = 0; ia < n; ++ia) s[S_H + base + ia] = li[ia];
+  }
+}
+
+// Solve with the factor in S_H, in place on the rows at y_row.
+MS_FN void tree_solve(const Rows& s, int y_row) {
+  MS_NOUNROLL
+  for (int e = 0; e < NV; ++e) {
+    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
+    const float yi = s[y_row + i];
+    for (int ia = 0; ia < n; ++ia) {
+      const int a = y_row + kPkRow[base + ia];
+      s[a] = s[a] - s[S_H + base + ia] * yi;
+    }
+  }
+  MS_NOUNROLL
+  for (int i = 0; i < NV; ++i) s[y_row + i] = s[y_row + i] / s[S_H + kPkPtr[i + 1] - 1];
+  MS_NOUNROLL
+  for (int e = NV - 1; e >= 0; --e) {
+    const int i = kElim[e], base = kPkPtr[i], n = kPkPtr[i + 1] - base - 1;
+    float acc = s[y_row + i];
+    for (int ia = 0; ia < n; ++ia) acc = acc - s[S_H + base + ia] * s[y_row + kPkRow[base + ia]];
+    s[y_row + i] = acc;
+  }
+}
+
+// φ'(α) of the line search along delta.
+MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero) {
+  float d = at_zero ? gMd : gMd + alpha * dMd;
+  MS_NOUNROLL
+  for (int c = 0; c < NCAND; ++c) {
+    const int cr = cand_row(c);
+    for (int r = 0; r < 4; ++r) {
+      const float jr = s[cr + C_JAR + r];
+      const float ja = at_zero ? jr : jr + alpha * s[cr + C_JD + r];
+      const float m = ja < 0.0f ? 1.0f : 0.0f;
+      d = d + m * s[cr + C_DJD + r] * ja;
+    }
+  }
+  return d;
+}
+
+// MuJoCo's muscle force of actuator u at tendon length len, velocity vel and
+// activation a (the emitter's _muscle_force_lane): the force-length curve
+// times the force-velocity curve times a, plus the passive force. kMus
+// holds the constants as the emitter's Python arithmetic folds them
+// (ops/megastep.py _MUSCLE_KEYS): lr0, L0, range0, the velocity scale, lmin,
+// a, b, lmax, the rise, plateau-low, plateau-high and fall widths, y, y's
+// floor, fvmax, -peak, -peak fpmax / 2, -peak fpmax. Each chain of selects
+// takes its one live branch; the branches have no side effects, so this
+// gives the bits of the emitter's select of every branch.
+MS_FN float muscle_force(int u, float len, float vel, float a) {
+  const int m = NMUS * u;
+  const float L = kMus[m + 2] + (len - kMus[m]) / kMus[m + 1];
+  const float V = vel / kMus[m + 3];
+  const float lmin = kMus[m + 4], la = kMus[m + 5], lb = kMus[m + 6], lmax = kMus[m + 7];
+  float gl = 0.0f;
+  if (L <= lmin) {
+    gl = 0.0f;
+  } else if (L <= la) {
+    const float x = (L - lmin) / kMus[m + 8];
+    gl = 0.5f * (x * x);
+  } else if (L <= 1.0f) {
+    const float x = (1.0f - L) / kMus[m + 9];
+    gl = 1.0f - 0.5f * (x * x);
+  } else if (L <= lb) {
+    const float x = (L - 1.0f) / kMus[m + 10];
+    gl = 1.0f - 0.5f * (x * x);
+  } else if (L <= lmax) {
+    const float x = (lmax - L) / kMus[m + 11];
+    gl = 0.5f * (x * x);
+  }
+  const float y = kMus[m + 12], fvmax = kMus[m + 14];
+  float gv;
+  if (V <= -1.0f) {
+    gv = 0.0f;
+  } else if (V <= 0.0f) {
+    const float x = V + 1.0f;
+    gv = x * x;
+  } else if (V <= y) {
+    const float x = y - V;
+    gv = fvmax - (x * x) / kMus[m + 13];
+  } else {
+    gv = fvmax;
+  }
+  const float gain = kMus[m + 15] * gl * gv;
+  float bias = 0.0f;
+  if (L <= 1.0f) {
+    bias = 0.0f;
+  } else if (L <= lb) {
+    const float x = (L - 1.0f) / kMus[m + 10];
+    bias = kMus[m + 16] * (x * x);
+  } else {
+    bias = kMus[m + 17] * (0.5f + (L - lb) / kMus[m + 10]);
+  }
+  return gain * a + bias;
+}
+
+// One physics step of one world: state in scratch rows S_Q, S_V, S_A (warm
+// start) and S_ACT (activations), controls from input rows of step k; the
+// last step writes outputs.
+MS_FN void step_world(const Rows& in, const Rows& out, const Rows& s, int k, int K,
+                       Prof& prof) {
+  const bool last = k == K - 1;
+
+  // ---------------- FK: parent -> child over the tree ----------------
+  st3(s, S_XPOS, V3{0.0f, 0.0f, 0.0f});
+  st4(s, S_XQUAT, Q4{1.0f, 0.0f, 0.0f, 0.0f});
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    if (kFreeQ[b] >= 0) {
+      const int qa = S_Q + kFreeQ[b];
+      st3(s, S_XPOS + 3 * b, ld3(s, qa));
+      st4(s, S_XQUAT + 4 * b, ld4(s, qa + 3));
+      continue;
+    }
+    const Q4 qp = ld4(s, S_XQUAT + 4 * p);
+    Q4 cur = qmul(qp, TQ4(kBodyQuat, b));
+    for (int hi = kBodyHingePtr[b]; hi < kBodyHingePtr[b + 1]; ++hi) {
+      const int h = kBodyHinge[hi];
+      const V3 ax = TV3(kHingeAxis, h);
+      // The world hinge axis uses the rotation before the hinge.
+      st3(s, S_HAX + 3 * h, qrot(cur, ax));
+      const float half = 0.5f * s[S_Q + kHingeQ[h]];
+      const float ch = ms_cosf(half), sh = ms_sinf(half);
+      cur = qmul(cur, Q4{ch, sh * ax.x, sh * ax.y, sh * ax.z});
+    }
+    st4(s, S_XQUAT + 4 * b, cur);
+    st3(s, S_XPOS + 3 * b, add(ld3(s, S_XPOS + 3 * p), qrot(qp, TV3(kBodyPos, b))));
+  }
+  const V3 ref = ld3(s, S_XPOS + 3 * REF_BODY);
+
+  // ---------------- motion subspace S = (angular, linear) at ref --------
+  MS_NOUNROLL
+  for (int h = 0; h < NHINGE; ++h) {
+    const V3 aw = ld3(s, S_HAX + 3 * h);
+    const V3 anchor = sub(ld3(s, S_XPOS + 3 * kHingeBody[h]), ref);
+    st6(s, S_SM + 6 * kHingeV[h], V6{aw, cross(anchor, aw)});
+  }
+  MS_NOUNROLL
+  for (int b = 0; b < NBODY; ++b) {
+    if (kFreeV[b] < 0) continue;
+    const int va = kFreeV[b];
+    const V3 p = sub(ld3(s, S_XPOS + 3 * b), ref);
+    for (int i = 0; i < 3; ++i) {
+      const V3 e = {i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f, i == 2 ? 1.0f : 0.0f};
+      st6(s, S_SM + 6 * (va + i), V6{{0.0f, 0.0f, 0.0f}, e});
+      st6(s, S_SM + 6 * (va + 3 + i), V6{e, cross(p, e)});
+    }
+  }
+
+  // ---------------- velocities and bias accelerations --------------------
+  st6(s, S_CVEL, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+  st6(s, S_CACC, V6{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}});
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    V6 vel = ld6(s, S_CVEL + 6 * p), acc = ld6(s, S_CACC + 6 * p);
+    if (kFreeV[b] >= 0) {
+      const int va = kFreeV[b];
+      for (int i = 0; i < 6; ++i)
+        vel = add6(vel, scale6(ld6(s, S_SM + 6 * (va + i)), s[S_V + va + i]));
+      const V3 vlin = ld3(s, S_V + va), omg = ld3(s, S_V + va + 3);
+      acc = add6(acc, V6{{0.0f, 0.0f, 0.0f}, cross(vlin, omg)});
+    } else {
+      for (int di = kBodyDofPtr[b]; di < kBodyDofPtr[b + 1]; ++di) {
+        const int d = kBodyDof[di];
+        const V6 sd = scale6(ld6(s, S_SM + 6 * d), s[S_V + d]);
+        acc = add6(acc, cross6(vel, sd));
+        vel = add6(vel, sd);
+      }
+    }
+    st6(s, S_CVEL + 6 * b, vel);
+    st6(s, S_CACC + 6 * b, acc);
+  }
+
+  // ---------------- spatial inertias about ref ---------------------------
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti];
+    const Q4 xq = ld4(s, S_XQUAT + 4 * b);
+    const Q4 qi = qmul(xq, TQ4(kBodyIQuat, b));
+    const float w = qi.w, x = qi.x, y = qi.y, z = qi.z;
+    const float R[3][3] = {
+        {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y - w * z), 2.0f * (x * z + w * y)},
+        {2.0f * (x * y + w * z), 1.0f - 2.0f * (x * x + z * z), 2.0f * (y * z - w * x)},
+        {2.0f * (x * z - w * y), 2.0f * (y * z + w * x), 1.0f - 2.0f * (x * x + y * y)}};
+    const float I1 = kBodyInertia[3 * b], I2 = kBodyInertia[3 * b + 1],
+                I3 = kBodyInertia[3 * b + 2];
+    float ib[3][3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = i; j < 3; ++j)
+        ib[i][j] = R[i][0] * R[j][0] * I1 + R[i][1] * R[j][1] * I2 + R[i][2] * R[j][2] * I3;
+    const float m = kBodyMass[b];
+    const V3 com = add(ld3(s, S_XPOS + 3 * b), qrot(xq, TV3(kBodyIPos, b)));
+    const V3 c = sub(com, ref);
+    const float c2 = c.x * c.x + c.y * c.y + c.z * c.z;
+    const int r = S_IB + 9 * b;
+    s[r] = ib[0][0] + m * (c2 - c.x * c.x);
+    s[r + 1] = ib[0][1] - m * c.x * c.y;
+    s[r + 2] = ib[0][2] - m * c.x * c.z;
+    s[r + 3] = ib[1][1] + m * (c2 - c.y * c.y);
+    s[r + 4] = ib[1][2] - m * c.y * c.z;
+    s[r + 5] = ib[2][2] + m * (c2 - c.z * c.z);
+    s[r + 6] = -m * c.z;
+    s[r + 7] = m * c.y;
+    s[r + 8] = -m * c.x;
+    for (int e = 0; e < 9; ++e) s[S_IC + 9 * b + e] = s[r + e];
+  }
+  // Composite inertias: children into parents, reverse topological order.
+  MS_NOUNROLL
+  for (int ti = NTOPO - 1; ti >= 0; --ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    if (p == 0) continue;
+    for (int e = 0; e < 9; ++e) s[S_IC + 9 * p + e] = s[S_IC + 9 * p + e] + s[S_IC + 9 * b + e];
+  }
+
+  // ---------------- CRBA: tree-sparse Mh = M + armature + dt*damping ------
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const int bd = kDofBody[d];
+    const V6 F = inertia_mul(s, S_IC + 9 * bd, kCompMass[bd], ld6(s, S_SM + 6 * d));
+    for (int idx = kPkPtr[d]; idx < kPkPtr[d + 1]; ++idx) {
+      const int a = kPkRow[idx];
+      float val = dot6(ld6(s, S_SM + 6 * a), F);
+      if (a == d) val = val + kDofArm[d] + kDofDtDamp[d];
+      s[S_MH + idx] = val;
+    }
+  }
+
+  // ---------------- RNEA bias ---------------------------------------------
+  const V3 g = {kGrav[0], kGrav[1], kGrav[2]};
+  MS_NOUNROLL
+  for (int ti = 0; ti < NTOPO; ++ti) {
+    const int b = kTopo[ti];
+    const V6 cv = ld6(s, S_CVEL + 6 * b), ca = ld6(s, S_CACC + 6 * b);
+    const V6 Ia = inertia_mul(s, S_IB + 9 * b, kBodyMass[b], V6{ca.w, sub(ca.v, g)});
+    const V6 Iv = inertia_mul(s, S_IB + 9 * b, kBodyMass[b], cv);
+    const V6 fc = {add(cross(cv.w, Iv.w), cross(cv.v, Iv.v)), cross(cv.w, Iv.v)};
+    st6(s, S_FSUB + 6 * b, add6(Ia, fc));
+  }
+  MS_NOUNROLL
+  for (int ti = NTOPO - 1; ti >= 0; --ti) {
+    const int b = kTopo[ti], p = kParent[b];
+    if (p != 0) st6(s, S_FSUB + 6 * p, add6(ld6(s, S_FSUB + 6 * p), ld6(s, S_FSUB + 6 * b)));
+  }
+  prof.mark(kPhDynamics);
+
+  // ---------------- passive + actuator forces -----------------------------
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const float bias = dot6(ld6(s, S_SM + 6 * d), ld6(s, S_FSUB + 6 * kDofBody[d]));
+    s[S_QFRC + d] = kDofNegDamp[d] * s[S_V + d] - bias;
+  }
+  MS_NOUNROLL
+  for (int h = 0; h < NHINGE; ++h) {
+    const int d = S_QFRC + kHingeV[h];
+    s[d] = s[d] - kHingeK[h] * (s[S_Q + kHingeQ[h]] - kHingeRef[h]);
+  }
+  MS_NOUNROLL
+  for (int u = 0; u < NU; ++u) {
+    float c = in[NQ + NV + k * NU + u];
+    if (kCtrlLim[u]) c = clampf(c, kCtrlRange[2 * u], kCtrlRange[2 * u + 1]);
+    s[S_CCL + u] = c;
+    const int kind = kActKind[u];
+    const float gain = kActGain[u];
+    if (kind == kAdhesion) {  // the commanded force, applied by the solver
+      s[S_AF + u] = gain * c;
+      continue;
+    }
+    const int h = kActHinge[u], adr = kActAdr[u];
+    const float qh = h >= 0 ? s[S_Q + kHingeQ[h]] : 0.0f;
+    const float vh = h >= 0 ? s[S_V + kHingeV[h]] : 0.0f;
+    const float a = adr >= 0 ? s[S_ACT + adr] : 0.0f;
+    float force = 0.0f;
+    switch (kind) {
+      case kMotor: force = gain * c; break;
+      case kPosition: force = gain * (c - qh) - kActKv[u] * vh; break;
+      case kVelocity: force = gain * (c - vh); break;
+      case kIntVelocity: force = gain * (a - qh) - kActKv[u] * vh; break;
+      case kDamper: force = -gain * c * vh; break;
+      case kCylinder: force = gain * a; break;
+      case kMuscle: force = muscle_force(u, qh, vh, a); break;
+      default: break;
+    }
+    if (kForceLim[u]) force = clampf(force, kForceRange[2 * u], kForceRange[2 * u + 1]);
+    s[S_AF + u] = force;
+    if (h >= 0) s[S_QFRC + kHingeV[h]] = s[S_QFRC + kHingeV[h]] + force;
+  }
+  prof.mark(kPhForces);
+
+  // ---------------- contact candidates ------------------------------------
+  // Ground rows against the flat plane or their terrain planes; pair rows
+  // capsule against capsule. Every thread of a warp takes the same
+  // candidate, so the branches do not diverge.
+  MS_NOUNROLL
+  for (int c = 0; c < NCAND; ++c) {
+    const int b = kCandBody[c], cr = cand_row(c);
+    const V3 xp = ld3(s, S_XPOS + 3 * b);
+    const Q4 xq = ld4(s, S_XQUAT + 4 * b);
+    const V3 gpos = add(xp, qrot(xq, TV3(kCandGPos, c)));
+    const V3 zax = qrot(qmul(xq, TQ4(kCandGQuat, c)), V3{0.0f, 0.0f, 1.0f});
+    const float rad = kCandRad[c];
+    float dist = 0.0f;
+    V3 cpos{}, fn{};
+    if (c >= NGROUND) {
+#ifdef MS_PAIRS
+      // Closest points of the two capsule axes (the emitter's _cand_geom
+      // pair branch, the branchless Ericson clamp), the normal from geom2
+      // toward geom1, +z where the axes meet. geom2 is the winner's on a
+      // compressed row.
+#ifdef MS_PAIRS_COMPRESSED
+      const int pi = c - NGROUND, m = winner(s, c), b2 = kMemBody2[m];
+      const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
+      const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kMemGPos2, m)));
+      const V3 zax2 = qrot(qmul(xq2, TQ4(kMemGQuat2, m)), V3{0.0f, 0.0f, 1.0f});
+      const float h1 = kPairH1[pi], h2 = kMemH2[m], r2 = kMemR2[m];
+#else
+      const int pi = c - NGROUND, b2 = kPairBody2[pi];
+      const Q4 xq2 = ld4(s, S_XQUAT + 4 * b2);
+      const V3 gpos2 = add(ld3(s, S_XPOS + 3 * b2), qrot(xq2, TV3(kPairGPos2, pi)));
+      const V3 zax2 = qrot(qmul(xq2, TQ4(kPairGQuat2, pi)), V3{0.0f, 0.0f, 1.0f});
+      const float h1 = kPairH1[pi], h2 = kPairH2[pi], r2 = kPairR2[pi];
+#endif
+      const V3 a0 = sub(gpos, scale(zax, h1)), d1 = scale(zax, 2.0f * h1);
+      const V3 b0 = sub(gpos2, scale(zax2, h2)), d2 = scale(zax2, 2.0f * h2);
+      const V3 r = sub(a0, b0);
+      const float aq = dot(d1, d1), eq = dot(d2, d2), fq = dot(d2, r), cq = dot(d1, r),
+                  bq = dot(d1, d2);
+      const float denom = aq * eq - bq * bq;
+      float sp = denom > 1e-12f ? clampf((bq * fq - cq * eq) / fmaxf(denom, 1e-12f), 0.0f, 1.0f)
+                                : 0.0f;
+      float tp = eq > 1e-12f ? (bq * sp + fq) / fmaxf(eq, 1e-12f) : 0.0f;
+      tp = clampf(tp, 0.0f, 1.0f);
+      sp = aq > 1e-12f ? clampf((bq * tp - cq) / fmaxf(aq, 1e-12f), 0.0f, 1.0f) : 0.0f;
+      const V3 c1 = add(a0, scale(d1, sp)), c2 = add(b0, scale(d2, tp));
+      const V3 dv = sub(c1, c2);
+      const float dn = sqrtf(fmaxf(dot(dv, dv), 1e-18f));
+      const bool ok = dn > 1e-9f;
+      fn = V3{ok ? dv.x / dn : 0.0f, ok ? dv.y / dn : 0.0f, ok ? dv.z / dn : 1.0f};
+      dist = dn - rad - r2;
+      cpos = sub(c1, scale(fn, rad + 0.5f * dist));
+#endif
+    } else if (kHasHfield) {
+      // Distance along the plane's normal.
+      const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
+      const int pr = NQ + NV + K * NU + NA + NV + 4 * c;
+      const float h = in[pr];
+      fn = V3{in[pr + 1], in[pr + 2], in[pr + 3]};
+      dist = (ep.z - h) * fn.z - rad;
+      cpos = sub(ep, scale(fn, rad + 0.5f * dist));
+    } else {
+      const V3 ep = add(gpos, scale(zax, kCandEndH[c]));
+      dist = ep.z - kGroundZ - rad;
+      cpos = V3{ep.x, ep.y, ep.z - (rad + 0.5f * dist)};
+    }
+    const bool framed = has_frame(c);
+    V3 f1{}, f2{};
+    if (framed) {
+      // The frame as the emitter's _contact_frames builds it: t1 from the
+      // x axis (the y axis for a steep normal) made orthogonal to n,
+      // t2 = n x t1.
+      const bool use_ey = fabsf(fn.x) > 0.9f;
+      const V3 seed = {use_ey ? 0.0f : 1.0f, use_ey ? 1.0f : 0.0f, 0.0f};
+      f1 = sub(seed, scale(fn, dot(seed, fn)));
+      f1 = scale(f1, 1.0f / fmaxf(sqrtf(dot(f1, f1)), 1e-12f));
+      f2 = cross(fn, f1);
+      st3(s, frame_row(c), fn);
+      st3(s, frame_row(c) + 3, f1);
+      st3(s, frame_row(c) + 6, f2);
+    }
+    const bool active = dist < kCandMargin[c];
+    const float pos_err = fminf(dist - kCandMargin[c], 0.0f);
+    const float x = clampf(fabsf(pos_err) / kSolWidth[c], 0.0f, 1.0f);
+    const float y = x < kSolMid[c] ? kSolA[c] * ms_powf(x, kSolPow[c])
+                                   : 1.0f - kSolB[c] * ms_powf(1.0f - x, kSolPow[c]);
+    const float imp = clampf(kSolDmin[c] + y * kSolDmm[c], 1e-4f, 0.9999f);
+#ifdef MS_PAIRS_COMPRESSED
+    const float invw = c < NGROUND ? kInvW[c] : kMemInvW[winner(s, c)];
+#else
+    const float invw = kInvW[c];
+#endif
+    const float R = (1.0f - imp) / imp * invw;
+    s[cr + C_ACT] = active ? 1.0f : 0.0f;
+    s[cr + C_IMP] = imp;
+    s[cr + C_PERR] = pos_err;
+    s[cr + C_D] = active ? 1.0f / fmaxf(R, 1e-12f) : 0.0f;
+    s[cr + C_ADH] = 0.0f;
+    st3(s, cr + C_CPOS, cpos);
+    // Jacobian direction components jp = sgn (S_v + S_w x rel) along n, t1,
+    // t2: dots with the contact frame, or the z, x, y components on flat
+    // ground; sgn = -1 (an exact negation) on the second body's DoFs.
+    const V3 rel = sub(cpos, ref);
+    const CPath cp = cand_path(s, c);
+    for (int i = 0; i < cp.n; ++i) {
+      const V6 sd = ld6(s, S_SM + 6 * path_dof(cp, i));
+      const V3 jp = add(sd.v, cross(sd.w, rel));
+      const float sg = i < cp.split ? 1.0f : -1.0f;
+      s[comp_row(c, i, 0)] = sg * (framed ? dot(jp, fn) : jp.z);
+      s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
+      s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
+    }
+  }
+  // Adhesion: each actuator's force split over its active candidates.
+  MS_NOUNROLL
+  for (int gi = 0; gi < NADH; ++gi) {
+    const int u = kAdhAct[gi];
+    const float total = kActGain[u] * s[S_CCL + u];
+    float count = 0.0f;
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) count = count + s[cand_row(kAdhCand[j]) + C_ACT];
+    const float per = total / fmaxf(count, 1.0f);
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) {
+      const int cr = cand_row(kAdhCand[j]);
+      s[cr + C_ADH] = s[cr + C_ACT] != 0.0f ? per : 0.0f;
+    }
+  }
+  prof.mark(kPhCandidates);
+
+  // ---------------- first pass: aref, adhesion, jar, gradient, Hessian ----
+  MS_NOUNROLL
+  for (int e = 0; e < NPK; ++e) s[S_H + e] = s[S_MH + e];
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
+  MS_NOUNROLL
+  for (int c = 0; c < NCAND; ++c) {
+    const int cr = cand_row(c);
+    float vel[4], jr[4];
+    row_combos(c, products(s, c, S_V), vel);
+    const float kimp = kKGain[c] * s[cr + C_IMP];
+    for (int r = 0; r < 4; ++r)
+      s[cr + C_AREF + r] = kNegBGain[c] * vel[r] - kimp * s[cr + C_PERR];
+    const float adh = s[cr + C_ADH];
+    const CPath cp = cand_path(s, c);
+    for (int i = 0; i < cp.n; ++i) {
+      const int d = S_QFRC + path_dof(cp, i);
+      s[d] = s[d] - s[comp_row(c, i, 0)] * adh;
+    }
+    row_combos(c, products(s, c, S_A), jr);
+    for (int r = 0; r < 4; ++r) s[cr + C_JAR + r] = jr[r] - s[cr + C_AREF + r];
+    grad_pass(s, c, true);
+  }
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) {
+    const int k2 = S_H + kPkPtr[d + 1] - 1;
+    s[k2] = s[k2] + 1e-9f;
+  }
+  tree_ldl(s);
+  prof.mark(kPhFirstPass);
+
+  // ---------------- Newton: frozen Hessian, or exact (SOLVER_EXACT) -------
+  // The exact Newton re-fills the Hessian from Mh (S_MH, which the factor
+  // leaves intact) at the current active set and re-factors it in S_H.
+  mh_mul(s, S_A, S_MA);
+  prof.mark(kPhMhMul);
+  MS_NOUNROLL
+  for (int it = 0; it < NEWTON_ITERS; ++it) {
+    if (it > 0) {
+      for (int d = 0; d < NV; ++d) s[S_GC + d] = 0.0f;
+      if (kSolverExact) {
+        MS_NOUNROLL
+        for (int e = 0; e < NPK; ++e) s[S_H + e] = s[S_MH + e];
+      }
+      MS_NOUNROLL
+      for (int c = 0; c < NCAND; ++c) grad_pass(s, c, kSolverExact);
+      if (kSolverExact) {
+        MS_NOUNROLL
+        for (int d = 0; d < NV; ++d) {
+          const int k2 = S_H + kPkPtr[d + 1] - 1;
+          s[k2] = s[k2] + 1e-9f;
+        }
+        tree_ldl(s);
+      }
+    }
+    prof.mark(kPhRefill);
+    for (int d = 0; d < NV; ++d) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
+    tree_solve(s, S_DEL);
+    for (int d = 0; d < NV; ++d) s[S_DEL + d] = -s[S_DEL + d];
+    prof.mark(kPhSolve);
+    mh_mul(s, S_DEL, S_MD);
+    prof.mark(kPhMhMul);
+    float dMd = 0.0f, gMd = 0.0f;
+    for (int d = 0; d < NV; ++d) {
+      const float del = s[S_DEL + d], md = s[S_MD + d];
+      dMd = dMd + del * md;
+      gMd = gMd + s[S_A + d] * md - s[S_QFRC + d] * del;
+    }
+    MS_NOUNROLL
+    for (int c = 0; c < NCAND; ++c) {
+      const int cr = cand_row(c);
+      float jd[4];
+      row_combos(c, products(s, c, S_DEL), jd);
+      for (int r = 0; r < 4; ++r) {
+        s[cr + C_JD + r] = jd[r];
+        s[cr + C_DJD + r] = s[cr + C_D] * jd[r];
+      }
+    }
+    prof.mark(kPhJd);
+    // Bisection with a final regula falsi: only the sign of φ' feeds back.
+    float dlo = dphi(s, gMd, dMd, 0.0f, true);
+    const float d0 = dlo;
+    float dhi = dphi(s, gMd, dMd, 0.0f + kAlphaMax, false);
+    float lo = 0.0f, hi = 0.0f + kAlphaMax;
+    MS_NOUNROLL
+    for (int kb = 0; kb < LS_BISECT; ++kb) {
+      const float mid = 0.5f * (lo + hi);
+      const float dm = dphi(s, gMd, dMd, mid, false);
+      const bool neg = dm < 0.0f;
+      lo = neg ? mid : lo;
+      dlo = neg ? dm : dlo;
+      hi = neg ? hi : mid;
+      dhi = neg ? dhi : dm;
+    }
+    const float t = -dlo / fmaxf(dhi - dlo, 1e-12f);
+    float alpha = lo + clampf(t, 0.0f, 1.0f) * (hi - lo);
+    alpha = d0 < 0.0f ? alpha : 0.0f;
+    prof.mark(kPhLineSearch);
+    for (int d = 0; d < NV; ++d) {
+      s[S_A + d] = s[S_A + d] + alpha * s[S_DEL + d];
+      s[S_MA + d] = s[S_MA + d] + alpha * s[S_MD + d];
+    }
+    MS_NOUNROLL
+    for (int c = 0; c < NCAND; ++c) {
+      const int cr = cand_row(c);
+      for (int r = 0; r < 4; ++r)
+        s[cr + C_JAR + r] = s[cr + C_JAR + r] + alpha * s[cr + C_JD + r];
+    }
+    prof.mark(kPhUpdate);
+  }
+
+  // ---------------- outputs of the last step (pre-integration FK) ---------
+  const int o0 = (K - 1) * NQ;  // the state rows follow the K-1 qpos rows
+  const int o_xpos = o0 + NQ + 2 * NV + NA;
+  const int o_xquat = o_xpos + 3 * NBODY;
+  const int o_site = o_xquat + 4 * NBODY;
+  const int o_af = o_site + 3 * NSITE;
+  const int o_sens = o_af + NU;
+  if (last) {
+    for (int r = 0; r < 3 * NBODY; ++r) out[o_xpos + r] = s[S_XPOS + r];
+    for (int r = 0; r < 4 * NBODY; ++r) out[o_xquat + r] = s[S_XQUAT + r];
+    for (int si = 0; si < NSITE; ++si) {
+      const int b = kSiteBody[si];
+      const V3 sp = add(ld3(s, S_XPOS + 3 * b), qrot(ld4(s, S_XQUAT + 4 * b), TV3(kSitePos, si)));
+      out[o_site + 3 * si] = sp.x;
+      out[o_site + 3 * si + 1] = sp.y;
+      out[o_site + 3 * si + 2] = sp.z;
+    }
+    for (int u = 0; u < NU; ++u) out[o_af + u] = s[S_AF + u];
+    // Per-leg 16-value net-force sensors.
+    MS_NOUNROLL
+    for (int sn = 0; sn < NSENSOR; ++sn) {
+      const int r0 = o_sens + 16 * sn;
+      float row[16] = {};
+      const int j0 = kSensPtr[sn], j1 = kSensPtr[sn + 1];
+      if (j1 > j0) {
+        float count = 0.0f, fmag = 0.0f;
+        V3 ff = {0.0f, 0.0f, 0.0f}, posw = ff, posp = ff, tw = ff;
+        for (int j = j0; j < j1; ++j) count = count + s[cand_row(kSensCand[j]) + C_ACT];
+        // Contact-frame force (n, t1, t2) of a candidate from its final
+        // rows, before and after the active mask.
+        auto raw_force = [&](int c) {
+          const int cr = cand_row(c);
+          const float D = s[cr + C_D];
+          float lam[4];
+          for (int r = 0; r < 4; ++r) {
+            const float jr = s[cr + C_JAR + r];
+            lam[r] = fmaxf(-D * (jr < 0.0f ? 1.0f : 0.0f) * jr, 0.0f);
+          }
+          const float fn = 0.0f + lam[0] + lam[1] + lam[2] + lam[3];
+          return V3{fn, kMu[c] * (lam[0] - lam[1]), kMu[c] * (lam[2] - lam[3])};
+        };
+        auto frame_force = [&](int c) { return scale(raw_force(c), s[cand_row(c) + C_ACT]); };
+        // World force: the frame's axes weighted, or (t1, t2, n) = (x, y, z).
+        auto world_force = [&](int c) {
+          if (!has_frame(c)) {
+            const V3 f = frame_force(c);
+            return V3{f.y, f.z, f.x};
+          }
+          const V3 f = raw_force(c);
+          const int fr = frame_row(c);
+          const V3 fw = add(add(scale(ld3(s, fr), f.x), scale(ld3(s, fr + 3), f.y)),
+                            scale(ld3(s, fr + 6), f.z));
+          return scale(fw, s[cand_row(c) + C_ACT]);
+        };
+        for (int j = j0; j < j1; ++j) {
+          const int c = kSensCand[j];
+          const float w = s[cand_row(c) + C_ACT];
+          ff = add(ff, scale(frame_force(c), w));
+        }
+        for (int j = j0; j < j1; ++j) {
+          const int c = kSensCand[j], cr = cand_row(c);
+          const float w = s[cr + C_ACT];
+          const float fm = fabsf(frame_force(c).x) * w;
+          const V3 cp = ld3(s, cr + C_CPOS);
+          fmag = fmag + fm;
+          posw = add(posw, scale(cp, fm));
+          posp = add(posp, scale(cp, w));
+        }
+        const bool by_force = fmag > 1e-12f;
+        const float fden = fmaxf(fmag, 1e-12f), cden = fmaxf(count, 1.0f);
+        const V3 pos = {by_force ? posw.x / fden : posp.x / cden,
+                        by_force ? posw.y / fden : posp.y / cden,
+                        by_force ? posw.z / fden : posp.z / cden};
+        // The sensor frame. Flat ground: normal z, tangent x. Terrain: the
+        // weighted mean normal and the mean t1 made orthogonal to it.
+        V3 nrm = {0.0f, 0.0f, 1.0f}, tan = {1.0f, 0.0f, 0.0f};
+        if (kHasHfield) {
+          V3 nsum = {0.0f, 0.0f, 0.0f}, tsum = nsum;
+          for (int j = j0; j < j1; ++j) {
+            const int c = kSensCand[j];
+            const float w = s[cand_row(c) + C_ACT];
+            nsum = add(nsum, scale(ld3(s, frame_row(c)), w));
+            tsum = add(tsum, scale(ld3(s, frame_row(c) + 3), w));
+          }
+          const float nn = sqrtf(dot(nsum, nsum));
+          const bool nok = nn > 1e-9f;
+          const float nden = fmaxf(nn, 1e-12f);
+          nrm = V3{nok ? nsum.x / nden : 0.0f, nok ? nsum.y / nden : 0.0f,
+                   nok ? nsum.z / nden : 1.0f};
+          tsum = sub(tsum, scale(nrm, dot(tsum, nrm)));
+          const float tn = sqrtf(dot(tsum, tsum));
+          const bool tok = tn > 1e-9f;
+          const float tden = fmaxf(tn, 1e-12f);
+          tan = V3{tok ? tsum.x / tden : 1.0f, tok ? tsum.y / tden : 0.0f,
+                   tok ? tsum.z / tden : 0.0f};
+        }
+        for (int j = j0; j < j1; ++j) {
+          const int c = kSensCand[j], cr = cand_row(c);
+          const float w = s[cr + C_ACT];
+          const V3 tq = cross(sub(ld3(s, cr + C_CPOS), pos), world_force(c));
+          tw = add(tw, scale(tq, w));
+        }
+        const V3 t2 = cross(nrm, tan);
+        const float vals[16] = {count > 0.0f ? 1.0f : 0.0f, ff.x, ff.y, ff.z,
+                                dot(tw, nrm), dot(tw, tan), dot(tw, t2),
+                                pos.x, pos.y, pos.z, nrm.x, nrm.y, nrm.z, tan.x, tan.y, tan.z};
+        for (int r = 0; r < 16; ++r) row[r] = vals[r];
+      }
+      for (int r = 0; r < 16; ++r) out[r0 + r] = row[r];
+    }
+  }
+
+  prof.mark(kPhOutputs);
+
+  // ---------------- semi-implicit Euler -----------------------------------
+  MS_NOUNROLL
+  for (int d = 0; d < NV; ++d) s[S_V + d] = s[S_V + d] + kDt * s[S_A + d];
+  MS_NOUNROLL
+  for (int h = 0; h < NHINGE; ++h) {
+    const int qa = S_Q + kHingeQ[h];
+    s[qa] = s[qa] + kDt * s[S_V + kHingeV[h]];
+  }
+  MS_NOUNROLL
+  for (int b = 0; b < NBODY; ++b) {
+    if (kFreeV[b] < 0) continue;
+    const int qa = S_Q + kFreeQ[b], va = S_V + kFreeV[b];
+    for (int i = 0; i < 3; ++i) s[qa + i] = s[qa + i] + kDt * s[va + i];
+    const V3 om = ld3(s, va + 3);
+    const float ang = sqrtf(dot(om, om) + 1e-24f) * kDt;
+    const float sc = ang > 1e-12f ? ms_sinf(0.5f * ang) / fmaxf(ang / kDt, 1e-12f) : kHalfDt;
+    const Q4 dq = {ms_cosf(0.5f * ang), om.x * sc, om.y * sc, om.z * sc};
+    const Q4 nq = qmul(dq, ld4(s, qa + 3));
+    const float norm = sqrtf(nq.w * nq.w + nq.x * nq.x + nq.y * nq.y + nq.z * nq.z);
+    st4(s, qa + 3, Q4{nq.w / norm, nq.x / norm, nq.y / norm, nq.z / norm});
+  }
+
+  // ---------------- activation dynamics -----------------------------------
+  // From the clamped controls and the activations at the start of the step
+  // (each slot belongs to one actuator, so the update is in place).
+  MS_NOUNROLL
+  for (int u = 0; u < NU; ++u) {
+    const int adr = kActAdr[u];
+    if (adr < 0) continue;
+    const int kind = kActKind[u];
+    const float c = s[S_CCL + u], a = s[S_ACT + adr];
+    if (kind == kIntVelocity) {
+      s[S_ACT + adr] = a + kDt * c;
+    } else if (kind == kCylinder) {
+      s[S_ACT + adr] = a + kDt * (c - a) / kActTau0[u];
+    } else if (kind == kMuscle) {
+      const float cm = clampf(c, 0.0f, 1.0f), sc = 0.5f + 1.5f * a;
+      const float tau = cm > a ? kActTau0[u] * sc : kActTau1[u] / sc;
+      s[S_ACT + adr] = clampf(a + kDt * (cm - a) / fmaxf(tau, 1e-9f), 0.0f, 1.0f);
+    }
+  }
+
+  if (!last) {
+    for (int i = 0; i < NQ; ++i) out[k * NQ + i] = s[S_Q + i];
+    prof.mark(kPhEuler);
+    return;
+  }
+  for (int i = 0; i < NQ; ++i) out[o0 + i] = s[S_Q + i];
+  for (int i = 0; i < NV; ++i) out[o0 + NQ + i] = s[S_V + i];
+  for (int i = 0; i < NA; ++i) out[o0 + NQ + NV + i] = s[S_ACT + i];
+  for (int i = 0; i < NV; ++i) out[o0 + NQ + NV + NA + i] = s[S_A + i];
+  prof.mark(kPhEuler);
+}
+
+// K steps of world w: in (n_in, B), out (n_out, B), scratch (N_SCRATCH, B).
+MS_FN void run_world(const float* in, float* out, float* scratch, int w, int B, int K,
+                     Prof& prof) {
+  const size_t sB = static_cast<size_t>(B);
+  const Rows I{const_cast<float*>(in) + w, sB}, O{out + w, sB}, S{scratch + w, sB};
+  for (int i = 0; i < NQ; ++i) S[S_Q + i] = I[i];
+  for (int i = 0; i < NV; ++i) S[S_V + i] = I[NQ + i];
+  for (int i = 0; i < NA; ++i) S[S_ACT + i] = I[NQ + NV + K * NU + i];
+  for (int i = 0; i < NV; ++i) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
+#ifdef MS_PAIRS_COMPRESSED
+  for (int g = 0; g < NPAIR; ++g) {
+    const int w_g = static_cast<int>(I[NQ + NV + K * NU + NA + NV + g]);
+    S[S_WIN + g] = static_cast<float>(kGroupBase[g] + w_g);
+  }
+#endif
+  MS_NOUNROLL
+  for (int k = 0; k < K; ++k) step_world(I, O, S, k, K, prof);
+}
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(kThreads)
+megastep_kernel(const float* __restrict__ in, float* __restrict__ out,
+                float* __restrict__ scratch, long long* __restrict__ prof, int B, int K) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= B) return;
+  Prof p;
+  run_world(in, out, scratch, w, B, K, p);
+#ifdef MS_PROFILE
+  for (int i = 0; i < kNumPhases; ++i) prof[static_cast<size_t>(i) * B + w] = p.acc[i];
+#else
+  (void)prof;
+#endif
+}
+
+int launch(const void* in, void* out, void* scratch, void* prof, int B, int K, void* stream) {
+  if (B <= 0 || K < 1) return cudaErrorInvalidValue;
+  megastep_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out),
+      static_cast<float*>(scratch), static_cast<long long*>(prof), B, K);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+}  // namespace
+
+#ifdef __CUDACC__
+extern "C" int megastep_f32(const void* in, void* out, void* scratch, int B, int K,
+                            void* stream) {
+  return launch(in, out, scratch, nullptr, B, K, stream);
+}
+
+#ifdef MS_PROFILE
+extern "C" int megastep_profile_f32(const void* in, void* out, void* scratch, void* prof, int B,
+                                    int K, void* stream) {
+  return launch(in, out, scratch, prof, B, K, stream);
+}
+#endif
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#else
+extern "C" int megastep_host_f32(const float* in, float* out, float* scratch, int B, int K) {
+  if (B <= 0 || K < 1) return 1;
+  for (int w = 0; w < B; ++w) {
+    Prof p;
+    run_world(in, out, scratch, w, B, K, p);
+  }
+  return 0;
+}
+#endif

@@ -206,11 +206,13 @@ def test_plain_emitter_matches_jax_emit_step(jax_first, plain_first, name, field
     np.testing.assert_array_equal(got, jax_first[name][field])
 
 
+@pytest.mark.parametrize("order", [0, 1], ids=["in_order", "reversed"])
 @pytest.mark.parametrize("name", list(WORLDS))
-def test_host_build_of_the_kernel_matches_plain(compiled, goldens, name):
+def test_host_build_of_the_kernel_matches_plain(compiled, goldens, name, order):
     """K2's source compiled as host C++ (g++) against the plain version, bit
     for bit, at K = 1 and at K = 3 (the activations carried through the
-    launch's steps)."""
+    launch's steps), with the block's parallel loops run in order and
+    reversed."""
     model = compiled[name].model
     static = ms._Static(model)
     header, n_scratch = ms.model_header(model)
@@ -225,7 +227,7 @@ def test_host_build_of_the_kernel_matches_plain(compiled, goldens, name):
         assert packed.shape == (n_in, B)
         out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
         assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                                     B, K) == 0
+                                     B, K, order) == 0
         got, traj = ms._unpack(static, out, state, seq[K - 1], K)
         if K == 1:
             want, wtraj = ms.megastep_plain(static, state), None

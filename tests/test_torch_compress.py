@@ -120,7 +120,7 @@ def test_presets_load_compressed(compiled):
         assert ms.megastep_supported(m)
     header, n_scratch = ms.model_header(full)
     assert "#define MS_PAIRS_COMPRESSED 1" in header and "constexpr int NPAIR = 55;" in header
-    assert "constexpr int N_AUX = 55;" in header and n_scratch == 46867
+    assert "constexpr int N_AUX = 55;" in header and n_scratch == 44527
     st = ms._Static(full)
     assert (st.ncand, st.ncand_pair) == (275, 55)
 
@@ -265,10 +265,12 @@ def test_plain_emitter_equals_the_stored_jax_emitter(goldens, golden_first, name
         np.testing.assert_array_equal(got, want[key][0][:B], err_msg=key)
 
 
+@pytest.mark.parametrize("order", [0, 1], ids=["in_order", "reversed"])
 @pytest.mark.parametrize("name", list(PRESETS))
-def test_host_build_with_compressed_rows_equals_plain(compiled, golden_first, name):
+def test_host_build_with_compressed_rows_equals_plain(compiled, golden_first, name, order):
     """K2's source with the compressed header, compiled as host C++ (g++),
-    against the plain version, to the last bit."""
+    against the plain version, to the last bit, with the block's parallel
+    loops run in order and reversed."""
     model = compiled[name].model
     state, widx, plain = golden_first[name]
     st = ms._Static(model)
@@ -280,7 +282,8 @@ def test_host_build_with_compressed_rows_equals_plain(compiled, golden_first, na
                         widx.t()]).contiguous()
     assert packed.shape == (n_in, B)
     out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
-    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1,
+                                 order) == 0
     got, _traj = ms._unpack(st, out, s, s.ctrl, 1)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(plain, f)), f

@@ -164,9 +164,11 @@ def test_committed_golden_equals_a_fresh_jax_emitter(jax_steps, step):
         np.testing.assert_allclose(data[key][step, :B], want, rtol=1e-6, atol=1e-6, err_msg=key)
 
 
-def test_host_build_of_the_kernel_matches_plain(compiled, static, first_state, plain_first):
+@pytest.mark.parametrize("order", [0, 1], ids=["in_order", "reversed"])
+def test_host_build_of_the_kernel_matches_plain(compiled, static, first_state, plain_first, order):
     """K2's source compiled as host C++ (g++) against the plain version: the
-    kernel's arithmetic on the CPU (measured bit-identical; bars as for JAX)."""
+    kernel's arithmetic on the CPU (measured bit-identical; bars as for JAX),
+    with the block's parallel loops run in order and reversed."""
     header, n_scratch = ms.model_header(compiled.model)
     lib = _build.build_megastep_host(header)
     n_in, n_out = ms._io_rows(static, 1)
@@ -175,7 +177,8 @@ def test_host_build_of_the_kernel_matches_plain(compiled, static, first_state, p
     assert packed.shape == (n_in, B)
     out = torch.zeros((n_out, B))
     scratch = torch.zeros((n_scratch, B))
-    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1,
+                                 order) == 0
     got, _traj = ms._unpack(static, out, s, s.ctrl, 1)
     for name in ("qpos", "xpos", "xquat"):
         assert (getattr(got, name) - getattr(plain_first, name)).abs().max() <= ATOL_FK, name
@@ -318,7 +321,8 @@ def test_megastep_takes_solver_exact():
     packed = torch.cat([s.qpos.t(), s.qvel.t(), s.ctrl.t(), s.act.t(), s.qacc.t()]).contiguous()
     assert packed.shape == (n_in, B)
     out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
-    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1,
+                                 1) == 0
     got, _traj = ms._unpack(static, out, s, s.ctrl, 1)
     for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force",
                  "contact_sensordata"):
@@ -379,3 +383,4 @@ def test_kernel_matches_plain(cuda_model, golden, n_worlds, k_steps):
     assert (gap("qacc") <= 0.2 + 6e-3 * want.qacc.abs()).all()
     assert gap("actuator_force").max() <= 1e-4
     assert (got.contact_sensordata - want.contact_sensordata)[..., :4].abs().max() <= 2e-3
+

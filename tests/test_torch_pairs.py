@@ -116,7 +116,7 @@ def test_twofly_model_loads_with_uncompressed_pair_rows(compiled, static):
     header, n_scratch = ms.model_header(m)
     assert "#define MS_PAIRS 1" in header and "MS_HFIELD" not in header
     assert "constexpr int NGROUND = 220;" in header and "constexpr int NPAIR = 49;" in header
-    assert n_scratch == 32283
+    assert n_scratch == 30003
     assert static.cand_split[ng:] == [6] * 49
 
 
@@ -235,9 +235,11 @@ def test_plain_emitter_with_pair_rows_equals_jax_emit_step(jax_first, plain_firs
     np.testing.assert_array_equal(got, want)
 
 
-def test_host_build_with_pair_rows_equals_plain(compiled, static, settled, plain_first):
+@pytest.mark.parametrize("order", [0, 1], ids=["in_order", "reversed"])
+def test_host_build_with_pair_rows_equals_plain(compiled, static, settled, plain_first, order):
     """K2's source with the two-fly header, compiled as host C++ (g++),
-    against the plain version, to the last bit."""
+    against the plain version, to the last bit, with the block's parallel
+    loops run in order and reversed."""
     header, n_scratch = ms.model_header(compiled.model)
     lib = _build.build_megastep_host(header)
     n_in, n_out = ms._io_rows(static, 1)
@@ -245,7 +247,8 @@ def test_host_build_with_pair_rows_equals_plain(compiled, static, settled, plain
     packed = torch.cat([s.qpos.t(), s.qvel.t(), s.ctrl.t(), s.act.t(), s.qacc.t()]).contiguous()
     assert packed.shape == (n_in, B)
     out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
-    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1,
+                                 order) == 0
     got, _traj = ms._unpack(static, out, s, s.ctrl, 1)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(plain_first, f)), f

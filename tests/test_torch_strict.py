@@ -129,9 +129,11 @@ def test_plain_emitter_matches_jax_emit_step(jax_first, plain_first, field):
     np.testing.assert_array_equal(getattr(plain_first, field).numpy(), jax_first[field])
 
 
-def test_host_build_of_the_kernel_matches_plain(compiled, first_state, plain_first):
+@pytest.mark.parametrize("order", [0, 1], ids=["in_order", "reversed"])
+def test_host_build_of_the_kernel_matches_plain(compiled, first_state, plain_first, order):
     """K2's source compiled as host C++ (g++), the exact Newton's branch
-    (``SOLVER_EXACT``) included, against the plain version, bit for bit."""
+    (``SOLVER_EXACT``) included, against the plain version, bit for bit,
+    with the block's parallel loops run in order and reversed."""
     static = ms._Static(compiled.model)
     header, n_scratch = ms.model_header(compiled.model)
     lib = _build.build_megastep_host(header)
@@ -140,7 +142,8 @@ def test_host_build_of_the_kernel_matches_plain(compiled, first_state, plain_fir
     packed = torch.cat([s.qpos.t(), s.qvel.t(), s.ctrl.t(), s.act.t(), s.qacc.t()]).contiguous()
     assert packed.shape == (n_in, B)
     out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
-    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1,
+                                 order) == 0
     got, _traj = ms._unpack(static, out, s, s.ctrl, 1)
     for field in STATE_FIELDS:
         assert torch.equal(getattr(got, field), getattr(plain_first, field)), field

@@ -382,9 +382,12 @@ def test_k_steps_plain_with_fixed_planes_equals_chained_steps(static, settled, p
             assert torch.equal(getattr(fused, f.name), getattr(state, f.name)), f.name
 
 
-def test_host_build_with_terrain_matches_plain(compiled, static, settled, planes, plain_first):
+@pytest.mark.parametrize("order", [0, 1], ids=["in_order", "reversed"])
+def test_host_build_with_terrain_matches_plain(compiled, static, settled, planes, plain_first,
+                                                order):
     """K2's source with the terrain header, compiled as host C++ (g++),
-    against the plain version (measured bit-identical)."""
+    against the plain version (measured bit-identical), with the block's
+    parallel loops run in order and reversed."""
     header, n_scratch = ms.model_header(compiled.model)
     assert "#define MS_HFIELD 1" in header
     lib = _build.build_megastep_host(header)
@@ -394,7 +397,8 @@ def test_host_build_with_terrain_matches_plain(compiled, static, settled, planes
                         planes.reshape(B, -1).t()]).contiguous()
     assert packed.shape == (n_in, B)
     out, scratch = torch.zeros((n_out, B)), torch.zeros((n_scratch, B))
-    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1) == 0
+    assert lib.megastep_host_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, 1,
+                                 order) == 0
     got, _traj = ms._unpack(static, out, s, s.ctrl, 1)
     for f in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata"):
         want = getattr(plain_first, f)
