@@ -9,7 +9,10 @@ Phases (each failure ends the run with a non-zero exit code):
 
 0. The card (``nvidia-smi`` name and power limit) and the torch/CUDA versions.
 1. Build the kernels from ``flygym_tpu_torch/csrc`` with nvcc, all at
-   once: the library of K1, K1b and the retina kernel K3, and the mega-step
+   once: the library of K1, K1b and the retina kernel K3, K3 at the other
+   warps per block of ``K3_SWEEP_WARPS``, K3's profile build (its cull's
+   keep mask), K3 as it stood before its redesign
+   (``scripts/k3_before_redesign``), and the mega-step
    kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly,
    example 11's two flies, the default two-fly contact preset, the 3-fly
    pile, the strict, muscle-driven and mixed-kind flies (one generated
@@ -51,16 +54,27 @@ Phases (each failure ends the run with a non-zero exit code):
    against the JAX mega-step emitter's, to ``GOLDEN_TOLERANCE``
    (``flygym_tpu_torch/demo/benchmark.py``).
 7. Hold the retina kernel K3 against its plain version
-   (``ops/retina.py:retina_plain``) at 4096 and 1000 worlds of config 5's
-   fly (the env golden's settled worlds with seeded pose noise), in both
-   shading branches: at least 99.9% of outputs within 1e-5, all finite and
-   in [0, 1]; time K3, the plain version and the acceptance blur at 4096
-   worlds; K3's bound from its operations counted on the CPU.
+   (``ops/retina.py:retina_plain``) and against its build before the
+   redesign, in both shading branches, at 4096 and 1000 worlds of config
+   5's fly (the env golden's settled worlds with seeded pose noise) and at
+   4096 adversarial worlds (every body moved by 0.3 mm of seeded noise):
+   at least 99.9% of outputs within 1e-5 of the plain version, every output
+   equal to the before build's to the last bit, all finite and in [0, 1].
+   At 4096 worlds: each block shape's launch (threads, shared bytes, blocks
+   per SM); the before build and K3 at each block shape timed in turns; the
+   plain version and the acceptance blur; K3 alone at 1, 1024 and 16384
+   worlds; the share of (tile, geom) pairs the cull keeps, from the profile
+   build's keep mask on the card (which must hold every contributing pair
+   of the worlds counted on the CPU) and from the host build (g++) on the
+   CPU, beside the share that contributes; K3's bounds from the plain version's
+   operations counted on the CPU: every (ray, geom) pair, and what these
+   inputs need (each ray's own work and the contributing pairs).
 8. The env path, config 5 (vision and odor RL env step) at 4096 worlds:
    ``VectorFlyEnv.make_batched_step`` with its defaults, 10 warm-up and 100
    timed env steps; launches K2 110 (K = 10 each), K3 110, K1/K1b 0; every
    observation finite, vision in [0, 1]; env-steps/s and world-steps/s; the
-   split of one env step by CUDA events; then 5 auto-reset steps from a
+   split of one env step by CUDA events (K2, ``pack_rows``, K3, the blur,
+   the rest); then 5 auto-reset steps from a
    batch with upside-down (done) worlds, which must come back as fresh
    reset states.
 9. The env goldens: 8 worlds from the JAX settled env state, 5 env steps,
@@ -163,6 +177,8 @@ line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -239,6 +255,21 @@ SWEEP_THREADS = (32, 64, 128)
 # K2 as it stood before its redesign, with its flat benchmark fly's header,
 # profiled beside the shipped build (phase 3).
 BEFORE_REDESIGN = Path(__file__).resolve().parent / "scripts" / "k2_before_redesign"
+# K3 as it stood before its redesign (one thread per ray in lattice order,
+# every geom swept): the redesign equals it to the last bit and is timed
+# against it (phase 7).
+K3_BEFORE = Path(__file__).resolve().parent / "scripts" / "k3_before_redesign" / "retina.cu"
+# K3 alone is also timed at these widths (phase 7); 1 is one fly.
+K3_SWEEP_WORLDS = (1, 1024, 16384)
+# K3 is built with these warps per block besides the shipped build's, and
+# all are timed in turns (phases 1 and 7).
+K3_SWEEP_WARPS = (2, 8, 24)
+# The adversarial poses of phase 7: the posed worlds with every body moved
+# by this much seeded noise (mm), so that geoms cross eyes and each other.
+BODY_NOISE_MM = 0.3
+# Worlds of the posed batch whose operations and contributing pairs are
+# counted on the CPU for K3's bounds (phase 7).
+K3_COUNT_WORLDS = 64
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -314,8 +345,13 @@ def phase_build(worlds: dict, flat_model) -> None:
         path = fn(*args)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=1 + len(headers) + len(extra)) as pool:
-        jobs = {"K1, K1b, K3": pool.submit(timed, _build.build)}
+    with ThreadPoolExecutor(max_workers=3 + len(headers) + len(extra)) as pool:
+        jobs = {"K1, K1b, K3": pool.submit(timed, _build.build),
+                "K3, profile": pool.submit(timed, _build.build_retina, None, True),
+                "K3 before the redesign": pool.submit(timed, _build.build_retina, K3_BEFORE)}
+        for warps in K3_SWEEP_WARPS:
+            jobs[f"K3, {warps} warps"] = pool.submit(timed, _build.build_retina, None, False,
+                                                     warps)
         for name, header in headers.items():
             jobs[f"K2, {name}"] = pool.submit(timed, _build.build_megastep, header)
         for name, (header, profile, source) in extra.items():
@@ -327,12 +363,17 @@ def phase_build(worlds: dict, flat_model) -> None:
         _build.load_megastep(header)
     for name, (path, seconds) in done.items():
         print(f"[build] {path.parent.name}/{path.name} ({name}) in {seconds:.2f} s")
-    reports = {"library": _build.ptxas_report(), **{
-        f"K2 {name}": _build.ptxas_report(h) for name, h in headers.items()}}
+    reports = {"library": _build.ptxas_report(),
+               **{name: _build.ptxas_report(library=done[name][0])
+                  for name in ("K3 before the redesign", *(f"K3, {w} warps" for w in K3_SWEEP_WARPS))},
+               **{f"K2 {name}": _build.ptxas_report(h) for name, h in headers.items()}}
+    # K3's instantiations by shading branch.
+    k3_name = re.compile(r"_Z\w*retina_kernelILb([01])E\w*")
+    readable = lambda m: f"retina_kernel<{'cone' if m.group(1) == '1' else 'hard'}>"
     for name, report in reports.items():
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
-                print(f"[build] {name} ptxas: {line.strip()}")
+                print(f"[build] {name} ptxas: {k3_name.sub(readable, line.strip())}")
     for name, c in worlds.items():
         layout = megastep.scratch_layout(c.model)
         shape = megastep.kernel_shape(c.model)
@@ -757,11 +798,14 @@ def posed_states(env_compiled, model, n_worlds: int, seed: int):
     return replace(state, qpos=qpos, xpos=xpos, xquat=xquat)
 
 
-def retina_ops(env_compiled, retina) -> tuple:
-    """Elementwise operations of K3's plain version at one world, each
-    weighted by its output's element count (arithmetic, comparisons and
-    selects; views, copies and constants not counted), on the CPU; and how
-    many of them are selects (``where``)."""
+def retina_ops(tables, packed) -> tuple:
+    """Elementwise operations of K3's plain version on CPU rows ``packed``,
+    each weighted by its output's element count (arithmetic, comparisons and
+    selects; views, copies and constants not counted); how many of them are
+    selects (``where``); and the operations of the rays' own work (the same
+    rows with no geoms: the rotation, the ground, the shading)."""
+    import copy
+
     import torch
     from torch.overrides import TorchFunctionMode
 
@@ -783,18 +827,75 @@ def retina_ops(env_compiled, retina) -> tuple:
                 Count.selects += out.numel() if name == "where" else 0
             return out
 
-    model = env_compiled.model
-    tables = rk.RetinaTables(model, retina)
-    state = env_compiled.initial_state
-    packed = rk.pack_rows(tables, state.xpos, state.xquat)
     with Count():
         rk.retina_plain(tables, packed)
-    return Count.n, Count.selects
+    ops, selects = Count.n, Count.selects
+    bare = copy.copy(tables)
+    bare.G, bare.radius, bare.rgb = 0, tables.radius[:0], tables.rgb[:0]
+    Count.n = 0
+    with Count():
+        rk.retina_plain(bare, packed[:, :14].contiguous())
+    return ops, selects, Count.n
+
+
+def posed_rows(env_compiled, model, tables, n_worlds: int, seed: int, body_noise: float = 0.0):
+    """K3's rows of ``posed_states``; with ``body_noise``, every body moved
+    by that much seeded noise (mm), the eyes and the geoms apart."""
+    import torch
+
+    from flygym_tpu_torch.ops import retina as rk
+
+    state = posed_states(env_compiled, model, n_worlds, seed)
+    xpos = state.xpos
+    if body_noise:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        xpos = xpos + body_noise * torch.randn(xpos.shape, generator=gen, device="cuda")
+    return rk.pack_rows(tables, xpos, state.xquat)
+
+
+def launch_before(tables, packed):
+    """One launch of K3 as it stood before its redesign (K3_BEFORE)."""
+    import torch
+
+    from flygym_tpu_torch.ops import _build
+
+    lib = _build.load_retina(K3_BEFORE)
+    B = packed.shape[0]
+    out = torch.empty((B, 2, tables.R, 2), dtype=torch.float32, device=packed.device)
+    err = lib.retina_before_f32(
+        packed.data_ptr(), tables.dirs.data_ptr(), tables.weights.data_ptr(),
+        tables.radius.data_ptr(), tables.rgb.data_ptr(), out.data_ptr(), B, tables.R, tables.G,
+        tables.ground_z, tables.tanh_cone, int(tables.use_cone),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"K3 before the redesign: launch error {err}")
+    return out
+
+
+def host_keep_mask(tables, packed):
+    """K3's host build (g++) on CPU rows: its cull's keep mask (B, 2, T, G)
+    bool, the cull counted on the CPU."""
+    import torch
+
+    from flygym_tpu_torch.ops import _build
+
+    lib = _build.build_retina_host()
+    B = packed.shape[0]
+    out = torch.empty((B, 2, tables.R, 2))
+    keep = torch.zeros((B, 2, tables.T, tables.G), dtype=torch.uint8)
+    err = lib.retina_tiles_host_f32(
+        packed.data_ptr(), tables.ray_index.data_ptr(), tables.tile_dirs.data_ptr(),
+        tables.tile_weights.data_ptr(), tables.tile_axis.data_ptr(), tables.radius.data_ptr(),
+        tables.rgb.data_ptr(), out.data_ptr(), keep.data_ptr(), B, tables.R, tables.T, tables.G,
+        tables.ground_z, tables.tanh_cone, int(tables.use_cone))
+    check(err == 0, "K3's host build failed")
+    return keep.bool()
 
 
 def phase_retina(env_compiled, model) -> dict:
-    """K3 against its plain version in both branches; times, the blur's
-    time and the bound at N_WORLDS (default, cone branch)."""
+    """K3 against its plain version and against its build before the
+    redesign in both branches; the block shapes and the before build timed
+    in turns, K3 at other widths, the cull's kept share, both bounds, the
+    blur's time (N_WORLDS, default cone branch)."""
     import torch
 
     from flygym_tpu_torch.ops import retina as rk
@@ -804,54 +905,118 @@ def phase_retina(env_compiled, model) -> dict:
     for branch, fwhm in RETINA_BRANCHES.items():
         retina = Retina.for_compiled(env_compiled, acceptance_fwhm_deg=fwhm)
         kern = rk.make_retina_kernel(model, retina)
-        check(kern.tables.use_cone == (branch == "cone"), f"{branch}: wrong shading branch")
-        for n in CHECK_WORLDS:
-            state = posed_states(env_compiled, model, n, seed=n)
-            packed = rk.pack_rows(kern.tables, state.xpos, state.xquat)
-            got, want = rk.launch_retina(kern.tables, packed), rk.retina_plain(kern.tables, packed)
+        tables = kern.tables
+        check(tables.use_cone == (branch == "cone"), f"{branch}: wrong shading branch")
+        cases = [(f"B={n}", posed_rows(env_compiled, model, tables, n, seed=n))
+                 for n in CHECK_WORLDS]
+        cases.append((f"B={N_WORLDS} adversarial", posed_rows(
+            env_compiled, model, tables, N_WORLDS, seed=7, body_noise=BODY_NOISE_MM)))
+        for label, packed in cases:
+            got, want = rk.launch_retina(tables, packed), rk.retina_plain(tables, packed)
+            before = launch_before(tables, packed)
             torch.cuda.synchronize()
             gap = (got - want).abs()
             share = (gap <= RETINA_ATOL).float().mean().item()
             flips = int((gap > RETINA_ATOL).sum().item())
-            print(f"[retina] {branch} B={n}: share within {RETINA_ATOL} {share:.6f}, "
+            same = torch.equal(got, before)
+            print(f"[retina] {branch} {label}: share within {RETINA_ATOL} {share:.6f}, "
                   f"max gap {gap.max().item():.3e}, flips {flips} of {gap.numel()}, "
-                  f"exact {(gap == 0).float().mean().item():.6f}")
-            check(bool(torch.isfinite(got).all()), f"K3 {branch} not finite at B={n}")
+                  f"exact {(gap == 0).float().mean().item():.6f}; equal to the build before "
+                  f"the redesign: {same} (max gap {(got - before).abs().max().item():.3e})")
+            check(bool(torch.isfinite(got).all()), f"K3 {branch} not finite at {label}")
             check(got.min().item() >= 0.0 and got.max().item() <= 1.0,
-                  f"K3 {branch} outside [0, 1] at B={n}")
-            check(share >= RETINA_SHARE, f"K3 {branch} at B={n}: share {share} < {RETINA_SHARE}")
+                  f"K3 {branch} outside [0, 1] at {label}")
+            check(share >= RETINA_SHARE, f"K3 {branch} at {label}: share {share} < {RETINA_SHARE}")
+            check(same, f"K3 {branch} at {label} differs from K3 before the redesign")
             worst = max(worst, gap.max().item())
 
     retina = Retina.for_compiled(env_compiled)
     render = retina.make_render_batched(model)
     tables = render.kernel.tables
-    state = posed_states(env_compiled, model, N_WORLDS, seed=1)
-    packed = rk.pack_rows(tables, state.xpos, state.xquat)
+    packed = posed_rows(env_compiled, model, tables, N_WORLDS, seed=1)
     points = rk.launch_retina(tables, packed)
-    k1 = time_ms(lambda: rk.launch_retina(tables, packed), TIMED_LAUNCHES)
+    shipped = rk.kernel_shape(tables)["threads"] // rk.TILE
+    for warps in (shipped, *K3_SWEEP_WARPS):
+        shape = rk.kernel_shape(tables, None if warps == shipped else warps)
+        print(f"[retina] K3 with {warps} warps per block: {shape['threads']} threads, "
+              f"{shape['shared_bytes']} shared bytes per block, {shape['blocks_per_sm']} blocks "
+              f"per SM, {-(-tables.T // warps)} blocks per eye ({tables.T} tiles)")
+    for warps in K3_SWEEP_WARPS:
+        check(torch.equal(rk.launch_build(tables, packed, warps), points),
+              f"K3 with {warps} warps per block differs from the shipped build")
+    # In turns: the before build, each block shape, then back.
+    runs = {"before the redesign": lambda: launch_before(tables, packed),
+            f"{shipped} warps": lambda: rk.launch_retina(tables, packed)}
+    for warps in K3_SWEEP_WARPS:
+        runs[f"{warps} warps"] = lambda w=warps: rk.launch_build(tables, packed, w)
+    turns = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        turns[name].append(time_ms(runs[name], TIMED_LAUNCHES))
+    mean = {name: sum(t) / len(t) for name, t in turns.items()}
+    for name, t in turns.items():
+        print(f"[retina] K3 {name} at B={N_WORLDS}: {mean[name]:.4f} ms "
+              f"(turns {' / '.join(f'{x:.4f}' for x in t)})")
+    k3, before = mean[f"{shipped} warps"], mean["before the redesign"]
+    print(f"[retina] shipped K3 ({shipped} warps) {k3:.4f} ms against {before:.4f} ms before the "
+          f"redesign: {before / k3:.2f}x, on {card_line()}")
     p = time_ms(lambda: rk.retina_plain(tables, packed), 1)
-    k2 = time_ms(lambda: rk.launch_retina(tables, packed), TIMED_LAUNCHES, warm_up=False)
     blur = time_ms(lambda: render.blur(points), TIMED_LAUNCHES)
-    times = (0.5 * (k1 + k2), p)
-    print(f"[retina] K3 at B={N_WORLDS}: kernel {times[0]:.4f} ms (runs {k1:.4f}/{k2:.4f}), "
-          f"plain {p:.1f} ms, acceptance blur (torch.einsum) {blur:.4f} ms")
+    print(f"[retina] K3 at B={N_WORLDS}: plain {p:.1f} ms, acceptance blur (torch.einsum) "
+          f"{blur:.4f} ms")
+    for n in K3_SWEEP_WORLDS:
+        rows = posed_rows(env_compiled, model, tables, n, seed=n + 1)
+        t = time_ms(lambda rows=rows: rk.launch_retina(tables, rows), TIMED_LAUNCHES)
+        print(f"[retina] K3 at B={n}: {t:.4f} ms ({n * 2 * tables.R / t * 1e3:.3e} rays/s)")
 
-    ops, selects = retina_ops(env_compiled, retina)
-    total_ops = ops * N_WORLDS
+    # The cull's kept share: the profile build's keep mask on the card, the
+    # host build's on the CPU; the contributing pairs from the plain
+    # arithmetic, each of which the card's mask must hold.
+    profiled, keep = rk.keep_mask(tables, packed)
+    torch.cuda.synchronize()
+    check(torch.equal(profiled, points), "K3's profile build differs from the shipped build")
+    kept, n_pairs = int(keep.sum().item()), keep.numel()
+    cpu_tables = rk.RetinaTables(env_compiled.model, retina)
+    rows = packed[:K3_COUNT_WORLDS].cpu()
+    host = host_keep_mask(cpu_tables, packed.cpu()) if shutil.which("g++") else None
+    contrib = rk.contributing_pairs(cpu_tables, rows)  # (b, 2, R, G)
+    slots = cpu_tables.ray_index.long().reshape(2, tables.T, rk.TILE)
+    tiles = torch.stack([(contrib[:, e][:, slots[e].clamp(min=0)]
+                          & (slots[e] >= 0)[None, :, :, None]).any(dim=2) for e in range(2)], 1)
+    missed = int((tiles & ~keep[:K3_COUNT_WORLDS].cpu()).sum())
+    check(missed == 0, f"K3's cull on the card dropped {missed} contributing (tile, geom) pairs")
+    pair_share = contrib.float().mean().item()
+    host_note = "not measured (no g++)" if host is None else (
+        f"{host.float().mean().item():.4f}, {int((host != keep.cpu()).sum())} flags apart from "
+        f"the card's")
+    print(f"[retina] cull at B={N_WORLDS}: kept {kept} of {n_pairs} (tile, geom) pairs, share "
+          f"{kept / n_pairs:.4f} on the card; the host build keeps {host_note} on the CPU; of "
+          f"the first {K3_COUNT_WORLDS} worlds' pairs {tiles.float().mean().item():.4f} (tile, "
+          f"geom) and {pair_share:.4f} (ray, geom) contribute (CPU), none of them culled on the card")
+
+    # Bounds: every (ray, geom) pair as the plain version sweeps them, and
+    # what these inputs need: each ray's own work and the contributing pairs.
+    ops, selects, ray_ops = retina_ops(cpu_tables, rows)
+    per_world = ops / K3_COUNT_WORLDS
+    need_per_world = (ray_ops + (ops - ray_ops) * pair_share) / K3_COUNT_WORLDS
     table_bytes = 4 * sum(t.numel() for t in (tables.dirs, tables.weights, tables.radius, tables.rgb))
     nbytes = 4 * (packed.numel() + points.numel()) + table_bytes
-    bound = bound_ms(total_ops, nbytes)
+    bound = bound_ms(per_world * N_WORLDS, nbytes)
+    need = bound_ms(need_per_world * N_WORLDS, nbytes)
     blur_ops = 2 * 2 * (2 * N_WORLDS) * tables.R * tables.R
     nonzeros = (retina.blur_weights != 0).sum(axis=2).mean(axis=1)
     pairs = 2 * tables.R * tables.G
-    print(f"[retina] {ops} ops per world ({ops / pairs:.1f} per ray-geom pair, of which "
-          f"{selects / pairs:.1f} are selects; -fmad=false issues none as an FMA, where the "
-          f"fp32 peak counts an FMA as two ops); K3 at B={N_WORLDS}: bound {bound[0]:.4f} ms "
-          f"({bound[1]}: {total_ops:.3e} ops, {nbytes:.3e} bytes), "
-          f"{times[0] / bound[0]:.1f}x the bound; blur {blur_ops:.3e} fp32 ops "
+    print(f"[retina] {per_world:.0f} ops per world ({(per_world - ray_ops / K3_COUNT_WORLDS) / pairs:.1f}"
+          f" per ray-geom pair, of which {selects / K3_COUNT_WORLDS / pairs:.1f} are selects; "
+          f"-fmad=false issues none as an FMA, where the fp32 peak counts an FMA as two ops), "
+          f"{ray_ops / K3_COUNT_WORLDS:.0f} of them the rays' own; at B={N_WORLDS}: bound, all "
+          f"pairs, {bound[0]:.4f} ms ({bound[1]}), K3 {k3 / bound[0]:.2f}x it, before "
+          f"{before / bound[0]:.2f}x; bound, what these inputs need ({need_per_world:.0f} ops per "
+          f"world, {nbytes:.3e} bytes), {need[0]:.4f} ms ({need[1]}), K3 {k3 / need[0]:.1f}x it, "
+          f"before {before / need[0]:.1f}x; blur {blur_ops:.3e} fp32 ops "
           f"({blur_ops / PEAK_FP32 * 1e3:.4f} ms at the fp32 peak), its rows hold "
           f"{nonzeros[0]:.2f} (pale) and {nonzeros[1]:.2f} (yellow) nonzeros on average")
-    return {"err": worst, "times": times, "bound": bound, "blur_ms": blur}
+    return {"err": worst, "times": (k3, p), "bound": need, "bound_all_pairs": bound,
+            "before_ms": before, "kept_share": kept / n_pairs, "blur_ms": blur}
 
 
 def env_actions(env, n_steps: int, seed: int) -> list:
@@ -926,25 +1091,28 @@ def phase_env(env_compiled) -> tuple:
 
     # The split of one env step, by CUDA events over 5 steps.
     render = env.render_vision
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    parts = [0.0] * 4
+    tables = render.kernel.tables
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    parts = [0.0] * 5
     for a in actions[:5]:
         ev[0].record()
         states = env._advance(states, a)
         ev[1].record()
-        points = render.kernel(states)
+        packed = rk.pack_rows(tables, states.xpos, states.xquat)
         ev[2].record()
-        render.blur(points)
+        points = rk.launch_retina(tables, packed)
         ev[3].record()
+        render.blur(points)
+        ev[4].record()
         env._observe_body(states)
         env._reward_done(states)
-        ev[4].record()
-        ev[4].synchronize()
-        for i in range(4):
+        ev[5].record()
+        ev[5].synchronize()
+        for i in range(5):
             parts[i] += ev[i].elapsed_time(ev[i + 1]) / 5
     print(f"[env] one env step: K2 launch with its packing {parts[0]:.3f} ms, "
-          f"K3 with its packing {parts[1]:.3f} ms, blur {parts[2]:.3f} ms, "
-          f"observations, odor, reward and done {parts[3]:.3f} ms")
+          f"K3's packing (pack_rows) {parts[1]:.3f} ms, K3 {parts[2]:.3f} ms, "
+          f"blur {parts[3]:.3f} ms, observations, odor, reward and done {parts[4]:.3f} ms")
 
     # Auto-reset: every fourth world upside down (flipped: done).
     auto = env.make_batched_step(auto_reset=True)
@@ -1825,6 +1993,11 @@ def main() -> int:
         "bound_ms": retina["bound"][0],
         "bound_by": retina["bound"][1],
         "library_ms": None,
+        # Every (ray, geom) pair swept, K3 before its redesign, and the
+        # share of (tile, geom) pairs the cull kept (profile build).
+        "bound_all_pairs_ms": retina["bound_all_pairs"][0],
+        "before_ms": retina["before_ms"],
+        "kept_share": retina["kept_share"],
     })
     # K2 built for the terrain fly: its K = 1 launch, as config 3's closed
     # loop makes it (1000 of its 1063 launches); for example 11's two flies

@@ -6,6 +6,11 @@ Two builds, both at first use, under ``flygym_tpu_torch/_build/``:
   except ``megastep.cu`` (the tree-LDL factor and solve K1/K1b, the retina
   K3), compiled into one shared library (:func:`build`,
   :func:`load_library`).
+- K3's source alone (:func:`build_retina`, :func:`load_retina`): its
+  profile build (``-DRT_PROFILE``: the cull's keep mask), its builds with
+  other warps per block (``-DRT_WARPS``) and K3 as it stood before its
+  redesign (``scripts/k3_before_redesign/retina.cu``, passed as
+  ``source``).
 - The mega-step kernel K2 (:func:`build_megastep`, :func:`load_megastep`):
   ``csrc/megastep.cu`` with the model's generated header
   ``megastep_model.h`` (``ops/megastep.py:model_header``), one library per
@@ -33,9 +38,11 @@ __all__ = [
     "build",
     "build_megastep",
     "build_megastep_host",
+    "build_retina",
     "build_retina_host",
     "load_library",
     "load_megastep",
+    "load_retina",
     "ptxas_report",
     "NVCC_FLAGS",
 ]
@@ -57,6 +64,7 @@ GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "
 
 _lib = None
 _megastep_libs = {}
+_retina_libs = {}
 
 
 def _nvcc() -> str:
@@ -126,13 +134,64 @@ def load_library() -> ctypes.CDLL:
         lib.tree_ldl_factor_f32.restype = i
         lib.tree_ldl_solve_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
         lib.tree_ldl_solve_f32.restype = i
-        f = ctypes.c_float
-        lib.retina_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i, p]
-        lib.retina_f32.restype = i
+        _retina_signatures(lib)
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _retina_signatures(lib: ctypes.CDLL) -> None:
+    """Argument types of the K3 entry points that ``lib`` exports (the
+    shipped kernel's, its profile and host builds', the before build's)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tiled = [p] * 8 + [i, i, i, i, f, f, i]
+    plain = [p] * 6 + [i, i, i, f, f, i]
+    signatures = {
+        "retina_f32": [*tiled, p],
+        "retina_profile_f32": [*tiled, p, p],
+        "retina_shape": [i, i, p],
+        "retina_tiles_host_f32": [p] * 9 + tiled[8:],
+        "retina_host_f32": plain,
+        "retina_before_f32": [*plain, p],
+        "retina_before_host_f32": plain,
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = i
+
+
+def build_retina(source: Path | None = None, profile: bool = False,
+                 warps: int | None = None) -> Path:
+    """K3's source alone with nvcc into its own library; return its path,
+    with nvcc's ptxas report beside it. ``profile`` builds the variant that
+    also exports ``retina_profile_f32`` (``-DRT_PROFILE``: the cull's keep
+    mask); ``warps`` builds K3 with that many warps per block
+    (``-DRT_WARPS``; the shipped build's is the source's default);
+    ``source`` replaces ``csrc/retina.cu``: ``chip_smoke.py`` builds K3 as
+    it stood before its redesign (``scripts/k3_before_redesign/retina.cu``)."""
+    src = RETINA_SRC if source is None else Path(source)
+    flags = (*NVCC_FLAGS, *(("-DRT_PROFILE=1",) if profile else ()),
+             *((f"-DRT_WARPS={warps}",) if warps is not None else ()))
+    out = BUILD / f"lib{src.parent.name}_{src.stem}_{_digest(flags, [src])}.so"
+    if not out.exists():
+        log = _compile([_nvcc(), *flags], out, [src])
+        _ptxas_path(out).write_text(log)
+    return out
+
+
+def load_retina(source: Path | None = None, profile: bool = False,
+                warps: int | None = None) -> ctypes.CDLL:
+    """The library of :func:`build_retina`, built on the first call."""
+    path = build_retina(source, profile, warps)
+    lib = _retina_libs.get(path)
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        _retina_signatures(lib)
+        _retina_libs[path] = lib
+    return lib
 
 
 def _megastep_dir(header: str, flags, source: Path = MEGASTEP_SRC) -> Path:
@@ -165,10 +224,13 @@ def build_megastep(header: str, profile: bool = False, source: Path | None = Non
     return out
 
 
-def ptxas_report(header: str | None = None) -> str:
-    """The ``-Xptxas -v`` lines of K2's build for ``header``, or of the
-    model-independent library without one (built if need be)."""
-    path = _ptxas_path(build() if header is None else build_megastep(header))
+def ptxas_report(header: str | None = None, library: Path | None = None) -> str:
+    """The ``-Xptxas -v`` lines of K2's build for ``header``, of the built
+    ``library`` (a path from :func:`build_retina`), or of the
+    model-independent library without either (built if need be)."""
+    if library is None:
+        library = build() if header is None else build_megastep(header)
+    path = _ptxas_path(library)
     return path.read_text() if path.exists() else ""
 
 
@@ -218,14 +280,17 @@ def build_megastep_host(header: str) -> ctypes.CDLL:
     return lib
 
 
-def build_retina_host() -> ctypes.CDLL:
-    """K3's source compiled as host C++ with g++ (``retina_host_f32``: the
-    kernel's per-ray body in loops over worlds, eyes and rays), loaded."""
-    out = BUILD / f"libretina_host_{_digest(GXX_FLAGS, [RETINA_SRC])}.so"
+def build_retina_host(source: Path | None = None) -> ctypes.CDLL:
+    """K3's source compiled as host C++ with g++, loaded: the kernel's
+    blocks as loops over worlds, eyes, tiles and slots, with the cull's keep
+    mask if asked (``retina_tiles_host_f32``), and the same over the rays in
+    lattice order, each ray a tile of its own (``retina_host_f32``).
+    ``source`` replaces ``csrc/retina.cu`` (the before build's
+    ``retina_before_host_f32``)."""
+    src = RETINA_SRC if source is None else Path(source)
+    out = BUILD / f"lib{src.parent.name}_{src.stem}_host_{_digest(GXX_FLAGS, [src])}.so"
     if not out.exists():
-        _compile([_gxx(), *GXX_FLAGS], out, [RETINA_SRC])
+        _compile([_gxx(), *GXX_FLAGS], out, [src])
     lib = ctypes.CDLL(str(out))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.retina_host_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i]
-    lib.retina_host_f32.restype = i
+    _retina_signatures(lib)
     return lib

@@ -12,7 +12,10 @@ Port of ``flygym_tpu/ops/retina_pallas.py:49-554``. Three parts:
   ``where``, clamp, ``1e-12`` guard and the 1e30 sentinel as they are.
 - :func:`make_retina_kernel`, the wrapper of ``csrc/retina.cu``: for CPU
   tensors it runs :func:`retina_plain`; for CUDA tensors it launches K3 or
-  raises.
+  raises. K3 shades each eye's rays in compact tiles of 32
+  (:func:`ray_tiles`, kept in :class:`RetinaTables`) and sweeps, per tile,
+  only the geoms whose bounding sphere its cone can reach; the outputs are
+  the same bits as sweeping every geom.
 
 ``launches["retina"]`` counts kernel launches; only a launch adds to it.
 
@@ -27,19 +30,27 @@ from flygym_tpu_torch.engine.maths import quat_mul, quat_rotate, sqrt_rn
 from flygym_tpu_torch.engine.model import PhysicsModel, State
 
 __all__ = [
+    "contributing_pairs",
+    "kernel_shape",
+    "keep_mask",
+    "launch_build",
     "launch_retina",
     "launches",
     "make_retina_kernel",
     "pack_rows",
+    "ray_tiles",
     "reset_launches",
     "retina_kernel_supported",
     "retina_plain",
     "RetinaTables",
+    "TILE",
 ]
 
 _BIG = 1e30
 # Per world: 2 eyes x (pos 3 + quat 4), then G x (p0 3, p1 3).
 _EYE_ROWS = 14
+# Rays per tile: one warp of K3.
+TILE = 32
 
 launches = {"retina": 0}
 
@@ -55,10 +66,54 @@ def retina_kernel_supported(model: PhysicsModel) -> bool:
     return not model.has_hfield
 
 
+def ray_tiles(dirs: np.ndarray, tile: int = TILE) -> tuple:
+    """One eye's rays in compact tiles of ``tile`` slots: recursive
+    bisection of the directions (float64) across their widest spread (the
+    first principal axis), the first half a whole number of tiles, so that
+    the last tile holds the remainder.
+
+    Returns ``order`` (T * tile,) int64, the ray of each slot or -1 for a
+    pad slot, and ``axis`` (T, 4) float32: each tile's unit axis (its rays'
+    normalised mean, rounded to float32) and the largest angle from that
+    float32 axis to one of its rays, rounded up to float32, so that the
+    tile's cone holds every one of its rays.
+    """
+    d = np.asarray(dirs, np.float64)
+    n_tiles = -(-len(d) // tile)
+
+    def split(ids, nt):
+        if nt == 1:
+            return [ids]
+        p = d[ids] - d[ids].mean(axis=0)
+        u = np.linalg.svd(p, full_matrices=False)[2][0]
+        u = u * np.sign(u[np.argmax(np.abs(u))])  # one sign on every machine
+        ids = ids[np.argsort(p @ u, kind="stable")]
+        left = nt // 2
+        return split(ids[: left * tile], left) + split(ids[left * tile :], nt - left)
+
+    order = np.full(n_tiles * tile, -1, np.int64)
+    axis = np.zeros((n_tiles, 4), np.float32)
+    for t, ids in enumerate(split(np.arange(len(d)), n_tiles)):
+        order[t * tile : t * tile + len(ids)] = ids
+        mean = d[ids].sum(axis=0)
+        a = (mean / np.linalg.norm(mean)).astype(np.float32)
+        a64 = a.astype(np.float64)
+        half = np.arctan2(np.linalg.norm(np.cross(d[ids], a64), axis=1), d[ids] @ a64).max()
+        h = np.float32(half)
+        axis[t, :3] = a
+        axis[t, 3] = h if h >= half else np.nextafter(h, np.float32(np.inf))
+    return order, axis
+
+
 class RetinaTables:
     """What the kernel reads besides the per-world rows, on the model's
     device: the rendered geoms and their radius and colour, ray directions
-    and channel weights, the ground height, and the shading branch."""
+    and channel weights in lattice order (``dirs``, ``weights``: the plain
+    version's), the ground height, and the shading branch. K3 reads the
+    rays in tile order: ``ray_index`` (2, T * TILE) int32, the ommatidium of
+    each slot (-1 for a pad), ``tile_dirs`` (2, T * TILE, 3) and
+    ``tile_weights`` (2, T * TILE, 2, 3) in that order (zero in a pad), and
+    ``tile_axis`` (2, T, 4), each tile's cone (:func:`ray_tiles`)."""
 
     def __init__(self, model: PhysicsModel, retina):
         device = model.device
@@ -74,8 +129,18 @@ class RetinaTables:
         self.geom_body = model.geom_body[sel]
         self.geom_pos = f32(model.geom_pos[sel])
         self.geom_quat = f32(model.geom_quat[sel])
-        self.dirs = f32(np.stack([retina.directions_left, retina.directions_right]))
+        dirs = np.stack([retina.directions_left, retina.directions_right])
+        self.dirs = f32(dirs)
         self.weights = f32(retina.channel_weights)
+        tiles = [ray_tiles(d) for d in dirs]
+        order = np.stack([o for o, _ in tiles])
+        pad = order < 0
+        take = np.where(pad, 0, order)
+        self.T = order.shape[1] // TILE
+        self.ray_index = torch.as_tensor(order, dtype=torch.int32).to(device).contiguous()
+        self.tile_dirs = f32(np.where(pad[..., None], 0.0, np.take_along_axis(dirs, take[..., None], 1)))
+        self.tile_weights = f32(np.where(pad[..., None, None], 0.0, retina.channel_weights[take]))
+        self.tile_axis = f32(np.stack([a for _, a in tiles]))
         self.ground_z = float(np.float32(model.ground_pos[2].item()))
         self.use_cone = float(retina.cone_half_rad) > 0.0
         self.tanh_cone = float(np.float32(np.tan(retina.cone_half_rad)))
@@ -265,9 +330,87 @@ def retina_plain(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
-def _raise_on_error(lib, err: int) -> None:
+def contributing_pairs(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
+    """Which (world, eye, ray, geom) pairs K3's sweep needs: (B, 2, R, G)
+    bool, True where the geom can change the ray's running state, a hit
+    (t_g < 1e30) or, in the cone branch, a coverage c_g2 > 0, in
+    :func:`retina_plain`'s arithmetic. The cull must keep every tile with
+    such a ray (``tests/test_torch_retina_cull.py``); ``chip_smoke.py``
+    counts K3's bound on these pairs alone."""
+    B, G = packed.shape[0], tables.G
+    eye = packed[:, :_EYE_ROWS].reshape(B, 2, 7)
+    seg = packed[:, _EYE_ROWS:].reshape(B, 1, G, 6)
+    ep = eye[:, :, None, 0:3]
+    col = lambda x: x[:, :, None, :]  # (B, 2, G) -> (B, 2, 1, G), broadcast over rays
+    ba = [col((seg[..., 3 + k] - seg[..., k]).expand(B, 2, G)) for k in range(3)]
+    oa = [col(ep[..., k] - seg[..., k]) for k in range(3)]
+    ob = [col(ep[..., k] - seg[..., 3 + k]) for k in range(3)]
+    dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+    baba, baoa, oaoa, obob = dot(ba, ba), dot(ba, oa), dot(oa, oa), dot(ob, ob)
+    r = tables.radius
+    rr = r * r
+    c_cyl = baba * oaoa - baoa * baoa - rr * baba
+    s0g = torch.clamp(baoa / torch.clamp(baba, min=1e-12), 0.0, 1.0)
+    outside = (oaoa - 2.0 * s0g * baoa + s0g * s0g * baba > rr).to(torch.float32)
+    w_, x_, y_, z_ = (eye[:, :, i : i + 1] for i in range(3, 7))
+    dx, dy, dz = (tables.dirs[None, :, :, k] for k in range(3))
+    tx, ty, tz = 2.0 * (y_ * dz - z_ * dy), 2.0 * (z_ * dx - x_ * dz), 2.0 * (x_ * dy - y_ * dx)
+    rdx = dx + w_ * tx + (y_ * tz - z_ * ty)
+    rdy = dy + w_ * ty + (z_ * tx - x_ * tz)
+    rdz = dz + w_ * tz + (x_ * ty - y_ * tx)
+    tp = (tables.ground_z - eye[:, :, 2:3]) / torch.where(rdz.abs() < 1e-12, torch.full_like(rdz, 1e-12), rdz)
+    t_bg = torch.where((tp > 0.0) & (rdz.abs() > 1e-12), tp, torch.full_like(tp, 1e30))[..., None]
+    rd = [v[..., None] for v in (rdx, rdy, rdz)]
+    bard, rdoa, b_s1 = dot(ba, rd), dot(oa, rd), dot(ob, rd)
+    a_ = baba - bard * bard
+    b_ = baba * rdoa - baoa * bard
+    h_ = b_ * b_ - a_ * c_cyl
+    safe_a = torch.where(a_.abs() < 1e-12, torch.full_like(a_, 1e-12), a_)
+    t_cyl = (-b_ - sqrt_rn(torch.clamp(h_, min=0.0))) / safe_a
+    y_c = baoa + t_cyl * bard
+    hit = (h_ >= 0.0) & (y_c > 0.0) & (y_c < baba) & (t_cyl > 0.0)
+    for b_s, c_s in ((rdoa, oaoa - rr), (b_s1, obob - rr)):
+        h_s = b_s * b_s - c_s
+        hit |= (h_s >= 0.0) & (-b_s - sqrt_rn(torch.clamp(h_s, min=0.0)) > 0.0)
+    if not tables.use_cone:
+        return hit
+    s_c = torch.clamp((baoa - bard * rdoa) / torch.clamp(a_, min=1e-12), 0.0, 1.0)
+    tc = torch.clamp(bard * s_c - rdoa, min=1e-6)
+    dc = [o + tc * v - s_c * b for o, v, b in zip(oa, rd, ba)]
+    dperp = sqrt_rn(dot(dc, dc))
+    width = torch.clamp(tc * tables.tanh_cone, min=1e-9)
+    c_g2 = torch.clamp(0.5 - 0.5 * (dperp - r) / width, 0.0, 1.0) * outside
+    return hit | ((tc < t_bg) & (c_g2 > 0.0))
+
+
+def _raise_on_error(err: int) -> None:
+    from flygym_tpu_torch.ops._build import load_library
+
     if err != 0:
-        raise RuntimeError(f"retina launch failed: {lib.cuda_error_string(err).decode()}")
+        raise RuntimeError(f"retina launch failed: {load_library().cuda_error_string(err).decode()}")
+
+
+def _check_rows(tables: RetinaTables, packed: torch.Tensor) -> None:
+    if packed.dtype != torch.float32 or not packed.is_contiguous():
+        raise TypeError("the retina kernel takes contiguous float32 rows")
+    if packed.shape[1] != _EYE_ROWS + 6 * tables.G:
+        raise ValueError(f"rows of width {packed.shape[1]}, the model needs {_EYE_ROWS + 6 * tables.G}")
+    if tables.dirs.device != packed.device:
+        raise ValueError(f"the tables are on {tables.dirs.device}, the rows on {packed.device}")
+
+
+def _launch(lib, entry: str, tables: RetinaTables, packed: torch.Tensor, *extra) -> torch.Tensor:
+    B = packed.shape[0]
+    out = torch.empty((B, 2, tables.R, 2), dtype=torch.float32, device=packed.device)
+    err = getattr(lib, entry)(
+        packed.data_ptr(), tables.ray_index.data_ptr(), tables.tile_dirs.data_ptr(),
+        tables.tile_weights.data_ptr(), tables.tile_axis.data_ptr(), tables.radius.data_ptr(),
+        tables.rgb.data_ptr(), out.data_ptr(), B, tables.R, tables.T, tables.G, tables.ground_z,
+        tables.tanh_cone, int(tables.use_cone), *extra,
+        torch.cuda.current_stream(packed.device).cuda_stream,
+    )
+    _raise_on_error(err)
+    return out
 
 
 def launch_retina(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
@@ -275,25 +418,52 @@ def launch_retina(tables: RetinaTables, packed: torch.Tensor) -> torch.Tensor:
     current stream; the library is built at the first launch."""
     from flygym_tpu_torch.ops._build import load_library
 
-    B = packed.shape[0]
-    if packed.dtype != torch.float32 or not packed.is_contiguous():
-        raise TypeError("the retina kernel takes contiguous float32 rows")
-    if packed.shape[1] != _EYE_ROWS + 6 * tables.G:
-        raise ValueError(f"rows of width {packed.shape[1]}, the model needs {_EYE_ROWS + 6 * tables.G}")
-    if tables.dirs.device != packed.device:
-        raise ValueError(f"the tables are on {tables.dirs.device}, the rows on {packed.device}")
-    out = torch.empty((B, 2, tables.R, 2), dtype=torch.float32, device=packed.device)
-    if B:
-        lib = load_library()
-        err = lib.retina_f32(
-            packed.data_ptr(), tables.dirs.data_ptr(), tables.weights.data_ptr(),
-            tables.radius.data_ptr(), tables.rgb.data_ptr(), out.data_ptr(),
-            B, tables.R, tables.G, tables.ground_z, tables.tanh_cone, int(tables.use_cone),
-            torch.cuda.current_stream(packed.device).cuda_stream,
-        )
-        _raise_on_error(lib, err)
-        launches["retina"] += 1
+    _check_rows(tables, packed)
+    if not packed.shape[0]:
+        return packed.new_empty((0, 2, tables.R, 2))
+    out = _launch(load_library(), "retina_f32", tables, packed)
+    launches["retina"] += 1
     return out
+
+
+def launch_build(tables: RetinaTables, packed: torch.Tensor, warps: int) -> torch.Tensor:
+    """One launch of K3 built with ``warps`` warps per block
+    (``_build.build_retina(warps=)``), as :func:`launch_retina` launches
+    the shipped build: for timing the block shapes against each other. Not
+    a launch of the path: ``launches`` does not count it."""
+    from flygym_tpu_torch.ops._build import load_retina
+
+    _check_rows(tables, packed)
+    return _launch(load_retina(warps=warps), "retina_f32", tables, packed)
+
+
+def keep_mask(tables: RetinaTables, packed: torch.Tensor) -> tuple:
+    """K3's profile build (``-DRT_PROFILE``) on CUDA rows: its outputs and
+    its cull's keep mask (B, 2, T, G) bool, True where a (world, eye, tile)
+    sweeps the geom. Not a launch of the path: ``launches`` does not count
+    it."""
+    from flygym_tpu_torch.ops._build import load_retina
+
+    _check_rows(tables, packed)
+    keep = torch.zeros((packed.shape[0], 2, tables.T, tables.G), dtype=torch.uint8,
+                       device=packed.device)
+    out = _launch(load_retina(profile=True), "retina_profile_f32", tables, packed,
+                  keep.data_ptr())
+    return out, keep.bool()
+
+
+def kernel_shape(tables: RetinaTables, warps: int | None = None) -> dict:
+    """K3's launch on the current card, of the shipped build or of the
+    build with ``warps`` warps per block: threads and dynamic shared bytes
+    per block, blocks resident per SM."""
+    import ctypes
+
+    from flygym_tpu_torch.ops._build import load_library, load_retina
+
+    lib = load_library() if warps is None else load_retina(warps=warps)
+    shape = (ctypes.c_int * 3)()
+    _raise_on_error(lib.retina_shape(int(tables.use_cone), tables.G, shape))
+    return {"threads": shape[0], "shared_bytes": shape[1], "blocks_per_sm": shape[2]}
 
 
 def make_retina_kernel(model: PhysicsModel, retina):
