@@ -12,7 +12,8 @@ Phases (each failure ends the run with a non-zero exit code):
    once: the library of K1, K1b and the retina kernel K3, K3 at the other
    warps per block of ``K3_SWEEP_WARPS``, K3's profile build (its cull's
    keep mask), K3 as it stood before its redesign
-   (``scripts/k3_before_redesign``), and the mega-step
+   (``scripts/k3_before_redesign``), K1/K1b as they stood before their
+   redesign (``scripts/k1_before_redesign``), and the mega-step
    kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly,
    example 11's two flies, the default two-fly contact preset, the 3-fly
    pile, the strict, muscle-driven and mixed-kind flies (one generated
@@ -25,9 +26,20 @@ Phases (each failure ends the run with a non-zero exit code):
    shared bytes per block, its scratch split between shared and global
    memory (floats per world) and the blocks per SM the card keeps resident.
 2. Hold the tree-LDL factor (K1) and solve (K1b) kernels against their plain
-   PyTorch versions at 4096 and at 1000 worlds, within 1e-5 of the largest
-   plain value; time both, their plain versions and ``torch.linalg``'s
-   dense LDL at 4096 worlds with CUDA events.
+   PyTorch versions at 4096 and at 1000 worlds of the benchmark fly and at
+   1000 worlds of the default two-fly preset and of the 3-fly pile, within
+   1e-5 of the largest plain value, and against their build before the
+   redesign to the last bit in L, d and x (``scripts/k1_before_redesign/
+   before.py`` launches it). Print the launch shape. At 4096 worlds, with
+   CUDA events: the wrapper calls and the launches alone of the shipped
+   and the before build in turns, the plain versions, ``torch.linalg``'s
+   dense LDL and, labelled as a dense factor of the same H and not the same
+   factor, ``cholesky_ex`` with ``cholesky_solve``; the shipped launches at
+   1, 1024 and 16384 worlds; three bounds: what the kernels must move (H's
+   envelope, L with its padding, d; for the solve L's chain entries, d, b
+   and x), the envelope (L's chain entries only) and the dense one (all of
+   H). The worlds per block were swept once by hand
+   (``scripts/ldl_worlds_sweep.py``).
 3. Hold K2 against its plain version (``ops/megastep.py:megastep_plain``)
    from the golden's settled state with the first replay targets: one K = 1
    launch against one plain step and one K = 8 launch against 8 chained
@@ -270,6 +282,12 @@ BODY_NOISE_MM = 0.3
 # Worlds of the posed batch whose operations and contributing pairs are
 # counted on the CPU for K3's bounds (phase 7).
 K3_COUNT_WORLDS = 64
+# K1/K1b as they stood before their redesign (one thread per world over a
+# dense world-minor copy of H): the redesign equals them to the last bit and
+# is timed against them (phase 2).
+K1_BEFORE = Path(__file__).resolve().parent / "scripts" / "k1_before_redesign" / "tree_ldl.cu"
+# K1/K1b alone are also timed at these widths (phase 2).
+LDL_SWEEP_WIDTHS = (1, 1024, 16384)
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -345,10 +363,12 @@ def phase_build(worlds: dict, flat_model) -> None:
         path = fn(*args)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=3 + len(headers) + len(extra)) as pool:
+    with ThreadPoolExecutor(max_workers=4 + len(K3_SWEEP_WARPS) + len(headers)
+                            + len(extra)) as pool:
         jobs = {"K1, K1b, K3": pool.submit(timed, _build.build),
                 "K3, profile": pool.submit(timed, _build.build_retina, None, True),
-                "K3 before the redesign": pool.submit(timed, _build.build_retina, K3_BEFORE)}
+                "K3 before the redesign": pool.submit(timed, _build.build_retina, K3_BEFORE),
+                "K1/K1b before the redesign": pool.submit(timed, _build.build_ldl, K1_BEFORE)}
         for warps in K3_SWEEP_WARPS:
             jobs[f"K3, {warps} warps"] = pool.submit(timed, _build.build_retina, None, False,
                                                      warps)
@@ -365,15 +385,18 @@ def phase_build(worlds: dict, flat_model) -> None:
         print(f"[build] {path.parent.name}/{path.name} ({name}) in {seconds:.2f} s")
     reports = {"library": _build.ptxas_report(),
                **{name: _build.ptxas_report(library=done[name][0])
-                  for name in ("K3 before the redesign", *(f"K3, {w} warps" for w in K3_SWEEP_WARPS))},
+                  for name in ("K3 before the redesign", *(f"K3, {w} warps" for w in K3_SWEEP_WARPS),
+                               "K1/K1b before the redesign")},
                **{f"K2 {name}": _build.ptxas_report(h) for name, h in headers.items()}}
     # K3's instantiations by shading branch.
     k3_name = re.compile(r"_Z\w*retina_kernelILb([01])E\w*")
     readable = lambda m: f"retina_kernel<{'cone' if m.group(1) == '1' else 'hard'}>"
+    k1_name = re.compile(r"_Z\w*?((factor|solve)_kernel)\w*")
     for name, report in reports.items():
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
-                print(f"[build] {name} ptxas: {k3_name.sub(readable, line.strip())}")
+                line = k1_name.sub(r"\1", k3_name.sub(readable, line.strip()))
+                print(f"[build] {name} ptxas: {line}")
     for name, c in worlds.items():
         layout = megastep.scratch_layout(c.model)
         shape = megastep.kernel_shape(c.model)
@@ -387,74 +410,178 @@ def phase_build(worlds: dict, flat_model) -> None:
 def ldl_work(tables, B: int) -> dict:
     """Operations and bytes of one factor and one solve at B worlds: the
     tree elimination's multiplies, subtractions and divisions, and each input
-    read and each output written once (fp32)."""
-    chains = (tables.chain_ptr[1:] - tables.chain_ptr[:-1]).tolist()
-    nv, maxc = tables.nv, tables.maxc
+    read and each output written once (fp32). "need" is what the kernels
+    must move: H's envelope, L with its zero padding (its public shape) and
+    d; for the solve L's chain entries, d, b and x. "envelope" writes only
+    L's chain entries; "dense" reads all of H and, for the solve, all of L."""
+    chains = (tables.dof_anc >= 0).sum(1).tolist()
+    nv, maxc, n_chain, n_env = tables.nv, tables.maxc, tables.n_chain, tables.n_env
     factor_ops = sum(1 + n + n * (n + 1) for n in chains)
-    solve_ops = 4 * sum(chains) + nv
+    solve_ops = 4 * n_chain + nv
+    solve = (B * solve_ops, 4 * B * (n_chain + 3 * nv))
     return {
-        "tree_ldl_factor": (B * factor_ops, 4 * B * (nv * nv + nv * maxc + nv)),
-        "tree_ldl_solve": (B * solve_ops, 4 * B * (nv * maxc + 3 * nv)),
+        "need": {"tree_ldl_factor": (B * factor_ops, 4 * B * (n_env + nv * maxc + nv)),
+                 "tree_ldl_solve": solve},
+        "envelope": {"tree_ldl_factor": (B * factor_ops, 4 * B * (n_env + n_chain + nv)),
+                     "tree_ldl_solve": solve},
+        "dense": {"tree_ldl_factor": (B * factor_ops, 4 * B * (nv * nv + nv * maxc + nv)),
+                  "tree_ldl_solve": (B * solve_ops, 4 * B * (nv * maxc + 3 * nv))},
     }
 
 
-def phase_kernels(model) -> dict:
-    """K1 and K1b against the plain versions; times, library times and
-    bounds at N_WORLDS."""
+def in_turns(runs: dict, n: int) -> dict:
+    """Each of ``runs`` (name: callable) timed over ``n`` calls, in turns
+    (the order, then reversed): name -> the two times."""
+    turns = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        turns[name].append(time_ms(runs[name], n))
+    return turns
+
+
+def ldl_launches(tables, H, b) -> dict:
+    """The shipped K1 and K1b launched alone, on buffers made once."""
+    import torch
+
+    from flygym_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    B, nv, maxc = H.shape[0], tables.nv, tables.maxc
+    n_env, n_chain = tables.n_env, tables.n_chain
+    stream = torch.cuda.current_stream().cuda_stream
+    L, d, x = H.new_empty((B, nv, maxc)), H.new_empty((B, nv)), b.new_empty((B, nv))
+    factor = lambda: lib.tree_ldl_factor_f32(
+        H.data_ptr(), L.data_ptr(), d.data_ptr(), tables.kernel.data_ptr(), nv, maxc, n_env,
+        n_chain, B, stream)
+    solve = lambda: lib.tree_ldl_solve_f32(
+        L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), tables.kernel.data_ptr(), nv,
+        maxc, n_env, n_chain, B, stream)
+    check(factor() == 0 and solve() == 0, "K1/K1b launch failed")
+    return {"tree_ldl_factor": factor, "tree_ldl_solve": solve}
+
+
+def k1_before():
+    """``scripts/k1_before_redesign/before.py`` (K1/K1b's before build's
+    launcher), loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("k1_before_redesign",
+                                                  K1_BEFORE.with_name("before.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_kernels(model, others: dict) -> dict:
+    """K1 and K1b against the plain versions and the build before the
+    redesign, on the benchmark fly and on ``others`` (name: model on the
+    card); times in turns, library times and the bounds at N_WORLDS."""
     import torch
 
     from flygym_tpu_torch.engine import linalg
-    from flygym_tpu_torch.ops import ldl
+    from flygym_tpu_torch.ops import _build, ldl
 
+    before_lib, BeforeBuild = _build.load_ldl(K1_BEFORE), k1_before().BeforeBuild
     tables = model.ldl
     err = {"tree_ldl_factor": 0.0, "tree_ldl_solve": 0.0}
-    for n in CHECK_WORLDS:
-        H, b = ldl.sample_problems(model, n, seed=n)
-        L, d = ldl.tree_ldl_factor(tables, H)
-        x = ldl.tree_ldl_solve(tables, L, d, b)
-        L0, d0 = linalg.tree_ldl_factor(tables, H)
-        x0 = linalg.tree_ldl_solve(tables, L0, d0, b)
+    cases = [(f"B={n}", model, n) for n in CHECK_WORLDS]
+    cases += [(f"{name} B={CHECK_WORLDS[1]}", m, CHECK_WORLDS[1]) for name, m in others.items()]
+    for label, m, n in cases:
+        H, b = ldl.sample_problems(m, n, seed=n)
+        L, d = ldl.tree_ldl_factor(m.ldl, H)
+        x = ldl.tree_ldl_solve(m.ldl, L, d, b)
+        L0, d0 = linalg.tree_ldl_factor(m.ldl, H)
+        x0 = linalg.tree_ldl_solve(m.ldl, L0, d0, b)
+        Lb, db, xb = BeforeBuild(before_lib, m.ldl, H, b).run()
         torch.cuda.synchronize()
-        for name, got, want, kernel in (
-            ("L", L, L0, "tree_ldl_factor"),
-            ("d", d, d0, "tree_ldl_factor"),
-            ("x", x, x0, "tree_ldl_solve"),
+        for name, got, want, old, kernel in (
+            ("L", L, L0, Lb, "tree_ldl_factor"),
+            ("d", d, d0, db, "tree_ldl_factor"),
+            ("x", x, x0, xb, "tree_ldl_solve"),
         ):
             abs_err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            print(f"[kernels] B={n} {name}: max|kernel-plain| {abs_err:.3e}, "
-                  f"max|plain| {scale:.3e}, ratio {abs_err / scale:.3e}")
-            check(bool(torch.isfinite(got).all()), f"{name} not finite at B={n}")
+            same = torch.equal(got, old)
+            print(f"[kernels] {label} {name}: max|kernel-plain| {abs_err:.3e}, "
+                  f"max|plain| {scale:.3e}, ratio {abs_err / scale:.3e}; equal to the build "
+                  f"before the redesign: {same} (max gap {(got - old).abs().max().item():.3e})")
+            check(bool(torch.isfinite(got).all()), f"{name} not finite at {label}")
             check(abs_err <= KERNEL_RTOL * scale,
-                  f"{name} at B={n}: {abs_err:.3e} > {KERNEL_RTOL} * {scale:.3e}")
+                  f"{name} at {label}: {abs_err:.3e} > {KERNEL_RTOL} * {scale:.3e}")
+            check(same, f"{name} at {label} differs from K1/K1b before the redesign")
             err[kernel] = max(err[kernel], abs_err)
+        check(L.is_contiguous() and d.is_contiguous() and x.is_contiguous(),
+              f"K1/K1b outputs not batch-first contiguous at {label}")
 
+    shape, sizes = ldl.kernel_shape(tables), ldl.shared_bytes(tables)
+    print(f"[kernels] K1/K1b launch: {shape['threads']} threads per block; "
+          + "; ".join(f"{k} {shape[k]['shared_bytes']} shared bytes per block, "
+                      f"{shape[k]['blocks_per_sm']} blocks per SM"
+                      for k in ("tree_ldl_factor", "tree_ldl_solve")))
+    check(shape["threads"] == 32 * ldl.WORLDS
+          and all(shape[k]["shared_bytes"] == sizes[k] for k in sizes),
+          f"K1/K1b launch shape {shape} disagrees with ops/ldl.py ({ldl.WORLDS} worlds, {sizes})")
+
+    # In turns at N_WORLDS: the wrapper calls, then the launches alone, of the
+    # shipped and the before build. The before wrapper copied H (b) into its
+    # world-minor buffer, then launched.
     H, b = ldl.sample_problems(model, N_WORLDS, seed=1)
     L, d = ldl.tree_ldl_factor(tables, H)
+    old = BeforeBuild(before_lib, tables, H, b)
+    check(old.factor() == 0 and old.solve() == 0, "K1/K1b before the redesign: launch failed")
+    wrappers = {
+        "tree_ldl_factor": {"before": lambda: (old.copy_H(), old.factor()),
+                            "shipped": lambda: ldl.tree_ldl_factor(tables, H)},
+        "tree_ldl_solve": {"before": lambda: (old.copy_b(), old.solve()),
+                           "shipped": lambda: ldl.tree_ldl_solve(tables, L, d, b)},
+    }
+    alone = {"before": {"tree_ldl_factor": old.factor, "tree_ldl_solve": old.solve},
+             "shipped": ldl_launches(tables, H, b)}
+    times, before, launch = {}, {}, {}
+    mean = lambda t: sum(t) / len(t)
+    for name in ("tree_ldl_factor", "tree_ldl_solve"):
+        call = in_turns(wrappers[name], TIMED_LAUNCHES)
+        launched = in_turns({k: fns[name] for k, fns in alone.items()}, TIMED_LAUNCHES)
+        before[name], launch[name] = mean(call["before"]), mean(launched["shipped"])
+        times[name] = [mean(call["shipped"])]
+        print(f"[kernels] {name} at B={N_WORLDS}, wrapper call: {times[name][0]:.4f} ms against "
+              f"{before[name]:.4f} ms before the redesign ({before[name] / times[name][0]:.2f}x; "
+              f"turns {' / '.join(f'{t:.4f}' for t in call['shipped'])} and "
+              f"{' / '.join(f'{t:.4f}' for t in call['before'])}), on {card_line()}")
+        for k, t in launched.items():
+            print(f"[kernels] {name} at B={N_WORLDS}, launch alone, {k}: {mean(t):.4f} ms "
+                  f"(turns {' / '.join(f'{x:.4f}' for x in t)})")
+    plain = {"tree_ldl_factor": lambda: linalg.tree_ldl_factor(tables, H),
+             "tree_ldl_solve": lambda: linalg.tree_ldl_solve(tables, L, d, b)}
+    for name, fn in plain.items():
+        times[name].append(time_ms(fn, TIMED_LAUNCHES))
     LD, pivots = torch.linalg.ldl_factor(H)
-    times, library = {}, {}
-    # Plain, kernel, kernel, plain: the mean of each pair.
-    for kernel, plain, lib, name in (
-        (lambda: ldl.tree_ldl_factor(tables, H),
-         lambda: linalg.tree_ldl_factor(tables, H),
-         lambda: torch.linalg.ldl_factor(H), "tree_ldl_factor"),
-        (lambda: ldl.tree_ldl_solve(tables, L, d, b),
-         lambda: linalg.tree_ldl_solve(tables, L, d, b),
-         lambda: torch.linalg.ldl_solve(LD, pivots, b[..., None]), "tree_ldl_solve"),
-    ):
-        p1, k1 = time_ms(plain, TIMED_LAUNCHES), time_ms(kernel, TIMED_LAUNCHES)
-        k2, p2 = time_ms(kernel, TIMED_LAUNCHES), time_ms(plain, TIMED_LAUNCHES)
-        times[name] = (0.5 * (k1 + k2), 0.5 * (p1 + p2))
-        library[name] = time_ms(lib, 3)
-        print(f"[kernels] {name} at B={N_WORLDS}: kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms (runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}), "
-              f"torch.linalg {library[name]:.4f} ms")
+    C, info = torch.linalg.cholesky_ex(H)
+    check(int(info.abs().max().item()) == 0, "cholesky_ex: H not positive definite")
+    library = {"tree_ldl_factor": time_ms(lambda: torch.linalg.ldl_factor(H), 1),
+               "tree_ldl_solve": time_ms(lambda: torch.linalg.ldl_solve(LD, pivots, b[..., None]), 1)}
+    dense = {"tree_ldl_factor": time_ms(lambda: torch.linalg.cholesky_ex(H), TIMED_LAUNCHES),
+             "tree_ldl_solve": time_ms(lambda: torch.cholesky_solve(b[..., None], C),
+                                       TIMED_LAUNCHES)}
+    for name in plain:
+        print(f"[kernels] {name} at B={N_WORLDS}: plain {times[name][1]:.4f} ms; torch.linalg "
+              f"ldl_{name.split('_')[-1]} {library[name]:.4f} ms; "
+              f"{'cholesky_ex' if name == 'tree_ldl_factor' else 'cholesky_solve'} "
+              f"{dense[name]:.4f} ms (a dense factor of the same H, not the same factor)")
+    for n in LDL_SWEEP_WIDTHS:
+        Hn, bn = ldl.sample_problems(model, n, seed=n + 1)
+        fns = ldl_launches(tables, Hn, bn)
+        print(f"[kernels] launch alone at B={n}: "
+              + ", ".join(f"{k} {time_ms(f, TIMED_LAUNCHES):.4f} ms" for k, f in fns.items()))
     bounds = {}
-    for name, (ops, nbytes) in ldl_work(tables, N_WORLDS).items():
-        bounds[name] = bound_ms(ops, nbytes)
-        print(f"[kernels] {name} bound at B={N_WORLDS}: {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]}: {ops:.3e} ops, {nbytes:.3e} bytes)")
-    return {"err": err, "times": times, "library": library, "bounds": bounds}
+    for kind, work in ldl_work(tables, N_WORLDS).items():
+        for name, (ops, nbytes) in work.items():
+            bound = bounds.setdefault(kind, {})[name] = bound_ms(ops, nbytes)
+            print(f"[kernels] {name} {kind} bound at B={N_WORLDS}: {bound[0]:.4f} ms "
+                  f"({bound[1]}: {ops:.3e} ops, {nbytes:.3e} bytes); wrapper call "
+                  f"{times[name][0] / bound[0]:.1f}x it, launch alone "
+                  f"{launch[name] / bound[0]:.1f}x, before {before[name] / bound[0]:.1f}x")
+    return {"err": err, "times": times, "library": library, "bounds": bounds,
+            "before_ms": before, "launch_ms": launch}
 
 
 def megastep_ops(model) -> int:
@@ -949,9 +1076,7 @@ def phase_retina(env_compiled, model) -> dict:
             f"{shipped} warps": lambda: rk.launch_retina(tables, packed)}
     for warps in K3_SWEEP_WARPS:
         runs[f"{warps} warps"] = lambda w=warps: rk.launch_build(tables, packed, w)
-    turns = {name: [] for name in runs}
-    for name in [*runs, *reversed(runs)]:
-        turns[name].append(time_ms(runs[name], TIMED_LAUNCHES))
+    turns = in_turns(runs, TIMED_LAUNCHES)
     mean = {name: sum(t) / len(t) for name, t in turns.items()}
     for name, t in turns.items():
         print(f"[retina] K3 {name} at B={N_WORLDS}: {mean[name]:.4f} ms "
@@ -1865,7 +1990,8 @@ def main() -> int:
                     compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
-        kernels = phase_kernels(model)
+        kernels = phase_kernels(model, {"two flies, 55 x 55 compressed": full_compiled.model.to("cuda"),
+                                        "3-fly pile": pile_compiled.model.to("cuda")})
         k2 = phase_megastep(compiled, model)
         mega_counts, mega_wall = phase_slice(
             compiled, label="megastep", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
@@ -1971,9 +2097,17 @@ def main() -> int:
             "max_abs_err": kernels["err"][name],
             "ms": kernels["times"][name][0],
             "plain_ms": kernels["times"][name][1],
-            "bound_ms": kernels["bounds"][name][0],
-            "bound_by": kernels["bounds"][name][1],
+            "bound_ms": kernels["bounds"]["need"][name][0],
+            "bound_by": kernels["bounds"]["need"][name][1],
             "library_ms": kernels["library"][name],
+            # K1/K1b before their redesign (its wrapper call, as "ms" is the
+            # shipped wrapper's), the shipped launch alone, the bound with L
+            # written over its chain entries only, and the one with all of H
+            # read (bound_ms reads H's envelope and writes L with its padding).
+            "before_ms": kernels["before_ms"][name],
+            "launch_ms": kernels["launch_ms"][name],
+            "bound_envelope_ms": kernels["bounds"]["envelope"][name][0],
+            "bound_dense_ms": kernels["bounds"]["dense"][name][0],
         }
         for name, replaces in (
             ("tree_ldl_factor", "flygym_tpu/ops/ldl_pallas.py:54"),

@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Two builds, both at first use, under ``flygym_tpu_torch/_build/``:
+The builds, each at first use, under ``flygym_tpu_torch/_build/``:
 
 - The model-independent kernels: every ``flygym_tpu_torch/csrc/*.cu`` file
   except ``megastep.cu`` (the tree-LDL factor and solve K1/K1b, the retina
@@ -11,6 +11,8 @@ Two builds, both at first use, under ``flygym_tpu_torch/_build/``:
   other warps per block (``-DRT_WARPS``) and K3 as it stood before its
   redesign (``scripts/k3_before_redesign/retina.cu``, passed as
   ``source``).
+- A K1/K1b source alone (:func:`build_ldl`, :func:`load_ldl`): K1/K1b as
+  they stood before their redesign (``scripts/k1_before_redesign/tree_ldl.cu``).
 - The mega-step kernel K2 (:func:`build_megastep`, :func:`load_megastep`):
   ``csrc/megastep.cu`` with the model's generated header
   ``megastep_model.h`` (``ops/megastep.py:model_header``), one library per
@@ -22,8 +24,9 @@ nvcc's ``-Xptxas -v`` report of each build is kept beside it
 flags and (for K2) the header, so an edit builds anew and an unchanged tree
 reuses its build. Only the sources in the repository and the model's arrays
 are used. A failed build raises with the compiler's stderr.
-:func:`build_megastep_host` and :func:`build_retina_host` compile the same
-K2 and K3 sources as host C++ with g++, for the CPU tests.
+:func:`build_megastep_host`, :func:`build_retina_host` and
+:func:`build_ldl_host` compile the same K2, K3 and K1/K1b sources as host
+C++ with g++, for the CPU tests.
 """
 
 import ctypes
@@ -36,11 +39,14 @@ from pathlib import Path
 
 __all__ = [
     "build",
+    "build_ldl",
+    "build_ldl_host",
     "build_megastep",
     "build_megastep_host",
     "build_retina",
     "build_retina_host",
     "load_library",
+    "load_ldl",
     "load_megastep",
     "load_retina",
     "ptxas_report",
@@ -52,6 +58,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 MEGASTEP_SRC = CSRC / "megastep.cu"
 RETINA_SRC = CSRC / "retina.cu"
+LDL_SRC = CSRC / "tree_ldl.cu"
 # The kernels keep their plain versions' arithmetic: no contraction into
 # FMAs; IEEE div and sqrt are nvcc's defaults. -Xptxas -v reports registers,
 # stack and spills.
@@ -65,6 +72,7 @@ GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "
 _lib = None
 _megastep_libs = {}
 _retina_libs = {}
+_ldl_libs = {}
 
 
 def _nvcc() -> str:
@@ -129,16 +137,40 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tree_ldl_factor_f32.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        lib.tree_ldl_factor_f32.restype = i
-        lib.tree_ldl_solve_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
-        lib.tree_ldl_solve_f32.restype = i
+        _ldl_signatures(lib)
         _retina_signatures(lib)
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _signatures(lib: ctypes.CDLL, signatures: dict) -> None:
+    """Argument types, and an int result, of each entry point of
+    ``signatures`` that ``lib`` exports."""
+    for name, args in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    if hasattr(lib, "cuda_error_string"):
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def _ldl_signatures(lib: ctypes.CDLL) -> None:
+    """Argument types of the K1/K1b entry points that ``lib`` exports (the
+    shipped kernels', their host builds', the before build's)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _signatures(lib, {
+        "tree_ldl_factor_f32": [p, p, p, p, i, i, i, i, i, p],
+        "tree_ldl_solve_f32": [p, p, p, p, p, i, i, i, i, i, p],
+        "tree_ldl_shape": [i, i, i, p],
+        "tree_ldl_factor_host_f32": [p, p, p, p, i, i, i, i, i, i],
+        "tree_ldl_solve_host_f32": [p, p, p, p, p, i, i, i, i, i, i],
+        "tree_ldl_before_factor_f32": [p, p, p, p, p, p, i, i, i, p],
+        "tree_ldl_before_solve_f32": [p, p, p, p, p, p, p, p, i, i, i, p],
+        "tree_ldl_before_factor_host_f32": [p, p, p, p, p, p, i, i, i],
+        "tree_ldl_before_solve_host_f32": [p, p, p, p, p, p, p, p, i, i, i],
+    })
 
 
 def _retina_signatures(lib: ctypes.CDLL) -> None:
@@ -147,7 +179,7 @@ def _retina_signatures(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tiled = [p] * 8 + [i, i, i, i, f, f, i]
     plain = [p] * 6 + [i, i, i, f, f, i]
-    signatures = {
+    _signatures(lib, {
         "retina_f32": [*tiled, p],
         "retina_profile_f32": [*tiled, p, p],
         "retina_shape": [i, i, p],
@@ -155,12 +187,28 @@ def _retina_signatures(lib: ctypes.CDLL) -> None:
         "retina_host_f32": plain,
         "retina_before_f32": [*plain, p],
         "retina_before_host_f32": plain,
-    }
-    for name, args in signatures.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = args
-            fn.restype = i
+    })
+
+
+def _build_alone(src: Path, flags) -> Path:
+    """One source with nvcc into its own library, named by the source's
+    folder, stem and a hash of its text and flags; nvcc's ptxas report
+    beside it."""
+    out = BUILD / f"lib{src.parent.name}_{src.stem}_{_digest(flags, [src])}.so"
+    if not out.exists():
+        log = _compile([_nvcc(), *flags], out, [src])
+        _ptxas_path(out).write_text(log)
+    return out
+
+
+def _load_alone(cache: dict, key, build_fn, signatures) -> ctypes.CDLL:
+    """The library that ``build_fn()`` builds, loaded once per ``key`` (its
+    build's arguments): a later call neither hashes nor stats its source."""
+    lib = cache.get(key)
+    if lib is None:
+        lib = cache[key] = ctypes.CDLL(str(build_fn()))
+        signatures(lib)
+    return lib
 
 
 def build_retina(source: Path | None = None, profile: bool = False,
@@ -175,23 +223,27 @@ def build_retina(source: Path | None = None, profile: bool = False,
     src = RETINA_SRC if source is None else Path(source)
     flags = (*NVCC_FLAGS, *(("-DRT_PROFILE=1",) if profile else ()),
              *((f"-DRT_WARPS={warps}",) if warps is not None else ()))
-    out = BUILD / f"lib{src.parent.name}_{src.stem}_{_digest(flags, [src])}.so"
-    if not out.exists():
-        log = _compile([_nvcc(), *flags], out, [src])
-        _ptxas_path(out).write_text(log)
-    return out
+    return _build_alone(src, flags)
 
 
 def load_retina(source: Path | None = None, profile: bool = False,
                 warps: int | None = None) -> ctypes.CDLL:
     """The library of :func:`build_retina`, built on the first call."""
-    path = build_retina(source, profile, warps)
-    lib = _retina_libs.get(path)
-    if lib is None:
-        lib = ctypes.CDLL(str(path))
-        _retina_signatures(lib)
-        _retina_libs[path] = lib
-    return lib
+    return _load_alone(_retina_libs, (source, profile, warps),
+                       lambda: build_retina(source, profile, warps), _retina_signatures)
+
+
+def build_ldl(source: Path) -> Path:
+    """A K1/K1b source alone with nvcc into its own library; return its
+    path, with nvcc's ptxas report beside it: ``chip_smoke.py`` builds K1/K1b
+    as they stood before their redesign
+    (``scripts/k1_before_redesign/tree_ldl.cu``)."""
+    return _build_alone(Path(source), NVCC_FLAGS)
+
+
+def load_ldl(source: Path) -> ctypes.CDLL:
+    """The library of :func:`build_ldl`, built on the first call."""
+    return _load_alone(_ldl_libs, source, lambda: build_ldl(source), _ldl_signatures)
 
 
 def _megastep_dir(header: str, flags, source: Path = MEGASTEP_SRC) -> Path:
@@ -280,6 +332,26 @@ def build_megastep_host(header: str) -> ctypes.CDLL:
     return lib
 
 
+def _build_host(src: Path) -> Path:
+    out = BUILD / f"lib{src.parent.name}_{src.stem}_host_{_digest(GXX_FLAGS, [src])}.so"
+    if not out.exists():
+        _compile([_gxx(), *GXX_FLAGS], out, [src])
+    return out
+
+
+def build_ldl_host(source: Path | None = None) -> ctypes.CDLL:
+    """K1/K1b's source compiled as host C++ with g++, loaded: each warp's
+    phases as loops over their items, in order or reversed
+    (``tree_ldl_factor_host_f32``, ``tree_ldl_solve_host_f32``, batch-first
+    like the card's). ``source`` replaces ``csrc/tree_ldl.cu``: the before
+    build's ``tree_ldl_before_factor_host_f32`` and
+    ``tree_ldl_before_solve_host_f32`` (world-minor, one world after
+    another)."""
+    lib = ctypes.CDLL(str(_build_host(LDL_SRC if source is None else Path(source))))
+    _ldl_signatures(lib)
+    return lib
+
+
 def build_retina_host(source: Path | None = None) -> ctypes.CDLL:
     """K3's source compiled as host C++ with g++, loaded: the kernel's
     blocks as loops over worlds, eyes, tiles and slots, with the cull's keep
@@ -287,10 +359,6 @@ def build_retina_host(source: Path | None = None) -> ctypes.CDLL:
     lattice order, each ray a tile of its own (``retina_host_f32``).
     ``source`` replaces ``csrc/retina.cu`` (the before build's
     ``retina_before_host_f32``)."""
-    src = RETINA_SRC if source is None else Path(source)
-    out = BUILD / f"lib{src.parent.name}_{src.stem}_host_{_digest(GXX_FLAGS, [src])}.so"
-    if not out.exists():
-        _compile([_gxx(), *GXX_FLAGS], out, [src])
-    lib = ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(_build_host(RETINA_SRC if source is None else Path(source))))
     _retina_signatures(lib)
     return lib

@@ -9,9 +9,11 @@ layout, (B, nv, nv) for H and (B, nv, ...) for the factor, and:
   :mod:`flygym_tpu_torch.engine.linalg`;
 - for a CUDA tensor, launches its kernel or raises. There is no fallback.
 
-Inside, the kernels work world-minor: the wrapper hands them (rows, B)
-buffers, and returns the factor as views of those buffers, so a factor from
-:func:`tree_ldl_factor` reaches :func:`tree_ldl_solve` without a copy.
+The kernels read and write that layout as it is: H where the engine writes
+it, L (B, nv, maxc) and d (B, nv) contiguous, so a factor from
+:func:`tree_ldl_factor` reaches :func:`tree_ldl_solve` without a copy. A
+model whose world does not fit in a block's shared memory raises
+(:func:`shared_bytes`).
 
 ``launches`` counts kernel launches per wrapper. Only a launch adds to it.
 """
@@ -27,9 +29,14 @@ __all__ = [
     "launches",
     "reset_launches",
     "sample_problems",
+    "shared_bytes",
+    "kernel_shape",
+    "WORLDS",
+    "SHARED_LIMIT",
 ]
 
-MAX_CHAIN = 64  # kMaxChain in tree_ldl.cu
+WORLDS = 4  # worlds per block: LDL_WORLDS in tree_ldl.cu (kernel_shape's threads / 32)
+SHARED_LIMIT = 232448  # bytes of shared memory a block may use on the H100
 
 launches = {"tree_ldl_factor": 0, "tree_ldl_solve": 0}
 
@@ -48,19 +55,35 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
+def shared_bytes(tables: LdlTables) -> dict:
+    """Dynamic shared memory per block of each kernel: WORLDS worlds of the
+    factor's envelope and L over the chains, and of the solve's y and L over
+    the chains (float32)."""
+    return {"tree_ldl_factor": 4 * WORLDS * (tables.n_env + tables.n_chain),
+            "tree_ldl_solve": 4 * WORLDS * (tables.nv + tables.n_chain)}
+
+
 def _device_path(tables: LdlTables, device: torch.device) -> None:
     """Raise unless the kernels can run on ``device`` with these tables."""
     if device.type != "cuda":
         raise RuntimeError(f"tree-LDL kernels run on CUDA tensors, got {device}")
-    if tables.chain_idx.device != device:
-        raise ValueError(f"LDL tables on {tables.chain_idx.device}, tensors on {device}")
-    if tables.maxc > MAX_CHAIN:
-        raise ValueError(f"ancestor chains of {tables.maxc} > {MAX_CHAIN} DoFs")
+    if tables.kernel.device != device:
+        raise ValueError(f"LDL tables on {tables.kernel.device}, tensors on {device}")
+    need = shared_bytes(tables)["tree_ldl_factor"]
+    if need > SHARED_LIMIT:
+        raise ValueError(
+            f"tree-LDL factor: {WORLDS} worlds of an envelope of {tables.n_env} entries need "
+            f"{need} bytes of shared memory per block, more than the {SHARED_LIMIT} a block "
+            f"may use")
 
 
 def _raise_on_error(lib, err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.cuda_error_string(err).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def tree_ldl_factor(tables: LdlTables, H: torch.Tensor):
@@ -76,21 +99,14 @@ def tree_ldl_factor(tables: LdlTables, H: torch.Tensor):
     from flygym_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    # The kernel destroys its world-minor working copy, so it gets a fresh
-    # buffer: .contiguous() may return H itself (always when B == 1).
-    work = torch.empty((nv * nv, B), dtype=H.dtype, device=H.device)
-    work.copy_(H.reshape(B, nv * nv).t())
-    Lt = torch.empty((nv * maxc, B), dtype=H.dtype, device=H.device)
-    dt = torch.empty((nv, B), dtype=H.dtype, device=H.device)
+    H = H.contiguous()
+    L, d = H.new_empty((B, nv, maxc)), H.new_empty((B, nv))
     err = lib.tree_ldl_factor_f32(
-        work.data_ptr(), Lt.data_ptr(), dt.data_ptr(),
-        tables.order_height.data_ptr(), tables.chain_ptr.data_ptr(),
-        tables.chain_idx.data_ptr(), nv, maxc, B,
-        torch.cuda.current_stream(H.device).cuda_stream,
-    )
+        H.data_ptr(), L.data_ptr(), d.data_ptr(), tables.kernel.data_ptr(), nv, maxc,
+        tables.n_env, tables.n_chain, B, _stream(H))
     _raise_on_error(lib, err, "tree_ldl_factor")
     launches["tree_ldl_factor"] += 1
-    return Lt.view(nv, maxc, B).permute(2, 0, 1), dt.t()
+    return L, d
 
 
 def tree_ldl_solve(tables: LdlTables, L: torch.Tensor, d: torch.Tensor, b: torch.Tensor):
@@ -108,20 +124,30 @@ def tree_ldl_solve(tables: LdlTables, L: torch.Tensor, d: torch.Tensor, b: torch
     from flygym_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    # No-ops for a factor from tree_ldl_factor, which is world-minor already.
-    Lt = L.permute(1, 2, 0).contiguous()
-    dt = d.t().contiguous()
-    bt = b.t().contiguous()
-    xt = torch.empty((nv, B), dtype=b.dtype, device=b.device)
+    L, d, b = L.contiguous(), d.contiguous(), b.contiguous()
+    x = b.new_empty((B, nv))
     err = lib.tree_ldl_solve_f32(
-        Lt.data_ptr(), dt.data_ptr(), bt.data_ptr(), xt.data_ptr(),
-        tables.order_height.data_ptr(), tables.order_depth.data_ptr(),
-        tables.chain_ptr.data_ptr(), tables.chain_idx.data_ptr(), nv, maxc, B,
-        torch.cuda.current_stream(b.device).cuda_stream,
-    )
+        L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), tables.kernel.data_ptr(), nv,
+        maxc, tables.n_env, tables.n_chain, B, _stream(b))
     _raise_on_error(lib, err, "tree_ldl_solve")
     launches["tree_ldl_solve"] += 1
-    return xt.t()
+    return x
+
+
+def kernel_shape(tables: LdlTables) -> dict:
+    """The launch for these tables: threads per block, and each kernel's
+    dynamic shared bytes per block and blocks resident per SM."""
+    import ctypes
+
+    from flygym_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    shape = (ctypes.c_int * 5)()
+    err = lib.tree_ldl_shape(tables.nv, tables.n_env, tables.n_chain, ctypes.addressof(shape))
+    _raise_on_error(lib, err, "tree_ldl_shape")
+    return {"threads": shape[0],
+            "tree_ldl_factor": {"shared_bytes": shape[1], "blocks_per_sm": shape[2]},
+            "tree_ldl_solve": {"shared_bytes": shape[3], "blocks_per_sm": shape[4]}}
 
 
 def sample_problems(model, n_worlds: int, seed: int = 0):

@@ -59,8 +59,8 @@ def test_tables_match_the_jax_model(jax_model, tables):
     assert tables.nv == jax_model.nv
     assert tables.maxc == jax_model.dof_anc.shape[1] == 16
     np.testing.assert_array_equal(tables.dof_anc.numpy(), np.asarray(jax_model.dof_anc))
-    assert tables.chain_idx.numel() == sum(len(c) for c in jax_model.dof_chains) == 741
-    order = tables.order_height.tolist()
+    assert tables.n_chain == sum(len(c) for c in jax_model.dof_chains) == 741
+    order = torch.cat(tables.height_levels).tolist()
     assert order == [i for lvl in jax_model.dof_height_levels for i in lvl]
     assert sorted(order) == list(range(jax_model.nv))
 
