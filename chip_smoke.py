@@ -16,8 +16,8 @@ Phases (each failure ends the run with a non-zero exit code):
    redesign (``scripts/k1_before_redesign``), and the mega-step
    kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly,
    example 11's two flies, the default two-fly contact preset, the 3-fly
-   pile, the strict, muscle-driven and mixed-kind flies (one generated
-   header each), and for the benchmark fly K2's profile build (clock64
+   pile, the strict, muscle-driven and mixed-kind flies and the tethered
+   fly (no contact candidate; one generated header each), and for the benchmark fly K2's profile build (clock64
    phase counters), its builds at the other threads per block of
    ``SWEEP_THREADS`` and the profile build of K2 as it stood before its
    redesign (``scripts/k2_before_redesign``: one world per thread, scratch
@@ -54,13 +54,15 @@ Phases (each failure ends the run with a non-zero exit code):
    (The plain version takes seconds per step whatever the worlds, so
    phases 10 and 13 hold K = 8 at 4096 worlds only, as phase 16 does.)
 4. The main path, the mega-step: the benchmark fly in ``BatchSimulation``
-   with its default step at 4096 worlds, adhesion on, a 500-step settle (one
-   step per launch: 8 does not divide 500) and a timed 1000-step replay of
-   the Spotlight clip (8 steps per launch). K2's launch count must be 625,
-   and K1/K1b's 0; all state finite.
+   with its default step at 4096 worlds, adhesion on, bench.py's protocol
+   (``demo/benchmark.py:run_simulation``): a 500-step settle (one step per
+   launch: 8 does not divide 500), an untimed 1000-step replay of the
+   Spotlight clip and a timed one from its end state (8 steps per launch).
+   K2's launch count must be 750 (500 + 2 x 125), and K1/K1b's 0; all
+   state finite.
 5. The engine path (PR 1's): the same width through the eager engine step
-   with K1/K1b, at a smaller depth, 100 settle + 200 replay steps; K1 and
-   K1b launches must be 300 and 600, K2's 0.
+   with K1/K1b, at a smaller depth, 100 settle + 2 x 200 replay steps; K1
+   and K1b launches must be 500 and 1000, K2's 0.
 6. The goldens: 8 worlds from the JAX settled state, 50 replay steps, the
    engine path against the JAX engine trajectory and the mega-step path
    against the JAX mega-step emitter's, to ``GOLDEN_TOLERANCE``
@@ -158,9 +160,9 @@ Phases (each failure ends the run with a non-zero exit code):
     at 4096 worlds; K2's bound from its operations counted on the CPU.
 20. The strict replay at 4096 worlds: the replay protocol of phase 4 on the
     strict fly (``load_compiled(STRICT_FLY)``, ``BatchSimulation``,
-    ``run_simulation``): launches K2 625, K1/K1b 0, all state finite. Then
-    its engine path at a small depth, 10 settle + 20 replay steps: 10 K1 and
-    10 K1b launches per step.
+    ``run_simulation``): launches K2 750, K1/K1b 0, all state finite. Then
+    its engine path at a small depth, 10 settle + 2 x 20 replay steps: 10 K1
+    and 10 K1b launches per step.
 21. Hold K2 built for the muscle-driven fly (42 muscles, na 42) and for the
     mixed-kind fly (one actuator kind per leg, na 14) against their plain
     versions, the activation rows compared too: for each, one K = 1 launch
@@ -182,6 +184,36 @@ Phases (each failure ends the run with a non-zero exit code):
     ``PROBE_BAR_SHARE`` of the state's largest value (the mixed fly's
     ringing legs spread the probe wider than the state itself after a few
     steps; the steps held are printed); the activations within 1e-6.
+24. Hold K2 built for the tethered motor fly (a hard weld, 42 MOTOR
+    actuators, no contact candidate: qacc is the tree solve of Mh against
+    the forces, K2 slice g.1) against its plain version: one K = 1 launch at
+    1000 worlds, one K = 8 launch at 4096, from the tethered golden's
+    settled worlds with seeded joint noise, to ``K2_RTOL``; time K = 1 and
+    K = 8 launches at 4096 worlds; K2's bound from its operations counted on
+    the CPU.
+25. The tethered fly at 4096 worlds: ``BatchSimulation`` with its default
+    step, ``set_actuator_inputs(fly, "motor", ·)`` with seeded torques in
+    (-5, 5), a timed ``rollout(None, 1000)``: launches K2 125, K1/K1b 0;
+    all state finite; world-steps/s.
+26. The tethered golden, 8 worlds x 50 steps: the K2 path against the JAX
+    emitter with 0 gaps, the engine path against the JAX engine to
+    ``GOLDEN_TOLERANCE``.
+27. The single-world API (B = 1): ``Simulation(load_compiled())`` with
+    adhesion on, ``warmup()`` (500 K = 1 launches), 1000
+    ``step_with_profile()`` calls (1000 K2 launches, no K1/K1b) equal to the
+    last bit to a ``megastep_k=1`` ``rollout(None, 1000)`` from the same
+    state; ``print_performance_report()``, ms per step and the realtime
+    factor; ``save_state`` -> ``load_state`` equal to the last bit, and 10
+    more steps of both equal; 100 ``step()`` calls of the tethered fly, equal
+    to its K = 1 rollout.
+28. The world sweep: ``run_benchmark(1, 16384, 4)`` (1, 4, ..., 16384
+    worlds), each count 750 K2 launches, no K1/K1b, all state finite, and
+    its world-steps/s; then ``python -m flygym_tpu_torch.demo.benchmark
+    4096`` as a subprocess, whose last line must be bench.py's JSON line with
+    a value > 0.
+29. One ``utils.profiling.trace()`` (``torch.profiler``) of 8 K = 8 replay
+    launches at 4096 worlds: the card's busy share and its top device op,
+    which must be K2's kernel (the chrome trace in ``outputs/trace``).
 
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
@@ -230,6 +262,14 @@ MUSCLE_STEPS = 1000  # the muscle-driven rollout: 125 K = 8 launches
 MUSCLE_CTRL = (0.3, 1.0)
 MIXED_STEPS = 200
 ACT_ATOL = 1e-6  # the engine path's activations against the JAX engine's
+TETHER_TORQUE = 5.0  # the tethered fly's motors: forcerange and seeded torques in (-5, 5)
+TETHERED_STEPS = 1000  # the tethered rollout: 125 K = 8 launches
+SINGLE_STEPS = 1000  # step_with_profile() calls of the single-world fly (B = 1)
+TETHERED_SINGLE_STEPS = 100
+# The world-count sweep: run_benchmark(1, 16384, 4) runs 1, 4, 16, ..., 16384
+# worlds (factor 16 from 1 would skip 16384).
+SWEEP_COUNTS = (1, 16384, 4)
+TRACE_LAUNCHES = 8  # K = 8 replay launches in the profiler's trace
 # The actuator goldens' engine path is held at a step only where its bar
 # (GOLDEN_TOLERANCE, or 3 times the conditioning probe's spread) is at most
 # GOLDEN_TOLERANCE or this share of the JAX engine's largest |value|: past
@@ -869,14 +909,15 @@ def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want
     )
     total = time.perf_counter() - t0
     counts = read_counts()
-    print(f"[{label}] {N_WORLDS} worlds: settle {settle} + replay {steps} steps in "
-          f"{total:.2f} s; launches {counts}")
+    print(f"[{label}] {N_WORLDS} worlds: settle {settle} + untimed replay {steps} + timed "
+          f"replay {steps} steps in {total:.2f} s; launches {counts}")
     for name, n in want.items():
         check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n}")
     st = sim.state
     for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata"):
         check(bool(torch.isfinite(getattr(st, name)).all()), f"{label}: state.{name} not finite")
-    check(abs(sim.time - (settle + steps) * compiled.model.timestep) < 1e-3, f"time {sim.time}")
+    check(abs(sim.time - (settle + 2 * steps) * compiled.model.timestep) < 1e-3,
+          f"time {sim.time}")
     found = st.contact_sensordata[..., 0].mean().item()
     z = st.qpos[:, 2]
     print(f"[{label}] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
@@ -1826,9 +1867,9 @@ def phase_actuator_kernels(muscle_model, mixed_model) -> dict:
 
 def phase_actuated_rollout(compiled, *, label: str, n_steps: int, ctrl_fn) -> tuple:
     """``compiled``'s fly at N_WORLDS through the default step from the
-    drop: adhesion on, ``ctrl_fn(sim, fly, gen)`` sets the actuators' inputs,
-    then a timed ``rollout(None, n_steps)``; returns the counts and the
-    walltime."""
+    drop: adhesion on where the fly has it, ``ctrl_fn(sim, fly, gen)`` sets
+    the actuators' inputs, then a timed ``rollout(None, n_steps)``; returns
+    the counts, the walltime and the simulation."""
     import torch
 
     from flygym_tpu_torch import BatchSimulation
@@ -1837,7 +1878,8 @@ def phase_actuated_rollout(compiled, *, label: str, n_steps: int, ctrl_fn) -> tu
     check(sim.megastep, f"{label}: the default step is not the mega-step on the card")
     fly = compiled.fly_names[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
+    if compiled.flies[fly]["adh_ids"]:
+        sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
     ctrl_fn(sim, fly, gen)
     torch.cuda.synchronize()
     reset_counts()
@@ -1855,12 +1897,16 @@ def phase_actuated_rollout(compiled, *, label: str, n_steps: int, ctrl_fn) -> tu
                  "contact_sensordata"):
         check(bool(torch.isfinite(getattr(st, name)).all()), f"{label}: state.{name} not finite")
     check(abs(sim.time - n_steps * compiled.model.timestep) < 1e-3, f"{label}: time {sim.time}")
-    z = st.qpos[:, 2]
-    print(f"[{label}] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
-          f"{z.max().item():.4f} mm, contact found share "
-          f"{st.contact_sensordata[..., 0].mean().item():.3f}, max|qvel| "
-          f"{st.qvel.abs().max().item():.2f}, activations in [{st.act.min().item():.4f}, "
-          f"{st.act.max().item():.4f}]")
+    words = [f"max|qvel| {st.qvel.abs().max().item():.2f}"]
+    if compiled.model.free_joints:
+        z = st.qpos[:, 2]
+        words.append(f"root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
+                     f"{z.max().item():.4f} mm")
+    if st.contact_sensordata.numel():
+        words.append(f"contact found share {st.contact_sensordata[..., 0].mean().item():.3f}")
+    if st.act.numel():
+        words.append(f"activations in [{st.act.min().item():.4f}, {st.act.max().item():.4f}]")
+    print(f"[{label}] " + ", ".join(words))
     rate = n_steps * N_WORLDS / wall
     print(f"[{label}] {wall / n_steps * 1e3:.3f} ms per step: {rate:.0f} world-steps/s on "
           f"{card_line()}")
@@ -1955,6 +2001,242 @@ def phase_actuator_golden(compiled, golden_path, *, label: str) -> None:
               f"{label} golden {path} found_share {worst['found_share']:.3e}")
         check(worst["act"] <= ACT_ATOL, f"{label} golden {path} act: {worst['act']:.3e}")
 
+def phase_tethered_kernel(model) -> dict:
+    """K2 built for the tethered motor fly (no contact candidate: qacc from
+    the tree solve of Mh) against its plain version: K = 1 at 1000 worlds
+    and K = 8 at N_WORLDS from the tethered golden's settled worlds with
+    seeded joint noise; times and bounds at N_WORLDS."""
+    from flygym_tpu_torch.compose.bridge import TETHERED_GOLDEN, load_actuator_golden
+
+    golden = load_actuator_golden(TETHERED_GOLDEN)
+    return k2_against_plain(
+        "tethered kernel", model,
+        lambda fn, n, k, seed: (*actuator_inputs(model, golden, n, k, seed), None),
+        checks=((1000, 1), (N_WORLDS, MEGASTEP_K)))
+
+
+def tethered_torques(sim, fly, gen) -> None:
+    """Each world's motors hold a seeded uniform torque inside their
+    forcerange (-TETHER_TORQUE, TETHER_TORQUE)."""
+    import torch
+
+    n = len(sim.actuated_dofs(fly, "motor"))
+    torque = TETHER_TORQUE * (2.0 * torch.rand((sim.n_worlds, n), generator=gen,
+                                               device="cuda") - 1.0)
+    sim.set_actuator_inputs(fly, "motor", torque)
+
+
+def phase_tethered_golden(compiled) -> None:
+    """The tethered golden, 8 worlds x 50 steps from the JAX settled state
+    with its seeded torques: the K2 path against the JAX emitter with 0 gaps,
+    the engine path (K1/K1b) against the JAX engine within
+    GOLDEN_TOLERANCE."""
+    import numpy as np
+
+    from flygym_tpu_torch.compose.bridge import TETHERED_GOLDEN, load_actuator_golden
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE, track_controls
+
+    golden = load_actuator_golden(TETHERED_GOLDEN)
+    n_steps, n_worlds = golden["ctrl"].shape[:2]
+    for path, megastep, record in (("megastep", None, "emitter"), ("engine", False, "engine")):
+        gaps = track_controls(compiled, golden, record, device="cuda", megastep=megastep)
+        worst = {key: float(np.max(gap)) for key, gap in gaps.items()}
+        print(f"[tethered golden {path}] {n_worlds} worlds x {n_steps} steps vs JAX {record}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        for key in ("qpos", "qvel"):
+            bar = 0.0 if megastep is None else GOLDEN_TOLERANCE[key]
+            check(worst[key] <= bar, f"tethered golden {path}: {key} {worst[key]:.3e} > {bar}")
+
+
+def phase_single_world(compiled, tethered_compiled) -> dict:
+    """The single-world API on the card (B = 1): the benchmark fly with
+    adhesion on, ``warmup()`` (500 K = 1 launches), SINGLE_STEPS
+    ``step_with_profile()`` calls (one K2 launch each, no K1/K1b), their
+    state equal to the last bit to a ``megastep_k=1`` ``rollout`` from the
+    same state; the performance report, ms per step and the realtime factor;
+    a ``save_state`` / ``load_state`` round trip equal to the last bit, and
+    10 more steps of both equal; then TETHERED_SINGLE_STEPS ``step()`` calls
+    of the tethered fly."""
+    import tempfile
+
+    import torch
+
+    from flygym_tpu_torch import Simulation
+
+    fields = ("qpos", "qvel", "ctrl", "act", "time", "qacc", "xpos", "xquat", "site_xpos",
+              "actuator_force", "contact_sensordata")
+
+    def same(a, b) -> bool:
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+    fly = compiled.fly_names[0]
+    sim = Simulation(compiled)
+    check(sim.megastep, "single world: the default step is not the mega-step on the card")
+    sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
+    reset_counts()
+    sim.warmup()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[single world] warmup(): {counts}")
+    check(counts["megastep"] == SETTLE_STEPS and counts["tree_ldl_factor"] == 0
+          and counts["tree_ldl_solve"] == 0, f"single world warmup: launches {counts}")
+    start = sim.state
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(SINGLE_STEPS):
+        sim.step_with_profile()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[single world] {SINGLE_STEPS} step_with_profile() calls in {wall:.3f} s; "
+          f"counts {counts}")
+    check(counts["megastep"] == SINGLE_STEPS and counts["tree_ldl_factor"] == 0
+          and counts["tree_ldl_solve"] == 0, f"single world steps: launches {counts}")
+    check(sim._curr_step == SINGLE_STEPS, f"single world: {sim._curr_step} steps counted")
+    ref = Simulation(compiled, megastep_k=1)
+    ref.state = start
+    ref.rollout(None, SINGLE_STEPS, record_trajectory=False)
+    check(same(sim.state, ref.state), "single world: step() differs from rollout(megastep_k=1)")
+    check(all(bool(torch.isfinite(getattr(sim.state, f)).all()) for f in fields),
+          "single world: state not finite")
+    sim.print_performance_report()
+    ms_step = sim._total_physics_time_ns / sim._curr_step / 1e6
+    print(f"[single world] B=1, step_with_profile: {ms_step:.4f} ms per step, realtime factor "
+          f"{sim.timestep / (ms_step * 1e-3):.4f}, {1e3 / ms_step:.0f} steps/s; equal to the "
+          f"K = 1 rollout to the last bit: True; on {card_line()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "state.npz"
+        sim.save_state(path)
+        back = Simulation(compiled)
+        back.load_state(path)
+    check(same(back.state, sim.state), "single world: load_state(save_state()) differs")
+    for _ in range(10):
+        sim.step()
+        back.step()
+    check(same(back.state, sim.state), "single world: 10 steps after load_state differ")
+    print("[single world] save_state -> load_state equal to the last bit, and 10 steps after: "
+          "True")
+
+    tfly = tethered_compiled.fly_names[0]
+    teth = Simulation(tethered_compiled)
+    check(teth.megastep, "tethered single world: the default step is not the mega-step")
+    tethered_torques(teth, tfly, torch.Generator(device="cuda").manual_seed(1))
+    start = teth.state
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TETHERED_SINGLE_STEPS):
+        teth.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["megastep"] == TETHERED_SINGLE_STEPS and counts["tree_ldl_factor"] == 0,
+          f"tethered single world: launches {counts}")
+    ref = Simulation(tethered_compiled, megastep_k=1)
+    ref.state = start
+    ref.rollout(None, TETHERED_SINGLE_STEPS, record_trajectory=False)
+    check(same(teth.state, ref.state), "tethered single world: step() differs from rollout")
+    check(bool(torch.isfinite(teth.state.qvel).all()), "tethered single world: qvel not finite")
+    print(f"[single world] tethered fly: {TETHERED_SINGLE_STEPS} step() calls in {wall:.3f} s "
+          f"({wall / TETHERED_SINGLE_STEPS * 1e3:.4f} ms per step), launches {counts}, equal "
+          f"to the K = 1 rollout: True, max|qvel| {teth.state.qvel.abs().max().item():.3f}")
+    return {"ms_step": ms_step}
+
+
+def phase_sweep() -> dict:
+    """``run_benchmark`` over SWEEP_COUNTS on the card, each count's
+    run_simulation checked (750 K2 launches, no K1/K1b, all state finite);
+    then ``python -m flygym_tpu_torch.demo.benchmark`` at N_WORLDS as a
+    subprocess, whose last line must be bench.py's JSON with a value > 0."""
+    import torch
+
+    from flygym_tpu_torch.demo import benchmark
+
+    run = benchmark.run_simulation
+    want = SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K)
+
+    def checked(compiled, targets, **kwargs):
+        reset_counts()
+        walltime, sim = run(compiled, targets, **kwargs)
+        counts = read_counts()
+        n = targets.shape[0]
+        check(counts["megastep"] == want and counts["tree_ldl_factor"] == 0
+              and counts["tree_ldl_solve"] == 0, f"sweep at {n} worlds: launches {counts}")
+        for name in ("qpos", "qvel", "qacc", "xpos", "xquat", "contact_sensordata"):
+            check(bool(torch.isfinite(getattr(sim.state, name)).all()),
+                  f"sweep at {n} worlds: state.{name} not finite")
+        return walltime, sim
+
+    lo, hi, factor = SWEEP_COUNTS
+    benchmark.run_simulation = checked
+    try:
+        cols = benchmark.run_benchmark(lo, hi, factor)
+    finally:
+        benchmark.run_simulation = run
+    counts = cols["n_worlds"].tolist()
+    expected = []
+    n = lo
+    while n <= hi:
+        expected.append(n)
+        n *= factor
+    check(counts == expected, f"sweep: ran {counts}, not {expected}")
+    print(f"[sweep] {'n_worlds':>8} {'walltime_s':>11} {'world-steps/s':>14} {'x realtime':>11}")
+    for n, w, r, x in zip(counts, cols["walltime_s"], cols["steps_per_second"],
+                          cols["realtime_factor"]):
+        print(f"[sweep] {n:>8} {w:>11.4f} {r:>14.0f} {x:>11.2f}")
+    print(f"[sweep] each count: {want} K2 launches, no K1/K1b, state finite; on {card_line()}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "flygym_tpu_torch.demo.benchmark", str(N_WORLDS)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    print(f"[sweep] python -m flygym_tpu_torch.demo.benchmark {N_WORLDS}: exit "
+          f"{proc.returncode}; stderr: {proc.stderr.strip()[-500:]}")
+    check(proc.returncode == 0, "the benchmark entry failed")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[sweep] its last line: {json.dumps(last)}")
+    check(set(last) == {"metric", "value", "unit", "vs_baseline"} and last["value"] > 0
+          and last["unit"] == "world-steps/s", f"the benchmark entry's line {last}")
+    return cols
+
+
+def phase_trace(compiled) -> dict:
+    """One ``utils.profiling.trace()`` of TRACE_LAUNCHES K = 8 launches of
+    the replay at N_WORLDS, after one untimed run of the same: the card's
+    busy share and its top device op, which must be K2's kernel."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.demo.benchmark import ReplayTargetData, replay_episode
+    from flygym_tpu_torch.utils.profiling import summarize_trace, trace
+
+    fly = compiled.fly_names[0]
+    n_steps = TRACE_LAUNCHES * MEGASTEP_K
+    dof_order = [tuple(d) for d in compiled.flies[fly]["actuated_dofs"]["position"]]
+    targets = torch.as_tensor(ReplayTargetData(compiled.model.timestep, dof_order)
+                              .make_target_angles_all_worlds(N_WORLDS, n_steps), device="cuda")
+    sim = BatchSimulation(compiled, N_WORLDS)
+    sim.set_leg_adhesion_states(fly, np.ones((N_WORLDS, 6), np.float32))
+    act_ids = sim.actuator_ids(fly, "position")
+    state = replay_episode(sim, sim.state, targets, act_ids, n_steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    logdir = Path(__file__).resolve().parent / "outputs" / "trace"
+    with trace(str(logdir), summarize=False):
+        replay_episode(sim, state, targets, act_ids, n_steps)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["megastep"] == TRACE_LAUNCHES, f"trace: launches {counts}")
+    digest = summarize_trace(str(logdir))
+    check(digest is not None and digest["top_device_ops"], "trace: no device op recorded")
+    top = digest["top_device_ops"][0]
+    print(f"[trace] {TRACE_LAUNCHES} K = {MEGASTEP_K} launches at B={N_WORLDS}: device busy "
+          f"{digest['device_busy_ms']:.3f} of {digest['span_ms']:.3f} ms, share "
+          f"{digest['device_busy_frac']:.4f}; top device op {top[0][:60]} {top[1]:.3f} ms "
+          f"({top[2]:.1f}% of busy); trace in {logdir}")
+    check("megastep_kernel" in top[0], f"trace: the top device op is {top[0]}, not K2")
+    return digest
+
+
+
 def main() -> int:
     import torch
 
@@ -1969,8 +2251,8 @@ def main() -> int:
         import flygym_tpu_torch
         from flygym_tpu_torch.compose.bridge import (
             ASSETS, BENCHMARK_GOLDEN, ENV_FLY, MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN,
-            STRICT_FLY, STRICT_GOLDEN, TERRAIN_FLY, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_FULL,
-            TWOFLY_FULL_GOLDEN, read_meta)
+            STRICT_FLY, STRICT_GOLDEN, TERRAIN_FLY, TETHERED_FLY, THREEFLY, THREEFLY_GOLDEN,
+            TWOFLY, TWOFLY_FULL, TWOFLY_FULL_GOLDEN, read_meta)
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
@@ -1981,21 +2263,24 @@ def main() -> int:
         strict_compiled = flygym_tpu_torch.load_compiled(STRICT_FLY)
         muscle_compiled = flygym_tpu_torch.load_compiled(MUSCLE_FLY)
         mixed_compiled = flygym_tpu_torch.load_compiled(MIXED_FLY)
+        tethered_compiled = flygym_tpu_torch.load_compiled(TETHERED_FLY)
         phase_build({"benchmark fly": compiled, "env fly": env_compiled,
                      "terrain fly": terrain_compiled, "two flies": twofly_compiled,
                      "two flies, 55 x 55 compressed": full_compiled,
                      "3-fly pile, compressed": pile_compiled,
                      "strict fly, exact Newton": strict_compiled,
-                     "muscle fly": muscle_compiled, "mixed-kind fly": mixed_compiled},
+                     "muscle fly": muscle_compiled, "mixed-kind fly": mixed_compiled,
+                     "tethered fly": tethered_compiled},
                     compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model, {"two flies, 55 x 55 compressed": full_compiled.model.to("cuda"),
                                         "3-fly pile": pile_compiled.model.to("cuda")})
         k2 = phase_megastep(compiled, model)
+        # The replay protocol: settle, an untimed replay, a timed replay.
         mega_counts, mega_wall = phase_slice(
             compiled, label="megastep", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
-            want={"megastep": SETTLE_STEPS + N_STEPS // MEGASTEP_K,
+            want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
                   "tree_ldl_factor": 0, "tree_ldl_solve": 0},
         )
         busy = (N_STEPS // MEGASTEP_K) * k2["times"][MEGASTEP_K][0] / (mega_wall * 1e3)
@@ -2005,8 +2290,8 @@ def main() -> int:
         engine_counts, _wall = phase_slice(
             compiled, label="engine", megastep=False, settle=ENGINE_SETTLE_STEPS,
             steps=ENGINE_STEPS,
-            want={"megastep": 0, "tree_ldl_factor": ENGINE_SETTLE_STEPS + ENGINE_STEPS,
-                  "tree_ldl_solve": 2 * (ENGINE_SETTLE_STEPS + ENGINE_STEPS)},
+            want={"megastep": 0, "tree_ldl_factor": ENGINE_SETTLE_STEPS + 2 * ENGINE_STEPS,
+                  "tree_ldl_solve": 2 * (ENGINE_SETTLE_STEPS + 2 * ENGINE_STEPS)},
         )
         phase_golden(compiled, label="golden engine", golden_path=BENCHMARK_GOLDEN,
                      megastep=False)
@@ -2053,13 +2338,13 @@ def main() -> int:
         lap("phase 19 (K2 exact Newton)")
         strict_counts, strict_wall = phase_slice(
             strict_compiled, label="strict", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
-            want={"megastep": SETTLE_STEPS + N_STEPS // MEGASTEP_K,
+            want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
                   "tree_ldl_factor": 0, "tree_ldl_solve": 0})
         k8 = k2_strict["times"][MEGASTEP_K][0]
         print(f"[strict] device busy share of the replay: "
               f"{(N_STEPS // MEGASTEP_K) * k8 / (strict_wall * 1e3):.3f} "
               f"({N_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over {strict_wall:.3f} s)")
-        n_engine = STRICT_ENGINE_SETTLE_STEPS + STRICT_ENGINE_STEPS
+        n_engine = STRICT_ENGINE_SETTLE_STEPS + 2 * STRICT_ENGINE_STEPS
         phase_slice(
             strict_compiled, label="strict engine", megastep=False,
             settle=STRICT_ENGINE_SETTLE_STEPS, steps=STRICT_ENGINE_STEPS,
@@ -2082,6 +2367,21 @@ def main() -> int:
                                        ("mixed", mixed_compiled, MIXED_GOLDEN)):
             phase_actuator_golden(compiled_, path, label=label)
         lap("phase 23 (the actuator and strict goldens)")
+        k2_teth = phase_tethered_kernel(tethered_compiled.model.to("cuda"))
+        teth_counts, teth_wall, _sim = phase_actuated_rollout(
+            tethered_compiled, label="tethered", n_steps=TETHERED_STEPS, ctrl_fn=tethered_torques)
+        k8 = k2_teth["times"][MEGASTEP_K][0]
+        print(f"[tethered] device busy share: "
+              f"{teth_counts['megastep'] * k8 / (teth_wall * 1e3):.3f} "
+              f"({teth_counts['megastep']} launches x {k8:.3f} ms over {teth_wall:.3f} s)")
+        phase_tethered_golden(tethered_compiled)
+        lap("phases 24-26 (the tethered fly, K2 without contact candidates)")
+        phase_single_world(compiled, tethered_compiled)
+        lap("phase 27 (the single-world API)")
+        phase_sweep()
+        lap("phase 28 (the world sweep and the benchmark entry)")
+        phase_trace(compiled)
+        lap("phase 29 (the profiler trace)")
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -2142,14 +2442,16 @@ def main() -> int:
     # its 800-step rollout makes it (100 launches).
     entries.append(k2_entry("megastep_pairs_compressed", k2_comp, full_counts["megastep"],
                             MEGASTEP_K))
-    # The exact Newton's K = 8 launch, as the strict replay makes 125 of its
-    # 625; every actuator kind's, as the muscle-driven and mixed-kind
+    # The exact Newton's K = 8 launch, as the strict replay makes 250 of its
+    # 750; every actuator kind's, as the muscle-driven and mixed-kind
     # rollouts make them.
     entries.append(k2_entry("megastep_strict", k2_strict, strict_counts["megastep"], MEGASTEP_K))
     entries.append(k2_entry("megastep_muscle", k2_act["muscle kernel"], muscle_counts["megastep"],
                             MEGASTEP_K))
     entries.append(k2_entry("megastep_mixed", k2_act["mixed kernel"], mixed_counts["megastep"],
                             MEGASTEP_K))
+    # Without contact candidates: the tethered rollout's K = 8 launch.
+    entries.append(k2_entry("megastep_tethered", k2_teth, teth_counts["megastep"], MEGASTEP_K))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

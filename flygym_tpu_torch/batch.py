@@ -8,6 +8,7 @@ per-world step, this class only sizes the batch.
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
 from flygym_tpu_torch.simulation import Simulation
+from flygym_tpu_torch.utils.profiling import print_perf_report_parallel
 
 __all__ = ["BatchSimulation"]
 
@@ -35,3 +36,17 @@ class BatchSimulation(Simulation):
 
     def _out(self, x):
         return x
+
+    def print_performance_report(self, show_in_notebook="auto") -> None:
+        """The parallel report (aggregate columns times ``n_worlds``,
+        ``flygym_tpu/batch.py:297-313``); no world renders yet."""
+        print_perf_report_parallel(
+            n_steps=self._curr_step,
+            n_frames_rendered=self._frames_rendered,
+            total_physics_time_ns=self._total_physics_time_ns,
+            total_render_time_ns=self._total_render_time_ns,
+            timestep=self.timestep,
+            n_worlds=self.n_worlds,
+            n_worlds_rendered=0,
+            show_in_notebook=show_in_notebook,
+        )

@@ -19,6 +19,8 @@ the fly with one actuator kind per leg and the strict replay's fly
 (``scripts/export_actuator_golden.py``) carry every actuator kind, their
 activation states (``State.act``, ``act_actadr``, ``act_dynprm``,
 ``act_muscleprm``, ``act_lengthrange``, ``act_acc0``) and ``solver_exact``.
+The same script writes the tethered motor fly, a world without contact
+candidates (``ncand`` 0, no sensors, no adhesion).
 
 Models that use a feature the port does not have yet are refused here,
 with ``NotImplementedError``, rather than simulated wrongly.
@@ -48,6 +50,8 @@ __all__ = [
     "STRICT_GOLDEN",
     "TERRAIN_FLY",
     "TERRAIN_GOLDEN",
+    "TETHERED_FLY",
+    "TETHERED_GOLDEN",
     "THREEFLY",
     "THREEFLY_GOLDEN",
     "TWOFLY",
@@ -83,6 +87,8 @@ MUSCLE_FLY = ASSETS / "muscle_fly.npz"
 MUSCLE_GOLDEN = ASSETS / "muscle_fly_golden.npz"
 MIXED_FLY = ASSETS / "mixed_fly.npz"
 MIXED_GOLDEN = ASSETS / "mixed_fly_golden.npz"
+TETHERED_FLY = ASSETS / "tethered_fly.npz"
+TETHERED_GOLDEN = ASSETS / "tethered_fly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -274,7 +280,8 @@ def load_twofly_golden(path=TWOFLY_GOLDEN) -> dict:
 
 def load_actuator_golden(path) -> dict:
     """The JAX golden of a world of ``scripts/export_actuator_golden.py``
-    (:data:`STRICT_GOLDEN`, :data:`MUSCLE_GOLDEN`, :data:`MIXED_GOLDEN`):
+    (:data:`STRICT_GOLDEN`, :data:`MUSCLE_GOLDEN`, :data:`MIXED_GOLDEN`,
+    :data:`TETHERED_GOLDEN`):
     ``state`` (the settled batched :class:`State`), ``ctrl`` (n_steps, B,
     nu) the controls of each step, and for the JAX emitter, the JAX engine
     and the engine's conditioning probe (``emitter``, ``engine``,

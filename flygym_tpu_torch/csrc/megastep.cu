@@ -24,7 +24,11 @@
 // first; semi-implicit Euler, the activation states (intvelocity's integral,
 // cylinder's filter, muscle activation) and, on the last of the K fused
 // steps only, the outputs (state, FK, actuator forces, contact sensors). The
-// K-1 inner steps write their qpos rows only.
+// K-1 inner steps write their qpos rows only. A world without contact
+// candidates (a tethered fly; NCAND 0) compiles without the contact section
+// (if constexpr): qacc is the tree solve of Mh against the forces. The
+// header pads a table that would be empty (no candidates, free joints,
+// sensors or sites) with one unread entry, so no array has length 0.
 //
 // Design. One world per thread block of THREADS threads (32, 64 or 128,
 // from the generated header megastep_model.h; 128 ships), one block per
@@ -1107,6 +1111,116 @@ MS_FN void sensor(const Col& out, const Rows& s, int sn, int o_sens) {
   for (int r = 0; r < 16; ++r) out[r0 + r] = row[r];
 }
 
+// qacc (S_A) with the contact rows: candidates, adhesion, the first pass
+// (gradient, Hessian, factor) and the Newton iterations with their line
+// search, from the forces in S_QFRC and the warm start in S_A.
+MS_FN void contact_accel(const Col& in, const Rows& s, int K, V3 ref, Prof& prof) {
+  // ---------------- contact candidates ------------------------------------
+  for (int c : par(NCAND)) candidate(in, s, c, K, ref);
+  MS_SYNC();
+  // Adhesion: each actuator's force split over its active candidates.
+  for (int gi : par(NADH)) {
+    const int u = kAdhAct[gi];
+    const float total = kActGain[u] * s[S_CCL + u];
+    float count = 0.0f;
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) count = count + s[S_CACT + kAdhCand[j]];
+    const float per = total / fmaxf(count, 1.0f);
+    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) {
+      const int c = kAdhCand[j];
+      s[S_CADH + c] = s[S_CACT + c] != 0.0f ? per : 0.0f;
+    }
+  }
+  MS_SYNC();
+  prof.mark(kPhCandidates);
+
+  // ---------------- first pass: adhesion, gradient, Hessian, factor ------
+  dof_sums(s, true);
+  hess_fill(s);
+  MS_SYNC();
+  tree_ldl(s);
+  prof.mark(kPhFirstPass);
+
+  // ---------------- Newton: frozen Hessian, or exact (SOLVER_EXACT) -------
+  // The exact Newton re-fills the Hessian from Mh (S_MH, which the factor
+  // leaves intact) at the current active set and re-factors it in S_H.
+  mh_mul(s, S_A, S_MA);
+  prof.mark(kPhMhMul);
+  int turn = 0;
+  MS_NOUNROLL
+  for (int it = 0; it < NEWTON_ITERS; ++it) {
+    if (it > 0) {
+      dof_sums(s, false);
+      if (kSolverExact) hess_fill(s);
+      MS_SYNC();
+      if (kSolverExact) tree_ldl(s);
+    }
+    prof.mark(kPhRefill);
+    for (int d : par(NV)) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
+    MS_SYNC();
+    tree_solve(s, S_DEL);
+    for (int d : par(NV)) s[S_DEL + d] = -s[S_DEL + d];
+    MS_SYNC();
+    prof.mark(kPhSolve);
+    mh_mul(s, S_DEL, S_MD);
+    prof.mark(kPhMhMul);
+    float dMd = 0.0f, gMd = 0.0f;
+    MS_UNROLL4
+    for (int d = 0; d < NV; ++d) {
+      const float del = s[S_DEL + d], md = s[S_MD + d];
+      dMd = dMd + del * md;
+      gMd = gMd + s[S_A + d] * md - s[S_QFRC + d] * del;
+    }
+    for (int c : par(NCAND)) {
+      float jd[4];
+      row_combos(c, products(s, c, S_DEL), jd);
+      for (int r = 0; r < 4; ++r) s[S_JD + 4 * c + r] = jd[r];
+    }
+    MS_SYNC();
+    prof.mark(kPhJd);
+    // Bisection with a final regula falsi: only the sign of φ' feeds back.
+    float dlo = dphi(s, gMd, dMd, 0.0f, true, turn);
+    const float d0 = dlo;
+    float dhi = dphi(s, gMd, dMd, 0.0f + kAlphaMax, false, turn);
+    float lo = 0.0f, hi = 0.0f + kAlphaMax;
+    MS_NOUNROLL
+    for (int kb = 0; kb < LS_BISECT; ++kb) {
+      const float mid = 0.5f * (lo + hi);
+      const float dm = dphi(s, gMd, dMd, mid, false, turn);
+      const bool neg = dm < 0.0f;
+      lo = neg ? mid : lo;
+      dlo = neg ? dm : dlo;
+      hi = neg ? hi : mid;
+      dhi = neg ? dhi : dm;
+    }
+    const float t = -dlo / fmaxf(dhi - dlo, 1e-12f);
+    float alpha = lo + clampf(t, 0.0f, 1.0f) * (hi - lo);
+    alpha = d0 < 0.0f ? alpha : 0.0f;
+    prof.mark(kPhLineSearch);
+    for (int d : par(NV)) {
+      s[S_A + d] = s[S_A + d] + alpha * s[S_DEL + d];
+      s[S_MA + d] = s[S_MA + d] + alpha * s[S_MD + d];
+    }
+    for (int c : par(NCAND)) {
+      for (int r = 0; r < 4; ++r)
+        s[S_JAR + 4 * c + r] = s[S_JAR + 4 * c + r] + alpha * s[S_JD + 4 * c + r];
+      coef(s, c);
+    }
+    MS_SYNC();
+    prof.mark(kPhUpdate);
+  }
+}
+
+// qacc (S_A) of a world without contact candidates: Mh qacc = qfrc through
+// the tree factor of Mh (the emitter's _contacts without candidates; no
+// 1e-9 on the diagonal, which only the contact Hessian takes).
+MS_FN void free_accel(const Rows& s) {
+  for (int k : par(NPK)) s[S_H + k] = s[S_MH + k];
+  for (int d : par(NV)) s[S_A + d] = s[S_QFRC + d];
+  MS_SYNC();
+  tree_ldl(s);
+  tree_solve(s, S_A);
+}
+
 // One physics step of one world: state in scratch rows S_Q, S_V, S_A (warm
 // start) and S_ACT (activations), controls from input rows of step k; the
 // last step writes outputs. Every thread of the block runs it; the loops
@@ -1215,98 +1329,13 @@ MS_FN void step_world(const Col& in, const Col& out, const Rows& s, int k, int K
   MS_SYNC();
   prof.mark(kPhForces);
 
-  // ---------------- contact candidates ------------------------------------
-  for (int c : par(NCAND)) candidate(in, s, c, K, ref);
-  MS_SYNC();
-  // Adhesion: each actuator's force split over its active candidates.
-  for (int gi : par(NADH)) {
-    const int u = kAdhAct[gi];
-    const float total = kActGain[u] * s[S_CCL + u];
-    float count = 0.0f;
-    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) count = count + s[S_CACT + kAdhCand[j]];
-    const float per = total / fmaxf(count, 1.0f);
-    for (int j = kAdhPtr[gi]; j < kAdhPtr[gi + 1]; ++j) {
-      const int c = kAdhCand[j];
-      s[S_CADH + c] = s[S_CACT + c] != 0.0f ? per : 0.0f;
-    }
-  }
-  MS_SYNC();
-  prof.mark(kPhCandidates);
-
-  // ---------------- first pass: adhesion, gradient, Hessian, factor ------
-  dof_sums(s, true);
-  hess_fill(s);
-  MS_SYNC();
-  tree_ldl(s);
-  prof.mark(kPhFirstPass);
-
-  // ---------------- Newton: frozen Hessian, or exact (SOLVER_EXACT) -------
-  // The exact Newton re-fills the Hessian from Mh (S_MH, which the factor
-  // leaves intact) at the current active set and re-factors it in S_H.
-  mh_mul(s, S_A, S_MA);
-  prof.mark(kPhMhMul);
-  int turn = 0;
-  MS_NOUNROLL
-  for (int it = 0; it < NEWTON_ITERS; ++it) {
-    if (it > 0) {
-      dof_sums(s, false);
-      if (kSolverExact) hess_fill(s);
-      MS_SYNC();
-      if (kSolverExact) tree_ldl(s);
-    }
-    prof.mark(kPhRefill);
-    for (int d : par(NV)) s[S_DEL + d] = s[S_MA + d] - s[S_QFRC + d] + s[S_GC + d];
-    MS_SYNC();
-    tree_solve(s, S_DEL);
-    for (int d : par(NV)) s[S_DEL + d] = -s[S_DEL + d];
-    MS_SYNC();
+  // ---------------- qacc: the contact solve, or (no candidates) the tree
+  // solve of Mh against the forces ----------------------------------------
+  if constexpr (NCAND > 0) {
+    contact_accel(in, s, K, ref, prof);
+  } else {
+    free_accel(s);
     prof.mark(kPhSolve);
-    mh_mul(s, S_DEL, S_MD);
-    prof.mark(kPhMhMul);
-    float dMd = 0.0f, gMd = 0.0f;
-    MS_UNROLL4
-    for (int d = 0; d < NV; ++d) {
-      const float del = s[S_DEL + d], md = s[S_MD + d];
-      dMd = dMd + del * md;
-      gMd = gMd + s[S_A + d] * md - s[S_QFRC + d] * del;
-    }
-    for (int c : par(NCAND)) {
-      float jd[4];
-      row_combos(c, products(s, c, S_DEL), jd);
-      for (int r = 0; r < 4; ++r) s[S_JD + 4 * c + r] = jd[r];
-    }
-    MS_SYNC();
-    prof.mark(kPhJd);
-    // Bisection with a final regula falsi: only the sign of φ' feeds back.
-    float dlo = dphi(s, gMd, dMd, 0.0f, true, turn);
-    const float d0 = dlo;
-    float dhi = dphi(s, gMd, dMd, 0.0f + kAlphaMax, false, turn);
-    float lo = 0.0f, hi = 0.0f + kAlphaMax;
-    MS_NOUNROLL
-    for (int kb = 0; kb < LS_BISECT; ++kb) {
-      const float mid = 0.5f * (lo + hi);
-      const float dm = dphi(s, gMd, dMd, mid, false, turn);
-      const bool neg = dm < 0.0f;
-      lo = neg ? mid : lo;
-      dlo = neg ? dm : dlo;
-      hi = neg ? hi : mid;
-      dhi = neg ? dhi : dm;
-    }
-    const float t = -dlo / fmaxf(dhi - dlo, 1e-12f);
-    float alpha = lo + clampf(t, 0.0f, 1.0f) * (hi - lo);
-    alpha = d0 < 0.0f ? alpha : 0.0f;
-    prof.mark(kPhLineSearch);
-    for (int d : par(NV)) {
-      s[S_A + d] = s[S_A + d] + alpha * s[S_DEL + d];
-      s[S_MA + d] = s[S_MA + d] + alpha * s[S_MD + d];
-    }
-    for (int c : par(NCAND)) {
-      for (int r = 0; r < 4; ++r)
-        s[S_JAR + 4 * c + r] = s[S_JAR + 4 * c + r] + alpha * s[S_JD + 4 * c + r];
-      coef(s, c);
-    }
-    MS_SYNC();
-    prof.mark(kPhUpdate);
   }
 
   // ---------------- outputs of the last step (pre-integration FK) ---------

@@ -7,11 +7,12 @@ implicit joint damping (MuJoCo's Euler integrator).
 
 The cached outputs (xpos, sensors, ...) describe the configuration before
 integration, as ``MjData`` does after ``mj_step``. Where the reference
-scans an episode with ``lax.scan``, :func:`rollout_batched` is a Python loop
-of eager steps.
+scans an episode with ``lax.scan``, :func:`rollout` (one world) and
+:func:`rollout_batched` are Python loops of eager steps.
 """
 
 from dataclasses import replace
+from functools import partial
 
 import torch
 
@@ -25,7 +26,7 @@ from flygym_tpu_torch.engine.kinematics import (
 from flygym_tpu_torch.engine.maths import quat_integrate
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State, compute_site_xpos
 
-__all__ = ["step", "rollout_batched"]
+__all__ = ["make_step_fn", "rollout", "rollout_batched", "step"]
 
 
 def step(model: PhysicsModel, state: State, widx=None) -> State:
@@ -112,6 +113,35 @@ def _integrate_qpos(model: PhysicsModel, qpos, qvel, dt):
             qpos[:, qadr + 3 : qadr + 7], qvel[:, vadr + 3 : vadr + 6], dt
         )
     return qpos_new
+
+
+def make_step_fn(model: PhysicsModel):
+    """The step closed over ``model``: ``fn(state) -> state``
+    (``flygym_tpu/engine/step.py:188-192``; torch has no buffer donation)."""
+    return partial(step, model)
+
+
+def rollout(model: PhysicsModel, state: State, ctrl_seq: torch.Tensor | None, n_steps: int,
+            record: bool = True):
+    """Step one world ``n_steps`` times (``flygym_tpu/engine/step.py:195-227``).
+
+    Args:
+        state: A one-world State (batch of 1, as :class:`~flygym_tpu_torch.
+            Simulation` holds it).
+        ctrl_seq: (n_steps, nu) controls per step; NaN entries keep the
+            previous control. None holds the current controls.
+        record: Stack the per-step qpos trajectory.
+
+    Returns:
+        (final state, (n_steps, nq) qpos trajectory or None).
+    """
+    if state.qpos.shape[0] != 1:
+        raise ValueError(f"rollout steps one world, got a batch of {state.qpos.shape[0]}; "
+                         "use rollout_batched")
+    if ctrl_seq is not None:
+        ctrl_seq = ctrl_seq[:, None, :]
+    final, traj = rollout_batched(model, state, ctrl_seq, n_steps, record=record)
+    return final, (traj[:, 0] if record else None)
 
 
 def rollout_batched(

@@ -544,7 +544,8 @@ def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
     (``megastep.py:934-989``) as far as the port goes — Newton (frozen or
     ``solver_exact``), no welds, condim 3, every actuator kind with its
-    activation states, at least one contact candidate, candidate paths that
+    activation states, worlds without contact candidates (a tethered fly:
+    qacc is the tree solve of Mh against the forces), candidate paths that
     run down one chain of the tree per body, pair rows without sensors or
     adhesion, and compressed pair rows (:func:`_winner_paths_ok`) on flat
     ground only. There is no VMEM estimate."""
@@ -554,7 +555,6 @@ def megastep_supported(model: PhysicsModel) -> bool:
         or model.welds
         or (compressed and model.has_hfield)
         or model.condim != 3
-        or model.ncand == 0
     ):
         return False
     try:
@@ -1197,8 +1197,13 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain, widx):
 def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain, widx):
     """Candidate rows, tree LDLᵀ and primal Newton with the bisection line
     search, on the frozen Hessian or, with ``solver_exact``, re-factored at
-    every iteration (the JAX ``_contacts_impl``, fused, condim 3)."""
+    every iteration (the JAX ``_contacts_impl``, fused, condim 3). A world
+    without candidates solves Mh qacc = qfrc through the tree factor alone
+    (``megastep.py:1785-1788``)."""
     nv = st.nv
+    if st.ncand == 0:
+        L, dvec = _tree_ldl(st, Mh)
+        return _tree_solve(st, L, dvec, qfrc), []
     geom_cache = {}
     cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache, terrain, widx)
             for c in range(st.ncand)]
@@ -1834,7 +1839,7 @@ def _max_path(st: _Static) -> int:
         return max([len(paths[b]) for b in cand_bodies[: st.ng_rows]] + [
             st.cand_split[st.ng_rows + g] + max(len(paths[b2]) for _g2, b2 in grp["members"])
             for g, grp in enumerate(st.pair_comp_groups)])
-    return max(len(p) for p in st.cand_paths)
+    return max((len(p) for p in st.cand_paths), default=0)
 
 
 def _dof_candidates(st: _Static) -> list:

@@ -1,10 +1,12 @@
 """Single-world simulation runtime.
 
-Port of ``flygym_tpu/simulation.py`` (lines 88-150 and 306-392): construct
-from a compiled model, roll out, read state in the fly's canonical orders
-and write control inputs. The state is a batch of one world (B = 1); getters
-return that world. :class:`flygym_tpu_torch.batch.BatchSimulation` is the
-same runtime over many worlds.
+Port of ``flygym_tpu/simulation.py``: construct from a compiled model,
+``step()`` / ``step_with_profile()`` / ``warmup()`` / ``reset()``, roll out,
+read state in the fly's canonical orders, write control inputs, save and
+load the state, and print the performance report from the runtime's
+counters. The state is a batch of one world (B = 1); getters return that
+world. :class:`flygym_tpu_torch.batch.BatchSimulation` is the same runtime
+over many worlds.
 
 The step is chosen as the JAX package chooses it (``batch.py:77-106``,
 ``simulation.py:189-243``), with arguments in place of its environment
@@ -17,13 +19,18 @@ of K steps, or every ``terrain_resample`` steps on the one-step path.
 """
 
 from dataclasses import replace
+from time import perf_counter_ns
+from typing import Literal
 
 import torch
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
 from flygym_tpu_torch.engine.step import rollout_batched
+from flygym_tpu_torch.engine.step import step as engine_step
 from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
+from flygym_tpu_torch.utils import checkpoint
+from flygym_tpu_torch.utils.profiling import print_perf_report
 
 __all__ = ["Simulation"]
 
@@ -75,6 +82,7 @@ class Simulation:
         self._initial_state = self._batch(compiled.initial_state.to(self.device))
         self.state = self._initial_state
         self._map_internal_ids()
+        self._clear_counters()
 
     def _batch(self, state):
         return state
@@ -117,9 +125,50 @@ class Simulation:
     # Stepping
     # ------------------------------------------------------------------
 
+    def _clear_counters(self) -> None:
+        """The performance report's counters (``flygym_tpu/simulation.py:
+        69-73``); nothing renders yet, so the render counters stay 0."""
+        self._curr_step = 0
+        self._frames_rendered = 0
+        self._total_physics_time_ns = 0
+        self._total_render_time_ns = 0
+
     def reset(self) -> None:
-        """Back to the neutral keyframe at time 0."""
+        """Back to the neutral keyframe at time 0, the counters cleared."""
         self.state = self._initial_state
+        self._clear_counters()
+
+    def step(self) -> None:
+        """Advance one timestep through the step of a one-step run
+        (``step_fns(1)``): K2 at K = 1 on the card for a supported model,
+        the engine step otherwise. On a heightfield world, or one with
+        compressed pair rows, K2 samples its planes or winners at every
+        call."""
+        batched_step, _kstep = self.step_fns(1)
+        if batched_step is None:
+            self.state = engine_step(self.model, self.state)
+        else:
+            self.state = batched_step(self.state)
+
+    def step_with_profile(self) -> None:
+        """:meth:`step`, its wall-clock time (the card synchronised before
+        the clock is read) and the step added to the report's counters."""
+        start = perf_counter_ns()
+        self.step()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._total_physics_time_ns += perf_counter_ns() - start
+        self._curr_step += 1
+
+    def warmup(self, duration_s: float = 0.05) -> None:
+        """Hold the current controls for ``int(duration_s / timestep)``
+        steps, so that the start's transients settle, in one rollout without
+        trajectory; these steps do not count in the report
+        (``flygym_tpu/simulation.py:178-187``)."""
+        n_steps = int(duration_s / self.timestep)
+        if n_steps > 0:
+            self.rollout(None, n_steps, record_trajectory=False)
+            self._curr_step -= n_steps
 
     def step_fns(self, n_steps: int):
         """``(batched_step, kstep_fn)`` for a run of ``n_steps`` steps, as
@@ -164,6 +213,7 @@ class Simulation:
             self.model, self.state, ctrl_sequence, n_steps, record=record_trajectory,
             batched_step=batched_step, kstep_fn=kstep_fn, terrain_resample=self.terrain_resample,
         )
+        self._curr_step += n_steps
         if traj is None:
             return None
         return traj if self.n_worlds > 1 else traj[:, 0]
@@ -236,8 +286,47 @@ class Simulation:
         self.state = replace(self.state, ctrl=ctrl)
 
     # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+
+    def save_state(self, path) -> None:
+        """Write the state to an npz checkpoint (:mod:`flygym_tpu_torch.utils.
+        checkpoint`). One world is written without a world axis, as the JAX
+        package's ``Simulation`` writes it; a batch with its world axis."""
+        checkpoint.save_state(self.state.map(self._out), path)
+
+    def load_state(self, path) -> None:
+        """Restore a state written by :meth:`save_state`, by either package,
+        onto this simulation's device."""
+        state = checkpoint.load_state(path, device=self.device)
+        if self.n_worlds == 1 and state.qpos.dim() == 1:
+            state = state.map(lambda x: x[None])
+        if state.qpos.dim() != 2 or state.qpos.shape != (self.n_worlds, self.model.nq):
+            raise ValueError(f"checkpoint qpos {tuple(state.qpos.shape)} does not fit "
+                             f"{self.n_worlds} worlds of nq {self.model.nq}")
+        self.state = state
+
+    # ------------------------------------------------------------------
 
     @property
     def time(self) -> float:
         """Simulation time of world 0, in seconds."""
         return float(self.state.time[0])
+
+    @property
+    def timestep(self) -> float:
+        """Simulation timestep in seconds."""
+        return self.model.timestep
+
+    def print_performance_report(
+        self, show_in_notebook: bool | Literal["auto"] = "auto"
+    ) -> None:
+        """The report of the steps taken with :meth:`step_with_profile`."""
+        print_perf_report(
+            n_steps=self._curr_step,
+            n_frames_rendered=self._frames_rendered,
+            total_physics_time_ns=self._total_physics_time_ns,
+            total_render_time_ns=self._total_render_time_ns,
+            timestep=self.timestep,
+            show_in_notebook=show_in_notebook,
+        )

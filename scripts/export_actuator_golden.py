@@ -1,7 +1,7 @@
 """Export the worlds of the mega-step's actuator and solver slices for the
 PyTorch port.
 
-Three worlds, each compiled and run by the JAX package on the CPU:
+Four worlds, each compiled and run by the JAX package on the CPU:
 
 - **The strict replay's fly** (``strict_fly``): the benchmark fly of
   ``flygym_tpu/demo/benchmark.py:make_model`` with ``solver_exact`` (MuJoCo's
@@ -16,6 +16,13 @@ Three worlds, each compiled and run by the JAX package on the CPU:
   per leg, in the fly's leg order: position (kp 50), motor, velocity (kv 1),
   intvelocity (kp 50), damper (kv 1) and cylinder, with leg adhesion; its
   golden holds a seeded control per world inside each kind's range.
+- **The tethered motor fly** (``tethered_fly``): the world of
+  ``tests/engine/test_actuators_golden.py:25-38``: a ``TetheredWorld`` (a
+  hard weld: the fly's root stays where it was spawned), the
+  LEGS_ACTIVE_ONLY skeleton and a MOTOR actuator on every DoF with
+  forcerange (-5, 5). It compiles to 42 DoFs and no contact candidate, the
+  world of tethered motor-control experiments. Its golden settles under one
+  seeded torque per world and DoF inside (-5, 5), then holds another.
 
 Each is written as ``flygym_tpu_torch/assets/<name>.npz`` (as
 ``scripts/export_torch_model.py`` writes the benchmark fly) and
@@ -39,7 +46,7 @@ Each records per step ``qpos``, ``qvel``, ``act`` and ``sensordata``.
 Run from the repository root (about 10-40 minutes on one CPU core, most of
 it the eager emitter of the strict fly; one argument names one world)::
 
-    JAX_PLATFORMS=cpu python scripts/export_actuator_golden.py [strict_fly|muscle_fly|mixed_fly]
+    JAX_PLATFORMS=cpu python scripts/export_actuator_golden.py [strict_fly|muscle_fly|mixed_fly|tethered_fly]
 """
 
 import dataclasses
@@ -71,10 +78,12 @@ MIXED_KINDS = (
     ("cylinder", {"ctrlrange": (-1.0, 1.0)}, (-0.5, 0.5)),
 )
 POSITION_NOISE = 0.1  # rad around the neutral pose, the mixed fly's position leg
+TETHER_TORQUE = 5.0  # the tethered fly's motors: forcerange and seeded torques in (-5, 5)
 WORLDS = {
     "strict_fly": {"settle_steps": 2500},
     "muscle_fly": {"settle_steps": 1000},
     "mixed_fly": {"settle_steps": 1000},
+    "tethered_fly": {"settle_steps": 1000},
 }
 
 
@@ -95,12 +104,31 @@ def _legs_fly(name: str):
     return fly
 
 
+def build_tethered():
+    """The tethered motor fly (``tests/engine/test_actuators_golden.py:25-38``
+    with ``ActuatorType.MOTOR, forcerange=(-5, 5)``)."""
+    from flygym_tpu.anatomy import AxisOrder, JointPreset, Skeleton
+    from flygym_tpu.compose import ActuatorType, Fly, KinematicPosePreset, TetheredWorld
+    from flygym_tpu.utils.math import Rotation3D
+
+    fly = Fly(name="actfly")
+    fly.add_joints(Skeleton(axis_order=AxisOrder.YPR, joint_preset=JointPreset.LEGS_ACTIVE_ONLY),
+                   neutral_pose=KinematicPosePreset.NEUTRAL)
+    dofs = fly.skeleton.get_actuated_dofs_from_preset("all")
+    fly.add_actuators(dofs, ActuatorType.MOTOR, forcerange=(-TETHER_TORQUE, TETHER_TORQUE))
+    world = TetheredWorld()
+    world.add_fly(fly, (0, 0, 3.0), Rotation3D("quat", (1, 0, 0, 0)))
+    return fly, world
+
+
 def build_world(name: str):
     """``(fly, world)`` of the named world."""
     from flygym_tpu.anatomy import ActuatedDOFPreset
     from flygym_tpu.compose import ActuatorType, FlatGroundWorld, KinematicPosePreset
     from flygym_tpu.utils.math import Rotation3D
 
+    if name == "tethered_fly":
+        return build_tethered()
     if name == "strict_fly":
         from flygym_tpu.demo.benchmark import make_model
 
@@ -129,16 +157,20 @@ def build_world(name: str):
 
 def golden_controls(name: str, sim, fly, n_worlds: int, n_steps: int) -> np.ndarray:
     """(n_steps, n_worlds, nu) controls of the recorded steps: adhesion on
-    throughout; the strict fly's position actuators replay the Spotlight
-    clip; the muscles hold 0.7; the mixed fly's actuators hold a seeded
-    control per world."""
+    throughout where the fly has it; the strict fly's position actuators
+    replay the Spotlight clip; the muscles hold 0.7; the mixed fly's
+    actuators hold a seeded control per world; the tethered fly's motors a
+    seeded torque per world and DoF."""
     from flygym_tpu.compose.fly import ActuatorType
 
     ctrl0 = np.asarray(sim._initial_state.ctrl, np.float32)
     ctrl = np.broadcast_to(ctrl0, (n_steps, n_worlds, ctrl0.shape[-1])).copy()
-    ctrl[..., np.asarray(sim._adh_ids[fly.name])] = 1.0
+    if fly.name in sim._adh_ids:
+        ctrl[..., np.asarray(sim._adh_ids[fly.name])] = 1.0
     ids = lambda kind: np.asarray(sim._act_ids_by_type[ActuatorType(kind)][fly.name])
-    if name == "strict_fly":
+    if name == "tethered_fly":
+        ctrl[..., ids("motor")] = tethered_torques(n_worlds, len(ids("motor")), SEED)
+    elif name == "strict_fly":
         from flygym_tpu.demo.benchmark import ReplayTargetData
 
         order = fly.get_actuated_jointdofs_order(ActuatorType.POSITION)
@@ -157,6 +189,12 @@ def golden_controls(name: str, sim, fly, n_worlds: int, n_steps: int) -> np.ndar
                 draw = rng.uniform(*span, (n_worlds, len(a)))
             ctrl[..., a] = draw.astype(np.float32)
     return ctrl
+
+
+def tethered_torques(n_worlds: int, n: int, seed: int) -> np.ndarray:
+    """(n_worlds, n) seeded torques inside the motors' forcerange."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-TETHER_TORQUE, TETHER_TORQUE, (n_worlds, n)).astype(np.float32)
 
 
 def settled_state(model, state, ctrl: np.ndarray, settle_steps: int):
@@ -203,6 +241,9 @@ def emitter_loop(model, st, ctrl: np.ndarray) -> dict:
     cols = lambda x: [jnp.asarray(np.asarray(x)[:, i]) for i in range(np.asarray(x).shape[1])]
     pack = lambda lst, w: (np.stack([np.asarray(x) for x in lst], axis=1) if lst
                            else np.zeros((w, 0), np.float32))
+    # (B, nsensor, 16), also where the world has no contact sensor.
+    sensors = lambda rows, w: (np.stack([pack(s, w) for s in rows], axis=1) if rows
+                               else np.zeros((w, 0, 16), np.float32))
     B = ctrl.shape[1]
     q, v, act, warm = cols(st.qpos), cols(st.qvel), cols(st.act), cols(st.qacc)
     rec = {"qpos": [], "qvel": [], "act": [], "sensordata": []}
@@ -213,7 +254,7 @@ def emitter_loop(model, st, ctrl: np.ndarray) -> dict:
         rec["qpos"].append(pack(q, B))
         rec["qvel"].append(pack(v, B))
         rec["act"].append(pack(act, B))
-        rec["sensordata"].append(np.stack([pack(s, B) for s in r["sensordata"]], axis=1))
+        rec["sensordata"].append(sensors(r["sensordata"], B))
         print(f"emitter step {t + 1}/{len(ctrl)} in {time.perf_counter() - t0:.1f} s", flush=True)
     return {f"emitter.{k}": np.stack(v) for k, v in rec.items()}
 
@@ -242,6 +283,8 @@ def export_world(name: str) -> None:
     if name == "strict_fly":  # the benchmark golden settles at the neutral targets
         settle_ctrl = np.asarray(bsim.state.ctrl, np.float32).copy()
         settle_ctrl[:, np.asarray(sim._adh_ids[fly.name])] = 1.0
+    elif name == "tethered_fly":  # settled under other torques than the recorded ones
+        settle_ctrl[:] = tethered_torques(GOLDEN_WORLDS, settle_ctrl.shape[1], SEED + 1)
     t0 = time.perf_counter()
     settled = settled_state(model, bsim.state, settle_ctrl, settle)
     print(f"{name}: settled {settle} steps in {time.perf_counter() - t0:.1f} s; root z "

@@ -25,7 +25,7 @@ import torch
 
 from flygym_tpu_torch import BatchSimulation, load_compiled
 from flygym_tpu_torch.compose.bridge import (
-    MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN, TWOFLY_FULL, _read_npz,
+    MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN, TETHERED_FLY, TWOFLY_FULL, _read_npz,
     load_actuator_golden)
 from flygym_tpu_torch.engine import actuation
 from flygym_tpu_torch.engine.model import ActKind
@@ -296,20 +296,24 @@ def test_runtime_sets_and_reads_every_kind(compiled, name):
 
 
 def test_megastep_takes_every_kind_and_refuses_slice_g(compiled):
-    """K2 takes every actuator kind and activation states. It still refuses
-    worlds without contact candidates (a tethered fly with a hard weld has
-    none) and compressed pair rows on a heightfield (K2 slice g)."""
+    """K2 takes every actuator kind and activation states, and worlds without
+    contact candidates (slice g.1: the tethered fly with a hard weld has
+    none, and drives its 42 DoFs with motors). It still refuses compressed
+    pair rows on a heightfield (slice g.2)."""
     for c in compiled.values():
         assert c.model.na > 0 and ms.megastep_supported(c.model)
     kinds = set(compiled["mixed_fly"].model.act_kind.tolist())
     assert kinds == set(range(7))
-    no_cand = dataclasses.replace(compiled["mixed_fly"].model, ncand=0)
-    assert not ms.megastep_supported(no_cand)
-    with pytest.raises(NotImplementedError, match="mega-step"):
-        ms.make_megastep(no_cand)
+    tethered = load_compiled(TETHERED_FLY).model
+    assert tethered.ncand == 0 and set(tethered.act_kind.tolist()) == {ActKind.MOTOR}
+    assert ms.megastep_supported(tethered)
+    assert ms.make_megastep(tethered).static.ncand == 0
     full = load_compiled(TWOFLY_FULL).model
     assert ms.megastep_supported(full)
-    assert not ms.megastep_supported(dataclasses.replace(full, has_hfield=True))
+    on_terrain = dataclasses.replace(full, has_hfield=True)
+    assert not ms.megastep_supported(on_terrain)
+    with pytest.raises(NotImplementedError, match="mega-step"):
+        ms.make_megastep(on_terrain)
 
 
 @pytest.mark.cuda

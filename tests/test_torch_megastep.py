@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from flygym_tpu_torch import BatchSimulation, load_compiled
-from flygym_tpu_torch.compose.bridge import ASSETS, TWOFLY, load_golden
+from flygym_tpu_torch.compose.bridge import ASSETS, TETHERED_FLY, TWOFLY, TWOFLY_FULL, load_golden
 from flygym_tpu_torch.ops import _build
 from flygym_tpu_torch.ops import megastep as ms
 
@@ -332,12 +332,18 @@ def test_megastep_takes_solver_exact():
 
 
 def test_megastep_refuses_worlds_without_candidates():
-    """A world without contact candidates (a tethered fly with a hard weld
-    compiles to none; here the benchmark fly with ``ncand`` 0) is not K2's
-    yet (slice g): refused when asked for, the engine step by default."""
-    compiled = load_compiled()
-    assert ms.megastep_supported(compiled.model)
-    bad = dataclasses.replace(compiled, model=dataclasses.replace(compiled.model, ncand=0))
+    """K2 takes a world without contact candidates now (slice g.1: the
+    tethered motor fly, whose hard weld compiles to none; qacc is the tree
+    solve of Mh alone), when asked for on the CPU. What it still refuses is
+    compressed pair rows on a heightfield (slice g.2): refused when asked
+    for, the engine step by default."""
+    tethered = load_compiled(TETHERED_FLY)
+    assert tethered.model.ncand == 0 and ms.megastep_supported(tethered.model)
+    assert BatchSimulation(tethered, 2, device="cpu", megastep=True).megastep
+    assert ms.make_megastep(tethered.model).static.ncand == 0
+    full = load_compiled(TWOFLY_FULL)
+    assert ms.megastep_supported(full.model)
+    bad = dataclasses.replace(full, model=dataclasses.replace(full.model, has_hfield=True))
     assert not ms.megastep_supported(bad.model)
     with pytest.raises(NotImplementedError, match="mega-step"):
         BatchSimulation(bad, 2, device="cpu", megastep=True)
