@@ -16,8 +16,10 @@ Phases (each failure ends the run with a non-zero exit code):
    redesign (``scripts/k1_before_redesign``), and the mega-step
    kernel K2 for the benchmark fly, config 5's fly, config 3's terrain fly,
    example 11's two flies, the default two-fly contact preset, the 3-fly
-   pile, the strict, muscle-driven and mixed-kind flies and the tethered
-   fly (no contact candidate; one generated header each), and for the benchmark fly K2's profile build (clock64
+   pile, the strict, muscle-driven and mixed-kind flies, the tethered
+   fly (no contact candidate), the benchmark fly at condim 1, 4 and 6, and
+   config 4's and config 2's worlds (one generated header each; worlds with
+   the same header share its build), and for the benchmark fly K2's profile build (clock64
    phase counters), its builds at the other threads per block of
    ``SWEEP_THREADS`` and the profile build of K2 as it stood before its
    redesign (``scripts/k2_before_redesign``: one world per thread, scratch
@@ -43,7 +45,8 @@ Phases (each failure ends the run with a non-zero exit code):
 3. Hold K2 against its plain version (``ops/megastep.py:megastep_plain``)
    from the golden's settled state with the first replay targets: one K = 1
    launch against one plain step and one K = 8 launch against 8 chained
-   plain steps (final state and qpos rows), each at 4096 and 1000 worlds;
+   plain steps (final state and qpos rows) at 4096 worlds, and one K = 1
+   launch at 1000 worlds;
    time K = 1 and K = 8 launches at 4096 worlds, and the K = 8 launch at
    1024 and 16384 worlds (kernel only). Build K2 with 32, 64 and 128
    threads per block (one world per block), hold each against the shipped
@@ -52,7 +55,10 @@ Phases (each failure ends the run with a non-zero exit code):
    beside the shares of K2 before its redesign on the same launch (its
    outputs held equal to the shipped build's).
    (The plain version takes seconds per step whatever the worlds, so
-   phases 10 and 13 hold K = 8 at 4096 worlds only, as phase 16 does.)
+   phases 3, 10, 13 and 16 hold K = 8 at 4096 worlds only; phases 3 and
+   13 hold no second width at K = 8 and K = 1 respectively, phase 16 the
+   default preset at 4096 only, and the pile's fused check runs K = 2
+   steps, not 8.)
 4. The main path, the mega-step: the benchmark fly in ``BatchSimulation``
    with its default step at 4096 worlds, adhesion on, bench.py's protocol
    (``demo/benchmark.py:run_simulation``): a 500-step settle (one step per
@@ -116,8 +122,8 @@ Phases (each failure ends the run with a non-zero exit code):
     (K1/K1b) against the JAX engine golden, to ``GOLDEN_TOLERANCE``.
 13. Hold K2 built for example 11's two stacked flies (fly-fly pair rows)
     against its plain version (the two-fly golden's settled worlds with
-    seeded root and joint noise): one K = 1 launch at 4096 and 1000 worlds,
-    one K = 8 launch at 4096, to ``K2_RTOL``; time K = 1 and K = 8 launches at
+    seeded root and joint noise): one K = 1 and one K = 8 launch at 4096
+    worlds, to ``K2_RTOL``; time K = 1 and K = 8 launches at
     4096 worlds; K2's bound from its operations counted on the CPU.
 14. Example 11 at 4096 worlds: ``BatchSimulation`` with its default step,
     the top fly moved by a seeded ±0.1 mm in xy per world, adhesion on the
@@ -133,9 +139,9 @@ Phases (each failure ends the run with a non-zero exit code):
     ``PROBE_FLOOR``): the stacked flies are ill-conditioned.
 16. Hold K2 built for compressed fly-fly pair rows against its plain
     version: the default two-fly contact preset (55 x 55 pair rows, 55
-    groups) at 4096 worlds with one K = 1 and one K = 8 launch and at 1000
-    with one K = 1 launch, and the 3-fly pile (21 groups of 7) at 1000 with
-    one K = 1 and one K = 8 launch, from each golden's settled worlds with
+    groups) at 4096 worlds with one K = 1 and one K = 8 launch, and the
+    3-fly pile (21 groups of 7) at 1000 with one K = 1 and one K = 2
+    launch (no main path runs the pile), from each golden's settled worlds with
     seeded root and joint noise and the port's winner sampler's winners, to
     ``K2_RTOL``; time both worlds' K = 1 and K = 8 launches (the pile's
     kernel only) and one winner sample at 4096 worlds; K2's bounds from
@@ -215,19 +221,78 @@ Phases (each failure ends the run with a non-zero exit code):
     launches at 4096 worlds: the card's busy share and its top device op,
     which must be K2's kernel (the chrome trace in ``outputs/trace``).
 
+30. Hold K2 built for the benchmark fly at condim 1, 4 and 6 (K2 slice
+    g.3: 1, 6 and 10 pyramid rows per candidate, the torsional and rolling
+    rows on the rotational Jacobian) against its plain version from each
+    condim golden's settled worlds with seeded joint noise: one K = 1 launch
+    at 1000 worlds for condim 1 and 4, and for condim 6 the launches its
+    replay makes, K = 1 and K = 8 at 4096, to ``K2_RTOL``; time condim 6's
+    K = 1 and K = 8 launches at 4096 worlds; its bound from its operations
+    counted on the CPU. Then K2 with the terrain header at condim 6 (the
+    terrain fly's candidates at 10 rows, their frames the sampled planes')
+    against its plain version, one K = 1 launch at 1000 worlds.
+31. The condim-6 replay at 4096 worlds: phase 4's protocol on the
+    condim-6 fly: launches K2 750, K1/K1b 0, all state finite.
+32. The condim goldens (8 worlds; 4, 4 and 20 replay steps): the K2 path
+    against the JAX emitter with 0 gaps, the engine path against the JAX
+    engine within ``GOLDEN_TOLERANCE``.
+33. Hold config 4's K = 20 launch (``demo/visual_taxis.py``: one per
+    control step) against 20 chained plain steps on the card at 4096
+    worlds, from the taxis golden's first control step with seeded joint
+    noise, to ``K2_RTOL``; its time on those inputs and its bound.
+34. Config 4 (example 07's visual taxis) at 4096 worlds, the batch built
+    with ``megastep_k=20``: adhesion on, a 520-step settle (26 K = 20
+    launches), 5 + 150 control steps, each one K3 launch (rows packed, then
+    the blur), the drive, one CPG step and one K = 20 K2 launch: launches
+    K2 26 + 155, K3 156, K1/K1b 0; all state
+    finite; every world's left legs slowed at the first control step (the
+    pillar lies to the left); the travel bearing beside the pillar's and
+    the yaw turned; control steps/s, world-steps/s; the split of one control
+    step by CUDA events (``pack_rows``, K3, blur, drive + CPG, K2); no host
+    synchronisation in a control step.
+35. Config 4 with one fly (B = 1), as phase 34: ms per control step and the
+    realtime factor (20 x 0.1 ms of fly time per control step).
+36. The taxis goldens, 8 worlds x 10 control steps from the JAX settled
+    state: the vision and the drive at every control step, rendered from
+    the poses each JAX path recorded, the vision within 1e-5 on
+    ``RETINA_SHARE`` of the ommatidia and the drive within
+    ``TAXIS_DRIVE_ATOL`` of what the vision's gap implies; the K2 path fed the JAX emitter loop's drives
+    with 0 gaps in qpos, qvel and the CPG phase; the K2 and engine paths
+    with their own vision within ``GOLDEN_TOLERANCE`` at the control steps
+    where JAX's own engine and emitter agree within it (the first: from the
+    second they part by up to ~6 in qvel), and at every control step within
+    the bars of the JAX engine's conditioning probe (three times its spread
+    from the settled state perturbed by 1e-5, or ``PROBE_FLOOR``).
+37. Config 2 (example 04's CPG walking) at 4096 worlds: adhesion on, a
+    520-step settle (65 K = 8 launches), 1000 steps of one CPG step and one
+    K = 1 K2 launch: launches K2 65 + 1000, K1/K1b 0; world-steps/s; torch
+    calls per step; no host synchronisation in a step.
+38. The CPG walking goldens, 8 worlds x 40 steps: the K2 path with 0 gaps
+    (qpos, qvel, phase), the engine path within ``GOLDEN_TOLERANCE`` where
+    JAX's own two paths agree within it, and within the probe's bars at
+    every step.
+39. Soft welds and PGS on the engine path at 4096 worlds, 20 timed steps
+    each from their goldens' settled worlds: the soft-welded fly one K1 and
+    one K1b launch per step, its roots within 1e-3 mm of the tether; the
+    PGS fly no K1/K1b (a dense Cholesky and the row-sequential sweeps); ms
+    per step; the host synchronisations of one step of each, and none in
+    the soft weld's forces; each golden (8 worlds x 20 steps) against the JAX engine
+    within ``GOLDEN_TOLERANCE``.
+
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import multiprocessing
 import re
 import shutil
 import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -237,6 +302,7 @@ SETTLE_STEPS = 500
 ENGINE_STEPS = 200
 ENGINE_SETTLE_STEPS = 100
 MEGASTEP_K = 8
+PILE_CHECK_K = 2  # the 3-fly pile's fused check (phase 16): no main path runs it
 CHECK_WORLDS = (4096, 1000)
 KERNEL_RTOL = 1e-5
 ENV_WARMUP_STEPS = 10
@@ -332,6 +398,22 @@ LDL_SWEEP_WIDTHS = (1, 1024, 16384)
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# K2 slice g.3 (phases 30-32): the benchmark fly at condim 1, 4 and 6; the
+# condim-6 header is timed and replayed at N_WORLDS.
+CONDIMS = (1, 4, 6)
+CONDIM_TIMED = 6
+# Config 4 (phases 33-36): example 07's visual taxis, 20 physics steps per
+# control step (one K = 20 K2 launch), 150 control steps as example 07 runs
+# them, after a settle and a few untimed control steps.
+TAXIS_SETTLE_STEPS = 520  # 26 K = 20 launches; also config 2's, 65 K = 8
+TAXIS_WARMUP = 5
+TAXIS_STEPS = 150
+# The taxis's drive against the JAX golden's, both from their own vision:
+# the retina within 1e-5 on 99.9% of the ommatidia (RETINA_SHARE), the
+# means of 1442 of them times the gain 8.
+TAXIS_DRIVE_ATOL = 1e-4
+CPG_WALK_STEPS = 1000  # config 2 (phases 37-38): one K = 1 launch each
+SOLVER_STEPS = 20  # soft welds and PGS (phase 39), engine steps timed
 
 
 START = time.perf_counter()
@@ -412,7 +494,8 @@ def phase_build(worlds: dict, flat_model) -> None:
         for warps in K3_SWEEP_WARPS:
             jobs[f"K3, {warps} warps"] = pool.submit(timed, _build.build_retina, None, False,
                                                      warps)
-        for name, header in headers.items():
+        # Worlds whose headers are the same text share one build.
+        for header, name in {h: n for n, h in reversed(headers.items())}.items():
             jobs[f"K2, {name}"] = pool.submit(timed, _build.build_megastep, header)
         for name, (header, profile, source) in extra.items():
             jobs[f"K2, {name}"] = pool.submit(timed, _build.build_megastep, header, profile,
@@ -597,8 +680,11 @@ def phase_kernels(model, others: dict) -> dict:
     LD, pivots = torch.linalg.ldl_factor(H)
     C, info = torch.linalg.cholesky_ex(H)
     check(int(info.abs().max().item()) == 0, "cholesky_ex: H not positive definite")
-    library = {"tree_ldl_factor": time_ms(lambda: torch.linalg.ldl_factor(H), 1),
-               "tree_ldl_solve": time_ms(lambda: torch.linalg.ldl_solve(LD, pivots, b[..., None]), 1)}
+    # One call each (seconds at this width), after the factor above made
+    # the library's handle.
+    library = {"tree_ldl_factor": time_ms(lambda: torch.linalg.ldl_factor(H), 1, warm_up=False),
+               "tree_ldl_solve": time_ms(lambda: torch.linalg.ldl_solve(LD, pivots, b[..., None]),
+                                         1, warm_up=False)}
     dense = {"tree_ldl_factor": time_ms(lambda: torch.linalg.cholesky_ex(H), TIMED_LAUNCHES),
              "tree_ldl_solve": time_ms(lambda: torch.cholesky_solve(b[..., None], C),
                                        TIMED_LAUNCHES)}
@@ -624,15 +710,44 @@ def phase_kernels(model, others: dict) -> dict:
             "before_ms": before, "launch_ms": launch}
 
 
+# K2's operation counts of the timed worlds, made in worker processes while
+# the kernels build (``count_ops_in_background``): futures of (the model's
+# K2 header, its megastep_ops).
+OPS_COUNTS = []
+
+
+def _ops_of(path: str, condim: int) -> tuple:
+    """In a worker: (K2 header, megastep_ops) of the world at ``path``, or of
+    the terrain fly at ``condim`` (``terrain_at_condim``) where it is not 0."""
+    import flygym_tpu_torch
+    from flygym_tpu_torch.ops import megastep
+
+    compiled = terrain_at_condim(condim) if condim else flygym_tpu_torch.load_compiled(path)
+    return megastep.model_header(compiled.model)[0], megastep_ops(compiled.model)
+
+
+def count_ops_in_background(pool, worlds) -> None:
+    """Start counting the ops of each of ``worlds`` ((path, condim) pairs, as
+    ``_ops_of`` takes them) in ``pool``."""
+    OPS_COUNTS.extend(pool.submit(_ops_of, str(path), condim) for path, condim in worlds)
+
+
 def megastep_ops(model) -> int:
     """Elementwise operations of one world-step of K2's plain version (the
     JAX emitter's ops, its structural zeros and ones folded), counted on the
-    CPU at one world."""
+    CPU at one world, or taken from the background counts where one was
+    made for the same header (a worker's OPS_COUNTS is empty)."""
     import torch
     from torch.overrides import TorchFunctionMode
 
     from flygym_tpu_torch.engine.model import make_initial_state
     from flygym_tpu_torch.ops import megastep
+
+    if OPS_COUNTS:
+        header = megastep.model_header(model.to("cpu"))[0]
+        done = dict(f.result() for f in OPS_COUNTS if f.exception() is None)
+        if header in done:
+            return done[header]
 
     class Count(TorchFunctionMode):
         n = 0
@@ -692,7 +807,8 @@ def k2_against_plain(label: str, model, inputs, note=None,
 
     from flygym_tpu_torch.ops import megastep
 
-    fns = {k: megastep.make_megastep(model, k) for k in (1, MEGASTEP_K)}
+    fns = {k: megastep.make_megastep(model, k)
+           for k in sorted({1, MEGASTEP_K, *(k for _n, k in checks)})}
     fields = ("qpos", "qvel", "qacc", "act", "xpos", "xquat", "actuator_force",
               "contact_sensordata")
     worst, plain_ms = 0.0, {k: None for k in fns}
@@ -728,7 +844,8 @@ def k2_against_plain(label: str, model, inputs, note=None,
     if not timed:
         return {"err": worst, "fns": fns}
     times = {}
-    for k, fn in fns.items():
+    for k in (1, MEGASTEP_K):
+        fn = fns[k]
         state, seq, planes = inputs(fn, N_WORLDS, k, 1)
         kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
         k1 = time_ms(kernel, TIMED_LAUNCHES)
@@ -740,7 +857,7 @@ def k2_against_plain(label: str, model, inputs, note=None,
 
     ops = megastep_ops(model)
     bounds = {}
-    for k in fns:
+    for k in times:
         n_in, n_out = megastep._io_rows(fns[k].static, k)
         total_ops, nbytes = ops * k * N_WORLDS, 4 * (n_in + n_out) * N_WORLDS
         bounds[k] = bound_ms(total_ops, nbytes)
@@ -777,7 +894,7 @@ def phase_megastep(compiled, model) -> dict:
     golden = load_golden()
     k2 = k2_against_plain(
         "megastep", model, lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None),
-        checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1), (1000, MEGASTEP_K)))
+        checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)))
     fn = k2["fns"][MEGASTEP_K]
     for n in SWEEP_WORLDS:
         state, seq = k2_inputs(compiled, golden, n, MEGASTEP_K)
@@ -1479,21 +1596,29 @@ def phase_terrain(terrain_compiled) -> dict:
           f"{torch_calls(lambda: loop.control(state, cs))}, plane sample "
           f"{torch_calls(lambda: loop.sample_planes(state))}, K2 launch with its packing "
           f"{torch_calls(lambda: loop.physics_step(state, planes))}")
-    # The host runs ahead of the card only if a step never waits for it.
+    syncs = host_syncs(
+        lambda: loop.control(loop.physics_step(state, loop.sample_planes(state)), cs))
+    print(f"[terrain] host synchronisations in one closed-loop step: {len(syncs)} {syncs}")
+    check(not syncs, "terrain: the closed-loop step waits for the card")
+    return counts
+
+
+def host_syncs(fn) -> list:
+    """The synchronising CUDA operations one call of ``fn`` makes (the
+    first line of each of ``torch.cuda.set_sync_debug_mode``'s warnings;
+    enabling the mode also warns once that it is a prototype, which is not
+    one). The host runs ahead of the card only if a step never waits."""
+    import torch
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            state, cs = loop.control(loop.physics_step(state, loop.sample_planes(state)), cs)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    # Enabling the mode warns once that it is a prototype; only the
-    # "called a synchronizing CUDA operation" warnings are synchronisations.
-    syncs = [str(w.message).splitlines()[0] for w in caught
-             if "called a synchronizing" in str(w.message)]
-    print(f"[terrain] host synchronisations in one closed-loop step: {len(syncs)} {syncs}")
-    check(not syncs, "terrain: the closed-loop step waits for the card")
-    return counts
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
 
 
 def torch_calls(fn) -> int:
@@ -1599,7 +1724,8 @@ def phase_pairs_kernel(model) -> dict:
         "pairs kernel", model,
         lambda fn, n, k, seed: (*twofly_inputs(model, golden, n, k, seed), None),
         lambda state, _planes: f"worlds with an active pair row "
-                               f"{active_pair_share(model, state):.4f}")
+                               f"{active_pair_share(model, state):.4f}",
+        checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K)))
 
 
 def compressed_inputs(model, golden, n_worlds: int, k_steps: int, seed: int, fn):
@@ -1619,18 +1745,18 @@ def phase_compressed_kernel(full_model, pile_model) -> dict:
     at N_WORLDS (the pile's kernel only), and of the winner sampler (the
     default preset).
 
-    The plain version of the 55 x 55 preset takes ~17 s per step whatever
-    the worlds, so 1000 worlds are held at K = 1 only: 4096 worlds at K = 8
-    are the main path's launch, whose plain time the kernels line needs."""
+    The plain version of the 55 x 55 preset takes ~12-17 s per step
+    whatever the worlds, so it is held at 4096 worlds only: K = 8 is the
+    main path's launch, whose plain time the kernels line needs."""
     from flygym_tpu_torch.compose.bridge import (
         THREEFLY_GOLDEN, TWOFLY_FULL_GOLDEN, load_twofly_golden)
 
     out = {}
     for label, model, path, checks, timed in (
         ("compressed kernel", full_model, TWOFLY_FULL_GOLDEN,
-         ((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)), True),
+         ((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K)), True),
         ("compressed kernel, 3-fly pile", pile_model, THREEFLY_GOLDEN,
-         ((1000, 1), (1000, MEGASTEP_K)), True),
+         ((1000, 1), (1000, PILE_CHECK_K)), True),
     ):
         golden = load_twofly_golden(path)
         out[label] = k2_against_plain(
@@ -2026,28 +2152,6 @@ def tethered_torques(sim, fly, gen) -> None:
     sim.set_actuator_inputs(fly, "motor", torque)
 
 
-def phase_tethered_golden(compiled) -> None:
-    """The tethered golden, 8 worlds x 50 steps from the JAX settled state
-    with its seeded torques: the K2 path against the JAX emitter with 0 gaps,
-    the engine path (K1/K1b) against the JAX engine within
-    GOLDEN_TOLERANCE."""
-    import numpy as np
-
-    from flygym_tpu_torch.compose.bridge import TETHERED_GOLDEN, load_actuator_golden
-    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE, track_controls
-
-    golden = load_actuator_golden(TETHERED_GOLDEN)
-    n_steps, n_worlds = golden["ctrl"].shape[:2]
-    for path, megastep, record in (("megastep", None, "emitter"), ("engine", False, "engine")):
-        gaps = track_controls(compiled, golden, record, device="cuda", megastep=megastep)
-        worst = {key: float(np.max(gap)) for key, gap in gaps.items()}
-        print(f"[tethered golden {path}] {n_worlds} worlds x {n_steps} steps vs JAX {record}: "
-              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
-        for key in ("qpos", "qvel"):
-            bar = 0.0 if megastep is None else GOLDEN_TOLERANCE[key]
-            check(worst[key] <= bar, f"tethered golden {path}: {key} {worst[key]:.3e} > {bar}")
-
-
 def phase_single_world(compiled, tethered_compiled) -> dict:
     """The single-world API on the card (B = 1): the benchmark fly with
     adhesion on, ``warmup()`` (500 K = 1 launches), SINGLE_STEPS
@@ -2237,6 +2341,566 @@ def phase_trace(compiled) -> dict:
 
 
 
+def terrain_at_condim(condim: int):
+    """The terrain fly compiled at ``condim``: its meta's condim set and each
+    candidate's inverse weight repeated over the condim's pyramid rows (the
+    JAX compile writes one value per candidate on every row)."""
+    from flygym_tpu_torch import model_from_numpy
+    from flygym_tpu_torch.compose.bridge import TERRAIN_FLY, _read_npz
+    from flygym_tpu_torch.engine.contact import n_pyramid_rows
+
+    arrays, meta = _read_npz(TERRAIN_FLY)
+    meta["model"]["condim"] = condim
+    invweight = arrays["model.can_invweight"]
+    arrays["model.can_invweight"] = invweight[:, :1].repeat(n_pyramid_rows(condim), axis=1)
+    return model_from_numpy(arrays, meta)
+
+
+def phase_condim_kernels(flies: dict, terrain_compiled) -> dict:
+    """K2 built for the benchmark fly at condim 1, 4 and 6 (NROWS 1, 6 and
+    10 pyramid rows per candidate, K2 slice g.3) against its plain version
+    from each golden's settled worlds with seeded joint noise and its first
+    replay controls: condim 6 at the launches its replay makes, K = 1 and
+    K = 8 at N_WORLDS, timed, with its bound; condim 1 and 4 with one K = 1
+    launch at 1000 worlds. Then the terrain fly at CONDIM_TIMED
+    (``terrain_at_condim``: its frames the sampled planes', so the torsional
+    and rolling rows turn with them) with one K = 1 launch at 1000 worlds.
+    All to K2_RTOL (measured 0 on the CPU's host build)."""
+    from flygym_tpu_torch.compose.bridge import ASSETS, load_actuator_golden, load_terrain_golden
+
+    out = {}
+    for condim, compiled in flies.items():
+        model = compiled.model.to("cuda")
+        golden = load_actuator_golden(ASSETS / f"condim{condim}_fly_golden.npz")
+        full = condim == CONDIM_TIMED
+        out[condim] = k2_against_plain(
+            f"condim{condim} kernel", model,
+            lambda fn, n, k, seed, model=model, golden=golden: (
+                *actuator_inputs(model, golden, n, k, seed), None),
+            lambda state, _p: f"found share {state.contact_sensordata[..., 0].mean().item():.3f}",
+            checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K)) if full else ((1000, 1),),
+            timed=full)
+    model = terrain_compiled.model.to("cuda")
+    golden = load_terrain_golden()
+
+    def inputs(fn, n, k, seed):
+        state, seq = terrain_inputs(terrain_compiled, model, golden, n, k, seed)
+        return state, seq, fn.sample_planes(state)
+
+    k2_against_plain(
+        f"terrain condim{CONDIM_TIMED} kernel", model, inputs,
+        lambda _s, planes: f"share of tilted planes {(planes[..., 3] < 0.999).float().mean().item():.4f}",
+        checks=((1000, 1),), timed=False)
+    return out
+
+
+def phase_replay_golden(compiled, golden_path, *, label: str) -> None:
+    """A golden of per-step controls from the JAX settled state (the
+    tethered fly's of ``scripts/export_actuator_golden.py``, the condim,
+    soft-weld and PGS flies' of ``scripts/export_taxis_golden.py``): the K2
+    path (where the model has it) against the JAX emitter with 0 gaps in
+    qpos and qvel, and the found flags equal; the engine path against the
+    JAX engine within GOLDEN_TOLERANCE."""
+    import numpy as np
+
+    from flygym_tpu_torch.compose.bridge import load_actuator_golden
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE, track_controls
+    from flygym_tpu_torch.ops.megastep import megastep_supported
+
+    golden = load_actuator_golden(golden_path)
+    n_steps, n_worlds = golden["ctrl"].shape[:2]
+    paths = [("engine", False, "engine")]
+    if megastep_supported(compiled.model):
+        paths.insert(0, ("megastep", None, "emitter"))
+    for path, megastep, record in paths:
+        gaps = track_controls(compiled, golden, record, device="cuda", megastep=megastep)
+        worst = {key: float(np.max(gap)) for key, gap in gaps.items()}
+        print(f"[{label} golden {path}] {n_worlds} worlds x {n_steps} steps vs JAX {record}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + ("" if megastep is None else f"; tolerances {GOLDEN_TOLERANCE}"))
+        for key in ("qpos", "qvel", "found_share"):
+            bar = 0.0 if megastep is None else GOLDEN_TOLERANCE[key]
+            check(worst[key] <= bar, f"{label} golden {path}: {key} {worst[key]:.3e} > {bar}")
+
+
+def taxis_yaw(qpos) -> "torch.Tensor":
+    """Each world's root yaw (rad) from its free joint's quaternion."""
+    import torch
+
+    w, x, y, z = qpos[:, 3], qpos[:, 4], qpos[:, 5], qpos[:, 6]
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def phase_taxis(taxis_compiled, n_worlds: int, label: str) -> dict:
+    """Config 4 (example 07's visual taxis) at ``n_worlds`` through the
+    default step, the batch built with ``megastep_k=PHYSICS_PER_CONTROL``:
+    adhesion on, a TAXIS_SETTLE_STEPS rollout (K = 20 launches),
+    TAXIS_WARMUP control steps, then TAXIS_STEPS timed control steps of
+    ``demo/visual_taxis.py``: per control step one K3 launch and one K = 20
+    K2 launch. Launches K2 and K3 TAXIS_WARMUP + TAXIS_STEPS each after the
+    settle, K1/K1b 0; all state finite; every world's left legs
+    slowed at the first control step (the pillar lies to the left); the
+    travel bearing beside the pillar's, as example 07 prints them; control
+    steps/s, world-steps/s and the realtime factor; at N_WORLDS the split
+    of one control step by CUDA events and its host synchronisations."""
+    import math
+
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.demo.visual_taxis import PHYSICS_PER_CONTROL as K
+    from flygym_tpu_torch.demo.visual_taxis import TaxisLoop
+    from flygym_tpu_torch.ops import retina as rk
+
+    fly = taxis_compiled.fly_names[0]
+    sim = BatchSimulation(taxis_compiled, n_worlds, megastep_k=K)
+    check(sim.megastep, f"{label}: the default step is not the mega-step on the card")
+    sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
+    loop = TaxisLoop(sim)
+    cs = loop.init_state(torch.Generator(device="cuda").manual_seed(0))
+    reset_counts()
+    sim.rollout(None, TAXIS_SETTLE_STEPS, record_trajectory=False)
+    _state, _cs, _vision, drive0 = loop.control(sim.state, cs)
+    left_slow = (drive0[:, :3] < drive0[:, 3:]).all(dim=1).float().mean().item()
+    check(left_slow == 1.0, f"{label}: left legs slowed in {left_slow:.3f} of the worlds")
+    cs, _rec = loop.run(cs, TAXIS_WARMUP)
+    torch.cuda.synchronize()
+    start = sim.state.qpos.clone()
+    t0 = time.perf_counter()
+    cs, _rec = loop.run(cs, TAXIS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_ctrl = TAXIS_WARMUP + TAXIS_STEPS
+    print(f"[{label}] config 4, {n_worlds} worlds: settle {TAXIS_SETTLE_STEPS} steps, "
+          f"{TAXIS_WARMUP} + {TAXIS_STEPS} control steps of {K} physics steps; launches {counts}")
+    want = {"megastep": TAXIS_SETTLE_STEPS // K + n_ctrl, "retina": n_ctrl + 1,
+            "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n}")
+    st = sim.state
+    for name in ("qpos", "qvel", "qacc", "xpos", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"{label}: state.{name} not finite")
+    check(bool(torch.isfinite(cs.phase).all()), f"{label}: CPG phase not finite")
+    travel = st.qpos[:, :2] - start[:, :2]
+    bearing = torch.rad2deg(torch.atan2(travel[:, 1], travel[:, 0]))
+    turned = taxis_yaw(st.qpos) - taxis_yaw(start)
+    turned = torch.rad2deg(torch.remainder(turned + math.pi, 2 * math.pi) - math.pi)
+    print(f"[{label}] object bearing at start: {math.degrees(math.atan2(12.0, 25.0)):.1f} deg; "
+          f"fly travel bearing mean {bearing.mean().item():.1f} deg (median "
+          f"{bearing.median().item():.1f}), travelled {travel.norm(dim=1).mean().item():.3f} mm; "
+          f"yaw turned mean {turned.mean().item():.2f} deg, share turning left "
+          f"{(turned > 0).float().mean().item():.3f}; left legs slowed at the first control "
+          f"step in {left_slow:.3f} of the worlds")
+    ms_ctrl = wall / TAXIS_STEPS * 1e3
+    fly_s = K * taxis_compiled.model.timestep
+    print(f"[{label}] {TAXIS_STEPS} timed control steps in {wall:.3f} s: {ms_ctrl:.4f} ms per "
+          f"control step, {TAXIS_STEPS / wall:.1f} control steps/s, "
+          f"{TAXIS_STEPS * K * n_worlds / wall:.0f} world-steps/s, realtime factor "
+          f"{fly_s / (ms_ctrl * 1e-3):.4f} ({fly_s * 1e3:.1f} ms of fly time per control step) "
+          f"on {card_line()}")
+    out = {"counts": counts, "ms_ctrl": ms_ctrl, "wall": wall}
+    if n_worlds != N_WORLDS:
+        return out
+
+    # The split of one control step, by CUDA events over SPLIT_STEPS steps.
+    render = loop.render
+    tables = render.kernel.tables
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    parts = [0.0] * 5
+    state = sim.state
+    for _ in range(SPLIT_STEPS):
+        ev[0].record()
+        packed = rk.pack_rows(tables, state.xpos, state.xquat)
+        ev[1].record()
+        points = rk.launch_retina(tables, packed)
+        ev[2].record()
+        vision = render.blur(points)
+        ev[3].record()
+        state, cs, _drive = loop.steer(state, cs, vision)
+        ev[4].record()
+        state = loop.physics(state)
+        ev[5].record()
+        ev[5].synchronize()
+        for i in range(5):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / SPLIT_STEPS
+    out["split"] = parts
+    print(f"[{label}] one control step: pack_rows {parts[0]:.3f} ms, K3 {parts[1]:.3f} ms, "
+          f"blur {parts[2]:.3f} ms, drive + CPG + ctrl {parts[3]:.3f} ms, K = {K} K2 launch "
+          f"with its packing {parts[4]:.3f} ms")
+    print(f"[{label}] torch calls: render {torch_calls(lambda: render(state))}, drive + CPG + "
+          f"ctrl {torch_calls(lambda: loop.steer(state, cs, vision))}, K2 launch with its "
+          f"packing {torch_calls(lambda: loop.physics(state))}")
+    syncs = host_syncs(lambda: loop.physics(loop.control(state, cs)[0]))
+    print(f"[{label}] host synchronisations in one control step: {len(syncs)} {syncs}")
+    check(not syncs, f"{label}: the control step waits for the card")
+    return out
+
+
+def phase_taxis_kernel(taxis_compiled) -> dict:
+    """K2 built for config 4's world at K = 20, as its control step launches
+    it, against its plain version on the card: the taxis golden's settled
+    worlds repeated to N_WORLDS with seeded joint noise and the controls of
+    the golden's first control step, one K = 20 launch against 20 chained
+    plain steps on the same inputs (final state and qpos rows) to K2_RTOL,
+    the plain version's time from that run (host clock: it runs one eager
+    op per operation of the kernel). Then the launch's time on the same
+    inputs (CUDA events) and its bound from the plain version's operations
+    counted on the CPU."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import TAXIS_GOLDEN, load_loop_golden
+    from flygym_tpu_torch.control import CPGState
+    from flygym_tpu_torch.demo.visual_taxis import PHYSICS_PER_CONTROL as K
+    from flygym_tpu_torch.demo.visual_taxis import TaxisLoop
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics
+    from flygym_tpu_torch.ops import megastep
+
+    golden = load_loop_golden(TAXIS_GOLDEN)
+    n_golden = golden["state"].qpos.shape[0]
+    sim = BatchSimulation(taxis_compiled, n_golden)
+    sim.state = golden["state"].to("cuda")
+    loop = TaxisLoop(sim)
+    cs = CPGState.from_numpy(*(golden["controller"][k] for k in
+                               ("phase", "amplitude", "damplitude")), device="cuda")
+    ctrl0, _cs, _v, _d = loop.control(sim.state, cs)
+    model = sim.model
+    fn = megastep.make_megastep(model, K)
+
+    idx = torch.arange(N_WORLDS, device="cuda") % n_golden
+    state = ctrl0.map(lambda x: x[idx].clone())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qpos = state.qpos.clone()
+    qpos[:, model.hinge_qadr] += 0.01 * torch.randn(
+        (N_WORLDS, model.nhinge), generator=gen, device="cuda")
+    xpos, xquat = forward_kinematics(model, qpos)
+    state = replace(state, qpos=qpos, xpos=xpos, xquat=xquat)
+    seq = state.ctrl.expand(K, *state.ctrl.shape)
+
+    got, traj = fn(state, seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want, wtraj = megastep.megastep_plain(fn.static, state, seq)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    worst, gaps = 0.0, []
+    for name, a, b in [("qpos rows", traj, wtraj)] + [
+            (f, getattr(got, f), getattr(want, f)) for f in
+            ("qpos", "qvel", "qacc", "xpos", "xquat", "actuator_force", "contact_sensordata")]:
+        gap, scale = (a - b).abs().max().item(), b.abs().max().item()
+        check(bool(torch.isfinite(a).all()), f"taxis kernel {name} not finite")
+        check(gap <= K2_RTOL * scale, f"taxis kernel {name}: {gap:.3e} > {K2_RTOL} * {scale:.3e}")
+        worst = max(worst, gap)
+        gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
+    del want, wtraj
+    print(f"[taxis kernel] B={N_WORLDS} K={K} max|kernel-plain|/max|plain|: "
+          + ", ".join(gaps) + f"; plain {plain_ms:.1f} ms")
+    runs = [time_ms(lambda: fn(state, seq), TIMED_LAUNCHES, warm_up=i == 0) for i in range(2)]
+    ms_ = sum(runs) / 2
+    ops = megastep_ops(model)
+    n_in, n_out = megastep._io_rows(fn.static, K)
+    bound = bound_ms(ops * K * N_WORLDS, 4 * (n_in + n_out) * N_WORLDS)
+    print(f"[taxis kernel] K={K} at B={N_WORLDS}: kernel {ms_:.3f} ms per launch (runs "
+          f"{runs[0]:.3f}/{runs[1]:.3f}), plain {plain_ms:.1f} ms; {ops} ops per world-step, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), {ms_ / bound[0]:.0f}x the bound")
+    return {"err": worst, "times": {K: (ms_, plain_ms)}, "bounds": {K: bound}}
+
+
+def jax_paths_agree(golden: dict, n_steps: int):
+    """The steps of a loop golden at which the JAX package's own two paths,
+    its engine and its emitter, agree within GOLDEN_TOLERANCE in qpos and
+    qvel: a walking fly's contacts switch on and off, and past that horizon
+    the reference itself cannot tell a right step from a wrong one. Returns
+    the (n_steps,) mask and the spreads."""
+    import numpy as np
+
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+
+    spread = {key: np.abs(golden["engine"][key] - golden["emitter"][key]).reshape(
+        n_steps, -1).max(axis=1) for key in ("qpos", "qvel")}
+    held = (spread["qpos"] <= GOLDEN_TOLERANCE["qpos"]) & (spread["qvel"] <= GOLDEN_TOLERANCE["qvel"])
+    return held, spread
+
+
+def loop_probe_bars(golden: dict, n_steps: int) -> dict:
+    """Per-step bars of a loop golden in qpos and qvel: three times the
+    spread of the JAX engine's conditioning probe (the same loop from the
+    settled state perturbed by 1e-5) from the JAX engine, or PROBE_FLOOR,
+    whichever is larger. They say how far the walk itself carries a
+    difference of float32 rounding's size, as the two-fly goldens' bars
+    do."""
+    import numpy as np
+
+    return {key: np.maximum(3.0 * np.abs(golden["probe"][key] - golden["engine"][key]).reshape(
+        n_steps, -1).max(axis=1), PROBE_FLOOR[key]) for key in ("qpos", "qvel")}
+
+
+def phase_taxis_golden(taxis_compiled) -> None:
+    """The taxis golden, 8 worlds x 10 control steps (200 physics steps)
+    from the JAX settled state with its controllers. First the retina and
+    the drive at every control step, rendered from the poses each JAX path
+    recorded (the settled state's at the first): the vision within 1e-5 on
+    RETINA_SHARE of the ommatidia, the drive within TAXIS_DRIVE_ATOL of
+    what the vision's gap implies (a ray the retina shades otherwise, as
+    K3 may on 0.1% of them, moves the drive by gain x its gap / 1442). Then
+    the loops: the K2 path fed the golden's drives repeats the JAX emitter's
+    loop with 0 gaps in qpos, qvel and the CPG phase. With their own vision,
+    the K2 path against the JAX emitter's loop and the engine path against
+    the JAX engine's: within GOLDEN_TOLERANCE (the drive within
+    TAXIS_DRIVE_ATOL) at the control steps where the JAX engine and the JAX
+    emitter agree within it (``jax_paths_agree``: the first; from the second
+    they part by up to ~6 in qvel), and at every control step within the
+    probe's bars (``loop_probe_bars``)."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import TAXIS_GOLDEN, load_loop_golden
+    from flygym_tpu_torch.control import CPGState, object_azimuth_drive
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+    from flygym_tpu_torch.demo.visual_taxis import PHYSICS_PER_CONTROL, TAXIS_GAIN, TaxisLoop
+
+    golden = load_loop_golden(TAXIS_GOLDEN)
+    n_worlds = golden["state"].qpos.shape[0]
+    n_steps = golden["engine"]["qpos"].shape[0]
+    held, spread = jax_paths_agree(golden, n_steps)
+    bars = loop_probe_bars(golden, n_steps)
+    check(bool(held[0]), "taxis golden: the JAX paths part at the first control step")
+    settled = golden["state"].to("cuda")
+    render = TaxisLoop(BatchSimulation(taxis_compiled, n_worlds)).render
+    for record in ("engine", "emitter"):
+        want = golden[record]
+        shares, drive_gaps, excess = [], [], []
+        for t in range(n_steps):
+            pose = settled if t == 0 else replace(
+                settled, xpos=torch.from_numpy(want["xpos"][t - 1]).cuda(),
+                xquat=torch.from_numpy(want["xquat"][t - 1]).cuda())
+            vision = render(pose)
+            gap = np.abs(vision.cpu().numpy() - want["vision"][t])
+            shares.append(float((gap <= 1e-5).mean()))
+            drive = object_azimuth_drive(vision, TAXIS_GAIN).cpu().numpy()
+            # Each eye's brightness is the mean of its 2 x 721 values, so the
+            # drive moves by at most the gain times the vision's summed gap
+            # over 1442, with float32 rounding on top.
+            drive_gap = np.abs(drive - want["drive"][t]).max(axis=1)
+            implied = TAXIS_GAIN * gap.reshape(n_worlds, -1).sum(axis=1) / gap[0, 0].size
+            drive_gaps.append(float(drive_gap.max()))
+            excess.append(float((drive_gap - implied).max()))
+        print(f"[taxis golden vision] from the JAX {record}'s poses at each of {n_steps} "
+              f"control steps: vision within 1e-5 on at least {min(shares):.5f} of the "
+              f"ommatidia; drive gap at most {max(drive_gaps):.3e}, past what the vision's gap "
+              f"implies by at most {max(excess):.3e}")
+        check(min(shares) >= RETINA_SHARE,
+              f"taxis golden vision ({record}): share {min(shares)} < {RETINA_SHARE}")
+        check(max(excess) <= TAXIS_DRIVE_ATOL,
+              f"taxis golden drive ({record}): {max(excess):.3e} past the vision's gap")
+    tol = {**GOLDEN_TOLERANCE, "drive": TAXIS_DRIVE_ATOL}
+    for label, megastep, record, fed in (("megastep, JAX's drives", None, "emitter", True),
+                                         ("megastep", None, "emitter", False),
+                                         ("engine", False, "engine", False)):
+        want = golden[record]
+        sim = BatchSimulation(taxis_compiled, n_worlds, megastep=megastep,
+                              megastep_k=PHYSICS_PER_CONTROL)
+        check(sim.megastep == (megastep is None), f"taxis golden {label}: wrong step")
+        sim.state = settled
+        loop = TaxisLoop(sim)
+        cs = CPGState.from_numpy(*(golden["controller"][k] for k in
+                                   ("phase", "amplitude", "damplitude")), device="cuda")
+        drives = torch.from_numpy(want["drive"]).cuda() if fed else None
+        _cs, rec = loop.run(cs, n_steps, record=True, drives=drives)
+        for key in ("qpos", "qvel", "phase"):
+            check(bool(torch.isfinite(rec[key]).all()), f"taxis golden {label}: {key} not finite")
+        gaps = {k: np.abs(rec[k].cpu().numpy() - want[k]).reshape(n_steps, -1).max(axis=1)
+                for k in ("qpos", "qvel", "phase", "drive")}
+        print(f"[taxis golden {label}] {n_worlds} worlds x {n_steps} control steps vs JAX "
+              f"{record}: " + ", ".join(f"{k} {v.max():.3e} (step 1 {v[0]:.3e})"
+                                        for k, v in gaps.items()))
+        if fed:
+            check(all(gaps[k].max() == 0.0 for k in ("qpos", "qvel", "phase")),
+                  f"taxis golden {label}: the K2 path must repeat JAX")
+            continue
+        for key in ("qpos", "qvel", "drive"):
+            bad = np.flatnonzero(held & (gaps[key] > tol[key]))
+            check(not len(bad), f"taxis golden {label} {key} at control step {bad[:1] + 1}: "
+                                f"{gaps[key][bad[:1]]} > {tol[key]}")
+        for key in ("qpos", "qvel"):
+            bad = np.flatnonzero(gaps[key] > bars[key])
+            check(not len(bad), f"taxis golden {label} {key} at control step {bad[:1] + 1}: "
+                                f"{gaps[key][bad[:1]]} > the probe's bar {bars[key][bad[:1]]}")
+        print(f"[taxis golden {label}] held to GOLDEN_TOLERANCE at control steps "
+              f"{[int(i) + 1 for i in np.flatnonzero(held)]} and to the probe's bars at all "
+              f"{n_steps}; per step qvel gap / probe bar / the JAX engine-emitter spread: "
+              + ", ".join(f"{g:.2e}/{b:.2e}/{sp:.2e}" for g, b, sp in
+                          zip(gaps["qvel"], bars["qvel"], spread["qvel"])))
+
+
+def phase_cpg_walking(cpg_compiled) -> dict:
+    """Config 2 (example 04's CPG walking) at N_WORLDS through the default
+    step: adhesion on, a TAXIS_SETTLE_STEPS rollout (K = 8 launches), then
+    CPG_WALK_STEPS timed steps of ``demo/cpg_walking.py`` (one CPG step and
+    one K = 1 K2 launch each). Launches K2 settle / 8 + CPG_WALK_STEPS,
+    K1/K1b 0; all state finite; distance walked, world-steps/s, torch calls
+    per step and no host synchronisation in a step."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.demo.cpg_walking import CPGWalkingLoop
+
+    fly = cpg_compiled.fly_names[0]
+    sim = BatchSimulation(cpg_compiled, N_WORLDS)
+    check(sim.megastep, "config 2: the default step is not the mega-step on the card")
+    sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
+    loop = CPGWalkingLoop(sim)
+    cs = loop.init_state(torch.Generator(device="cuda").manual_seed(0))
+    reset_counts()
+    sim.rollout(None, TAXIS_SETTLE_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    start = sim.state.qpos[:, :2].clone()
+    t0 = time.perf_counter()
+    cs, _rec = loop.run(cs, CPG_WALK_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[cpg walking] config 2, {N_WORLDS} worlds: settle {TAXIS_SETTLE_STEPS} steps, "
+          f"{CPG_WALK_STEPS} steps; launches {counts}")
+    want = {"megastep": TAXIS_SETTLE_STEPS // MEGASTEP_K + CPG_WALK_STEPS,
+            "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"cpg walking: {name} launches {counts[name]} != {n}")
+    st = sim.state
+    for name in ("qpos", "qvel", "qacc", "xpos", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"cpg walking: {name} not finite")
+    walked = (st.qpos[:, :2] - start).norm(dim=1)
+    z = st.qpos[:, 2]
+    print(f"[cpg walking] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
+          f"{z.max().item():.4f} mm, walked mean {walked.mean().item():.4f} mm (max "
+          f"{walked.max().item():.4f}) in {CPG_WALK_STEPS * cpg_compiled.model.timestep:.3f} s")
+    print(f"[cpg walking] {wall / CPG_WALK_STEPS * 1e3:.4f} ms per step: "
+          f"{CPG_WALK_STEPS * N_WORLDS / wall:.0f} world-steps/s on {card_line()}")
+    state = sim.state
+    print(f"[cpg walking] torch calls per step: {torch_calls(lambda: loop.step(state, cs))}")
+    syncs = host_syncs(lambda: loop.step(state, cs))
+    print(f"[cpg walking] host synchronisations in one step: {len(syncs)} {syncs}")
+    check(not syncs, "cpg walking: the step waits for the card")
+    return counts
+
+
+def phase_cpg_golden(cpg_compiled) -> None:
+    """The CPG walking golden, 8 worlds x 40 steps from the JAX settled
+    state with its controllers: the K2 path against the JAX emitter's loop
+    with 0 gaps in qpos, qvel and the CPG phase; the engine path against the
+    JAX engine's within GOLDEN_TOLERANCE at the steps where the JAX paths
+    agree within it (``jax_paths_agree``) and within the probe's bars
+    (``loop_probe_bars``) at every step, the phase equal."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import CPG_GOLDEN, load_loop_golden
+    from flygym_tpu_torch.control import CPGState
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+    from flygym_tpu_torch.demo.cpg_walking import CPGWalkingLoop
+
+    golden = load_loop_golden(CPG_GOLDEN)
+    n_worlds = golden["state"].qpos.shape[0]
+    n_steps = golden["engine"]["qpos"].shape[0]
+    held, _spread = jax_paths_agree(golden, n_steps)
+    bars = loop_probe_bars(golden, n_steps)
+    for label, megastep, record in (("megastep", None, "emitter"), ("engine", False, "engine")):
+        want = golden[record]
+        sim = BatchSimulation(cpg_compiled, n_worlds, megastep=megastep)
+        sim.state = golden["state"].to("cuda")
+        loop = CPGWalkingLoop(sim)
+        cs = CPGState.from_numpy(*(golden["controller"][k] for k in
+                                   ("phase", "amplitude", "damplitude")), device="cuda")
+        _cs, rec = loop.run(cs, n_steps, record=True)
+        gaps = {k: np.abs(rec[k].cpu().numpy() - want[k]).reshape(n_steps, -1).max(axis=1)
+                for k in ("qpos", "qvel", "phase")}
+        print(f"[cpg golden {label}] {n_worlds} worlds x {n_steps} steps vs JAX {record}: "
+              + ", ".join(f"{k} {v.max():.3e}" for k, v in gaps.items())
+              + ("" if megastep is None else f"; held to GOLDEN_TOLERANCE at {int(held.sum())} "
+                                             f"of {n_steps} steps (where the JAX paths agree)"))
+        check(gaps["phase"].max() == 0.0, f"cpg golden {label}: phase {gaps['phase'].max():.3e}")
+        for key in ("qpos", "qvel"):
+            check(bool(torch.isfinite(rec[key]).all()), f"cpg golden {label}: {key} not finite")
+            if megastep is None:
+                check(gaps[key].max() == 0.0, f"cpg golden {label}: {key} {gaps[key].max():.3e}")
+            else:
+                worst = float(gaps[key][held].max()) if held.any() else 0.0
+                check(worst <= GOLDEN_TOLERANCE[key],
+                      f"cpg golden {label}: {key} {worst:.3e} > {GOLDEN_TOLERANCE[key]}")
+                ratio = float((gaps[key] / bars[key]).max())
+                print(f"[cpg golden {label}] {key}: largest gap / probe bar {ratio:.3f}")
+                check(ratio <= 1.0, f"cpg golden {label}: {key} past the probe's bar")
+
+
+def phase_solvers(weld_compiled, pgs_compiled) -> dict:
+    """The engine-only variants at N_WORLDS: the soft-welded fly (its root
+    pinned by the soft weld; no contact candidate, so one K1 and one K1b
+    launch per step) and the PGS fly (a dense Cholesky and row-sequential
+    Gauss-Seidel sweeps, no K1/K1b), each from its golden's settled worlds
+    with the replay's first controls held, SOLVER_STEPS timed engine steps:
+    launch counts, all state finite, the soft-welded roots within 1e-3 mm
+    of their tether; ms per step; the host synchronisations of one engine
+    step of each, and none in the soft weld's forces. Then each golden (8
+    worlds x 20 steps) against the JAX engine within GOLDEN_TOLERANCE."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import ASSETS, load_actuator_golden
+    from flygym_tpu_torch.engine import step as engine_step
+
+    out = {}
+    for label, compiled, name in (("soft weld", weld_compiled, "softweld_fly"),
+                                  ("pgs", pgs_compiled, "pgs_fly")):
+        golden = load_actuator_golden(ASSETS / f"{name}_golden.npz")
+        sim = BatchSimulation(compiled, N_WORLDS)
+        check(not sim.megastep, f"{label}: K2 took a model it refuses")
+        idx = torch.arange(N_WORLDS) % golden["state"].qpos.shape[0]
+        sim.state = replace(golden["state"].map(lambda x: x[idx].clone()),
+                            ctrl=torch.as_tensor(golden["ctrl"][0])[idx]).to("cuda")
+        sim.rollout(None, 1, record_trajectory=False)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sim.rollout(None, SOLVER_STEPS, record_trajectory=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        per_step = 1 if label == "soft weld" else 0
+        want = {"megastep": 0, "tree_ldl_factor": per_step * SOLVER_STEPS,
+                "tree_ldl_solve": per_step * SOLVER_STEPS}
+        for key, n in want.items():
+            check(counts[key] == n, f"{label}: {key} launches {counts[key]} != {n}")
+        st = sim.state
+        for key in ("qpos", "qvel", "qacc"):
+            check(bool(torch.isfinite(getattr(st, key)).all()), f"{label}: {key} not finite")
+        if label == "soft weld":
+            tether = torch.tensor(compiled.model.welds[0][3], device="cuda")
+            off = (st.qpos[:, :3] - tether).abs().max().item()
+            check(off <= 1e-3, f"soft weld: a root {off:.3e} mm off its tether")
+            extra = f", largest root offset from the tether {off:.3e} mm"
+        else:
+            extra = f", root z mean {st.qpos[:, 2].mean().item():.4f} mm"
+        ms_step = wall / SOLVER_STEPS * 1e3
+        out[label] = ms_step
+        print(f"[{label}] {N_WORLDS} worlds, {SOLVER_STEPS} engine steps in {wall:.3f} s: "
+              f"{ms_step:.3f} ms per step, {SOLVER_STEPS * N_WORLDS / wall:.0f} world-steps/s; "
+              f"launches {counts}{extra} on {card_line()}")
+        syncs = host_syncs(lambda: sim.rollout(None, 1, record_trajectory=False))
+        print(f"[{label}] host synchronisations in one engine step: {len(syncs)} "
+              f"{sorted(set(syncs))}")
+        if label == "soft weld":
+            eye = torch.eye(st.qvel.shape[1], device="cuda").expand(N_WORLDS, -1, -1)
+            syncs = host_syncs(lambda: engine_step._weld_forces(sim.model, st.qpos, st.qvel, eye))
+            print(f"[soft weld] host synchronisations in the weld forces: {len(syncs)} {syncs}")
+            check(not syncs, "soft weld: the weld forces wait for the card")
+        phase_replay_golden(compiled, ASSETS / f"{name}_golden.npz", label=label)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2247,12 +2911,15 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    # Spawned workers: they import torch afresh and never touch the card.
+    ops_pool = ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     try:
         import flygym_tpu_torch
         from flygym_tpu_torch.compose.bridge import (
-            ASSETS, BENCHMARK_GOLDEN, ENV_FLY, MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN,
-            STRICT_FLY, STRICT_GOLDEN, TERRAIN_FLY, TETHERED_FLY, THREEFLY, THREEFLY_GOLDEN,
-            TWOFLY, TWOFLY_FULL, TWOFLY_FULL_GOLDEN, read_meta)
+            ASSETS, BENCHMARK_FLY, BENCHMARK_GOLDEN, CPG_FLY, ENV_FLY, MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY,
+            MUSCLE_GOLDEN, STRICT_FLY, STRICT_GOLDEN, TAXIS_FLY, TERRAIN_FLY, TETHERED_FLY,
+            TETHERED_GOLDEN, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_FULL, TWOFLY_FULL_GOLDEN,
+            read_meta)
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
@@ -2264,13 +2931,28 @@ def main() -> int:
         muscle_compiled = flygym_tpu_torch.load_compiled(MUSCLE_FLY)
         mixed_compiled = flygym_tpu_torch.load_compiled(MIXED_FLY)
         tethered_compiled = flygym_tpu_torch.load_compiled(TETHERED_FLY)
+        condim_flies = {c: flygym_tpu_torch.load_compiled(ASSETS / f"condim{c}_fly.npz")
+                        for c in CONDIMS}
+        taxis_compiled = flygym_tpu_torch.load_compiled(TAXIS_FLY)
+        cpg_compiled = flygym_tpu_torch.load_compiled(CPG_FLY)
+        weld_compiled = flygym_tpu_torch.load_compiled(ASSETS / "softweld_fly.npz")
+        pgs_compiled = flygym_tpu_torch.load_compiled(ASSETS / "pgs_fly.npz")
+        terrain_condim = terrain_at_condim(CONDIM_TIMED)
+        count_ops_in_background(ops_pool, [
+            (BENCHMARK_FLY, 0), (TERRAIN_FLY, 0), (TWOFLY, 0), (TWOFLY_FULL, 0), (THREEFLY, 0),
+            (STRICT_FLY, 0), (MUSCLE_FLY, 0), (MIXED_FLY, 0), (TETHERED_FLY, 0),
+            (ASSETS / f"condim{CONDIM_TIMED}_fly.npz", 0), (TAXIS_FLY, 0),
+            (TERRAIN_FLY, CONDIM_TIMED)])
         phase_build({"benchmark fly": compiled, "env fly": env_compiled,
                      "terrain fly": terrain_compiled, "two flies": twofly_compiled,
                      "two flies, 55 x 55 compressed": full_compiled,
                      "3-fly pile, compressed": pile_compiled,
                      "strict fly, exact Newton": strict_compiled,
                      "muscle fly": muscle_compiled, "mixed-kind fly": mixed_compiled,
-                     "tethered fly": tethered_compiled},
+                     "tethered fly": tethered_compiled,
+                     **{f"condim-{c} fly": condim_flies[c] for c in CONDIMS},
+                     f"terrain fly, condim {CONDIM_TIMED}": terrain_condim,
+                     "taxis fly": taxis_compiled, "cpg fly": cpg_compiled},
                     compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
@@ -2374,7 +3056,7 @@ def main() -> int:
         print(f"[tethered] device busy share: "
               f"{teth_counts['megastep'] * k8 / (teth_wall * 1e3):.3f} "
               f"({teth_counts['megastep']} launches x {k8:.3f} ms over {teth_wall:.3f} s)")
-        phase_tethered_golden(tethered_compiled)
+        phase_replay_golden(tethered_compiled, TETHERED_GOLDEN, label="tethered")
         lap("phases 24-26 (the tethered fly, K2 without contact candidates)")
         phase_single_world(compiled, tethered_compiled)
         lap("phase 27 (the single-world API)")
@@ -2382,10 +3064,42 @@ def main() -> int:
         lap("phase 28 (the world sweep and the benchmark entry)")
         phase_trace(compiled)
         lap("phase 29 (the profiler trace)")
+        k2_condim = phase_condim_kernels(condim_flies, terrain_condim)
+        lap("phase 30 (K2 at condim 1, 4 and 6)")
+        condim_counts, condim_wall = phase_slice(
+            condim_flies[CONDIM_TIMED], label=f"condim{CONDIM_TIMED}", megastep=None,
+            settle=SETTLE_STEPS, steps=N_STEPS,
+            want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
+                  "tree_ldl_factor": 0, "tree_ldl_solve": 0})
+        k8 = k2_condim[CONDIM_TIMED]["times"][MEGASTEP_K][0]
+        print(f"[condim{CONDIM_TIMED}] device busy share of the replay: "
+              f"{(N_STEPS // MEGASTEP_K) * k8 / (condim_wall * 1e3):.3f} "
+              f"({N_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over {condim_wall:.3f} s)")
+        lap(f"phase 31 (the condim-{CONDIM_TIMED} replay)")
+        for c in CONDIMS:
+            phase_replay_golden(condim_flies[c], ASSETS / f"condim{c}_fly_golden.npz",
+                                label=f"condim{c}")
+        lap("phase 32 (the condim goldens)")
+        k2_taxis = phase_taxis_kernel(taxis_compiled)
+        lap("phase 33 (K2 at K = 20 for config 4)")
+        taxis = phase_taxis(taxis_compiled, N_WORLDS, "taxis")
+        lap("phase 34 (config 4 at 4096 worlds)")
+        phase_taxis(taxis_compiled, 1, "taxis B=1")
+        lap("phase 35 (config 4, one fly)")
+        phase_taxis_golden(taxis_compiled)
+        lap("phase 36 (the taxis goldens)")
+        phase_cpg_walking(cpg_compiled)
+        lap("phase 37 (config 2)")
+        phase_cpg_golden(cpg_compiled)
+        lap("phase 38 (the CPG walking goldens)")
+        phase_solvers(weld_compiled, pgs_compiled)
+        lap("phase 39 (soft welds and PGS)")
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    finally:
+        ops_pool.shutdown(cancel_futures=True)
 
     entries = [
         {
@@ -2452,6 +3166,12 @@ def main() -> int:
                             MEGASTEP_K))
     # Without contact candidates: the tethered rollout's K = 8 launch.
     entries.append(k2_entry("megastep_tethered", k2_teth, teth_counts["megastep"], MEGASTEP_K))
+    # Slice g.3: the condim-6 replay's K = 8 launch (250 of its 750), and
+    # config 4's K = 20 launch, each of its settle and one per control step.
+    entries.append(k2_entry(f"megastep_condim{CONDIM_TIMED}", k2_condim[CONDIM_TIMED],
+                            condim_counts["megastep"], MEGASTEP_K))
+    k_taxis, = k2_taxis["times"]
+    entries.append(k2_entry("megastep_taxis", k2_taxis, taxis["counts"]["megastep"], k_taxis))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

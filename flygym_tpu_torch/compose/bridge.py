@@ -20,10 +20,13 @@ the fly with one actuator kind per leg and the strict replay's fly
 activation states (``State.act``, ``act_actadr``, ``act_dynprm``,
 ``act_muscleprm``, ``act_lengthrange``, ``act_acc0``) and ``solver_exact``.
 The same script writes the tethered motor fly, a world without contact
-candidates (``ncand`` 0, no sensors, no adhesion).
+candidates (``ncand`` 0, no sensors, no adhesion). Condim 1, 4 and 6, the
+PGS solver and soft welds (``welds``) are read as the JAX compile wrote
+them; ``scripts/export_taxis_golden.py`` writes the visual-taxis world (its
+fly's maps add ``eye_bodies``), the CPG walking world and the condim-6 fly.
 
-Models that use a feature the port does not have yet are refused here,
-with ``NotImplementedError``, rather than simulated wrongly.
+Differentiable mode, which the port does not have yet, is refused here
+with ``NotImplementedError`` rather than simulated wrongly.
 """
 
 import json
@@ -39,6 +42,10 @@ from flygym_tpu_torch.engine.model import PhysicsModel, State
 __all__ = [
     "BENCHMARK_FLY",
     "BENCHMARK_GOLDEN",
+    "CONDIM6_FLY",
+    "CONDIM6_GOLDEN",
+    "CPG_FLY",
+    "CPG_GOLDEN",
     "CompiledModel",
     "ENV_FLY",
     "ENV_GOLDEN",
@@ -48,6 +55,8 @@ __all__ = [
     "MUSCLE_GOLDEN",
     "STRICT_FLY",
     "STRICT_GOLDEN",
+    "TAXIS_FLY",
+    "TAXIS_GOLDEN",
     "TERRAIN_FLY",
     "TERRAIN_GOLDEN",
     "TETHERED_FLY",
@@ -60,6 +69,7 @@ __all__ = [
     "TWOFLY_GOLDEN",
     "load_actuator_golden",
     "load_env_golden",
+    "load_loop_golden",
     "load_terrain_golden",
     "load_twofly_golden",
     "read_meta",
@@ -89,6 +99,12 @@ MIXED_FLY = ASSETS / "mixed_fly.npz"
 MIXED_GOLDEN = ASSETS / "mixed_fly_golden.npz"
 TETHERED_FLY = ASSETS / "tethered_fly.npz"
 TETHERED_GOLDEN = ASSETS / "tethered_fly_golden.npz"
+TAXIS_FLY = ASSETS / "taxis_fly.npz"
+TAXIS_GOLDEN = ASSETS / "taxis_fly_golden.npz"
+CPG_FLY = ASSETS / "cpg_fly.npz"
+CPG_GOLDEN = ASSETS / "cpg_fly_golden.npz"
+CONDIM6_FLY = ASSETS / "condim6_fly.npz"
+CONDIM6_GOLDEN = ASSETS / "condim6_fly_golden.npz"
 
 
 @dataclass(frozen=True)
@@ -128,16 +144,11 @@ def _tuples(x):
 
 
 def _refuse_unported(static: dict) -> None:
-    checks = [
-        (static["solver_type"] != "pgs", "the PGS solver"),
-        (static["condim"] == 3, f"condim {static['condim']}"),
-        (not static["welds"], "weld constraints"),
-        (not static["differentiable"], "differentiable mode"),
-    ]
-    missing = [what for ok, what in checks if not ok]
-    if missing:
+    """Differentiable mode, which the port does not have yet, is refused."""
+    if static["differentiable"]:
         raise NotImplementedError(
-            "the PyTorch port does not support: " + ", ".join(missing)
+            "the PyTorch port does not support differentiable mode (gradients "
+            "through the step wait for the tree-LDL kernels under autograd)"
         )
 
 
@@ -152,7 +163,7 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
     _refuse_unported(static)
     kw = {}
     for f in fields(PhysicsModel):
-        if f.name == "ldl":
+        if f.name in ("ldl", "weld_ref"):
             continue
         if f.name in static:
             kw[f.name] = _tuples(static[f.name])
@@ -163,6 +174,10 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
     )
     kw["ldl"] = LdlTables.from_static(
         static["nv"], kw["dof_chains"], kw["dof_height_levels"], kw["dof_depth_levels"]
+    )
+    kw["weld_ref"] = tuple(
+        torch.tensor([w[i] for w in kw["welds"]], dtype=torch.float32).reshape(-1, n)
+        for i, n in ((3, 3), (4, 4), (6, 5))
     )
     state = State(
         **{f.name: _tensor(arrays[f"state.{f.name}"])[None] for f in fields(State)}
@@ -287,3 +302,19 @@ def load_actuator_golden(path) -> dict:
     and the engine's conditioning probe (``emitter``, ``engine``,
     ``probe``) per step ``qpos``, ``qvel``, ``act`` and ``sensordata``."""
     return _load_probe_golden(path, ("ctrl",))
+
+
+def load_loop_golden(path=TAXIS_GOLDEN) -> dict:
+    """The JAX golden of a closed loop of ``scripts/export_taxis_golden.py``
+    (:data:`TAXIS_GOLDEN`, :data:`CPG_GOLDEN`): ``state`` (the settled
+    batched :class:`State`), ``controller`` (the initial CPG state as numpy
+    arrays), and for the JAX engine, the JAX emitter and the engine's
+    conditioning probe (``engine``, ``emitter``, ``probe``) per step (per
+    control step for the taxis) ``qpos``, ``qvel`` and the CPG's ``phase``,
+    and for the taxis ``vision``, ``drive``, and ``xpos`` and ``xquat``
+    after the control step's physics (the poses the next one renders)."""
+    out = _load_probe_golden(path, ())
+    arrays, _meta = _read_npz(path)
+    out["controller"] = {k.partition(".")[2]: v for k, v in arrays.items()
+                         if k.startswith("controller.")}
+    return out

@@ -1,6 +1,5 @@
-"""Locomotor controllers, batched over worlds: the CPG and the hybrid
-controller (port of ``flygym_tpu/control``; the visual taxis controller is
-not ported yet)."""
+"""Locomotor controllers, batched over worlds: the CPG, the hybrid
+controller and the visual taxis controller (port of ``flygym_tpu/control``)."""
 
 from flygym_tpu_torch.control.cpg import (
     CPGController,
@@ -10,6 +9,7 @@ from flygym_tpu_torch.control.cpg import (
     tripod_phase_biases,
 )
 from flygym_tpu_torch.control.hybrid import HybridController, HybridState
+from flygym_tpu_torch.control.taxis import VisualTaxisController, object_azimuth_drive
 
 __all__ = [
     "CPGController",
@@ -19,4 +19,6 @@ __all__ = [
     "tripod_phase_biases",
     "HybridController",
     "HybridState",
+    "VisualTaxisController",
+    "object_azimuth_drive",
 ]

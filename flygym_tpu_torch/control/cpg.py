@@ -192,9 +192,16 @@ class CPGNetwork:
         # host at every step would wait for the card's queue to drain.
         object.__setattr__(self, "_phi", {})
 
-    def step(self, state: CPGState, dt: float, drive: float = 1.0) -> CPGState:
+    def step(self, state: CPGState, dt: float, drive=1.0) -> CPGState:
         """One Euler step of the oscillators of every world. ``drive``
-        scales both the frequency and the target amplitude."""
+        scales both the frequency and the target amplitude: a Python float
+        for every leg of every world, or a (B, 6) tensor, one per world and
+        leg (the visual taxis's steering).
+
+        With a float, the products 2π f drive and R drive are Python
+        arithmetic rounded once to float32, as JAX folds them; with a
+        tensor, the constants are rounded to float32 first and multiplied
+        in float32, as XLA multiplies a weak constant by an array."""
         theta, r = state.phase, state.amplitude
         phi = self._phi.get(theta.device)
         if phi is None:
@@ -207,11 +214,15 @@ class CPGNetwork:
         coupling = terms[..., 0]
         for j in range(1, terms.shape[-1]):
             coupling = coupling + terms[..., j]
-        dtheta = _f32(2 * math.pi * self.intrinsic_freq_hz * drive) + coupling
+        if isinstance(drive, torch.Tensor):
+            omega = _f32(2 * math.pi * self.intrinsic_freq_hz) * drive
+            R = _f32(self.target_amplitude) * drive
+        else:
+            omega = _f32(2 * math.pi * self.intrinsic_freq_hz * drive)
+            R = _f32(self.target_amplitude * drive)
+        dtheta = omega + coupling
         a = self.convergence_rate
-        ddr = _f32(a) * (
-            _f32(a / 4.0) * (_f32(self.target_amplitude * drive) - r) - state.damplitude
-        )
+        ddr = _f32(a) * (_f32(a / 4.0) * (R - r) - state.damplitude)
         dt32 = _f32(dt)
         return CPGState(
             phase=_mod_2pi(theta + dt32 * dtheta),
@@ -240,8 +251,9 @@ class CPGController:
     def init_state(self, n_worlds: int, generator: torch.Generator | None = None) -> CPGState:
         return CPGState.init(n_worlds, generator, self.device)
 
-    def __call__(self, state: CPGState, drive: float = 1.0):
-        """Advance every world's CPG by one physics step.
+    def __call__(self, state: CPGState, drive=1.0):
+        """Advance every world's CPG by one physics step; ``drive`` as for
+        :meth:`CPGNetwork.step`.
 
         Returns:
             (new state, joint targets (B, n_dofs), adhesion controls (B, 6)).

@@ -423,11 +423,24 @@ MS_FN V6 inertia_mul(const Rows& s, int r, float m, V6 x) {
   return {{n[0], n[1], n[2]}, {f[0], f[1], f[2]}};
 }
 
-// Candidate c's rows: S_JAR, S_JD (4 each: the pyramid rows), S_CD (the
+// The contact's pyramid rows (slice g.3; the header's NROWS and NTAG): the
+// normal row alone at condim 1 (NTAG 0), else two rows n + mu_t J_t,
+// n - mu_t J_t per friction direction t of the NTAG tags: the tangents t1
+// and t2 (condim 3), the torsion about n (condim 4, the rotational Jacobian)
+// and the rolling about t1 and t2 (condim 6). NDIR = 1 + NTAG Jacobian
+// directions per path entry; mu_t per candidate and tag in kMuDir, mu_t^2
+// in kMuDir2, as the emitter's Python arithmetic rounds them.
+constexpr int NDIR = 1 + NTAG;
+// Candidate c's weights (coef): the gradient's (n, then one per tag), then
+// the Hessian's W, Bt (one per tag) and Wt (one per tag).
+constexpr int NCOEF = 2 + 3 * NTAG;
+constexpr int O_W = 1 + NTAG, O_BT = 2 + NTAG, O_WT = 2 + 2 * NTAG;
+
+// Candidate c's rows: S_JAR, S_JD (NROWS each: the pyramid rows), S_CD (the
 // constraint's D), S_CACT (active), S_CADH (adhesion force), S_CPOS (3),
-// S_COEF (8: the gradient's and the Hessian's weights of its rows, see
-// coef), S_COMP (its path's Jacobian components along n, t1, t2).
-MS_FN int comp_row(int c, int i, int t) { return S_COMP + 3 * (MAXP * c + i) + t; }
+// S_COEF (NCOEF: the gradient's and the Hessian's weights of its rows, see
+// coef), S_COMP (its path's Jacobian components along the NDIR directions).
+MS_FN int comp_row(int c, int i, int t) { return S_COMP + NDIR * (MAXP * c + i) + t; }
 // Whether candidate c has a contact frame of its own (terrain or pair row;
 // flat ground rows contact along the world's axes), and its 9 rows.
 MS_FN bool has_frame(int c) { return kHasHfield || c >= NGROUND; }
@@ -495,52 +508,62 @@ MS_FN int dc_pos(const Rows& s, int c, int off, int d, int dep) {
 MS_FN int lo16(int v) { return v & 0xffff; }
 MS_FN int hi16(int v) { return v >> 16; }
 
-// Direction products J_t · x along candidate c's path, t = n, t1, t2.
-MS_FN V3 products(const Rows& s, int c, int x_row) {
+// Direction products J_t · x along candidate c's path, t = n and the tags.
+MS_FN void products(const Rows& s, int c, int x_row, float p[NDIR]) {
   const CPath cp = cand_path(s, c);
-  const int d0 = path_dof(cp, 0);
-  float pn = s[comp_row(c, 0, 0)] * s[x_row + d0];
-  float p1 = s[comp_row(c, 0, 1)] * s[x_row + d0];
-  float p2 = s[comp_row(c, 0, 2)] * s[x_row + d0];
+  const float x0 = s[x_row + path_dof(cp, 0)];
+  for (int t = 0; t < NDIR; ++t) p[t] = s[comp_row(c, 0, t)] * x0;
   MS_UNROLL4
   for (int i = 1; i < cp.n; ++i) {
     const float xd = s[x_row + path_dof(cp, i)];
-    pn = pn + s[comp_row(c, i, 0)] * xd;
-    p1 = p1 + s[comp_row(c, i, 1)] * xd;
-    p2 = p2 + s[comp_row(c, i, 2)] * xd;
+    for (int t = 0; t < NDIR; ++t) p[t] = p[t] + s[comp_row(c, i, t)] * xd;
   }
-  return {pn, p1, p2};
 }
 
-// Pyramid rows [n + mu t1, n - mu t1, n + mu t2, n - mu t2].
-MS_FN void row_combos(int c, V3 p, float out[4]) {
-  const float mu = kMu[c];
-  out[0] = p.x + mu * p.y;
-  out[1] = p.x - mu * p.y;
-  out[2] = p.x + mu * p.z;
-  out[3] = p.x - mu * p.z;
+// Pyramid rows [n] (condim 1), else [n + mu_t J_t, n - mu_t J_t] per tag.
+MS_FN void row_combos(int c, const float p[NDIR], float out[NROWS]) {
+  if constexpr (NTAG == 0) {
+    (void)c;
+    out[0] = p[0];
+  } else {
+    for (int t = 0; t < NTAG; ++t) {
+      const float mu = kMuDir[NTAG * c + t];
+      out[2 * t] = p[0] + mu * p[1 + t];
+      out[2 * t + 1] = p[0] - mu * p[1 + t];
+    }
+  }
 }
 
-// Candidate c's weights in the gradient J^T (D m jar) (cn, c1, c2) and in
-// the Hessian fill J^T Σ J (W, bt1, bt2, wt1, wt2), from its rows.
+// Candidate c's weights in the gradient J^T (D m jar) (n, then per tag)
+// and in the Hessian fill J^T Σ J (W, Bt per tag, Wt per tag), from its
+// rows. At condim 1 the normal row's weights alone, without the 0 + of the
+// sums.
 MS_FN void coef(const Rows& s, int c) {
-  const float D = s[S_CD + c], mu = kMu[c], mu2 = kMu2[c];
-  float wk[4], wa[4];
-  for (int r = 0; r < 4; ++r) {
-    const float jar = s[S_JAR + 4 * c + r];
+  const float D = s[S_CD + c];
+  float wk[NROWS], wa[NROWS];
+  for (int r = 0; r < NROWS; ++r) {
+    const float jar = s[S_JAR + NROWS * c + r];
     const float m = jar < 0.0f ? 1.0f : 0.0f;
     wk[r] = D * m * jar;
     wa[r] = D * m;
   }
-  const int o = S_COEF + 8 * c;
-  s[o] = 0.0f + wk[0] + wk[1] + wk[2] + wk[3];
-  s[o + 1] = mu * (wk[0] - wk[1]);
-  s[o + 2] = mu * (wk[2] - wk[3]);
-  s[o + 3] = 0.0f + wa[0] + wa[1] + wa[2] + wa[3];
-  s[o + 4] = mu * (wa[0] - wa[1]);
-  s[o + 5] = mu * (wa[2] - wa[3]);
-  s[o + 6] = mu2 * (wa[0] + wa[1]);
-  s[o + 7] = mu2 * (wa[2] + wa[3]);
+  const int o = S_COEF + NCOEF * c;
+  if constexpr (NTAG == 0) {
+    s[o] = wk[0];
+    s[o + O_W] = wa[0];
+  } else {
+    float cn = 0.0f, W = 0.0f;
+    for (int r = 0; r < NROWS; ++r) cn = cn + wk[r];
+    for (int r = 0; r < NROWS; ++r) W = W + wa[r];
+    s[o] = cn;
+    s[o + O_W] = W;
+    for (int t = 0; t < NTAG; ++t) {
+      const float mu = kMuDir[NTAG * c + t], mu2 = kMuDir2[NTAG * c + t];
+      s[o + 1 + t] = mu * (wk[2 * t] - wk[2 * t + 1]);
+      s[o + O_BT + t] = mu * (wa[2 * t] - wa[2 * t + 1]);
+      s[o + O_WT + t] = mu2 * (wa[2 * t] + wa[2 * t + 1]);
+    }
+  }
 }
 
 // The contact gradient S_GC = J^T (D m jar), and with `first` the adhesion
@@ -554,10 +577,12 @@ MS_FN void dof_sums(const Rows& s, bool first) {
     for (int e = kDcPtr[d]; e < kDcPtr[d + 1]; ++e) {
       const int c = lo16(kDcCO[e]), j = dc_pos(s, c, hi16(kDcCO[e]) - 1, d, dep);
       if (j < 0) continue;
-      const int o = S_COEF + 8 * c;
+      const int o = S_COEF + NCOEF * c;
       const float n = s[comp_row(c, j, 0)];
       if (first) qf = qf - n * s[S_CADH + c];
-      g = g + (n * s[o] + s[comp_row(c, j, 1)] * s[o + 1] + s[comp_row(c, j, 2)] * s[o + 2]);
+      float gc = n * s[o];
+      for (int t = 1; t < NDIR; ++t) gc = gc + s[comp_row(c, j, t)] * s[o + t];
+      g = g + gc;
     }
     if (first) s[S_QFRC + d] = qf;
     s[S_GC + d] = g;
@@ -579,16 +604,18 @@ MS_FN void hess_fill(const Rows& s) {
     for (int e = kDcPtr[d]; e < kDcPtr[d + 1]; ++e) {
       const int c = lo16(kDcCO[e]), j = dc_pos(s, c, hi16(kDcCO[e]) - 1, d, dep);
       if (j < 0) continue;
-      const int i = j - dep + ia, o = S_COEF + 8 * c;
-      const float W = s[o + 3], bt1 = s[o + 4], bt2 = s[o + 5], wt1 = s[o + 6],
-                  wt2 = s[o + 7];
-      const float nj = s[comp_row(c, j, 0)], d1 = s[comp_row(c, j, 1)],
-                  d2 = s[comp_row(c, j, 2)];
-      const float un = nj * W + d1 * bt1 + d2 * bt2;
-      const float u1 = nj * bt1 + d1 * wt1;
-      const float u2 = nj * bt2 + d2 * wt2;
-      h = h + (s[comp_row(c, i, 0)] * un + s[comp_row(c, i, 1)] * u1 +
-               s[comp_row(c, i, 2)] * u2);
+      const int i = j - dep + ia, o = S_COEF + NCOEF * c;
+      // u_j = Σ g_j (n, then u per tag), then g_i^T u_j in the same order.
+      const float nj = s[comp_row(c, j, 0)];
+      float un = nj * s[o + O_W], u[NDIR];
+      for (int t = 0; t < NTAG; ++t) {
+        const float dj = s[comp_row(c, j, 1 + t)], bt = s[o + O_BT + t];
+        un = un + dj * bt;
+        u[1 + t] = nj * bt + dj * s[o + O_WT + t];
+      }
+      float val = s[comp_row(c, i, 0)] * un;
+      for (int t = 1; t < NDIR; ++t) val = val + s[comp_row(c, i, t)] * u[t];
+      h = h + val;
     }
     if (ia == dep) h = h + 1e-9f;
     s[S_H + k] = h;
@@ -693,20 +720,20 @@ MS_FN void tree_solve(const Rows& s, int y_row) {
   }
 }
 
-// φ'(α) of the line search along delta: each candidate's 4 terms into the
+// φ'(α) of the line search along delta: each candidate's NROWS terms into the
 // rows of S_TERM, then their sum in the serial order by the lead thread,
 // its result through S_RED to the block. Both rows are double: calls take them
 // in turn, so that a call's writes never meet the previous call's reads.
 MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero, int& turn) {
-  const int t0 = S_TERM + 4 * NCAND * (turn & 1), r0 = S_RED + (turn & 1);
+  const int t0 = S_TERM + NROWS * NCAND * (turn & 1), r0 = S_RED + (turn & 1);
   ++turn;
   for (int c : par(NCAND)) {
     const float D = s[S_CD + c];
-    for (int r = 0; r < 4; ++r) {
-      const float jr = s[S_JAR + 4 * c + r], jd = s[S_JD + 4 * c + r];
+    for (int r = 0; r < NROWS; ++r) {
+      const float jr = s[S_JAR + NROWS * c + r], jd = s[S_JD + NROWS * c + r];
       const float ja = at_zero ? jr : jr + alpha * jd;
       const float m = ja < 0.0f ? 1.0f : 0.0f;
-      s[t0 + 4 * c + r] = m * (D * jd) * ja;
+      s[t0 + NROWS * c + r] = m * (D * jd) * ja;
     }
   }
   MS_SYNC();
@@ -714,7 +741,7 @@ MS_FN float dphi(const Rows& s, float gMd, float dMd, float alpha, bool at_zero,
     // In runs of 16: the loads of a run issue together, the adds follow in
     // order.
     float d = at_zero ? gMd : gMd + alpha * dMd;
-    constexpr int kRun = 16, kTerms = 4 * NCAND, kFull = kTerms - kTerms % kRun;
+    constexpr int kRun = 16, kTerms = NROWS * NCAND, kFull = kTerms - kTerms % kRun;
     MS_NOUNROLL
     for (int e = 0; e < kFull; e += kRun) {
       float v[kRun];
@@ -999,8 +1026,9 @@ MS_FN void candidate(const Col& in, const Rows& s, int c, int K, V3 ref) {
   s[S_CADH + c] = 0.0f;
   st3(s, S_CPOS + 3 * c, cpos);
   // Jacobian direction components jp = sgn (S_v + S_w x rel) along n, t1,
-  // t2: dots with the contact frame, or the z, x, y components on flat
-  // ground; sgn = -1 (an exact negation) on the second body's DoFs.
+  // t2, and above condim 3 sgn S_w about n (torsion), t1 and t2 (rolling):
+  // dots with the contact frame, or the z, x, y components on flat ground;
+  // sgn = -1 (an exact negation) on the second body's DoFs.
   const V3 rel = sub(cpos, ref);
   const CPath cp = cand_path(s, c);
   for (int i = 0; i < cp.n; ++i) {
@@ -1008,16 +1036,25 @@ MS_FN void candidate(const Col& in, const Rows& s, int c, int K, V3 ref) {
     const V3 jp = add(sd.v, cross(sd.w, rel));
     const float sg = i < cp.split ? 1.0f : -1.0f;
     s[comp_row(c, i, 0)] = sg * (framed ? dot(jp, fn) : jp.z);
-    s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
-    s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
+    if constexpr (NTAG >= 2) {
+      s[comp_row(c, i, 1)] = sg * (framed ? dot(jp, f1) : jp.x);
+      s[comp_row(c, i, 2)] = sg * (framed ? dot(jp, f2) : jp.y);
+    }
+    if constexpr (NTAG >= 3) s[comp_row(c, i, 3)] = sg * (framed ? dot(sd.w, fn) : sd.w.z);
+    if constexpr (NTAG == 5) {
+      s[comp_row(c, i, 4)] = sg * (framed ? dot(sd.w, f1) : sd.w.x);
+      s[comp_row(c, i, 5)] = sg * (framed ? dot(sd.w, f2) : sd.w.y);
+    }
   }
   // The reference acceleration and the rows at the warm start.
-  float vel[4], jr[4];
-  row_combos(c, products(s, c, S_V), vel);
+  float p[NDIR], vel[NROWS], jr[NROWS];
+  products(s, c, S_V, p);
+  row_combos(c, p, vel);
   const float kimp = kKGain[c] * imp;
-  row_combos(c, products(s, c, S_A), jr);
-  for (int r = 0; r < 4; ++r)
-    s[S_JAR + 4 * c + r] = jr[r] - (kNegBGain[c] * vel[r] - kimp * pos_err);
+  products(s, c, S_A, p);
+  row_combos(c, p, jr);
+  for (int r = 0; r < NROWS; ++r)
+    s[S_JAR + NROWS * c + r] = jr[r] - (kNegBGain[c] * vel[r] - kimp * pos_err);
   coef(s, c);
 }
 
@@ -1031,16 +1068,19 @@ MS_FN void sensor(const Col& out, const Rows& s, int sn, int o_sens) {
     V3 ff = {0.0f, 0.0f, 0.0f}, posw = ff, posp = ff, tw = ff;
     for (int j = j0; j < j1; ++j) count = count + s[S_CACT + kSensCand[j]];
     // Contact-frame force (n, t1, t2) of a candidate from its final rows,
-    // before and after the active mask.
+    // before and after the active mask: the normal force sums every row,
+    // the tangential ones take the sliding rows (none at condim 1).
     auto raw_force = [&](int c) {
       const float D = s[S_CD + c];
-      float lam[4];
-      for (int r = 0; r < 4; ++r) {
-        const float jr = s[S_JAR + 4 * c + r];
+      float lam[NROWS];
+      for (int r = 0; r < NROWS; ++r) {
+        const float jr = s[S_JAR + NROWS * c + r];
         lam[r] = fmaxf(-D * (jr < 0.0f ? 1.0f : 0.0f) * jr, 0.0f);
       }
-      const float fn = 0.0f + lam[0] + lam[1] + lam[2] + lam[3];
-      return V3{fn, kMu[c] * (lam[0] - lam[1]), kMu[c] * (lam[2] - lam[3])};
+      float fn = 0.0f;
+      for (int r = 0; r < NROWS; ++r) fn = fn + lam[r];
+      if constexpr (NTAG == 0) return V3{fn, 0.0f, 0.0f};
+      else return V3{fn, kMu[c] * (lam[0] - lam[1]), kMu[c] * (lam[2] - lam[3])};
     };
     auto frame_force = [&](int c) { return scale(raw_force(c), s[S_CACT + c]); };
     // World force: the frame's axes weighted, or (t1, t2, n) = (x, y, z).
@@ -1171,9 +1211,10 @@ MS_FN void contact_accel(const Col& in, const Rows& s, int K, V3 ref, Prof& prof
       gMd = gMd + s[S_A + d] * md - s[S_QFRC + d] * del;
     }
     for (int c : par(NCAND)) {
-      float jd[4];
-      row_combos(c, products(s, c, S_DEL), jd);
-      for (int r = 0; r < 4; ++r) s[S_JD + 4 * c + r] = jd[r];
+      float p[NDIR], jd[NROWS];
+      products(s, c, S_DEL, p);
+      row_combos(c, p, jd);
+      for (int r = 0; r < NROWS; ++r) s[S_JD + NROWS * c + r] = jd[r];
     }
     MS_SYNC();
     prof.mark(kPhJd);
@@ -1201,8 +1242,8 @@ MS_FN void contact_accel(const Col& in, const Rows& s, int K, V3 ref, Prof& prof
       s[S_MA + d] = s[S_MA + d] + alpha * s[S_MD + d];
     }
     for (int c : par(NCAND)) {
-      for (int r = 0; r < 4; ++r)
-        s[S_JAR + 4 * c + r] = s[S_JAR + 4 * c + r] + alpha * s[S_JD + 4 * c + r];
+      for (int r = 0; r < NROWS; ++r)
+        s[S_JAR + NROWS * c + r] = s[S_JAR + NROWS * c + r] + alpha * s[S_JD + NROWS * c + r];
       coef(s, c);
     }
     MS_SYNC();

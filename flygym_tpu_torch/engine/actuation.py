@@ -164,7 +164,14 @@ def integrate_act(model: PhysicsModel, act, ctrl, dt):
     )
     delta = torch.where(has_slot, delta, torch.zeros_like(delta))
     new_act = act.index_add(1, adr, delta)
-    # The muscles' slots, by a scatter that does not wait for the card.
-    muscle = (has_slot & (kind == ActKind.MUSCLE)).to(act.dtype)
-    is_muscle_slot = act.new_zeros(model.na).index_add(0, adr, muscle) > 0
+    # A slot is clamped where the last actuator that maps to it is a muscle
+    # with a slot: the reference's scatter (``.at[adr].set``) lets the last
+    # write win, and the slotless actuators (adhesion, actadr -1) map to
+    # slot 0, so a muscle that owns slot 0 loses its clamp to an adhesion
+    # actuator after it. JAX's emitter clamps every muscle slot; the
+    # reference's engine and emitter differ there, and this is the engine.
+    last = torch.full((model.na,), -1, dtype=torch.int64, device=act.device).scatter_reduce(
+        0, adr, torch.arange(model.nu, device=act.device), reduce="amax")
+    muscle = has_slot & (kind == ActKind.MUSCLE)
+    is_muscle_slot = (last >= 0) & muscle[torch.clamp(last, min=0)]
     return torch.where(is_muscle_slot, torch.clamp(new_act, 0.0, 1.0), new_act)

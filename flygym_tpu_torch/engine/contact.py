@@ -1,7 +1,6 @@
 """Ground contacts, adhesion and the primal Newton contact solver, batch-first.
 
-Port of ``flygym_tpu/engine/contact.py`` (lines 46-253, 256-357, 441-753)
-for condim 3:
+Port of ``flygym_tpu/engine/contact.py`` (lines 46-253, 256-357, 441-782):
 
 1. Candidates from the static candidate table: capsule ends against a flat
    plane or a heightfield (:func:`ground_height_normal`), and capsule
@@ -18,19 +17,25 @@ for condim 3:
    choice; :func:`make_pair_winner_sampler` picks the same winners outside
    a step, from the cached pose, for the mega-step kernel.
 3. Pyramidal friction rows per contact in the reference's row order
-   (contact-major, ``_pyramid_rows``), MuJoCo impedance and reference
-   accelerations, inverse weights precomputed at the neutral pose.
+   (contact-major, ``_pyramid_rows``): the normal row alone at condim 1,
+   then two rows per friction direction, sliding along t1 and t2 (condim
+   3), torsion about the normal (condim 4) and rolling about t1 and t2
+   (condim 6), the last three on the rotational Jacobian
+   (``_contact_jacobian_ang``). The model's condim is the largest of its
+   pairs (``compose/spec.py:786-799``), for every candidate. MuJoCo
+   impedance and reference accelerations, inverse weights precomputed at
+   the neutral pose.
 4. Adhesion as a generalised force along the inward normals, split over the
    body's active contacts.
-5. Primal Newton with the reference's bisection line search. By default
+5. Primal Newton with the reference's bisection line search, or with
+   ``solver_type == "pgs"`` projected Gauss-Seidel on the dual
+   (:func:`_solve_dual_pgs`, the reference's verification fallback). By default
    the Hessian is factored once per step, at the warm start's active set,
    by the tree-LDL factor op, and every iteration solves with that factor
    (:mod:`flygym_tpu_torch.ops.ldl`: CUDA kernels on the card, the plain
    functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU). With
    ``solver_exact`` (MuJoCo's exact Newton, for parity studies) every
    iteration after the first re-factors it from the current active set.
-
-PGS and condim other than 3 are refused when a model is loaded.
 
 ``samples["winners"]`` counts calls of a winner sampler.
 """
@@ -49,6 +54,7 @@ __all__ = [
     "contact_candidates",
     "ground_height_normal",
     "make_pair_winner_sampler",
+    "n_pyramid_rows",
     "pair_winners",
     "reset_samples",
     "samples",
@@ -57,8 +63,6 @@ __all__ = [
     "solve_contacts",
     "ContactInfo",
 ]
-
-_NROWS = 4  # pyramid rows per condim-3 contact
 
 samples = {"winners": 0}
 
@@ -314,15 +318,43 @@ def _affects(model: PhysicsModel, body, body2):
     return (moves[:, body] - moves[:, body2]).permute(1, 2, 0)
 
 
-def _pyramid_rows(J, fric):
-    """(B, K, 3, nv) rows [n, t1, t2] → (B, K, 4, nv) pyramid edges
-    Jn ± mu J_t, per tangent (MuJoCo's pyramidal cone for condim 3)."""
+def n_pyramid_rows(condim: int) -> int:
+    """Pyramid rows per contact: 2 per friction direction (1 at condim 1)."""
+    return max(1, 2 * (condim - 1))
+
+
+def _contact_jacobian_ang(model: PhysicsModel, body, S, frame, body2):
+    """(B, K, 3, nv) contact-frame rotational Jacobian: the DoFs' angular
+    motion about the normal (torsion) and the tangents (rolling)."""
+    affects = _affects(model, body, body2)  # (B, K, nv)
+    return torch.einsum("bkud,bvd->bkuv", frame, S[..., :3]) * affects[:, :, None, :]
+
+
+def _pyramid_rows(J, J_ang, fric, condim: int):
+    """(B, K, 3, nv) rows [n, t1, t2] → (B, K, nrows, nv) pyramid edges
+    Jn ± mu_i J_i per friction direction (MuJoCo's pyramidal cone): t1 and
+    t2 with the sliding mu; at condim 4 the torsion about n with the
+    torsional mu; at condim 6 the rolling about t1 and t2 with the rolling
+    mu. Condim 1 is the normal row alone.
+
+    Args:
+        J_ang: (B, K, 3, nv) rotational rows [about n, t1, t2], or None
+            below condim 4.
+        fric: (B, K, 3) sliding, torsional and rolling coefficients.
+    """
     Jn = J[:, :, 0]
-    mu = fric[..., 0, None]
+    if condim == 1:
+        return Jn[:, :, None, :]
+    dirs = [(J[:, :, 1], fric[..., 0]), (J[:, :, 2], fric[..., 0])]
+    if condim >= 4:
+        dirs.append((J_ang[:, :, 0], fric[..., 1]))
+    if condim == 6:
+        dirs.append((J_ang[:, :, 1], fric[..., 2]))
+        dirs.append((J_ang[:, :, 2], fric[..., 2]))
     rows = []
-    for Jd in (J[:, :, 1], J[:, :, 2]):
-        rows.append(Jn + mu * Jd)
-        rows.append(Jn - mu * Jd)
+    for Jd, mu in dirs:
+        rows.append(Jn + mu[..., None] * Jd)
+        rows.append(Jn - mu[..., None] * Jd)
     return torch.stack(rows, dim=2)
 
 
@@ -371,8 +403,10 @@ def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,
     body = model.can_body[sel]
     body2 = model.can_body2[sel]
     J = _contact_jacobian(model, body, cpos, S, ref, frame, body2)
+    J_ang = _contact_jacobian_ang(model, body, S, frame, body2) if model.condim > 3 else None
     fric = model.can_friction[sel]
     mu = fric[..., 0]
+    nrows = n_pyramid_rows(model.condim)
 
     # Constraint dynamics parameters.
     solref = model.can_solref[sel]
@@ -407,24 +441,31 @@ def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,
     qfrc_total = qfrc_smooth + qfrc_adh
 
     # ---- pyramid rows and row data ----
-    Jp = _pyramid_rows(J, fric).reshape(B, K * _NROWS, nv)
+    Jp = _pyramid_rows(J, J_ang, fric, model.condim).reshape(B, K * nrows, nv)
     vel_rows = (Jp @ qvel[..., None])[..., 0]
-    rep = lambda x: torch.repeat_interleave(x, _NROWS, dim=1)
+    rep = lambda x: torch.repeat_interleave(x, nrows, dim=1)
     pos_rows = rep(pos_err)
     imp_rows = rep(imp)
     aref = -rep(b_gain) * vel_rows - rep(k_gain) * imp_rows * pos_rows
     row_active = rep(active)
-    invweight = model.can_invweight[sel].reshape(B, K * _NROWS)
+    invweight = model.can_invweight[sel].reshape(B, K * nrows)
     R = (1.0 - imp_rows) / imp_rows * invweight
     D = torch.where(row_active, 1.0 / torch.clamp(R, min=1e-12), torch.zeros_like(R))
 
-    qacc, lam = _solve_primal_newton(model, Mh, Jp, D, aref, qfrc_total, qacc_warm)
+    if model.solver_type == "pgs":
+        qacc, lam = _solve_dual_pgs(model, Mh, Jp, D, aref, qfrc_total, row_active)
+    else:
+        qacc, lam = _solve_primal_newton(model, Mh, Jp, D, aref, qfrc_total, qacc_warm)
 
-    # Contact-frame constraint forces from the pyramid multipliers.
-    lam_k = lam.reshape(B, K, _NROWS)
+    # Contact-frame constraint forces from the pyramid multipliers; no
+    # tangential force at condim 1.
+    lam_k = lam.reshape(B, K, nrows)
     fn = torch.sum(lam_k, dim=-1)
-    ft1 = mu * (lam_k[..., 0] - lam_k[..., 1])
-    ft2 = mu * (lam_k[..., 2] - lam_k[..., 3])
+    if model.condim >= 3:
+        ft1 = mu * (lam_k[..., 0] - lam_k[..., 1])
+        ft2 = mu * (lam_k[..., 2] - lam_k[..., 3])
+    else:
+        ft1 = ft2 = torch.zeros_like(fn)
     f_con = torch.stack([fn, ft1, ft2], dim=-1) * active[..., None]
     f_world = torch.einsum("bkc,bkcd->bkd", f_con, frame)
 
@@ -538,3 +579,26 @@ def _exact_linesearch(gMd, dMd, jar, Jd, D):
     t = -dlo / torch.clamp(dhi - dlo, min=1e-12)
     alpha = lo + torch.clamp(t, 0.0, 1.0) * (hi - lo)
     return torch.where(dlo < 0.0, alpha, zero)
+
+
+def _solve_dual_pgs(model: PhysicsModel, Mh, Jp, D, aref, qfrc, row_active):
+    """Projected Gauss-Seidel on the pyramidal dual, λ >= 0
+    (``flygym_tpu/engine/contact.py:756-782``), the reference's verification
+    fallback: a dense Cholesky of Mh (as JAX's ``cho_factor``, outside any
+    kernel there too), then ``max(solver_iterations, 8)`` sweeps that update
+    one row after the other, each a few small launches."""
+    mv = lambda A, x: (A @ x[..., None])[..., 0]
+    chol = torch.linalg.cholesky(Mh)
+    qacc_smooth = torch.cholesky_solve(qfrc[..., None], chol)[..., 0]
+    X = torch.cholesky_solve(Jp.transpose(-1, -2), chol)  # (B, nv, nrows)
+    A = Jp @ X
+    R = torch.where(D > 0, 1.0 / torch.clamp(D, min=1e-12), torch.zeros_like(D))
+    b0 = mv(Jp, qacc_smooth) - aref
+    diag = torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1) + R, min=1e-12)
+    on = row_active.to(Jp.dtype)
+    lam = torch.zeros_like(D)
+    for _sweep in range(max(model.solver_iterations, 8)):
+        for r in range(Jp.shape[1]):
+            res = _bdot(A[:, r], lam) + R[:, r] * lam[:, r] + b0[:, r]
+            lam[:, r] = torch.clamp(lam[:, r] - res / diag[:, r], min=0.0) * on[:, r]
+    return qacc_smooth + mv(X, lam), lam

@@ -160,6 +160,22 @@ _EXP2F_TAB = [int(h, 16) for h in (
 _EXP2F_C = [float.fromhex(h) for h in (
     "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1")]
 _EXP2F_SHIFT = float.fromhex("0x1.8p52") / 32
+# The tables above on each device they were asked for: a copy from the host
+# at every call would wait for the card's queue to drain.
+_POWF_TABLES = {}
+
+
+def _powf_tables(dev) -> tuple:
+    tables = _POWF_TABLES.get(dev)
+    if tables is None:
+        tables = _POWF_TABLES[dev] = (
+            torch.tensor(_POWF_INVC, dtype=torch.float64, device=dev),
+            torch.tensor(_POWF_LOGC, dtype=torch.float64, device=dev),
+            torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=dev))
+    return tables
+
+
+_powf_tables(torch.device("cpu"))  # so that no CPU call makes them (or counts them)
 
 
 def powf(x: torch.Tensor, y) -> torch.Tensor:
@@ -168,15 +184,16 @@ def powf(x: torch.Tensor, y) -> torch.Tensor:
     backend flushes subnormal floats to zero, so x below 2^-126 gives 0, and
     so does a result below 2^-126. Negative or non-finite arguments are not
     handled."""
-    dev = x.device
+    invc_tab, logc_tab, exp2_tab = _powf_tables(x.device)
     ix = x.view(torch.int32)
     tmp = ix - 0x3F330000
     i = ((tmp >> 19) & 15).long()
     top = tmp & -0x800000  # 0xff800000
     z = (ix - top).view(torch.float32).double()
     k = (top >> 23).double()
-    invc = torch.tensor(_POWF_INVC, dtype=torch.float64, device=dev)[i]
-    logc = torch.tensor(_POWF_LOGC, dtype=torch.float64, device=dev)[i]
+    # Gathers by torch.take: a 0-d index tensor in [] would be read on the host.
+    invc = torch.take(invc_tab, i)
+    logc = torch.take(logc_tab, i)
     a = _POWF_A
     r = z * invc - 1.0
     y0 = logc + k
@@ -192,7 +209,7 @@ def powf(x: torch.Tensor, y) -> torch.Tensor:
     ki = kd.view(torch.int64)
     kd = kd - _EXP2F_SHIFT
     r = ylogx - kd
-    t = torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=dev)[ki & 31] + (ki << 47)
+    t = torch.take(exp2_tab, ki & 31) + (ki << 47)
     c = _EXP2F_C
     zc = c[0] * r + c[1]
     r2 = r * r
@@ -242,7 +259,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
     """Conjugate (= inverse for unit quaternions)."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

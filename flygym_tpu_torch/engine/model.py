@@ -165,6 +165,10 @@ class PhysicsModel:
     # ---- tree-LDL tables (port only) ----
     ldl: LdlTables
 
+    # ---- the soft welds' refpos (n, 3), refquat (n, 4) and solimp (n, 5)
+    # from ``welds``, as tensors on the model's device (port only) ----
+    weld_ref: tuple
+
     @property
     def device(self) -> torch.device:
         return self.qpos0.device

@@ -1,9 +1,10 @@
 """The full physics step on a batch of worlds.
 
-Port of ``flygym_tpu/engine/step.py`` (lines 36-126, 172-185, 229-316):
+Port of ``flygym_tpu/engine/step.py`` (lines 36-185, 229-316):
 FK → motion subspaces → velocities → spatial inertias → CRBA → RNEA bias →
-passive and actuator forces → contact solve → semi-implicit Euler with
-implicit joint damping (MuJoCo's Euler integrator).
+passive and actuator forces (with the soft welds' restoring forces) →
+contact solve → semi-implicit Euler with implicit joint damping (MuJoCo's
+Euler integrator).
 
 The cached outputs (xpos, sensors, ...) describe the configuration before
 integration, as ``MjData`` does after ``mj_step``. Where the reference
@@ -23,7 +24,7 @@ from flygym_tpu_torch.engine.kinematics import (
     kinematics_full,
     velocity_pass,
 )
-from flygym_tpu_torch.engine.maths import quat_integrate
+from flygym_tpu_torch.engine.maths import norm, quat_conj, quat_integrate, quat_mul
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State, compute_site_xpos
 
 __all__ = ["make_step_fn", "rollout", "rollout_batched", "step"]
@@ -62,6 +63,8 @@ def step(model: PhysicsModel, state: State, widx=None) -> State:
         model, qpos, qvel, ctrl, state.act
     )
     qfrc_smooth = qfrc_passive + qfrc_act - qfrc_bias
+    if model.welds:
+        qfrc_smooth = qfrc_smooth + _weld_forces(model, qpos, qvel, M)
 
     # Implicit joint damping: solve (M + h diag(B)) a = f (MuJoCo Euler).
     Mh = M + dt * torch.diag(model.dof_damping)
@@ -99,6 +102,34 @@ def step(model: PhysicsModel, state: State, widx=None) -> State:
         actuator_force=actuator_force,
         contact_sensordata=sensordata,
     )
+
+
+def _weld_forces(model: PhysicsModel, qpos, qvel, M):
+    """The soft welds' restoring forces on their free roots (a
+    ``TetheredWorld(weld="soft")``; ``flygym_tpu/engine/step.py:129-170``).
+
+    MuJoCo's weld is a 6-row soft constraint with (solref, solimp)
+    dynamics; the reference applies it as a penalty: the reference
+    acceleration a_ref = -imp (k err + b vel) on the root's 6 DoFs, mapped
+    to generalised forces through those columns of M, integrated
+    explicitly. The rotation error is the world-frame small-rotation vector
+    of q · conj(refquat), sign-fixed to the short arc.
+    """
+    qfrc = qpos.new_zeros((qpos.shape[0], model.nv))
+    refpos, refquat, solimps = model.weld_ref
+    for i, (_body, qadr, vadr, _pos, _quat, solref, solimp) in enumerate(model.welds):
+        e_lin = qpos[:, qadr : qadr + 3] - refpos[i]
+        q_err = quat_mul(qpos[:, qadr + 3 : qadr + 7], quat_conj(refquat[i]))
+        e_rot = 2.0 * torch.sign(q_err[:, 0:1]) * q_err[:, 1:4]
+        err = torch.cat([e_lin, e_rot], dim=-1)
+        imp = contact._impedance(solimps[i], -norm(err))
+        tc, dr = solref
+        dmax = solimp[1]
+        k = 1.0 / (dmax * dmax * tc * tc * dr * dr)
+        b = 2.0 / (dmax * tc)
+        a_ref = -imp[:, None] * (k * err + b * qvel[:, vadr : vadr + 6])
+        qfrc = qfrc + (M[:, :, vadr : vadr + 6] @ a_ref[..., None])[..., 0]
+    return qfrc
 
 
 def _integrate_qpos(model: PhysicsModel, qpos, qvel, dt):

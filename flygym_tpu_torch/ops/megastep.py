@@ -41,8 +41,8 @@ Three parts:
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
 and gates, the streamed emitter, H0-matvec mode, sublane packing, the
-winners' expansion into mask rows. Not yet ported (K2 slice g): worlds with
-no contact candidate and compressed pair rows on a heightfield world;
+winners' expansion into mask rows. Not yet ported (K2 slice g): compressed
+pair rows on a heightfield world and pair rows at a condim other than 3;
 :func:`megastep_supported` refuses those models.
 """
 
@@ -51,7 +51,7 @@ import weakref
 import numpy as np
 import torch
 
-from flygym_tpu_torch.engine.contact import make_pair_winner_sampler
+from flygym_tpu_torch.engine.contact import make_pair_winner_sampler, n_pyramid_rows
 # sin, cos and pow as glibc rounds them (engine/maths.py), like the JAX
 # emitter on the CPU and K2's ms_sinf/ms_cosf/ms_powf.
 from flygym_tpu_torch.engine.maths import cosf as _cosf
@@ -543,7 +543,9 @@ class _Static:
 def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
     (``megastep.py:934-989``) as far as the port goes — Newton (frozen or
-    ``solver_exact``), no welds, condim 3, every actuator kind with its
+    ``solver_exact``), no welds, condim 1, 3, 4 or 6 on ground rows (pair
+    rows at condim 3 only; other condims run them on the engine step),
+    every actuator kind with its
     activation states, worlds without contact candidates (a tethered fly:
     qacc is the tree solve of Mh against the forces), candidate paths that
     run down one chain of the tree per body, pair rows without sensors or
@@ -554,7 +556,8 @@ def megastep_supported(model: PhysicsModel) -> bool:
         model.solver_type != "newton"
         or model.welds
         or (compressed and model.has_hfield)
-        or model.condim != 3
+        or model.condim not in (1, 3, 4, 6)
+        or (model.ncand_pair and model.condim != 3)
     ):
         return False
     try:
@@ -1188,18 +1191,34 @@ def _cand_geom(st, cidx, xpos, xquat, ref, z, geom_cache, terrain, widx):
         pos_err=pos_err,
         b_gain=2.0 / (dmax * tc),
         k_gain=1.0 / (dmax * dmax * tc * tc * dr * dr),
-        mu=float(st.can_friction[cidx][0]),
+        mu=tuple(float(x) for x in st.can_friction[cidx]),
         invweight=invweight,
         frame=frame,
     )
 
 
+def _friction_tags(condim: int) -> list:
+    """The friction directions of a contact's pyramid rows by condim (the
+    JAX emitter's tags, ``megastep.py:1798-1810``): none at condim 1, the
+    tangents t1 and t2 at condim 3, then the torsion about the normal (rn)
+    at condim 4 and the rolling about the tangents (rt1, rt2) at condim 6.
+    The rows are [n] at condim 1, else [(tag, +1), (tag, -1) for each tag]."""
+    return {1: [], 3: ["t1", "t2"], 4: ["t1", "t2", "rn"],
+            6: ["t1", "t2", "rn", "rt1", "rt2"]}[condim]
+
+
+def _mu_of(mu: tuple, tag: str) -> float:
+    """A tag's friction coefficient from a candidate's (sliding, torsional,
+    rolling) ``mu``."""
+    return mu[0] if tag in ("t1", "t2") else (mu[1] if tag == "rn" else mu[2])
+
+
 def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain, widx):
     """Candidate rows, tree LDLᵀ and primal Newton with the bisection line
     search, on the frozen Hessian or, with ``solver_exact``, re-factored at
-    every iteration (the JAX ``_contacts_impl``, fused, condim 3). A world
-    without candidates solves Mh qacc = qfrc through the tree factor alone
-    (``megastep.py:1785-1788``)."""
+    every iteration (the JAX ``_contacts_impl``, fused), at condim 1, 3, 4
+    or 6. A world without candidates solves Mh qacc = qfrc through the tree
+    factor alone (``megastep.py:1785-1788``)."""
     nv = st.nv
     if st.ncand == 0:
         L, dvec = _tree_ldl(st, Mh)
@@ -1207,7 +1226,7 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
     geom_cache = {}
     cons = [_cand_geom(st, c, xpos, xquat, ref, z, geom_cache, terrain, widx)
             for c in range(st.ncand)]
-    tags = ["t1", "t2"]
+    tags = _friction_tags(st.condim)
 
     for c in cons:
         iw = c["invweight"]
@@ -1236,39 +1255,71 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
         frame (n = z, t1 = x, t2 = y) picks components, and the free
         joint's translation columns fold to Python floats 0/±1; a contact
         frame dots jp into n, t1, t2, and a translation column picks the
-        frame vectors' components."""
+        frame vectors' components. Above condim 3 the rotational
+        components (rn, rt1, rt2) take sgn_d S_w[d] the same way: 0 on the
+        free joint's translation columns, its rotation axis e_j (a Python
+        float in the flat frame) on its rotation columns."""
         rel = c["rel"]
         frame = c["frame"]
-        comps = {"n": [], "t1": [], "t2": []}
+        comps = {t: [] for t in ["n"] + tags}
+
+        def put(n_val, t1_val, t2_val, rn_val, rt1_val, rt2_val):
+            # The rotational entries are thunks, made only where condim > 3
+            # reads them.
+            comps["n"].append(n_val)
+            for t, val in (("t1", t1_val), ("t2", t2_val), ("rn", rn_val), ("rt1", rt1_val),
+                           ("rt2", rt2_val)):
+                if t in comps:
+                    comps[t].append(val() if callable(val) else val)
+
+        def pick_signed(vec3, idx, sgn):
+            x = vec3[idx]
+            if isinstance(sgn, torch.Tensor):
+                return x * sgn
+            return x if sgn == 1.0 else (-x if sgn == -1.0 else x * sgn)
+
         for d, sgn in zip(c["path"], c["signs"]):
             lane = isinstance(sgn, torch.Tensor)
             fa = st.free_dof_axis.get(d)
             if fa is not None and fa < 3:
-                if frame is not None:
-                    for t, vec in zip(("n", "t1", "t2"), frame):
-                        comps[t].append(vec[fa] * sgn if lane else
-                                        (vec[fa] if sgn == 1.0 else -vec[fa]))
-                    continue
-                e = [0.0, 0.0, 0.0]
-                e[fa] = sgn
-                jp = e
-            else:
-                if fa is not None:
-                    ec = [0.0, 0.0, 0.0]
-                    ec[fa - 3] = 1.0
-                    jp = _add3(S[d][1], _cross_cl(ec, rel, z))
+                if frame is None:
+                    e = [0.0, 0.0, 0.0]
+                    e[fa] = sgn
+                    put(e[2], e[0], e[1], 0.0, 0.0, 0.0)
                 else:
-                    w_, v_ = S[d]
-                    jp = _add3(v_, _cross(w_, rel))
+                    n_c, t1, t2 = frame
+                    put(pick_signed(n_c, fa, sgn), lambda: pick_signed(t1, fa, sgn),
+                        lambda: pick_signed(t2, fa, sgn), 0.0, 0.0, 0.0)
+                continue
+            if fa is not None:
+                j = fa - 3
+                ec = [0.0, 0.0, 0.0]
+                ec[j] = 1.0
+                jp = _add3(S[d][1], _cross_cl(ec, rel, z))
                 if lane or sgn != 1.0:
                     jp = _scale3(jp, sgn)
+                if frame is None:
+                    sj = float(sgn)
+                    put(jp[2], jp[0], jp[1], sj if j == 2 else 0.0, sj if j == 0 else 0.0,
+                        sj if j == 1 else 0.0)
+                else:
+                    n_c, t1, t2 = frame
+                    put(_dot3(jp, n_c), lambda: _dot3(jp, t1), lambda: _dot3(jp, t2),
+                        lambda: pick_signed(n_c, j, sgn), lambda: pick_signed(t1, j, sgn),
+                        lambda: pick_signed(t2, j, sgn))
+                continue
+            w_, v_ = S[d]
+            jp = _add3(v_, _cross(w_, rel))
+            if lane or sgn != 1.0:
+                jp = _scale3(jp, sgn)
+                if st.condim > 3:
+                    w_ = _scale3(w_, sgn)
             if frame is None:
-                comps["n"].append(jp[2])
-                comps["t1"].append(jp[0])
-                comps["t2"].append(jp[1])
+                put(jp[2], jp[0], jp[1], w_[2], w_[0], w_[1])
             else:
-                for t, vec in zip(("n", "t1", "t2"), frame):
-                    comps[t].append(_dot3(jp, vec))
+                n_c, t1, t2 = frame
+                put(_dot3(jp, n_c), lambda: _dot3(jp, t1), lambda: _dot3(jp, t2),
+                    lambda: _dot3(w_, n_c), lambda: _dot3(w_, t1), lambda: _dot3(w_, t2))
         return comps
 
     def products(c, comps, vec):
@@ -1281,10 +1332,13 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
         return out
 
     def row_combos(c, p):
+        if st.condim == 1:
+            return [p["n"]]
         out = []
         for t in tags:
-            out.append(p["n"] + c["mu"] * p[t])
-            out.append(p["n"] - c["mu"] * p[t])
+            mu = _mu_of(c["mu"], t)
+            out.append(p["n"] + mu * p[t])
+            out.append(p["n"] - mu * p[t])
         return out
 
     def jar_grad_pass(c, a_vec, grad_con, with_hessian=None, with_aref=False,
@@ -1312,12 +1366,15 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
             c["jar_cur"] = jars
         D_ = c["D"]
         wk = [D_ * torch.where(jr < 0.0, 1.0, 0.0) * jr for jr in jars]
-        coef_n = z
-        for w_ in wk:
-            coef_n = coef_n + w_
-        coef = {"n": coef_n}
-        for ti, t in enumerate(tags):
-            coef[t] = c["mu"] * (wk[2 * ti] - wk[2 * ti + 1])
+        if st.condim == 1:
+            coef = {"n": wk[0]}
+        else:
+            coef_n = z
+            for w_ in wk:
+                coef_n = coef_n + w_
+            coef = {"n": coef_n}
+            for ti, t in enumerate(tags):
+                coef[t] = _mu_of(c["mu"], t) * (wk[2 * ti] - wk[2 * ti + 1])
         for i, d in enumerate(c["path"]):
             g = None
             for t, cf in coef.items():
@@ -1327,14 +1384,17 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
         if with_hessian is not None:
             H = with_hessian
             wa = [D_ * torch.where(jr < 0.0, 1.0, 0.0) for jr in jars]
-            W = z
-            for w_ in wa:
-                W = W + w_
             Bt, Wt = {}, {}
-            for ti, t in enumerate(tags):
-                mu = c["mu"]
-                Bt[t] = mu * (wa[2 * ti] - wa[2 * ti + 1])
-                Wt[t] = mu * mu * (wa[2 * ti] + wa[2 * ti + 1])
+            if st.condim == 1:
+                W = wa[0]
+            else:
+                W = z
+                for w_ in wa:
+                    W = W + w_
+                for ti, t in enumerate(tags):
+                    mu = _mu_of(c["mu"], t)
+                    Bt[t] = mu * (wa[2 * ti] - wa[2 * ti + 1])
+                    Wt[t] = mu * mu * (wa[2 * ti] + wa[2 * ti + 1])
             path = c["path"]
             npath = len(path)
             u_of = {t: [None] * npath for t in ["n"] + tags}
@@ -1452,8 +1512,11 @@ def _contacts(st, v, c_clamped, warm, xpos, xquat, S, ref, Mh, qfrc, z, terrain,
         fn = z
         for l_ in lam_c:
             fn = fn + l_
-        ft1 = c["mu"] * (lam_c[0] - lam_c[1])
-        ft2 = c["mu"] * (lam_c[2] - lam_c[3])
+        if st.condim >= 3:
+            ft1 = c["mu"][0] * (lam_c[0] - lam_c[1])
+            ft2 = c["mu"][0] * (lam_c[2] - lam_c[3])
+        else:
+            ft1 = ft2 = z
         act_m = torch.where(c["active"], 1.0, 0.0)
         c["f_frame"] = (fn * act_m, ft1 * act_m, ft2 * act_m)
         if c["frame"] is None:
@@ -1782,6 +1845,7 @@ def scratch_layout(model: PhysicsModel, threads: int | None = None) -> dict:
     nb, nv, nc = st.nbody, st.nv, st.ncand
     maxp = _max_path(st)
     npk = len(st.pair_keys)
+    ntag, nrows = len(_friction_tags(st.condim)), n_pyramid_rows(st.condim)
     tail = [("S_CACT", nc), ("S_CADH", nc), ("S_CPOS", 3 * nc)]
     if st.has_hfield:
         tail.append(("S_FRAME", 9 * nc))
@@ -1791,11 +1855,11 @@ def scratch_layout(model: PhysicsModel, threads: int | None = None) -> dict:
     if st.pair_comp_groups:
         tail.append(("S_WIN", len(st.pair_comp_groups)))  # each group's winner, a member index
     slot_specs = [
-        [[("S_JAR", 4 * nc), ("S_JD", 4 * nc), ("S_CD", nc), ("S_RED", 2)]],
-        [[("S_TERM", _term_rows(st)), ("S_COEF", 8 * nc)],
+        [[("S_JAR", nrows * nc), ("S_JD", nrows * nc), ("S_CD", nc), ("S_RED", 2)]],
+        [[("S_TERM", _term_rows(st)), ("S_COEF", (2 + 3 * ntag) * nc)],
          [("S_CVEL", 6 * nb), ("S_CACC", 6 * nb), ("S_IB", 9 * nb), ("S_IC", 9 * nb),
           ("S_FSUB", 6 * nb), ("S_HCS", 2 * max(st.nhinge, 1))]],
-        [[("S_COMP", 3 * maxp * nc), ("S_H", npk), ("S_MH", npk)]],
+        [[("S_COMP", (1 + ntag) * maxp * nc), ("S_H", npk), ("S_MH", npk)]],
         [[("S_QFRC", nv), ("S_MA", nv), ("S_GC", nv), ("S_DEL", nv), ("S_MD", nv), ("S_A", nv),
           ("S_V", nv), ("S_Q", st.nq), ("S_ACT", st.na), ("S_INV", nv)]],
         [[("S_SM", 6 * nv)]],
@@ -1887,7 +1951,7 @@ def _ldl_terms(st: _Static, pk_ptr: list, pk_row: list) -> tuple:
 
 
 def _term_rows(st: _Static) -> int:
-    """Rows of S_TERM: the line search's two buffers of 4 NCAND terms, or
+    """Rows of S_TERM: the line search's two buffers of NROWS NCAND terms, or
     the most terms of one depth group in the factor or a pass of the
     solve."""
     pk_ptr = np.cumsum([0] + [len(st.dof_path[d]) for d in range(st.nv)]).tolist()
@@ -1898,7 +1962,7 @@ def _term_rows(st: _Static) -> int:
         dofs = [d for d in range(st.nv) if depth[d] == g]
         most = max(most, sum(len(fwd[d]) for d in dofs), g * len(dofs),
                    sum(len(upd[k]) for d in dofs for k in range(pk_ptr[d], pk_ptr[d + 1])))
-    return max(8 * st.ncand, most)
+    return max(2 * n_pyramid_rows(st.condim) * st.ncand, most)
 
 
 def _deal(work: list, threads: int) -> list:
@@ -1962,6 +2026,7 @@ def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
         lines.append(f"MS_TABLE {ctype} {name}[{len(values)}] = {{{body}}};")
 
     nb, nv = st.nbody, st.nv
+    tags = _friction_tags(st.condim)
     cand_bodies = [int(st.geom_body[int(st.can_geom[c])]) for c in range(st.ncand)]
     paths = [st.body_path_dofs[b] for b in range(nb)]
     comp = st.pair_comp_groups
@@ -1978,6 +2043,8 @@ def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
         ("REF_BODY", st.ref_body), ("NEWTON_ITERS", max(st.solver_iterations, 1)),
         ("SOLVER_EXACT", st.solver_exact), ("LS_BISECT", _LS_BISECT_ITERS),
         ("NMUS", len(_MUSCLE_KEYS)), ("NLEVEL", n_level), ("THREADS", layout["threads"]),
+        # The pyramid rows per candidate and their friction directions.
+        ("NTAG", len(tags)), ("NROWS", n_pyramid_rows(st.condim)),
     ):
         const(name, value)
     lines.append(f"constexpr float kDt = {_f32(dt)};")
@@ -2175,7 +2242,7 @@ def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
     table("kCandRad", "float", [st.geom_size[g, 0] for g in cg])
     table("kCandMargin", "float", st.can_margin)
     sol = {k: [] for k in ("width", "mid", "pow", "ac", "bc", "dmin", "dmm", "nbg", "kg", "iw",
-                           "mu", "mu2")}
+                           "mu", "mudir", "mudir2")}
     for c in range(st.ncand):
         dmin, dmax, width, mid, power = (float(x) for x in st.can_solimp[c])
         tc, dr = float(st.can_solref[c][0]), float(st.can_solref[c][1])
@@ -2191,10 +2258,15 @@ def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
         sol["kg"].append(1.0 / (dmax * dmax * tc * tc * dr * dr))
         sol["iw"].append(max(float(st.can_invweight[c, 0]), 1e-12))
         sol["mu"].append(mu)
-        sol["mu2"].append(mu * mu)
+        # Per tag its coefficient and square (Python products, as the
+        # emitter's mu * mu), candidate-major.
+        for t in tags:
+            mu_t = _mu_of(tuple(float(x) for x in st.can_friction[c]), t)
+            sol["mudir"].append(mu_t)
+            sol["mudir2"].append(mu_t * mu_t)
     names = dict(width="kSolWidth", mid="kSolMid", pow="kSolPow", ac="kSolA", bc="kSolB",
                  dmin="kSolDmin", dmm="kSolDmm", nbg="kNegBGain", kg="kKGain",
-                 iw="kInvW", mu="kMu", mu2="kMu2")
+                 iw="kInvW", mu="kMu", mudir="kMuDir", mudir2="kMuDir2")
     for key, name in names.items():
         table(name, "float", sol[key])
     # Path slots: one per body, then (uncompressed pair rows) one per pair

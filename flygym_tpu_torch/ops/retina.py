@@ -156,7 +156,9 @@ def pack_rows(tables: RetinaTables, xpos: torch.Tensor, xquat: torch.Tensor) -> 
     gb = tables.geom_body
     gpos = xpos[:, gb] + quat_rotate(xquat[:, gb], tables.geom_pos)
     gquat = quat_mul(xquat[:, gb], tables.geom_quat)
-    zax = quat_rotate(gquat, xpos.new_tensor([0.0, 0.0, 1.0]))
+    # The z axis made on the device: a copy from the host (``new_tensor``)
+    # waits for the card's queue to drain.
+    zax = quat_rotate(gquat, torch.cat([xpos.new_zeros(2), xpos.new_ones(1)]))
     half = tables.half[None, :, None]
     p0 = gpos - half * zax
     p1 = gpos + half * zax

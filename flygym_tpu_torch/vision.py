@@ -166,10 +166,17 @@ class Retina:
     @classmethod
     def for_compiled(cls, compiled, fly_name: str | None = None, **kwargs) -> "Retina":
         """Build for the fly of an exported env (``meta["env"]`` of
-        ``scripts/export_env_golden.py``), from its eye bodies."""
+        ``scripts/export_env_golden.py``), or for a fly whose exported maps
+        carry ``eye_bodies`` (``scripts/export_taxis_golden.py``), from its
+        eye bodies."""
         env = compiled.env
         if env is None:
-            raise ValueError("the compiled model carries no env metadata (meta['env'])")
+            maps = compiled.flies.get(fly_name or compiled.fly_names[0], {})
+            if "eye_bodies" not in maps:
+                raise ValueError("the compiled model carries no env metadata (meta['env']) "
+                                 "and no eye bodies for the fly")
+            left, right = maps["eye_bodies"]
+            return cls.build(compiled.model, left_eye_body=left, right_eye_body=right, **kwargs)
         if fly_name is not None and fly_name != env["fly"]:
             raise ValueError(f"the env's fly is {env['fly']!r}, not {fly_name!r}")
         left, right = env["eye_bodies"]

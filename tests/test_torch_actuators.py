@@ -162,15 +162,6 @@ def test_integrate_act_matches_jax(compiled, jax_worlds, name):
     dt = model.timestep
     want = np.array(jax.vmap(integrate_act, in_axes=(None, 0, 0, None))(
         jax_worlds[name][3], a, c, dt))
-    if name == "muscle_fly":
-        # JAX's engine marks the muscles' slots with a scatter in which the
-        # actuators without a slot (adhesion, actadr -1, read as slot 0)
-        # write False after the muscle that owns slot 0, so that slot alone
-        # is not clamped to [0, 1] there. Its emitter, MuJoCo and the port
-        # clamp every muscle's slot. From activations inside [0, 1] no step
-        # leaves them (dt / tau < 1), so the two differ only on inputs like
-        # these.
-        want[:, 0] = np.clip(want[:, 0], 0.0, 1.0)
     got = actuation.integrate_act(model, torch.from_numpy(a), torch.from_numpy(c), dt)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
     assert not np.array_equal(got.numpy(), a)

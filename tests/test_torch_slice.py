@@ -23,6 +23,7 @@ from flygym_tpu_torch.demo.benchmark import (
     ReplayTargetData,
     track_golden,
 )
+from flygym_tpu_torch.ops.megastep import megastep_supported
 
 torch.set_num_threads(1)
 
@@ -72,21 +73,34 @@ def test_fresh_export_loads_like_the_committed_one(fresh_export, compiled):
     assert fresh.flies == compiled.flies
 
 
-@pytest.mark.parametrize(
-    "key, value, what",
-    [
-        ("condim", 4, "condim 4"),
-        ("solver_type", "pgs", "PGS"),
-        ("condim", 1, "condim 1"),
-        ("differentiable", True, "differentiable mode"),
-    ],
-)
+@pytest.mark.parametrize("key, value, what", [("differentiable", True, "differentiable mode")])
 def test_unported_features_are_refused(key, value, what):
     """On example 11's two-fly world, whose 49 uncompressed pair rows load."""
     arrays, meta = _read_npz(TWOFLY)
     meta["model"][key] = value
     with pytest.raises(NotImplementedError, match=what):
         model_from_numpy(arrays, meta)
+
+
+@pytest.mark.parametrize(
+    "key, value, on_k2",
+    [
+        # JAX's gate refuses PGS too (flygym_tpu/ops/megastep.py:976).
+        ("solver_type", "pgs", False),
+        # K2 takes condim 1, 4 and 6 on ground rows; pair rows at a condim
+        # other than 3 run on the engine step.
+        ("condim", 4, False),
+        ("condim", 1, False),
+    ],
+)
+def test_ported_features_load(key, value, on_k2):
+    """The same edits of example 11's two-fly export load, and K2's gate
+    takes or refuses them."""
+    arrays, meta = _read_npz(TWOFLY)
+    meta["model"][key] = value
+    model = model_from_numpy(arrays, meta).model
+    assert getattr(model, key) == value
+    assert megastep_supported(model) is on_k2
 
 
 def test_replay_targets_equal_jax(fresh_export, compiled):
