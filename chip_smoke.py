@@ -279,6 +279,29 @@ Phases (each failure ends the run with a non-zero exit code):
     the soft weld's forces; each golden (8 worlds x 20 steps) against the JAX engine
     within ``GOLDEN_TOLERANCE``.
 
+40. The camera renderer (no kernel of its own: PyTorch operations, as the
+    JAX package renders with plain jnp): each case of
+    ``flygym_tpu_torch/assets/render_golden.npz`` (capsules, mesh SDFs, a
+    targetbody camera, three lights with textures, 16 of 20 worlds in one
+    call, config 3's heightfield, FlyEnv's frame) rendered on the card from
+    the same state, held against the JAX frame and the port's CPU frame to
+    ``FRAME_BARS`` (``demo/render_cases.py``).
+41. The cases at full size (``RENDER_FULL``: one world at 240 x 320 with
+    capsules and with mesh fidelity, 16 worlds at 120 x 160, the terrain
+    at 240 x 320, FlyEnv's frame): each against the CPU's frame, ms per
+    frame by CUDA events, the peak memory; a profiler trace of the capsule
+    and mesh frames (device ops, busy share).
+42. The render hooks with K2 between frames: ``Simulation`` with
+    ``set_renderer("nmf/trackcam")``, 200 ``step_with_profile()`` +
+    ``render_as_needed_with_profile()`` (200 K = 1 launches, 3 frames),
+    the report; ``save_video`` where imageio or PIL is installed; the same for
+    ``BatchSimulation`` of 16 worlds rendering all 16 at 120 x 160.
+43. ``run_benchmark(1, 4, 4, enable_rendering=True)``: 750 K2 launches per
+    run and one frame after each timed replay.
+44. FlyEnv's frame function on the card without gymnasium; the retina of
+    the terrain fly (heightfield) through the port of JAX's jnp path with
+    no K3 launch, against the CPU's; config 5's flat retina one K3 launch.
+
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2901,6 +2924,201 @@ def phase_solvers(weld_compiled, pgs_compiled) -> dict:
     return out
 
 
+# The camera renderer (phases 40-44): the golden's cases, and the cases
+# timed at full size, (name, (height, width)): one world with capsules and
+# with mesh fidelity, 16 worlds, config 3's terrain and FlyEnv's frame.
+RENDER_FULL = (("capsule", (240, 320)), ("mesh", (240, 320)), ("batch", (120, 160)),
+               ("terrain", (240, 320)), ("flyenv", (240, 320)))
+RENDER_TIMED = 5  # frames per timing
+RENDER_HOOK_STEPS = 200  # step_with_profile() + render_as_needed_with_profile()
+RENDER_BATCH_WORLDS = 16
+RENDER_BENCH = (1, 4, 4)  # run_benchmark(1, 4, 4, enable_rendering=True)
+RETINA_HF_WORLDS = 8  # the heightfield retina on the card (the terrain golden's worlds)
+
+
+def _cpu_frame(case: str, res, golden) -> "torch.Tensor":
+    from flygym_tpu_torch.demo.render_cases import render_case
+
+    return render_case(case, device="cpu", res=res, golden=golden)()
+
+
+def phase_render_golden() -> None:
+    """Each case of the JAX render golden rendered on the card from the same
+    state, held against the golden and against the port's CPU frame, to
+    ``FRAME_BARS``."""
+    import torch
+
+    from flygym_tpu_torch.demo.render_cases import (
+        CASES, FRAME_BARS, frame_gap, load_render_golden, render_case)
+
+    golden = load_render_golden()
+    for case in CASES:
+        frame = render_case(case, device="cuda", golden=golden)()
+        check(frame.is_cuda and bool(torch.isfinite(frame).all()), f"render {case}: not finite")
+        vs_jax = frame_gap(frame, golden["frames"][case])
+        vs_cpu = frame_gap(frame, _cpu_frame(case, None, golden))
+        print(f"[render golden] {case} {tuple(frame.shape)}: vs JAX share {vs_jax['share']:.5f} "
+              f"mean {vs_jax['mean']:.2e} max {vs_jax['max']:.2e}; vs the port on the CPU share "
+              f"{vs_cpu['share']:.5f} mean {vs_cpu['mean']:.2e} (bars {FRAME_BARS})")
+        check(vs_jax["ok"], f"render {case}: the card's frame against the JAX golden {vs_jax}")
+        check(vs_cpu["ok"], f"render {case}: the card's frame against the CPU's {vs_cpu}")
+
+
+def phase_render_frames() -> dict:
+    """The timed cases at full size on the card: each frame held against the
+    port's CPU frame of the same inputs, its ms by CUDA events, and for one
+    world's capsule and mesh frames a profiler trace (device ops launched,
+    the card's busy share)."""
+    import torch
+
+    from flygym_tpu_torch.demo.render_cases import frame_gap, load_render_golden, render_case
+    from flygym_tpu_torch.utils.profiling import summarize_trace, trace
+
+    golden = load_render_golden()
+    out = {}
+    for case, res in RENDER_FULL:
+        fn = render_case(case, device="cuda", res=res, golden=golden)
+        torch.cuda.reset_peak_memory_stats()
+        frame = fn()
+        gap = frame_gap(frame, _cpu_frame(case, res, golden))
+        ms = time_ms(fn, RENDER_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        out[case] = ms
+        print(f"[render] {case} {fn.worlds} x {res[0]} x {res[1]}: {ms:.3f} ms per call "
+              f"({ms / fn.worlds:.3f} ms per world's frame), peak {peak:.0f} MiB; vs the CPU "
+              f"share {gap['share']:.5f} mean {gap['mean']:.2e} max {gap['max']:.2e}; "
+              f"on {card_line()}")
+        check(gap["ok"], f"render {case} at {res}: the card's frame against the CPU's {gap}")
+        if case in ("capsule", "mesh"):
+            logdir = Path(__file__).resolve().parent / "outputs" / f"render_trace_{case}"
+            with trace(str(logdir), summarize=False):
+                fn()
+                torch.cuda.synchronize()
+            digest = summarize_trace(str(logdir))
+            check(digest is not None and digest["device_events"] > 0, f"render {case}: trace")
+            print(f"[render] {case} frame traced: {digest['device_events']} device ops, busy "
+                  f"{digest['device_busy_ms']:.3f} of {digest['span_ms']:.3f} ms (share "
+                  f"{digest['device_busy_frac']:.4f})")
+    return out
+
+
+def phase_render_hooks(compiled) -> None:
+    """The simulation's render hooks on the card, with K2 stepping between
+    frames: ``Simulation`` with ``set_renderer("nmf/trackcam")`` and
+    RENDER_HOOK_STEPS ``step_with_profile()`` + ``render_as_needed_with_
+    profile()`` (one frame per 80 steps: 3), the report; ``save_video`` into
+    ``outputs/`` where imageio or PIL is installed; then ``BatchSimulation``
+    of RENDER_BATCH_WORLDS worlds rendering all of them at 120 x 160."""
+    import importlib.util
+
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation, Simulation
+
+    fly = compiled.fly_names[0]
+    want_frames = -(-RENDER_HOOK_STEPS // 80)
+    for label, sim, kw in (
+            ("one world", Simulation(compiled), {}),
+            (f"{RENDER_BATCH_WORLDS} worlds", BatchSimulation(compiled, RENDER_BATCH_WORLDS),
+             {"camera_res": (120, 160), "world_ids": range(RENDER_BATCH_WORLDS)})):
+        renderer = sim.set_renderer(f"{fly}/trackcam", **kw)
+        sim.set_leg_adhesion_states(fly, torch.ones(6, device="cuda"))
+        reset_counts()
+        for _ in range(RENDER_HOOK_STEPS):
+            sim.step_with_profile()
+            sim.render_as_needed_with_profile()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        frames = renderer.get_frames()
+        print(f"[render hooks] {label}: {RENDER_HOOK_STEPS} steps, launches {counts}, frames "
+              f"{sim._frames_rendered} of {tuple(frames[0].shape)} {frames[0].dtype} on "
+              f"{frames[0].device}, render time {sim._total_render_time_ns / 1e6:.3f} ms "
+              f"({sim._total_render_time_ns / 1e6 / max(sim._frames_rendered, 1):.3f} ms per "
+              f"frame), physics {sim._total_physics_time_ns / 1e6:.3f} ms")
+        check(counts["megastep"] == RENDER_HOOK_STEPS and counts["tree_ldl_factor"] == 0,
+              f"render hooks {label}: launches {counts}")
+        check(sim._frames_rendered == want_frames == len(frames)
+              and sim._total_render_time_ns > 0, f"render hooks {label}: counters")
+        check(all(f.is_cuda and f.dtype == torch.uint8 for f in frames)
+              and float(frames[-1].float().std()) > 10, f"render hooks {label}: frames")
+        sim.print_performance_report(show_in_notebook=False)
+        if any(importlib.util.find_spec(m) is not None for m in ("imageio", "PIL")):
+            path = Path(__file__).resolve().parent / "outputs" / f"render_{sim.n_worlds}.mp4"
+            renderer.save_video(path)
+            written = [p for p in (path, path.with_suffix(".gif")) if p.exists()]
+            check(bool(written), f"render hooks {label}: save_video wrote nothing")
+            print(f"[render hooks] save_video: {written[0].name}, {written[0].stat().st_size} "
+                  "bytes")
+        else:
+            print("[render hooks] save_video skipped: neither imageio nor PIL is installed here")
+
+
+def phase_render_benchmark() -> None:
+    """``run_benchmark(1, 4, 4, enable_rendering=True)``: each run's 750 K2
+    launches, its timed replay as before, and one frame after it."""
+    import torch
+
+    from flygym_tpu_torch.demo.benchmark import run_benchmark
+
+    reset_counts()
+    cols = run_benchmark(*RENDER_BENCH, enable_rendering=True)
+    counts = read_counts()
+    n_runs = len(cols["n_worlds"])
+    frames = cols["frames"]
+    print(f"[render benchmark] run_benchmark{RENDER_BENCH}: worlds {cols['n_worlds'].tolist()}, "
+          f"world-steps/s {[round(x) for x in cols['steps_per_second']]}, launches {counts}, "
+          f"frames {[len(f) for f in frames]} of {tuple(frames[0][0].shape)}")
+    check(n_runs == 2 and counts["megastep"] == n_runs * (SETTLE_STEPS + 2 * (N_STEPS // 8)),
+          f"render benchmark: {n_runs} runs, launches {counts}")
+    check(all(len(f) == 1 and f[0].shape == (1, 240, 320, 3) and f[0].dtype == torch.uint8
+              for f in frames), "render benchmark: one frame per run")
+
+
+def phase_render_vision(env_compiled, terrain_compiled) -> None:
+    """FlyEnv's frame function on the card without gymnasium, and the
+    retina's choice: on the terrain fly's heightfield the port of JAX's jnp
+    path (no K3 launch), held against the CPU's; on config 5's flat world
+    one K3 launch."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_env_golden, load_terrain_golden
+    from flygym_tpu_torch.env.gym import env_frame
+    from flygym_tpu_torch.vision import Retina
+
+    state = load_env_golden()["state"].to("cuda")
+    frame = env_frame(env_compiled.model.to("cuda"), state, int(env_compiled.env["root_body"]))
+    check(frame.shape == (state.xpos.shape[0], 240, 320, 3) and bool(torch.isfinite(frame).all()),
+          "FlyEnv's frame")
+    print(f"[render vision] env_frame: {tuple(frame.shape)} on {frame.device}, "
+          f"'gymnasium' imported: {'gymnasium' in sys.modules}")
+    ids = terrain_compiled.render["body_name2id"]
+    fly = terrain_compiled.fly_names[0]
+    tmodel = terrain_compiled.model
+    retina = Retina.build(tmodel, ids[f"{fly}/l_eye"], ids[f"{fly}/r_eye"])
+    tstate = load_terrain_golden()["state"].map(lambda x: x[:RETINA_HF_WORLDS].clone())
+    render = retina.make_render_batched(tmodel.to("cuda"))
+    check(render.kernel is None, "the heightfield retina chose K3")
+    reset_counts()
+    got = render(tstate.to("cuda"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = retina.make_render_batched(tmodel)(tstate)
+    share = ((got.cpu() - want).abs() <= VISION_GOLDEN[0]).float().mean().item()
+    ms = time_ms(lambda: render(tstate.to("cuda")), 3)
+    print(f"[render vision] heightfield retina {tuple(got.shape)}: K3 launches "
+          f"{counts['retina']}, vs the CPU share within {VISION_GOLDEN[0]} {share:.5f}, "
+          f"{ms:.3f} ms per call")
+    check(counts["retina"] == 0 and share >= VISION_GOLDEN[1], "the heightfield retina")
+    flat = Retina.for_compiled(env_compiled).make_render_batched(env_compiled.model.to("cuda"))
+    reset_counts()
+    vision = flat(state)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(flat.kernel is not None and counts["retina"] == 1 and bool(torch.isfinite(vision).all()),
+          f"the flat world's retina: launches {counts}")
+    print(f"[render vision] flat world's retina: one K3 launch ({counts['retina']})")
+
+
 def main() -> int:
     import torch
 
@@ -3094,6 +3312,16 @@ def main() -> int:
         lap("phase 38 (the CPG walking goldens)")
         phase_solvers(weld_compiled, pgs_compiled)
         lap("phase 39 (soft welds and PGS)")
+        phase_render_golden()
+        lap("phase 40 (the render golden's cases)")
+        phase_render_frames()
+        lap("phase 41 (frames at full size)")
+        phase_render_hooks(compiled)
+        lap("phase 42 (the render hooks)")
+        phase_render_benchmark()
+        lap("phase 43 (run_benchmark with rendering)")
+        phase_render_vision(env_compiled, terrain_compiled)
+        lap("phase 44 (FlyEnv's frame and the heightfield retina)")
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)

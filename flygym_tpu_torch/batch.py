@@ -3,7 +3,8 @@
 Port of ``flygym_tpu/batch.py``. Every state tensor has a leading
 ``n_worlds`` axis, and the getters and setters work on (n_worlds, ...)
 data. The engine is batch-first already, so where the JAX package vmaps its
-per-world step, this class only sizes the batch.
+per-world step, this class only sizes the batch. Its renderer's frames keep
+the world axis: (n_selected, H, W, 3) of the ``world_ids`` chosen.
 """
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
@@ -22,6 +23,8 @@ class BatchSimulation(Simulation):
     (n,) values for every world or (n_worlds, n) per world.
     """
 
+    _batched_frames = True
+
     def __init__(self, compiled: CompiledModel, n_worlds: int, *, device="cuda",
                  megastep: bool | None = None, megastep_k: int = 8,
                  terrain_resample: int = 8) -> None:
@@ -39,7 +42,7 @@ class BatchSimulation(Simulation):
 
     def print_performance_report(self, show_in_notebook="auto") -> None:
         """The parallel report (aggregate columns times ``n_worlds``,
-        ``flygym_tpu/batch.py:297-313``); no world renders yet."""
+        ``flygym_tpu/batch.py:297-313``), with the renderer's worlds."""
         print_perf_report_parallel(
             n_steps=self._curr_step,
             n_frames_rendered=self._frames_rendered,
@@ -47,6 +50,6 @@ class BatchSimulation(Simulation):
             total_render_time_ns=self._total_render_time_ns,
             timestep=self.timestep,
             n_worlds=self.n_worlds,
-            n_worlds_rendered=0,
+            n_worlds_rendered=0 if self.renderer is None else len(self.renderer.world_ids),
             show_in_notebook=show_in_notebook,
         )

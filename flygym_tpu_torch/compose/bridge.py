@@ -24,6 +24,9 @@ candidates (``ncand`` 0, no sensors, no adhesion). Condim 1, 4 and 6, the
 PGS solver and soft welds (``welds``) are read as the JAX compile wrote
 them; ``scripts/export_taxis_golden.py`` writes the visual-taxis world (its
 fly's maps add ``eye_bodies``), the CPG walking world and the condim-6 fly.
+The benchmark fly, example 11's two flies and config 3's terrain fly carry
+``meta["render"]`` (``export(..., render=True)``): their cameras, geom names
+and body names, kept as :attr:`CompiledModel.render` for the renderer.
 
 Differentiable mode, which the port does not have yet, is refused here
 with ``NotImplementedError`` rather than simulated wrongly.
@@ -115,12 +118,15 @@ class CompiledModel:
     ``act_ids`` by actuator type, ``adh_ids``, ``sensor_slots``, and the DoF
     orders ``jointdofs`` and ``actuated_dofs`` by type as
     (leg, parent link, child link, axis) tuples. ``env`` is the RL env's
-    ``meta["env"]`` where the world was exported for one, else None."""
+    ``meta["env"]`` where the world was exported for one, else None.
+    ``render`` is ``meta["render"]`` where the export wrote it (the cameras,
+    the geom names and the body name map the renderer reads), else None."""
 
     model: PhysicsModel
     initial_state: State
     flies: dict
     env: dict | None = None
+    render: dict | None = None
 
     @property
     def fly_names(self) -> list:
@@ -183,7 +189,8 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
         **{f.name: _tensor(arrays[f"state.{f.name}"])[None] for f in fields(State)}
     )
     return CompiledModel(
-        model=PhysicsModel(**kw), initial_state=state, flies=meta["flies"], env=meta.get("env")
+        model=PhysicsModel(**kw), initial_state=state, flies=meta["flies"], env=meta.get("env"),
+        render=meta.get("render"),
     )
 
 

@@ -173,7 +173,7 @@ def _sync(device: torch.device) -> None:
 
 def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
                    device="cuda", warmup_steps: int = 500, megastep: bool | None = None,
-                   megastep_k: int = 8):
+                   megastep_k: int = 8, enable_rendering: bool = False):
     """Settle, replay once untimed, then time a replay from the first one's
     end state (``flygym_tpu/demo/benchmark.py:189-240``; reference
     ``time_gpu_simulation.py:108-156``). The untimed replay keeps the
@@ -182,6 +182,10 @@ def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
     Args:
         replay_data: (n_worlds, n_steps, n_dofs) target angles.
         megastep, megastep_k: The step, as for :class:`BatchSimulation`.
+        enable_rendering: Attach the tracking camera ``trackcam``
+            (``playback_speed=0.2, output_fps=25``) and render one frame of
+            world 0 after the timed replay, outside the timer, as the JAX
+            package does.
 
     Returns:
         (walltime of the timed replay in seconds, the simulation after it).
@@ -189,6 +193,8 @@ def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
     n_worlds, n_steps, _ = replay_data.shape
     sim = BatchSimulation(compiled, n_worlds, device=device, megastep=megastep,
                           megastep_k=megastep_k)
+    if enable_rendering:
+        sim.set_renderer("trackcam", playback_speed=0.2, output_fps=25)
     fly = compiled.fly_names[0]
     sim.set_leg_adhesion_states(fly, np.ones((n_worlds, 6), np.float32))
     sim.rollout(None, warmup_steps, record_trajectory=False)
@@ -200,7 +206,10 @@ def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
     start = perf_counter()
     sim.state = replay_episode(sim, sim.state, targets, act_ids, n_steps)
     _sync(sim.device)
-    return perf_counter() - start, sim
+    walltime = perf_counter() - start
+    if enable_rendering:
+        sim.render_as_needed()
+    return walltime, sim
 
 
 def _position_dofs(compiled: CompiledModel) -> list:
@@ -215,29 +224,31 @@ def run_benchmark(min_worlds: int, max_worlds: int, factor: int, sim_timestep: f
     reference ``time_gpu_simulation.py:159-198``): :func:`run_simulation` at
     ``min_worlds``, then times ``factor`` while at most ``max_worlds``,
     printing each count's walltime and world-steps/s. The card running out
-    of memory ends the sweep; any other error propagates.
+    of memory ends the sweep; any other error propagates. With
+    ``enable_rendering`` each run renders one frame after its timed replay
+    (:func:`run_simulation`).
 
     Returns:
         numpy columns ``n_worlds``, ``walltime_s``, ``steps_per_second``
         (``sim_steps * n_worlds / walltime``) and ``realtime_factor``
-        (``steps_per_second * sim_timestep``), one entry per count run.
+        (``steps_per_second * sim_timestep``), one entry per count run, and
+        with ``enable_rendering`` the ``frames``: each run's rendered frames
+        (one (1, 240, 320, 3) uint8 tensor of world 0).
     """
-    if enable_rendering:
-        raise NotImplementedError("rendering waits for the port's renderer (ROADMAP.md queue 1 "
-                                  "item 5)")
     if factor < 2:
         raise ValueError(f"factor must be >= 2, got {factor}")
     compiled = make_model(simplify_geom=simplify_geom)
     if compiled.model.timestep != sim_timestep:
         raise ValueError(f"the model's timestep is {compiled.model.timestep}, not {sim_timestep}")
     replay = ReplayTargetData(sim_timestep, _position_dofs(compiled))
-    counts, walltimes = [], []
+    counts, walltimes, frames = [], [], []
     n_worlds = min_worlds
     while True:
         targets = replay.make_target_angles_all_worlds(n_worlds, sim_steps)
         try:
-            walltime, _sim = run_simulation(compiled, targets, device=device,
-                                            warmup_steps=warmup_steps)
+            walltime, sim = run_simulation(compiled, targets, device=device,
+                                           warmup_steps=warmup_steps,
+                                           enable_rendering=enable_rendering)
         except torch.cuda.OutOfMemoryError as e:
             print(f"Simulation failed for n_worlds={n_worlds}: {e}", flush=True)
             break
@@ -245,14 +256,19 @@ def run_benchmark(min_worlds: int, max_worlds: int, factor: int, sim_timestep: f
               f"({sim_steps * n_worlds / walltime:,.0f} world-steps/s)", flush=True)
         counts.append(n_worlds)
         walltimes.append(walltime)
+        if enable_rendering:
+            frames.append(sim.renderer.get_frames())
         n_worlds *= factor
         if n_worlds > max_worlds:
             break
     n = np.asarray(counts, np.int64)
     walltime = np.asarray(walltimes, np.float64)
     steps_per_second = sim_steps * n / walltime
-    return {"n_worlds": n, "walltime_s": walltime, "steps_per_second": steps_per_second,
-            "realtime_factor": steps_per_second * sim_timestep}
+    out = {"n_worlds": n, "walltime_s": walltime, "steps_per_second": steps_per_second,
+           "realtime_factor": steps_per_second * sim_timestep}
+    if enable_rendering:
+        out["frames"] = frames
+    return out
 
 
 def main(argv=None) -> int:

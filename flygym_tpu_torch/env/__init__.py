@@ -1,5 +1,5 @@
 """Reinforcement-learning environments of the port."""
 
-from flygym_tpu_torch.env.gym import VectorFlyEnv
+from flygym_tpu_torch.env.gym import FlyEnv, VectorFlyEnv, env_frame
 
-__all__ = ["VectorFlyEnv"]
+__all__ = ["FlyEnv", "VectorFlyEnv", "env_frame"]

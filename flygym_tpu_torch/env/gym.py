@@ -1,7 +1,8 @@
-"""The functional RL environment, batch-first (config 5: vision and odor).
+"""The RL environments (config 5: vision and odor).
 
-Port of ``VectorFlyEnv`` in ``flygym_tpu/env/gym.py:69-338``. The spaces
-are flygym 1.x's:
+Port of ``flygym_tpu/env/gym.py``: ``VectorFlyEnv`` (:69-338), the
+functional env, batch-first, and ``FlyEnv`` (:341-432), a ``gymnasium.Env``
+of one world around it. The spaces are flygym 1.x's:
 
 - action: dict(joints=(B, n_actuated) target angles, adhesion=(B, 6) in [0, 1]);
 - observation: dict(joints=(B, 3, n_actuated) pos/vel/force,
@@ -21,9 +22,12 @@ observed, is one launch of the retina kernel K3 and the acceptance blur
 
 The world comes as an exported :class:`CompiledModel` with ``meta["env"]``
 (``scripts/export_env_golden.py``); random numbers come from explicit
-``torch.Generator``s. Not ported: ``FlyEnv`` (it needs ``gymnasium`` and
-the camera renderer).
+``torch.Generator``s. ``FlyEnv`` imports ``gymnasium`` when it is built; its
+frame, a fixed camera behind and above the root body, is
+:func:`env_frame`, which needs no ``gymnasium``.
 """
+
+import numpy as np
 
 from dataclasses import replace
 
@@ -36,9 +40,16 @@ from flygym_tpu_torch.engine.step import step as engine_step
 from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
 
-__all__ = ["VectorFlyEnv"]
+__all__ = ["FlyEnv", "VectorFlyEnv", "env_frame"]
 
 RESET_NOISE = 0.01  # rad (and mm) of Gaussian noise on qpos at reset
+# FlyEnv's frame: 240 x 320 pixels, fovy 30 deg, 7.5 mm behind and 6 mm
+# above the root, its axes x (1, 0, 0) and y (0, 0.6, 0.8) in the world
+# (the tracking camera's): a rotation about x by atan2(0.8, 0.6).
+FRAME_RES = (240, 320)
+FRAME_FOVY = 30.0
+FRAME_OFFSET = (0.0, -7.5, 6.0)
+FRAME_QUAT = (0.8944271909999159, 0.447213595499958, 0.0, 0.0)  # (sqrt 0.8, sqrt 0.2, 0, 0)
 
 
 class VectorFlyEnv:
@@ -231,3 +242,87 @@ class VectorFlyEnv:
     @property
     def timestep(self) -> float:
         return self.model.timestep * self.decision_interval
+
+
+def env_frame(model, states: State, root_body: int, height: int = FRAME_RES[0],
+              width: int = FRAME_RES[1]) -> torch.Tensor:
+    """``FlyEnv``'s frame of every world: (B, H, W, 3) floats in [0, 1] on
+    the states' device, from a camera fixed 7.5 mm behind and 6 mm above the
+    root body (``flygym_tpu/env/gym.py:408-430``), capsules only, rounded as
+    JAX's eager ``render_pixels`` there rounds (``fused=False``)."""
+    from flygym_tpu_torch.engine.kinematics import geom_poses
+    from flygym_tpu_torch.render.raycast import capsule_mask, render_pixels
+
+    gpos, gquat = geom_poses(model, states.xpos, states.xquat)
+    B = gpos.shape[0]
+    cam_pos = states.xpos[:, root_body] + gpos.new_tensor(FRAME_OFFSET)
+    cam_quat = gpos.new_tensor(FRAME_QUAT).expand(B, 4)
+    return render_pixels(model, gpos, gquat, cam_pos, cam_quat, height, width, FRAME_FOVY,
+                         capsule_mask(model), fused=False)
+
+
+class FlyEnv:
+    """A ``gymnasium.Env`` of one world around :class:`VectorFlyEnv`.
+
+    Args:
+        compiled, device, ``kwargs``: As for :class:`VectorFlyEnv`.
+
+    Observations are numpy arrays without the world axis, the action a dict
+    of (n_actuated,) joint targets and (6,) adhesion. ``reset(seed=)``
+    seeds the ``torch.Generator`` of the reset noise (seed 0 before the
+    first seeded reset).
+    """
+
+    metadata = {"render_modes": ["rgb_array"]}
+
+    def __init__(self, compiled: CompiledModel, *, device="cuda", **kwargs):
+        import gymnasium
+        from gymnasium import spaces
+
+        self._core = VectorFlyEnv(compiled, device=device, **kwargs)
+        self._state = None
+        self._generator = torch.Generator().manual_seed(0)
+        n = self._core.n_actuated
+        self.action_space = spaces.Dict({
+            "joints": spaces.Box(-np.pi, np.pi, shape=(n,), dtype=np.float32),
+            "adhesion": spaces.Box(0.0, 1.0, shape=(6,), dtype=np.float32),
+        })
+        obs_spaces = {
+            "joints": spaces.Box(-np.inf, np.inf, (3, n), dtype=np.float32),
+            "fly": spaces.Box(-np.inf, np.inf, (4, 3), dtype=np.float32),
+            "contact_forces": spaces.Box(-np.inf, np.inf, (6, 3), np.float32),
+            "end_effectors": spaces.Box(-np.inf, np.inf, (6, 3), np.float32),
+            "fly_orientation": spaces.Box(-1.0, 1.0, (3,), np.float32),
+        }
+        if self._core.retina is not None:
+            obs_spaces["vision"] = spaces.Box(
+                0.0, 1.0, (2, self._core.retina.n_ommatidia, 2), np.float32)
+        if self._core.odor_field is not None:
+            obs_spaces["odor_intensity"] = spaces.Box(
+                0.0, np.inf, (self._core.odor_field.n_dimensions, 4), np.float32)
+        self.observation_space = spaces.Dict(obs_spaces)
+        self._gymnasium = gymnasium
+
+    @staticmethod
+    def _host(obs: dict) -> dict:
+        return {k: v[0].cpu().numpy() for k, v in obs.items()}
+
+    def reset(self, *, seed: int | None = None, options=None):
+        if seed is not None:
+            self._generator.manual_seed(seed)
+        self._state = self._core.reset(self._generator)
+        return self._host(self._core.observe(self._state)), {}
+
+    def step(self, action: dict):
+        action = {k: torch.as_tensor(np.asarray(action[k]), dtype=torch.float32)
+                  for k in ("joints", "adhesion")}
+        self._state, obs, reward, done, info = self._core.step(self._state, action)
+        return self._host(obs), float(reward[0]), bool(done[0]), False, info
+
+    def render(self) -> np.ndarray:
+        """The frame of :func:`env_frame` as (240, 320, 3) uint8."""
+        frame = env_frame(self._core.model, self._state, self._core._root_body)
+        return (frame[0] * 255).to(torch.uint8).cpu().numpy()
+
+    def close(self):
+        pass

@@ -2,9 +2,9 @@
 
 Port of ``flygym_tpu/simulation.py``: construct from a compiled model,
 ``step()`` / ``step_with_profile()`` / ``warmup()`` / ``reset()``, roll out,
-read state in the fly's canonical orders, write control inputs, save and
-load the state, and print the performance report from the runtime's
-counters. The state is a batch of one world (B = 1); getters return that
+read state in the fly's canonical orders, write control inputs, attach a
+renderer and render as simulated time passes, save and load the state, and
+print the performance report from the runtime's counters. The state is a batch of one world (B = 1); getters return that
 world. :class:`flygym_tpu_torch.batch.BatchSimulation` is the same runtime
 over many worlds.
 
@@ -60,6 +60,8 @@ class Simulation:
     """
 
     n_worlds = 1
+    # Frames of a batch keep their world axis (BatchSimulation).
+    _batched_frames = False
 
     def __init__(self, compiled: CompiledModel, *, device="cuda", megastep: bool | None = None,
                  megastep_k: int = 8, terrain_resample: int = 8) -> None:
@@ -81,6 +83,7 @@ class Simulation:
         self.model = compiled.model.to(self.device)
         self._initial_state = self._batch(compiled.initial_state.to(self.device))
         self.state = self._initial_state
+        self.renderer = None
         self._map_internal_ids()
         self._clear_counters()
 
@@ -127,15 +130,18 @@ class Simulation:
 
     def _clear_counters(self) -> None:
         """The performance report's counters (``flygym_tpu/simulation.py:
-        69-73``); nothing renders yet, so the render counters stay 0."""
+        69-73``)."""
         self._curr_step = 0
         self._frames_rendered = 0
         self._total_physics_time_ns = 0
         self._total_render_time_ns = 0
 
     def reset(self) -> None:
-        """Back to the neutral keyframe at time 0, the counters cleared."""
+        """Back to the neutral keyframe at time 0, the counters and the
+        renderer's frames cleared."""
         self.state = self._initial_state
+        if self.renderer is not None:
+            self.renderer.reset()
         self._clear_counters()
 
     def step(self) -> None:
@@ -284,6 +290,37 @@ class Simulation:
         ctrl = self.state.ctrl.clone()
         ctrl[:, ids] = values.expand(self.n_worlds, len(ids))
         self.state = replace(self.state, ctrl=ctrl)
+
+    # ------------------------------------------------------------------
+    # Rendering
+    # ------------------------------------------------------------------
+
+    def set_renderer(self, cameras, **kwargs):
+        """Attach a :class:`~flygym_tpu_torch.render.Renderer` of this
+        simulation's world on its device; ``kwargs`` as the renderer takes
+        them (``camera_res``, ``playback_speed``, ``world_ids`` ...)."""
+        from flygym_tpu_torch.render import Renderer
+
+        self.renderer = Renderer(self.compiled, cameras, device=self.device,
+                                 batched=self._batched_frames, **kwargs)
+        return self.renderer
+
+    def render_as_needed(self) -> bool:
+        """Render a frame if enough simulated time has passed since the last."""
+        return self.renderer.render_as_needed(self.state)
+
+    def render_as_needed_with_profile(self) -> bool:
+        """:meth:`render_as_needed`, its wall-clock time (the card
+        synchronised before the clock is read) added to the report's render
+        time, and a frame rendered to its frame count."""
+        start = perf_counter_ns()
+        done = self.render_as_needed()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._total_render_time_ns += perf_counter_ns() - start
+        if done:
+            self._frames_rendered += 1
+        return done
 
     # ------------------------------------------------------------------
     # Checkpoints

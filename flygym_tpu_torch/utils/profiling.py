@@ -257,9 +257,9 @@ def summarize_trace(logdir: str, top: int = 12) -> dict | None:
     Complete events (``"ph" == "X"``) in the device categories (kernels,
     copies, memsets) are the card's; the rest the host's. Returns
     ``span_ms`` (first event to last), ``device_busy_ms`` and
-    ``device_busy_frac`` (their sum over the span), ``host_event_ms`` and
-    ``top_device_ops`` as (name, ms, % of busy) by summed device time; None
-    when no trace file is found.
+    ``device_busy_frac`` (their sum over the span), ``device_events`` (how
+    many), ``host_event_ms`` and ``top_device_ops`` as (name, ms, % of busy)
+    by summed device time; None when no trace file is found.
     """
     events = _load_trace_events(logdir)
     if not events:
@@ -267,6 +267,7 @@ def summarize_trace(logdir: str, top: int = 12) -> dict | None:
         return None
     dev_ops: dict = {}
     dev_total = host_total = 0.0
+    n_dev = 0
     span_lo, span_hi = float("inf"), 0.0
     for e in events:
         if e.get("ph") != "X":
@@ -276,6 +277,7 @@ def summarize_trace(logdir: str, top: int = 12) -> dict | None:
         span_lo, span_hi = min(span_lo, ts), max(span_hi, ts + dur)
         if e.get("cat") in _DEVICE_CATEGORIES:
             dev_total += dur
+            n_dev += 1
             name = e.get("name", "?")
             dev_ops[name] = dev_ops.get(name, 0.0) + dur
         else:
@@ -286,6 +288,7 @@ def summarize_trace(logdir: str, top: int = 12) -> dict | None:
         "span_ms": span / 1e3,
         "device_busy_ms": dev_total / 1e3,
         "device_busy_frac": dev_total / span,
+        "device_events": n_dev,
         "host_event_ms": host_total / 1e3,
         "top_device_ops": [(n, d / 1e3, 100.0 * d / max(dev_total, 1e-9)) for n, d in rows],
     }

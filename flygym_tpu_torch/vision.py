@@ -8,12 +8,17 @@ Output: (B, 2 eyes, n_omm, 2 channels) intensities in [0, 1].
 
 - :func:`hex_lattice_directions` and :meth:`Retina.build` are the JAX
   package's numpy code, so the tables equal its tables exactly.
-- :meth:`Retina.render` is the oracle (the JAX package's jnp path,
-  batch-first), a second renderer independent of the kernel's arithmetic;
-  no entry point of the port renders with it.
-- :meth:`Retina.make_render_batched` is the path every caller takes: the
-  retina kernel K3 (:mod:`flygym_tpu_torch.ops.retina`) and then
-  :meth:`apply_acceptance`.
+- :meth:`Retina.render` is the JAX package's jnp path, batch-first: the
+  oracle of a flat world, a second renderer independent of the kernel's
+  arithmetic, and the path of a heightfield world, whose terrain it
+  raymarches (``flygym_tpu/vision.py:351-360``).
+- :meth:`Retina.make_render_batched` is the path every caller takes. It
+  chooses by :func:`~flygym_tpu_torch.ops.retina.retina_kernel_supported`,
+  the JAX package's rule (``flygym_tpu/vision.py:228-246``), before any
+  launch: on a flat world the retina kernel K3
+  (:mod:`flygym_tpu_torch.ops.retina`) and then :meth:`apply_acceptance`;
+  on a heightfield world, which JAX keeps off its kernel too,
+  :meth:`Retina.render`.
 
 Not ported: ``Retina.for_fly``, which needs a composed world; the port builds
 the retina from the exported env metadata (:meth:`Retina.for_compiled`).
@@ -30,7 +35,9 @@ from flygym_tpu_torch.render.raycast import (
     _BIG,
     _CHUNK,
     _capsule_segments,
+    _ray_heightfield,
     _ray_plane,
+    capsule_mask,
     raycast_scene,
 )
 
@@ -65,14 +72,6 @@ def _mix(W: torch.Tensor, intensities: torch.Tensor) -> torch.Tensor:
     """(2, n, n) blur on (..., n, 2) intensities: channel k through matrix k.
     A float32 product (TF32 is off, ``flygym_tpu_torch/__init__.py``)."""
     return torch.einsum("kon,...nk->...ok", W, intensities)
-
-
-def _capsule_mask(model: PhysicsModel) -> torch.Tensor:
-    return torch.tensor(
-        [1.0 if t in ("capsule", "sphere") else 0.0 for t in model.geom_types],
-        dtype=torch.float32,
-        device=model.device,
-    )
 
 
 @dataclass(frozen=True)
@@ -196,14 +195,21 @@ class Retina:
     def make_render_batched(self, model: PhysicsModel):
         """Batched render: (B,) State → (B, 2, n_omm, 2).
 
-        The retina kernel K3 for CUDA tensors (its plain version for CPU
-        tensors), then the acceptance blur. A model the kernel does not
-        support (heightfield) raises; there is no fallback to the oracle.
-        The returned function carries the kernel as ``.kernel`` and the
-        blur as ``.blur`` (identity without ``blur_weights``).
+        On a flat world the retina kernel K3 for CUDA tensors (its plain
+        version for CPU tensors), then the acceptance blur; the returned
+        function carries the kernel as ``.kernel`` and the blur as
+        ``.blur`` (identity without ``blur_weights``). On a heightfield
+        world, which the kernel does not render, :meth:`render` (``.kernel``
+        and ``.blur`` None). The choice is made here, from the model.
         """
-        from flygym_tpu_torch.ops.retina import make_retina_kernel
+        from flygym_tpu_torch.ops.retina import make_retina_kernel, retina_kernel_supported
 
+        if not retina_kernel_supported(model):
+            def render_terrain(state: State) -> torch.Tensor:
+                return self.render(model, state)
+
+            render_terrain.kernel = render_terrain.blur = None
+            return render_terrain
         kern = make_retina_kernel(model, self)
         if self.blur_weights is None:
             blur = lambda x: x
@@ -218,7 +224,7 @@ class Retina:
         return render_batched
 
     # ------------------------------------------------------------------
-    # The oracle: the JAX package's jnp path, batch-first
+    # The JAX package's jnp path, batch-first
     # ------------------------------------------------------------------
 
     def render(self, model: PhysicsModel, state: State) -> torch.Tensor:
@@ -227,7 +233,7 @@ class Retina:
         from flygym_tpu_torch.engine.kinematics import geom_poses
 
         gpos, gquat = geom_poses(model, state.xpos, state.xquat)
-        capsule_mask = _capsule_mask(model)
+        mask = capsule_mask(model)
         w = torch.tensor(self.channel_weights, device=gpos.device)
         outputs = []
         for body, dirs_local in (
@@ -240,11 +246,9 @@ class Retina:
                 eye_quat[:, None, :], torch.tensor(dirs_local, device=gpos.device)[None]
             )
             origins = eye_pos[:, None, :].expand(dirs.shape)
-            t, geom_idx, normal = raycast_scene(model, gpos, gquat, origins, dirs, capsule_mask)
+            t, geom_idx, normal = raycast_scene(model, gpos, gquat, origins, dirs, mask)
             if self.cone_half_rad > 0:
-                rgb = self._shade_cone(
-                    model, geom_idx, normal, origins, dirs, gpos, gquat, capsule_mask
-                )
+                rgb = self._shade_cone(model, geom_idx, normal, origins, dirs, gpos, gquat, mask)
             else:
                 rgb = self._shade(model, t, geom_idx, normal, origins, dirs)
             outputs.append(torch.einsum("bnc,nkc->bnk", rgb, w))
@@ -297,9 +301,13 @@ class Retina:
 
     def _shade_cone(self, model, geom_idx, normal, origins, dirs, gpos, gquat, capsule_mask):
         """Nearest-geom colour mixed with the ground/sky background by the
-        geom's cone coverage (``flygym_tpu/vision.py:351-392``)."""
-        t_bg, _ = _ray_plane(origins, dirs, 0.0)
-        n_bg = dirs.new_tensor([0.0, 0.0, 1.0]).expand(dirs.shape)
+        geom's cone coverage (``flygym_tpu/vision.py:351-392``); the
+        background is the heightfield where the world has one."""
+        if model.has_hfield:
+            t_bg, n_bg = _ray_heightfield(model, origins, dirs)
+        else:
+            t_bg, _ = _ray_plane(origins, dirs, 0.0)
+            n_bg = dirs.new_tensor([0.0, 0.0, 1.0]).expand(dirs.shape)
         bg_hit = t_bg < _BIG
         bg_p = origins + torch.where(bg_hit, t_bg, torch.zeros_like(t_bg))[..., None] * dirs
         checker = torch.remainder(torch.floor(bg_p[..., 0]) + torch.floor(bg_p[..., 1]), 2.0)

@@ -243,7 +243,7 @@ def export_model():
 
     fly, world = build_world()
     sim = flygym_tpu.Simulation(world)
-    arrays, meta = _load_script("export_torch_model").export(world, sim)
+    arrays, meta = _load_script("export_torch_model").export(world, sim, render=True)
     meta["flies"][fly.name]["tip_bodies"] = tip_bodies(world, fly)
     meta["clip_keypoints"] = clip_keypoints()
     return fly, world, sim, arrays, meta

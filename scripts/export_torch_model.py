@@ -71,18 +71,46 @@ def _fly_maps(sim, fly_name, fly):
     }
 
 
-def export(world, sim):
+def render_meta(world):
+    """What the port's renderer needs of a compiled world: every camera
+    (``full_identifier``, ``mode``, ``pos``, ``quat``, ``fovy`` and its
+    ``target`` as a body id, or None), the geom names by geom id (the mesh
+    SDF pack matches segments by name) and the body name map (light
+    targets)."""
+    compiled = world.compiled
+    cameras = []
+    for cam in world.spec.cameras:
+        cameras.append({
+            "name": cam.name,
+            "full_identifier": cam.full_identifier,
+            "mode": cam.mode,
+            "pos": [float(x) for x in cam.pos],
+            "quat": [float(x) for x in cam.quat],
+            "fovy": float(cam.fovy),
+            "target": None if cam.target is None else compiled.body_name2id[cam.target],
+        })
+    id2geom = {v: k for k, v in compiled.geom_name2id.items()}
+    return {
+        "cameras": cameras,
+        "geom_names": [id2geom.get(g, "") for g in range(int(compiled.model.ngeom))],
+        "body_name2id": {k: int(v) for k, v in compiled.body_name2id.items()},
+    }
+
+
+def export(world, sim, render=False):
     """Flatten a compiled world into ``(arrays, meta)``.
 
     Args:
         world: The composed world that ``sim`` was built from.
         sim: A ``flygym_tpu.Simulation`` (or ``BatchSimulation``) of it.
+        render: Add :func:`render_meta` as ``meta["render"]``.
 
     Returns:
         arrays: ``{"model.<field>": ndarray, "state.<field>": ndarray}`` for
             every array field of the model and of the unbatched initial state.
         meta: JSON-serialisable dict with the model's static fields
-            (``meta["model"]``) and the per-fly index maps (``meta["flies"]``).
+            (``meta["model"]``), the per-fly index maps (``meta["flies"]``)
+            and, with ``render``, the renderer's names (``meta["render"]``).
     """
     from flygym_tpu.engine.model import PhysicsModel, State
 
@@ -102,6 +130,8 @@ def export(world, sim):
             name: _fly_maps(sim, name, fly) for name, fly in world.fly_lookup.items()
         },
     }
+    if render:
+        meta["render"] = render_meta(world)
     return arrays, meta
 
 
@@ -178,7 +208,7 @@ def main():
 
     fly, world = build_benchmark()
     sim = flygym_tpu.Simulation(world)
-    arrays, meta = export(world, sim)
+    arrays, meta = export(world, sim, render=True)
     save_npz(MODEL_PATH, arrays, meta)
     print(f"wrote {MODEL_PATH} ({MODEL_PATH.stat().st_size} bytes)")
 

@@ -73,7 +73,7 @@ def export_model():
     world = build_world()
     sim = flygym_tpu.Simulation(world)
     arrays, meta = _load("export_torch_model", REPO / "scripts" / "export_torch_model.py").export(
-        world, sim)
+        world, sim, render=True)
     return world, sim, arrays, meta
 
 

@@ -223,6 +223,7 @@ def test_trace_digests_a_profile(tmp_path):
     assert (tmp_path / "trace.json").exists()
     assert digest["span_ms"] > 0 and digest["host_event_ms"] > 0
     assert digest["device_busy_ms"] == 0.0 and digest["top_device_ops"] == []
+    assert digest["device_events"] == 0
     assert profiling.summarize_trace(str(tmp_path / "empty")) is None
 
 

@@ -44,7 +44,7 @@ def fresh_export():
     exporter = _load_exporter()
     fly, world = exporter.build_benchmark()
     sim = flygym_tpu.Simulation(world)
-    arrays, meta = exporter.export(world, sim)
+    arrays, meta = exporter.export(world, sim, render=True)
     return fly, sim, arrays, meta
 
 

@@ -52,8 +52,15 @@ def test_run_benchmark_returns_its_columns():
     assert [line.split(" in ")[0] for line in lines] == [
         "Simulated 16 steps * 1 worlds", "Simulated 16 steps * 2 worlds"]
     assert all(line.endswith("world-steps/s)") for line in lines)
-    with pytest.raises(NotImplementedError, match="renderer"):
-        benchmark.run_benchmark(1, 2, 2, enable_rendering=True, **TINY)
+    # With rendering, each run renders one frame of world 0 after its timed
+    # replay (the JAX package's run_simulation), returned beside the columns.
+    with contextlib.redirect_stdout(io.StringIO()):
+        cols = benchmark.run_benchmark(1, 2, 2, enable_rendering=True, **TINY)
+    assert sorted(cols) == ["frames", "n_worlds", "realtime_factor", "steps_per_second",
+                            "walltime_s"]
+    assert [len(f) for f in cols["frames"]] == [1, 1]
+    assert all(f[0].shape == (1, 240, 320, 3) and f[0].dtype == torch.uint8
+               for f in cols["frames"])
 
 
 def test_run_simulation_times_a_second_replay(monkeypatch):

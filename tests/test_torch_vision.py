@@ -24,7 +24,6 @@ from flygym_tpu_torch.compose.bridge import ENV_FLY, load_compiled, load_env_gol
 from flygym_tpu_torch.engine.model import State
 from flygym_tpu_torch.ops import _build
 from flygym_tpu_torch.ops import retina as rk
-from flygym_tpu_torch.render.raycast import raycast_scene
 from flygym_tpu_torch.vision import Retina, hex_lattice_directions
 
 torch.set_num_threads(1)
@@ -261,16 +260,16 @@ def test_host_build_of_the_kernel_matches_plain(compiled, poses, branch):
 
 
 def test_heightfield_is_refused(compiled):
+    """K3 refuses a heightfield world; the batched render chooses the jnp
+    path's port for it from the model, before any launch, as JAX does."""
     hfield = dataclasses.replace(compiled.model, has_hfield=True)
     ret = Retina.for_compiled(compiled)
     assert not rk.retina_kernel_supported(hfield)
     with pytest.raises(NotImplementedError, match="heightfield"):
-        ret.make_render_batched(hfield)
-    with pytest.raises(NotImplementedError, match="heightfield"):
         rk.make_retina_kernel(hfield, ret)
-    state = compiled.initial_state
-    with pytest.raises(NotImplementedError, match="heightfield"):
-        raycast_scene(hfield, state.xpos, state.xquat, state.xpos[:, :1], state.xpos[:, :1], None)
+    render = ret.make_render_batched(hfield)
+    assert render.kernel is None and render.blur is None
+    assert ret.make_render_batched(compiled.model).kernel is not None
 
 
 def test_retina_needs_env_metadata():
