@@ -18,8 +18,9 @@ Phases (each failure ends the run with a non-zero exit code):
    example 11's two flies, the default two-fly contact preset, the 3-fly
    pile, the strict, muscle-driven and mixed-kind flies, the tethered
    fly (no contact candidate), the benchmark fly at condim 1, 4 and 6, and
-   config 4's and config 2's worlds (one generated header each; worlds with
-   the same header share its build), and for the benchmark fly K2's profile build (clock64
+   config 4's and config 2's worlds, and the worlds the port composes for
+   phases 45-47 (one generated header each; worlds with the same header
+   share its build), and for the benchmark fly K2's profile build (clock64
    phase counters), its builds at the other threads per block of
    ``SWEEP_THREADS`` and the profile build of K2 as it stood before its
    redesign (``scripts/k2_before_redesign``: one world per thread, scratch
@@ -302,6 +303,33 @@ Phases (each failure ends the run with a non-zero exit code):
     the terrain fly (heightfield) through the port of JAX's jnp path with
     no K3 launch, against the CPU's; config 5's flat retina one K3 launch.
 
+45. The default benchmark world composed and compiled by the port
+    (``demo/benchmark.py:make_model``, on the card machine's CPU): its
+    arrays, initial state and metadata against ``benchmark_fly.npz``,
+    bit-equal but ``can_invweight`` (``COMPOSED_BARS``) and up to two ulps
+    of ``state.xquat`` (``tests/test_torch_compile.py``); K2 built for it
+    against its plain version, one K = 1 and one K = 8 launch at 4096
+    worlds; phase 4's replay protocol at 4096 worlds (750 K2 launches,
+    world-steps/s); the golden's 50 steps from its settled state on the K2
+    and the engine path against ``benchmark_fly_golden.npz`` to
+    ``GOLDEN_TOLERANCE``.
+46. ``make_model(trim_contacts=True)`` (36 candidates, no sensors) and
+    ``make_model(simplify_geom=True)`` (capsule inertia): K2 for each
+    against its plain version (K = 1 at 4096 worlds) and the replay
+    protocol at 4096 worlds (750 launches, world-steps/s); the trimmed
+    fly's largest root and centre-of-mass gaps after the replay against
+    phase 45's run.
+47. ``make_model(joints_preset=ALL_BIOLOGICAL, actuated_dofs_preset=ALL)``
+    (nv 132) at 4096 worlds on the path the gate picks, printed with its
+    reasons: a 500-step settle and a timed 1000-step rollout at the
+    neutral targets, K2 against its plain version (K = 1) where the gate
+    takes it. The tethered and the blocks-terrain worlds composed by the
+    port (``demo/worlds.py``): one K2 launch each at 4096 worlds against K2
+    built for the same world loaded from its ``.npz``.
+48. ``to_mjcf_xml`` of the benchmark world: its SHA-256 equals the CPU's
+    (``MJCF_SHA256``, ``tests/test_torch_compile.py``); without MuJoCo,
+    ``launch_interactive_viewer`` raises an ImportError naming it.
+
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -437,6 +465,25 @@ TAXIS_STEPS = 150
 TAXIS_DRIVE_ATOL = 1e-4
 CPG_WALK_STEPS = 1000  # config 2 (phases 37-38): one K = 1 launch each
 SOLVER_STEPS = 20  # soft welds and PGS (phase 39), engine steps timed
+# Phases 45-48: the worlds the port composes. Their compile equals the JAX
+# package's but for the fields torch's Cholesky rounds otherwise (relative
+# bars, tests/test_torch_compile.py) and two ulps of the neutral pose's
+# quaternions.
+COMPOSED_BARS = {"model.can_invweight": 5e-5, "model.act_acc0": 2e-6}
+XQUAT_ULPS = 2
+# make_model's options composed and run at N_WORLDS (phases 45-47).
+COMPOSED_OPTIONS = {
+    "benchmark": {},
+    "trim_contacts": {"trim_contacts": True},
+    "simplify_geom": {"simplify_geom": True},
+    "all_biological": {"joints_preset": "all_biological", "actuated_dofs_preset": "all"},
+}
+# JAX's make_model docstring: the trimmed fly's COM within this of the full
+# preset's over its flat-ground replay (flygym_tpu/demo/benchmark.py:57-68).
+TRIM_CLAIM_MM = 1e-3
+# SHA-256 of the benchmark world's MJCF (ModelSpec.to_mjcf_xml) as the CPU
+# writes it, the JAX package's string too (tests/test_torch_compile.py).
+MJCF_SHA256 = "6db61d17e20717efa5381470bc29192dcbda060fa191d5bb77dca2ffb61ac97e"
 
 
 START = time.perf_counter()
@@ -740,12 +787,16 @@ OPS_COUNTS = []
 
 
 def _ops_of(path: str, condim: int) -> tuple:
-    """In a worker: (K2 header, megastep_ops) of the world at ``path``, or of
-    the terrain fly at ``condim`` (``terrain_at_condim``) where it is not 0."""
+    """In a worker: (K2 header, megastep_ops) of the world at ``path``, of
+    the terrain fly at ``condim`` (``terrain_at_condim``) where it is not 0,
+    or of a world the port composes, ``compose:<name>`` (``compose``)."""
     import flygym_tpu_torch
     from flygym_tpu_torch.ops import megastep
 
-    compiled = terrain_at_condim(condim) if condim else flygym_tpu_torch.load_compiled(path)
+    if path.startswith("compose:"):
+        compiled = compose(path[len("compose:"):])[1].compiled
+    else:
+        compiled = terrain_at_condim(condim) if condim else flygym_tpu_torch.load_compiled(path)
     return megastep.model_header(compiled.model)[0], megastep_ops(compiled.model)
 
 
@@ -1030,9 +1081,11 @@ def read_counts() -> dict:
     return {**ldl.launches, **megastep.launches, **retina.launches, **contact.samples}
 
 
-def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want: dict):
+def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want: dict,
+                return_sim: bool = False):
     """The replay benchmark at N_WORLDS through one path; returns the
-    launch counts and the replay's walltime."""
+    launch counts and the replay's walltime (and the simulation, with
+    ``return_sim``)."""
     import torch
 
     from flygym_tpu_torch.demo.benchmark import ReplayTargetData, run_simulation
@@ -1066,7 +1119,7 @@ def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want
     rate = steps * N_WORLDS / walltime
     print(f"[{label}] replay {walltime:.3f} s, {walltime / steps * 1e3:.3f} ms per step: "
           f"{rate:.0f} world-steps/s on {card_line()}")
-    return counts, walltime
+    return (counts, walltime, sim) if return_sim else (counts, walltime)
 
 
 def phase_golden(compiled, *, label: str, golden_path, megastep: bool) -> None:
@@ -3119,6 +3172,281 @@ def phase_render_vision(env_compiled, terrain_compiled) -> None:
     print(f"[render vision] flat world's retina: one K3 launch ({counts['retina']})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 45-48: worlds the port composes and compiles
+# ---------------------------------------------------------------------------
+
+
+def compose(name: str):
+    """``(fly, world)`` of a world the port composes, compiled on the CPU:
+    ``make_model`` with one of COMPOSED_OPTIONS, or a committed world of
+    ``demo/worlds.py``."""
+    from flygym_tpu_torch.demo.benchmark import make_model
+    from flygym_tpu_torch.demo.worlds import build_world
+
+    if name in COMPOSED_OPTIONS:
+        fly, world, _cam = make_model(**COMPOSED_OPTIONS[name])
+    else:
+        fly, world = build_world(name)
+    world.compile()
+    return fly, world
+
+
+def compose_all() -> dict:
+    """Every world of phases 45-47, composed and compiled on the CPU."""
+    out = {}
+    for name in (*COMPOSED_OPTIONS, "tethered_fly", "terrain_fly"):
+        t0 = time.perf_counter()
+        out[name] = compose(name)
+        m = out[name][1].compiled.model
+        print(f"[compose] {name}: composed and compiled on the CPU in "
+              f"{time.perf_counter() - t0:.2f} s (nv {m.nv}, ncand {m.ncand}, nu {m.nu}, "
+              f"contact sensors {m.nsensor_contact})")
+    return out
+
+
+def compile_gaps(world, path) -> list:
+    """The port's compile of ``world`` against the exported file ``path``:
+    fails unless every field is bit-equal but those of COMPOSED_BARS (within
+    their relative bars) and ``state.xquat`` (within XQUAT_ULPS), and the
+    metadata equal; returns the fields that part, with their gaps."""
+    import numpy as np
+
+    from flygym_tpu_torch.compose.bridge import _read_npz
+
+    arrays, meta, _names = world.compile_arrays()
+    ref, ref_meta = _read_npz(path)
+    check(sorted(arrays) == sorted(ref), f"{path.name}: the composed fields differ")
+    parted = []
+    for key, want in ref.items():
+        got = arrays[key]
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{key}: dtype or shape")
+        if np.array_equal(got, want):
+            continue
+        if key in COMPOSED_BARS:
+            rel = float((np.abs(got.astype(np.float64) - want)
+                         / np.maximum(np.abs(want), 1e-30)).max())
+            check(rel <= COMPOSED_BARS[key], f"{key}: relative gap {rel:.3e}")
+            parted.append(f"{key} (relative {rel:.2e})")
+        elif key == "state.xquat":
+            ulps = int(np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32)).max())
+            check(ulps <= XQUAT_ULPS, f"{key}: {ulps} ulps")
+            parted.append(f"{key} ({ulps} ulps in {int((got != want).sum())} entries)")
+        else:
+            check(False, f"{path.name}: {key} is not bit-equal to the file's")
+    flies = {fly: {k: v for k, v in maps.items() if k not in ("tip_bodies", "eye_bodies")}
+             for fly, maps in ref_meta["flies"].items()}
+    check(meta["model"] == ref_meta["model"] and meta["flies"] == flies,
+          f"{path.name}: the composed metadata differs")
+    check(ref_meta.get("render", meta["render"]) == meta["render"],
+          f"{path.name}: the composed render metadata differs")
+    return parted
+
+
+def phase_composed_benchmark(world) -> tuple:
+    """Phase 45: the benchmark world the port composed against its file, K2
+    built for it against its plain version, the replay protocol and the
+    goldens."""
+    from flygym_tpu_torch.compose.bridge import ASSETS, BENCHMARK_FLY, BENCHMARK_GOLDEN, load_golden
+
+    parted = compile_gaps(world, BENCHMARK_FLY)
+    print(f"[composed] the benchmark world against benchmark_fly.npz: every field and the "
+          f"metadata bit-equal but {', '.join(parted) or 'none'}")
+    compiled = world.compiled
+    golden = load_golden()
+    k2 = k2_against_plain(
+        "composed kernel", compiled.model.to("cuda"),
+        lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None),
+        checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K)))
+    counts, _wall, sim = phase_slice(
+        compiled, label="composed", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
+        want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
+              "tree_ldl_factor": 0, "tree_ldl_solve": 0}, return_sim=True)
+    phase_golden(compiled, label="composed golden megastep",
+                 golden_path=ASSETS / "benchmark_fly_megastep_golden.npz", megastep=True)
+    phase_golden(compiled, label="composed golden engine", golden_path=BENCHMARK_GOLDEN,
+                 megastep=False)
+    return k2, counts, sim
+
+
+def fly_com(model, state) -> "torch.Tensor":
+    """(B, 3) centre of mass of every body of each world."""
+    from flygym_tpu_torch.engine.maths import quat_rotate
+
+    com = state.xpos + quat_rotate(state.xquat, model.body_ipos)
+    return (model.body_mass[:, None] * com).sum(1) / model.body_mass.sum()
+
+
+def phase_composed_options(composed: dict, bench_sim) -> dict:
+    """Phase 46: ``trim_contacts`` and ``simplify_geom``, each K2 against its
+    plain version and the replay protocol; the trimmed fly against phase
+    45's run."""
+    from flygym_tpu_torch.compose.bridge import load_golden
+
+    golden = load_golden()
+    counts = {}
+    for name in ("trim_contacts", "simplify_geom"):
+        compiled = composed[name][1].compiled
+        n_sensors = compiled.model.nsensor_contact
+
+        def inputs(fn, n, k, seed, compiled=compiled):
+            state, seq = k2_inputs(compiled, golden, n, k)
+            rows = state.contact_sensordata[:, :n_sensors].clone()
+            return replace(state, contact_sensordata=rows), seq, None
+
+        k2_against_plain(f"composed {name} kernel", compiled.model.to("cuda"), inputs,
+                         checks=((N_WORLDS, 1),), timed=False)
+        counts[name], _wall, sim = phase_slice(
+            compiled, label=f"composed {name}", megastep=None, settle=SETTLE_STEPS,
+            steps=N_STEPS, want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
+                                 "tree_ldl_factor": 0, "tree_ldl_solve": 0}, return_sim=True)
+        if name == "trim_contacts":
+            full, trim = bench_sim.state, sim.state
+            root = (trim.qpos[:, :3] - full.qpos[:, :3]).norm(dim=-1).max().item()
+            com = (fly_com(sim.model, trim) - fly_com(bench_sim.model, full)).norm(dim=-1)
+            print(f"[composed trim_contacts] after settle {SETTLE_STEPS} + 2 x {N_STEPS} replay "
+                  f"steps against phase 45's full preset: largest root gap {root:.3e} mm, "
+                  f"largest COM gap {com.max().item():.3e} mm (mean {com.mean().item():.3e}); "
+                  f"JAX's docstring claims < {TRIM_CLAIM_MM} mm: "
+                  f"{'within' if com.max().item() < TRIM_CLAIM_MM else 'NOT within'}")
+    return counts
+
+
+def gate_reasons(model) -> str:
+    """What K2's gate weighs on a model's size: the walk tables' indices and
+    the scratch rows in shared memory."""
+    from flygym_tpu_torch.ops import megastep
+
+    st = megastep._Static(model)
+    layout = megastep.scratch_layout(model)
+    return (f"{len(st.pair_keys)} Hessian entries and {st.ncand} candidates, the walk indices "
+            f"under 32768; scratch {layout['n_scratch']} floats per world, "
+            f"{4 * layout['n_shared']} bytes of the {megastep.SHARED_LIMIT} a block may use in "
+            f"shared memory, {layout['n_global']} floats in global memory, "
+            f"{layout['blocks_per_sm']} blocks per SM")
+
+
+def phase_all_biological(fly, world) -> dict:
+    """Phase 47: the fly with every biological joint (nv 132) at N_WORLDS on
+    the path the gate picks: a settle and a timed rollout at the neutral
+    targets; K2 against its plain version where the gate takes it."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.ops import megastep
+
+    compiled = world.compiled
+    model = compiled.model
+    supported = megastep.megastep_supported(model)
+    try:
+        why = gate_reasons(model)
+    except (ValueError, NotImplementedError) as e:
+        why = f"{type(e).__name__}: {e}"
+    path = "K2" if supported else "the engine step (K1/K1b): the gate refuses K2"
+    print(f"[all biological] nv {model.nv}, nu {model.nu}, ncand {model.ncand}: the path is "
+          f"{path} ({why})")
+    sim = BatchSimulation(compiled, N_WORLDS)
+    check(sim.megastep == supported, "the simulation's path is not the gate's")
+    sim.set_leg_adhesion_states(fly.name, np.ones(6, np.float32))
+    reset_counts()
+    sim.rollout(None, SETTLE_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.rollout(None, N_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = SETTLE_STEPS + N_STEPS
+    want = ({"megastep": SETTLE_STEPS + N_STEPS // MEGASTEP_K, "tree_ldl_factor": 0,
+             "tree_ldl_solve": 0} if supported else
+            {"megastep": 0, "tree_ldl_factor": n, "tree_ldl_solve": 2 * n})
+    for key, value in want.items():
+        check(counts[key] == value, f"all biological: {key} launches {counts[key]} != {value}")
+    st = sim.state
+    for name in ("qpos", "qvel", "xpos", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"all biological: {name} not finite")
+    z = st.qpos[:, 2]
+    print(f"[all biological] {N_WORLDS} worlds: settle {SETTLE_STEPS} + timed {N_STEPS} steps; "
+          f"launches {counts}; root z {z.min().item():.4f}-{z.max().item():.4f} mm; "
+          f"{N_STEPS * N_WORLDS / wall:.0f} world-steps/s on {card_line()}")
+    if supported:
+        held = st.map(lambda x: x.clone())
+        k2_against_plain(
+            "all biological kernel", sim.model,
+            lambda fn, n_, k, seed: (held.map(lambda x: x[:n_].clone()),
+                                     held.ctrl[:n_].expand((k, n_, model.nu)).clone(), None),
+            checks=((N_WORLDS, 1),), timed=False)
+    return counts
+
+
+def phase_composed_against_files(composed: dict) -> None:
+    """Phase 47: the tethered and the blocks-terrain worlds the port
+    composed, each against its file and in one K2 launch at N_WORLDS
+    against K2 built for the loaded file, on the same inputs."""
+    from flygym_tpu_torch import load_compiled
+    from flygym_tpu_torch.compose.bridge import (
+        TERRAIN_FLY, TETHERED_FLY, TETHERED_GOLDEN, load_actuator_golden, load_terrain_golden)
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+    from flygym_tpu_torch.ops import megastep
+
+    for name, path in (("tethered_fly", TETHERED_FLY), ("terrain_fly", TERRAIN_FLY)):
+        world = composed[name][1]
+        parted = compile_gaps(world, path)
+        mine, loaded = world.compiled, load_compiled(path)
+        m_mine, m_file = mine.model.to("cuda"), loaded.model.to("cuda")
+        fn_mine, fn_file = megastep.make_megastep(m_mine, 1), megastep.make_megastep(m_file, 1)
+        if name == "tethered_fly":
+            golden = load_actuator_golden(TETHERED_GOLDEN)
+            state, _seq = actuator_inputs(m_file, golden, N_WORLDS, 1, 5)
+            planes = None
+        else:
+            state, _seq = terrain_inputs(loaded, m_file, load_terrain_golden(), N_WORLDS, 1, 5)
+            planes = fn_file.sample_planes(state)
+        reset_counts()
+        got, want = fn_mine(state, planes), fn_file(state, planes)
+        launches = read_counts()["megastep"]
+        check(launches == 2, f"{name}: {launches} K2 launches, not 2")
+        gaps = {f: (getattr(got, f) - getattr(want, f)).abs().max().item()
+                for f in ("qpos", "qvel", "qacc", "xpos", "actuator_force")
+                if getattr(want, f).numel()}
+        same_header = megastep.model_header(mine.model)[0] == megastep.model_header(loaded.model)[0]
+        print(f"[composed {name}] against the file: bit-equal but "
+              f"{', '.join(parted) or 'none'}; K2 headers {'equal' if same_header else 'differ'}; "
+              f"one launch at B={N_WORLDS} each, max|composed - file|: "
+              + ", ".join(f"{f} {g:.2e}" for f, g in gaps.items()))
+        if same_header:
+            check(all(g == 0 for g in gaps.values()), f"{name}: one header, outputs differ")
+        check(gaps["qpos"] <= GOLDEN_TOLERANCE["qpos"] and gaps["qvel"] <= GOLDEN_TOLERANCE["qvel"],
+              f"{name}: the composed world parts from its file's beyond GOLDEN_TOLERANCE")
+
+
+def phase_mjcf(world) -> None:
+    """Phase 48: the benchmark world's MJCF against the CPU's, and the
+    viewer without MuJoCo."""
+    import hashlib
+    import importlib.util
+
+    from flygym_tpu_torch.render import launch_interactive_viewer
+
+    t0 = time.perf_counter()
+    xml = world.spec.to_mjcf_xml()
+    digest = hashlib.sha256(xml.encode()).hexdigest()
+    print(f"[mjcf] the benchmark world: {len(xml)} characters in "
+          f"{time.perf_counter() - t0:.2f} s, SHA-256 {digest} (the CPU's {MJCF_SHA256})")
+    check(digest == MJCF_SHA256, "the MJCF differs from the CPU's")
+    if importlib.util.find_spec("mujoco") is not None:
+        print("[mjcf] MuJoCo is installed here; the viewer is not launched")
+        return
+    try:
+        launch_interactive_viewer(world)
+    except ImportError as e:
+        check("mujoco" in str(e), f"the viewer's ImportError does not name mujoco: {e}")
+        print(f"[mjcf] launch_interactive_viewer without MuJoCo: ImportError: {e}")
+    else:
+        check(False, "launch_interactive_viewer ran without MuJoCo")
+
+
 def main() -> int:
     import torch
 
@@ -3138,6 +3466,7 @@ def main() -> int:
             MUSCLE_GOLDEN, STRICT_FLY, STRICT_GOLDEN, TAXIS_FLY, TERRAIN_FLY, TETHERED_FLY,
             TETHERED_GOLDEN, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_FULL, TWOFLY_FULL_GOLDEN,
             read_meta)
+        from flygym_tpu_torch.ops.megastep import megastep_supported
 
         compiled = flygym_tpu_torch.load_compiled()
         env_compiled = flygym_tpu_torch.load_compiled(ENV_FLY)
@@ -3156,8 +3485,9 @@ def main() -> int:
         weld_compiled = flygym_tpu_torch.load_compiled(ASSETS / "softweld_fly.npz")
         pgs_compiled = flygym_tpu_torch.load_compiled(ASSETS / "pgs_fly.npz")
         terrain_condim = terrain_at_condim(CONDIM_TIMED)
+        composed = compose_all()
         count_ops_in_background(ops_pool, [
-            (BENCHMARK_FLY, 0), (TERRAIN_FLY, 0), (TWOFLY, 0), (TWOFLY_FULL, 0), (THREEFLY, 0),
+            ("compose:benchmark", 0), (BENCHMARK_FLY, 0), (TERRAIN_FLY, 0), (TWOFLY, 0), (TWOFLY_FULL, 0), (THREEFLY, 0),
             (STRICT_FLY, 0), (MUSCLE_FLY, 0), (MIXED_FLY, 0), (TETHERED_FLY, 0),
             (ASSETS / f"condim{CONDIM_TIMED}_fly.npz", 0), (TAXIS_FLY, 0),
             (TERRAIN_FLY, CONDIM_TIMED)])
@@ -3170,7 +3500,9 @@ def main() -> int:
                      "tethered fly": tethered_compiled,
                      **{f"condim-{c} fly": condim_flies[c] for c in CONDIMS},
                      f"terrain fly, condim {CONDIM_TIMED}": terrain_condim,
-                     "taxis fly": taxis_compiled, "cpg fly": cpg_compiled},
+                     "taxis fly": taxis_compiled, "cpg fly": cpg_compiled,
+                     **{f"composed {name}": w.compiled for name, (_f, w) in composed.items()
+                        if megastep_supported(w.compiled.model)}},
                     compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
@@ -3322,6 +3654,20 @@ def main() -> int:
         lap("phase 43 (run_benchmark with rendering)")
         phase_render_vision(env_compiled, terrain_compiled)
         lap("phase 44 (FlyEnv's frame and the heightfield retina)")
+        k2_composed, composed_counts, bench_sim = phase_composed_benchmark(
+            composed["benchmark"][1])
+        lap("phase 45 (the benchmark world composed by the port)")
+        option_counts = phase_composed_options(composed, bench_sim)
+        del bench_sim
+        lap("phase 46 (trim_contacts and simplify_geom)")
+        biological_counts = phase_all_biological(*composed["all_biological"])
+        phase_composed_against_files(composed)
+        lap("phase 47 (every biological joint; the composed tethered and terrain worlds)")
+        phase_mjcf(composed["benchmark"][1])
+        lap("phase 48 (the MJCF)")
+        print(f"[composed] K2 launches on {card_line()}: benchmark {composed_counts['megastep']}, "
+              + ", ".join(f"{k} {v['megastep']}" for k, v in option_counts.items())
+              + f", all biological {biological_counts['megastep']}")
     except (PhaseFailed, ImportError, RuntimeError, ValueError, TypeError,
             NotImplementedError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -3400,6 +3746,9 @@ def main() -> int:
                             condim_counts["megastep"], MEGASTEP_K))
     k_taxis, = k2_taxis["times"]
     entries.append(k2_entry("megastep_taxis", k2_taxis, taxis["counts"]["megastep"], k_taxis))
+    # The benchmark world the port composed: its replay's K = 8 launch.
+    entries.append(k2_entry("megastep_composed", k2_composed, composed_counts["megastep"],
+                            MEGASTEP_K))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

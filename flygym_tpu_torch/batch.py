@@ -7,7 +7,6 @@ per-world step, this class only sizes the batch. Its renderer's frames keep
 the world axis: (n_selected, H, W, 3) of the ``world_ids`` chosen.
 """
 
-from flygym_tpu_torch.compose.bridge import CompiledModel
 from flygym_tpu_torch.simulation import Simulation
 from flygym_tpu_torch.utils.profiling import print_perf_report_parallel
 
@@ -15,8 +14,9 @@ __all__ = ["BatchSimulation"]
 
 
 class BatchSimulation(Simulation):
-    """``n_worlds`` copies of one compiled world on ``device`` (the card by
-    default); ``megastep``, ``megastep_k`` and ``terrain_resample`` as for
+    """``n_worlds`` copies of one world on ``device`` (the card by default):
+    a composed world, which it compiles, or a :class:`CompiledModel`;
+    ``megastep``, ``megastep_k`` and ``terrain_resample`` as for
     :class:`Simulation`.
 
     Getters return (n_worlds, ...) tensors on ``device``; setters take
@@ -25,13 +25,13 @@ class BatchSimulation(Simulation):
 
     _batched_frames = True
 
-    def __init__(self, compiled: CompiledModel, n_worlds: int, *, device="cuda",
+    def __init__(self, world, n_worlds: int, *, device="cuda",
                  megastep: bool | None = None, megastep_k: int = 8,
                  terrain_resample: int = 8) -> None:
         if n_worlds < 1:
             raise ValueError(f"n_worlds must be >= 1, got {n_worlds}")
         self.n_worlds = int(n_worlds)
-        super().__init__(compiled, device=device, megastep=megastep, megastep_k=megastep_k,
+        super().__init__(world, device=device, megastep=megastep, megastep_k=megastep_k,
                          terrain_resample=terrain_resample)
 
     def _batch(self, state):

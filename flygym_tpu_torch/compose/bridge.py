@@ -1,11 +1,13 @@
-"""The bridge from a compiled JAX model, exported as numpy, to the port.
+"""The bridge from a compiled model as numpy data to the port.
 
-The JAX package compiles a composed ``World`` into its ``PhysicsModel``
-(``flygym_tpu/compose/spec.py:907-1046``), which needs JAX. The port takes
-that compiled model as data instead: ``scripts/export_torch_model.py``
-writes every array field, the static fields, the initial state and the
-fly's index maps to an ``.npz`` file, and :func:`model_from_numpy` turns
-them into the port's :class:`~flygym_tpu_torch.engine.model.PhysicsModel`.
+The port composes and compiles worlds itself
+(:mod:`flygym_tpu_torch.compose`: ``Fly``, the worlds and
+``ModelSpec.compile_arrays``), and it loads the ``.npz`` files that the JAX
+package's ``scripts/export_*.py`` scripts wrote. Both take the same form:
+every array field of the compiled model and of the initial state, the static
+fields and the flies' index maps, as ``scripts/export_torch_model.py``
+writes them; :func:`model_from_numpy` turns them into the port's
+:class:`~flygym_tpu_torch.engine.model.PhysicsModel`, the one way into it.
 An RL env's world (``scripts/export_env_golden.py``) adds ``meta["env"]``:
 the env's index maps and tables, kept as :attr:`CompiledModel.env`. The
 blocks-terrain world of config 3 (``scripts/export_terrain_golden.py``)
@@ -24,9 +26,10 @@ candidates (``ncand`` 0, no sensors, no adhesion). Condim 1, 4 and 6, the
 PGS solver and soft welds (``welds``) are read as the JAX compile wrote
 them; ``scripts/export_taxis_golden.py`` writes the visual-taxis world (its
 fly's maps add ``eye_bodies``), the CPG walking world and the condim-6 fly.
-The benchmark fly, example 11's two flies and config 3's terrain fly carry
-``meta["render"]`` (``export(..., render=True)``): their cameras, geom names
-and body names, kept as :attr:`CompiledModel.render` for the renderer.
+``meta["render"]`` (the cameras, geom names and body names the renderer
+reads) is kept as :attr:`CompiledModel.render`; every world the port
+compiles has it, and of the exported files the benchmark fly, example 11's
+two flies and config 3's terrain fly.
 
 Differentiable mode, which the port does not have yet, is refused here
 with ``NotImplementedError`` rather than simulated wrongly.
@@ -77,6 +80,7 @@ __all__ = [
     "load_twofly_golden",
     "read_meta",
     "model_from_numpy",
+    "physics_model",
     "load_compiled",
     "load_golden",
 ]
@@ -120,17 +124,31 @@ class CompiledModel:
     (leg, parent link, child link, axis) tuples. ``env`` is the RL env's
     ``meta["env"]`` where the world was exported for one, else None.
     ``render`` is ``meta["render"]`` where the export wrote it (the cameras,
-    the geom names and the body name map the renderer reads), else None."""
+    the geom names and the body name map the renderer reads), else None.
+    ``names`` holds the compiler's name→index maps of a world the port
+    compiled (:meth:`~flygym_tpu_torch.compose.spec.ModelSpec.compile`),
+    read as attributes (``compiled.body_name2id``); None for a loaded
+    file."""
 
     model: PhysicsModel
     initial_state: State
     flies: dict
     env: dict | None = None
     render: dict | None = None
+    names: dict | None = None
 
     @property
     def fly_names(self) -> list:
         return list(self.flies)
+
+    def __getattr__(self, name):
+        # A world compiled by the port carries the compiler's name maps
+        # (``body_name2id``, ``hinge_qadr``, ... as the JAX package's
+        # ``CompiledModel`` names them); a loaded ``.npz`` file has none.
+        names = self.__dict__.get("names")
+        if names is not None and name in names:
+            return names[name]
+        raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -166,6 +184,18 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
         meta: ``{"model": static fields, "flies": per-fly index maps}``.
     """
     static = meta["model"]
+    state = State(
+        **{f.name: _tensor(arrays[f"state.{f.name}"])[None] for f in fields(State)}
+    )
+    return CompiledModel(
+        model=physics_model(arrays, static), initial_state=state, flies=meta["flies"],
+        env=meta.get("env"), render=meta.get("render"),
+    )
+
+
+def physics_model(arrays: dict, static: dict) -> PhysicsModel:
+    """The :class:`PhysicsModel` of ``arrays``' ``model.<field>`` entries and
+    the static fields ``static`` (``meta["model"]``), on the CPU."""
     _refuse_unported(static)
     kw = {}
     for f in fields(PhysicsModel):
@@ -185,13 +215,7 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
         torch.tensor([w[i] for w in kw["welds"]], dtype=torch.float32).reshape(-1, n)
         for i, n in ((3, 3), (4, 4), (6, 5))
     )
-    state = State(
-        **{f.name: _tensor(arrays[f"state.{f.name}"])[None] for f in fields(State)}
-    )
-    return CompiledModel(
-        model=PhysicsModel(**kw), initial_state=state, flies=meta["flies"], env=meta.get("env"),
-        render=meta.get("render"),
-    )
+    return PhysicsModel(**kw)
 
 
 def _read_npz(path):

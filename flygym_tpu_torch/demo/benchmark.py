@@ -5,7 +5,9 @@ is the reference's: position-actuator replay of the Spotlight clip with leg
 adhesion on flat ground, dt = 1e-4 s; the worlds settle for 500 steps, one
 untimed replay runs, then a timed replay from its end state. The metric is
 ``world-steps/s = n_steps * n_worlds / walltime``; :func:`run_benchmark`
-sweeps the world count, and :func:`main` prints ``bench.py``'s JSON line::
+sweeps the world count, and :func:`main` prints ``bench.py``'s JSON line.
+The benchmark world is composed and compiled by the port
+(:func:`make_model`)::
 
     python -m flygym_tpu_torch.demo.benchmark [world counts ...]
 
@@ -24,10 +26,22 @@ from time import perf_counter
 import numpy as np
 import torch
 
+from flygym_tpu_torch.anatomy import (
+    ALL_SEGMENT_NAMES,
+    ActuatedDOFPreset,
+    AxisOrder,
+    BodySegment,
+    JointPreset,
+    Skeleton,
+)
 from flygym_tpu_torch.batch import BatchSimulation
-from flygym_tpu_torch.compose.bridge import CompiledModel, load_compiled
+from flygym_tpu_torch.compose.bridge import CompiledModel
+from flygym_tpu_torch.compose.fly import ActuatorType, Fly, GeomFittingOption
+from flygym_tpu_torch.compose.pose import KinematicPosePreset
+from flygym_tpu_torch.compose.world import FlatGroundWorld
 from flygym_tpu_torch.demo.spotlight import MotionSnippet
 from flygym_tpu_torch.engine.step import step
+from flygym_tpu_torch.utils.math import Rotation3D
 
 __all__ = [
     "GOLDEN_TOLERANCE",
@@ -59,55 +73,68 @@ DEFAULT_WORLDS = 8192
 GOLDEN_TOLERANCE = {"qpos": 1e-4, "qvel": 0.25, "found_share": 0.01}
 
 
-# make_model's arguments as the JAX package's defaults give them (enums by
-# their values, the rotation as its quaternion).
-_MODEL_DEFAULTS = {
-    "joints_preset": "legs_only",
-    "actuated_dofs_preset": "legs_active_only",
-    "actuator_type": "position",
-    "position_gain": 50.0,
-    "neutral_pose": "neutral",
-    "spawn_position": (0, 0, 0.8),
-    "spawn_rotation": (1, 0, 0, 0),
-    "simplify_geom": False,
-    "trim_contacts": False,
-}
+def _value(x):
+    """An enum argument as its value, so that the port's enums, their values
+    and the JAX package's enums all select the same preset."""
+    return getattr(x, "value", x)
 
 
-def _plain(value):
-    """An argument as comparable data: an enum's value, a rotation's
-    quaternion, a sequence as a tuple of floats."""
-    value = getattr(value, "values", getattr(value, "value", value))
-    if isinstance(value, (list, tuple, np.ndarray)):
-        return tuple(float(x) for x in value)
-    return value
+def make_model(joints_preset=JointPreset.LEGS_ONLY,
+               actuated_dofs_preset=ActuatedDOFPreset.LEGS_ACTIVE_ONLY,
+               actuator_type=ActuatorType.POSITION, position_gain=50.0,
+               neutral_pose=KinematicPosePreset.NEUTRAL, spawn_position=(0, 0, 0.8),
+               spawn_rotation=Rotation3D("quat", (1, 0, 0, 0)), simplify_geom=False,
+               trim_contacts=False):
+    """The canonical benchmark fly and world, composed by the port
+    (``flygym_tpu/demo/benchmark.py:45-112``; reference
+    ``time_gpu_simulation.py:21-64``): ``(fly, world, cam)``. Compile with
+    ``world.compile()`` or hand the world to :class:`BatchSimulation`.
 
-
-def make_model(joints_preset="legs_only", actuated_dofs_preset="legs_active_only",
-               actuator_type="position", position_gain=50.0, neutral_pose="neutral",
-               spawn_position=(0, 0, 0.8), spawn_rotation=(1, 0, 0, 0), simplify_geom=False,
-               trim_contacts=False) -> CompiledModel:
-    """The benchmark fly and world (``flygym_tpu/demo/benchmark.py:45-112``)
-    as the port has it: the exported compile of the JAX defaults,
-    :func:`~flygym_tpu_torch.compose.bridge.load_compiled`'s default. The
-    presets, actuator type and pose take the JAX enums or their values, the
-    rotation a ``Rotation3D`` or its quaternion.
-
-    The port compiles no world itself, so an argument other than its JAX
-    default raises ``NotImplementedError``.
+    Args:
+        joints_preset, actuated_dofs_preset, actuator_type, neutral_pose:
+            The presets, as the port's enums or their values (the JAX
+            package's enums are taken by value too).
+        spawn_rotation: A ``Rotation3D`` or a (w, x, y, z) quaternion.
+        simplify_geom: Capsule-fit inertia for every segment
+            (``GeomFittingOption.ALL_TO_CAPSULES``).
+        trim_contacts: Single-world latency specialisation: ground contact
+            only for the distal tarsal links (tarsus3-5, 36 candidates
+            against the default preset's 110) and no ground-contact sensors.
+            The JAX package measured its flat-ground walking replay within
+            1e-3 mm of the full preset's COM over 2,000 steps (only tarsal
+            rows activate there); keep False on rugged terrain or in
+            collisions, where other segments touch.
     """
-    given = dict(joints_preset=joints_preset, actuated_dofs_preset=actuated_dofs_preset,
-                 actuator_type=actuator_type, position_gain=position_gain,
-                 neutral_pose=neutral_pose, spawn_position=spawn_position,
-                 spawn_rotation=spawn_rotation, simplify_geom=simplify_geom,
-                 trim_contacts=trim_contacts)
-    other = sorted(k for k, v in given.items() if _plain(v) != _plain(_MODEL_DEFAULTS[k]))
-    if other:
-        raise NotImplementedError(
-            f"make_model: {', '.join(other)} other than the JAX default needs a compile of "
-            "the world, which the port does not have yet (ROADMAP.md queue 1 item 9, the "
-            "JAX-free compile)")
-    return load_compiled()
+    geom_fitting = (
+        GeomFittingOption.ALL_TO_CAPSULES if simplify_geom else GeomFittingOption.UNMODIFIED
+    )
+    fly = Fly(geom_fitting_option=geom_fitting)
+    skeleton = Skeleton(axis_order=AxisOrder.YAW_PITCH_ROLL,
+                        joint_preset=JointPreset(_value(joints_preset)))
+    if neutral_pose is not None and not hasattr(neutral_pose, "joint_angles_lookup_rad"):
+        neutral_pose = KinematicPosePreset(_value(neutral_pose))
+    fly.add_joints(skeleton, neutral_pose=neutral_pose)
+    actuated = fly.skeleton.get_actuated_dofs_from_preset(
+        ActuatedDOFPreset(_value(actuated_dofs_preset)))
+    fly.add_actuators(actuated, actuator_type=ActuatorType(_value(actuator_type)),
+                      kp=position_gain, neutral_input=neutral_pose)
+    fly.add_leg_adhesion()
+    fly.colorize()
+    cam = fly.add_tracking_camera()
+
+    if hasattr(spawn_rotation, "format"):
+        spawn_rotation = Rotation3D(spawn_rotation.format, tuple(spawn_rotation.values))
+    else:
+        spawn_rotation = Rotation3D("quat", tuple(spawn_rotation))
+    world = FlatGroundWorld()
+    if trim_contacts:
+        tips = [BodySegment(n) for n in ALL_SEGMENT_NAMES
+                if n.split("_", 1)[-1] in ("tarsus3", "tarsus4", "tarsus5")]
+        world.add_fly(fly, spawn_position, spawn_rotation, bodysegs_with_ground_contact=tips,
+                      add_ground_contact_sensors=False)
+    else:
+        world.add_fly(fly, spawn_position, spawn_rotation)
+    return fly, world, cam
 
 
 class ReplayTargetData:
@@ -115,7 +142,9 @@ class ReplayTargetData:
     partitioned across worlds (reference ``time_gpu_simulation.py:67-86``).
 
     Args:
-        output_dof_order: (leg, parent link, child link, axis) tuples, e.g.
+        output_dof_order: Joint DoFs, e.g.
+            ``fly.get_actuated_jointdofs_order("position")``, or (leg, parent
+            link, child link, axis) tuples, e.g.
             ``sim.actuated_dofs(fly, "position")``.
     """
 
@@ -171,7 +200,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
+def run_simulation(compiled, replay_data: np.ndarray, *,
                    device="cuda", warmup_steps: int = 500, megastep: bool | None = None,
                    megastep_k: int = 8, enable_rendering: bool = False):
     """Settle, replay once untimed, then time a replay from the first one's
@@ -180,6 +209,8 @@ def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
     kernels' builds and first launches outside the timer.
 
     Args:
+        compiled: A :class:`CompiledModel`, or a composed world, which the
+            simulation compiles.
         replay_data: (n_worlds, n_steps, n_dofs) target angles.
         megastep, megastep_k: The step, as for :class:`BatchSimulation`.
         enable_rendering: Attach the tracking camera ``trackcam``
@@ -195,7 +226,7 @@ def run_simulation(compiled: CompiledModel, replay_data: np.ndarray, *,
                           megastep_k=megastep_k)
     if enable_rendering:
         sim.set_renderer("trackcam", playback_speed=0.2, output_fps=25)
-    fly = compiled.fly_names[0]
+    fly = sim.compiled.fly_names[0]
     sim.set_leg_adhesion_states(fly, np.ones((n_worlds, 6), np.float32))
     sim.rollout(None, warmup_steps, record_trajectory=False)
 
@@ -237,7 +268,9 @@ def run_benchmark(min_worlds: int, max_worlds: int, factor: int, sim_timestep: f
     """
     if factor < 2:
         raise ValueError(f"factor must be >= 2, got {factor}")
-    compiled = make_model(simplify_geom=simplify_geom)
+    _fly, world, _cam = make_model(simplify_geom=simplify_geom)
+    world.compile()
+    compiled = world.compiled
     if compiled.model.timestep != sim_timestep:
         raise ValueError(f"the model's timestep is {compiled.model.timestep}, not {sim_timestep}")
     replay = ReplayTargetData(sim_timestep, _position_dofs(compiled))
@@ -279,7 +312,9 @@ def main(argv=None) -> int:
     when no count ran."""
     args = sys.argv[1:] if argv is None else argv
     world_counts = [int(x) for x in args] or [DEFAULT_WORLDS]
-    compiled = make_model()
+    _fly, world, _cam = make_model()
+    world.compile()
+    compiled = world.compiled
     replay = ReplayTargetData(TIMESTEP, _position_dofs(compiled))
     best = 0.0
     for n_worlds in world_counts:

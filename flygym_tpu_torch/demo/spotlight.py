@@ -1,9 +1,10 @@
 """Experimentally recorded fly walking (Spotlight motion capture).
 
-Port of ``flygym_tpu/demo/spotlight.py``. It reads the clip bundled with the
-JAX package, ``flygym_tpu/assets/demo/spotlight_behavior_clip.npz``, by
-path, and takes the simulator's DoF order as (leg, parent link, child link,
-axis) tuples from the exported metadata instead of ``flygym_tpu.anatomy``.
+Port of ``flygym_tpu/demo/spotlight.py``. It reads the port's copy of the
+clip, ``flygym_tpu_torch/assets/demo/spotlight_behavior_clip.npz``, and
+takes the simulator's DoF order as joint DoFs of
+:mod:`flygym_tpu_torch.anatomy` or as (leg, parent link, child link, axis)
+tuples (a compiled world's ``flies`` maps).
 """
 
 from pathlib import Path
@@ -12,10 +13,7 @@ import numpy as np
 
 __all__ = ["MotionSnippet", "DEFAULT_CLIP_PATH"]
 
-DEFAULT_CLIP_PATH = (
-    Path(__file__).resolve().parents[2]
-    / "flygym_tpu/assets/demo/spotlight_behavior_clip.npz"
-)
+DEFAULT_CLIP_PATH = Path(__file__).resolve().parents[1] / "assets/demo/spotlight_behavior_clip.npz"
 # Savitzky-Golay smoothing before resampling (reference ``preprocessing.py:80-142``).
 SGFILTER_WINDOW_SEC = 0.03
 SGFILTER_POLYORDER = 3
@@ -68,7 +66,7 @@ class MotionSnippet:
 
         Savitzky-Golay smoothing, cubic interpolation onto the simulation's
         time grid, then the columns of ``output_dof_order``, a list of
-        (leg, parent link, child link, axis) tuples.
+        joint DoFs or of (leg, parent link, child link, axis) tuples.
 
         Returns:
             (n_output_steps, len(output_dof_order)) radians.
@@ -91,6 +89,14 @@ class MotionSnippet:
         )
         resampled = spline(out_t)
 
-        leg_of = [self.legs.index(leg) for leg, _p, _c, _a in output_dof_order]
-        slot_of = [self.dofs_per_leg.index((p, c, a)) for _leg, p, c, a in output_dof_order]
+        order = [_dof_key(d) for d in output_dof_order]
+        leg_of = [self.legs.index(leg) for leg, _p, _c, _a in order]
+        slot_of = [self.dofs_per_leg.index((p, c, a)) for _leg, p, c, a in order]
         return resampled[:, leg_of, slot_of]
+
+
+def _dof_key(dof) -> tuple:
+    """A joint DoF, or its tuple, as (leg, parent link, child link, axis)."""
+    if hasattr(dof, "child"):
+        return (dof.child.pos, dof.parent.link, dof.child.link, dof.axis.value)
+    return tuple(dof)

@@ -38,6 +38,8 @@ Port of ``flygym_tpu/engine/contact.py`` (lines 46-253, 256-357, 441-782):
    iteration after the first re-factors it from the current active set.
 
 ``samples["winners"]`` counts calls of a winner sampler.
+:func:`compute_candidate_invweight` and :func:`compute_actuator_acc0` run
+once per model, when the port compiles a world.
 """
 
 import functools
@@ -51,6 +53,8 @@ from flygym_tpu_torch.engine.model import ActKind, PhysicsModel
 from flygym_tpu_torch.ops import ldl
 
 __all__ = [
+    "compute_actuator_acc0",
+    "compute_candidate_invweight",
     "contact_candidates",
     "ground_height_normal",
     "make_pair_winner_sampler",
@@ -356,6 +360,73 @@ def _pyramid_rows(J, J_ang, fric, condim: int):
         rows.append(Jn + mu[..., None] * Jd)
         rows.append(Jn - mu[..., None] * Jd)
     return torch.stack(rows, dim=2)
+
+
+def _neutral_dynamics(model: PhysicsModel):
+    """Poses, motion subspace and mass matrix of one world at ``qpos0``."""
+    from flygym_tpu_torch.engine import dynamics
+    from flygym_tpu_torch.engine.kinematics import dof_subspace, kinematics_full
+
+    qpos = model.qpos0[None]
+    xpos, xquat, hinge_xaxis = kinematics_full(model, qpos)
+    ref = xpos[:, model.ref_body]
+    S = dof_subspace(model, xpos, hinge_xaxis, ref)
+    I_body = dynamics.body_spatial_inertias(model, xpos, xquat, ref)
+    return xpos, xquat, ref, S, dynamics.crba(model, I_body, S)
+
+
+def compute_candidate_invweight(model: PhysicsModel) -> torch.Tensor:
+    """Per-candidate pyramid-row inverse weights at the neutral pose,
+    (ncand, rows per contact).
+
+    Port of ``flygym_tpu/engine/contact.py:357``: every pyramid row of a
+    contact shares one inverse weight ``2 (1 + mu0²) · body_invweight0``,
+    where the body's translational invweight is the mean diagonal of
+    J M0⁻¹ Jᵀ for a point at its CoM at qpos0 (MuJoCo's diagApprox; the
+    world side of a ground row contributes zero). It runs once, when the
+    port compiles a world, on the CPU in float32, as MuJoCo's compiler runs
+    on the host; the Cholesky factor and solve are torch's, where the JAX
+    package takes ``jax.scipy.linalg.cho_factor``, so the two can differ in
+    the last bits.
+    """
+    xpos, xquat, ref, S, M = _neutral_dynamics(model)
+    chol = torch.linalg.cholesky(M[0])
+    K, nv = model.ncand, model.nv
+    eye3 = torch.eye(3, dtype=M.dtype).expand(1, K, 3, 3)
+    world = torch.zeros_like(model.can_body)[None]
+
+    def body_weight(body):
+        com = xpos[:, body] + quat_rotate(xquat[:, body], model.body_ipos[body])
+        Jt = _contact_jacobian(model, body[None], com, S, ref, eye3, world).reshape(-1, nv)
+        X = torch.cholesky_solve(Jt.T, chol)
+        return torch.sum(Jt * X.T, dim=1).reshape(K, 3).mean(dim=1)
+
+    w = body_weight(model.can_body) + body_weight(model.can_body2)
+    mu0 = model.can_friction[:, 0]
+    w_row = 2.0 * (1.0 + mu0 * mu0) * w
+    nrows = n_pyramid_rows(model.condim)
+    return torch.clamp(w_row, min=1e-12)[:, None] * torch.ones((1, nrows), dtype=M.dtype)
+
+
+def compute_actuator_acc0(model: PhysicsModel) -> torch.Tensor:
+    """|qacc| per unit actuator force at the neutral pose, per actuator (nu,).
+
+    Port of ``flygym_tpu/engine/contact.py:405``: MuJoCo's compile-time
+    ``acc0``, with which the muscle model scales its peak force
+    (``force = scale / acc0`` when gainprm's force is negative). Like
+    :func:`compute_candidate_invweight` it runs once, at compile time, on
+    the CPU in float32, with torch's Cholesky factor and solve.
+    """
+    _xpos, _xquat, _ref, _S, M = _neutral_dynamics(model)
+    Mh = M[0] + model.timestep * torch.diag(model.dof_damping)
+    chol = torch.linalg.cholesky(Mh)
+    moments = torch.zeros((model.nu, model.nv), dtype=M.dtype)
+    if model.nhinge:
+        hs = torch.clamp(model.act_hinge, min=0)
+        rows = torch.arange(model.nu)
+        moments[rows, model.hinge_vadr[hs]] = (model.act_hinge >= 0).to(M.dtype)
+    qacc = torch.cholesky_solve(moments.T, chol)  # (nv, nu)
+    return torch.linalg.norm(qacc.T, dim=1)
 
 
 def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,

@@ -16,9 +16,11 @@ from flygym_tpu_torch.engine.maths import (
     cross,
     motion_cross,
     quat_from_axis_angle,
-    quat_mul,
-    quat_rotate,
+    quat_mul_fma,
+    quat_rotate_fma,
 )
+from flygym_tpu_torch.engine.maths import quat_mul as _quat_mul
+from flygym_tpu_torch.engine.maths import quat_rotate as _quat_rotate
 from flygym_tpu_torch.engine.model import PhysicsModel
 
 __all__ = [
@@ -30,18 +32,23 @@ __all__ = [
 ]
 
 
-def forward_kinematics(model: PhysicsModel, qpos: torch.Tensor):
-    """Body world poses (B, nbody, 3) and (B, nbody, 4) from (B, nq) qpos."""
-    xpos, xquat, _ = kinematics_full(model, qpos)
+def forward_kinematics(model: PhysicsModel, qpos: torch.Tensor, fused: bool = False):
+    """Body world poses (B, nbody, 3) and (B, nbody, 4) from (B, nq) qpos.
+
+    ``fused`` rounds the quaternion products and rotations as the JAX
+    package's jitted programs do on the CPU (``quat_mul_fma``,
+    ``quat_rotate_fma``); the step rounds them one operation at a time."""
+    xpos, xquat, _ = kinematics_full(model, qpos, fused)
     return xpos, xquat
 
 
-def _local_transforms(model: PhysicsModel, qpos: torch.Tensor):
+def _local_transforms(model: PhysicsModel, qpos: torch.Tensor, fused: bool = False):
     """Per-body local transform in the parent frame, plus per-hinge prefixes.
 
     Returns (lpos (B, nb, 3), lquat (B, nb, 4), hinge_prefix (B, nh, 4)): the
     last is the within-body rotation accumulated before each hinge.
     """
+    quat_mul = quat_mul_fma if fused else _quat_mul
     B, nb = qpos.shape[0], model.nbody
     identity = qpos.new_tensor([1.0, 0.0, 0.0, 0.0])
 
@@ -72,16 +79,19 @@ def _local_transforms(model: PhysicsModel, qpos: torch.Tensor):
     return lpos, lquat, hinge_prefix
 
 
-def kinematics_full(model: PhysicsModel, qpos: torch.Tensor):
+def kinematics_full(model: PhysicsModel, qpos: torch.Tensor, fused: bool = False):
     """FK along the ancestor jumps; also returns per-hinge world axes.
 
     The world axis of hinge k uses the rotation accumulated before that
     hinge (later hinges of the same body do not leave it invariant).
+    ``fused`` as for :func:`forward_kinematics`.
 
     Returns:
         xpos: (B, nbody, 3), xquat: (B, nbody, 4), hinge_xaxis: (B, nhinge, 3).
     """
-    pos, quat, hinge_prefix = _local_transforms(model, qpos)
+    quat_mul = quat_mul_fma if fused else _quat_mul
+    quat_rotate = quat_rotate_fma if fused else _quat_rotate
+    pos, quat, hinge_prefix = _local_transforms(model, qpos, fused)
     # After round k, (pos, quat)[b] is the transform from b's 2^(k+1)-th
     # ancestor (or the world) to b.
     for jump in model.ancestor_jumps:
@@ -160,6 +170,6 @@ def velocity_pass(model: PhysicsModel, qvel, xpos, S):
 def geom_poses(model: PhysicsModel, xpos, xquat):
     """World poses of all geoms: (B, ngeom, 3) positions, (B, ngeom, 4) quats."""
     b = model.geom_body
-    gpos = xpos[:, b] + quat_rotate(xquat[:, b], model.geom_pos)
-    gquat = quat_mul(xquat[:, b], model.geom_quat)
+    gpos = xpos[:, b] + _quat_rotate(xquat[:, b], model.geom_pos)
+    gquat = _quat_mul(xquat[:, b], model.geom_quat)
     return gpos, gquat

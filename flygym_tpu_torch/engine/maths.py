@@ -20,13 +20,16 @@ import torch
 __all__ = [
     "cosf",
     "cross",
+    "cross_fma",
     "fma32",
     "sinf",
     "sqrt_rn",
     "norm",
     "quat_mul",
+    "quat_mul_fma",
     "quat_conj",
     "quat_rotate",
+    "quat_rotate_fma",
     "quat_rotate_inv",
     "quat_from_axis_angle",
     "quat_integrate",
@@ -228,6 +231,43 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     where the float64 sum lands exactly halfway between two float32 values
     without being so, about once in 2^29 sums."""
     return (a.double() * b.double() + c.double()).float()
+
+
+# The quaternion algebra as the JAX package's jitted programs round it on
+# the CPU: XLA contracts a product feeding a sum into one fused multiply-add
+# (which product of a sum it fuses depends on the program; these are the
+# pairs of the jitted plane sampler, engine/terrain.py, and of the jitted
+# neutral-pose kinematics, engine/model.py:make_initial_state).
+
+
+def cross_fma(a, b):
+    """a × b as XLA's CPU backend fuses ``jnp.cross`` under ``jit``:
+    fma(a1, b2, -(a2 b1)), ..."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([fma32(a1, b2, -(a2 * b1)), fma32(a2, b0, -(a0 * b2)),
+                        fma32(a0, b1, -(a1 * b0))], dim=-1)
+
+
+def quat_rotate_fma(q, v):
+    """``quat_rotate`` fused: v + 2 (qw uv + qv × uv), uv = qv × v."""
+    qw, qv = q[..., :1], q[..., 1:]
+    uv = cross_fma(qv, v)
+    t = fma32(qw, uv, cross_fma(qv, uv))
+    return fma32(torch.full_like(t, 2.0), t, v)
+
+
+def quat_mul_fma(a, b):
+    """``quat_mul`` fused: each component a chain of fused multiply-adds
+    from its first two products on."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        fma32(-az, bz, fma32(-ay, by, fma32(aw, bw, -(ax * bx)))),
+        fma32(-az, by, fma32(ay, bz, fma32(aw, bx, ax * bw))),
+        fma32(az, bx, fma32(ay, bw, fma32(aw, by, -(ax * bz)))),
+        fma32(az, bw, fma32(-ay, bx, fma32(aw, bz, ax * by))),
+    ], dim=-1)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -204,13 +204,19 @@ class State:
         return State(**{f.name: fn(getattr(self, f.name)) for f in fields(self)})
 
 
-def make_initial_state(model: PhysicsModel, batch_size: int = 1) -> State:
-    """Neutral-keyframe state of ``batch_size`` worlds."""
+def make_initial_state(model: PhysicsModel, batch_size: int = 1, fused: bool = False) -> State:
+    """Neutral-keyframe state of ``batch_size`` worlds.
+
+    ``fused`` rounds the poses as the JAX package's jitted
+    ``make_initial_state`` does on the CPU (the fused multiply-adds of
+    :func:`~flygym_tpu_torch.engine.kinematics.forward_kinematics`); the
+    compile takes it, so that a composed world's initial state is the JAX
+    compile's."""
     from flygym_tpu_torch.engine.kinematics import forward_kinematics
 
     B = batch_size
     qpos = model.qpos0.expand(B, model.nq).clone()
-    xpos, xquat = forward_kinematics(model, qpos)
+    xpos, xquat = forward_kinematics(model, qpos, fused)
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=model.device)
     return State(
         qpos=qpos,
@@ -221,17 +227,17 @@ def make_initial_state(model: PhysicsModel, batch_size: int = 1) -> State:
         qacc=zeros(B, model.nv),
         xpos=xpos,
         xquat=xquat,
-        site_xpos=compute_site_xpos(model, xpos, xquat),
+        site_xpos=compute_site_xpos(model, xpos, xquat, fused),
         actuator_force=zeros(B, model.nu),
         contact_sensordata=zeros(B, model.nsensor_contact, 16),
     )
 
 
-def compute_site_xpos(model: PhysicsModel, xpos, xquat) -> torch.Tensor:
-    from flygym_tpu_torch.engine.maths import quat_rotate
+def compute_site_xpos(model: PhysicsModel, xpos, xquat, fused: bool = False) -> torch.Tensor:
+    from flygym_tpu_torch.engine.maths import quat_rotate, quat_rotate_fma
 
     if model.nsite == 0:
         return xpos.new_zeros((xpos.shape[0], 0, 3))
     body_q = xquat[:, model.site_body]
     body_p = xpos[:, model.site_body]
-    return body_p + quat_rotate(body_q, model.site_pos)
+    return body_p + (quat_rotate_fma if fused else quat_rotate)(body_q, model.site_pos)

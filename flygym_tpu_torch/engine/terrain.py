@@ -27,7 +27,7 @@ select the same grid values exactly on a TPU's matrix unit.
 
 import torch
 
-from flygym_tpu_torch.engine.maths import fma32
+from flygym_tpu_torch.engine.maths import fma32, quat_mul_fma, quat_rotate_fma
 from flygym_tpu_torch.engine.model import PhysicsModel
 
 __all__ = ["make_plane_sampler", "reset_samples", "samples"]
@@ -37,35 +37,6 @@ samples = {"planes": 0}
 
 def reset_samples() -> None:
     samples["planes"] = 0
-
-
-def _cross(a, b):
-    """a × b as XLA fuses ``jnp.cross``: fma(a1, b2, -(a2 b1)), ..."""
-    a0, a1, a2 = a.unbind(-1)
-    b0, b1, b2 = b.unbind(-1)
-    return torch.stack([fma32(a1, b2, -(a2 * b1)), fma32(a2, b0, -(a0 * b2)),
-                        fma32(a0, b1, -(a1 * b0))], dim=-1)
-
-
-def _quat_rotate(q, v):
-    """``quat_rotate`` fused: v + 2 (qw uv + qv × uv), uv = qv × v."""
-    qw, qv = q[..., :1], q[..., 1:]
-    uv = _cross(qv, v)
-    t = fma32(qw, uv, _cross(qv, uv))
-    return fma32(torch.full_like(t, 2.0), t, v)
-
-
-def _quat_mul(a, b):
-    """``quat_mul`` fused: each component a chain of fused multiply-adds
-    from its first two products on."""
-    aw, ax, ay, az = a.unbind(-1)
-    bw, bx, by, bz = b.unbind(-1)
-    return torch.stack([
-        fma32(-az, bz, fma32(-ay, by, fma32(aw, bw, -(ax * bx)))),
-        fma32(-az, by, fma32(ay, bz, fma32(aw, bx, ax * bw))),
-        fma32(az, bx, fma32(ay, bw, fma32(aw, by, -(ax * bz)))),
-        fma32(az, bw, fma32(-ay, bx, fma32(aw, bz, ax * by))),
-    ], dim=-1)
 
 
 def make_plane_sampler(model: PhysicsModel):
@@ -86,11 +57,11 @@ def make_plane_sampler(model: PhysicsModel):
 
     def sample(xpos: torch.Tensor, xquat: torch.Tensor) -> torch.Tensor:
         q = xquat[:, body]
-        gpos = xpos[:, body] + _quat_rotate(q, gpos_l)
+        gpos = xpos[:, body] + quat_rotate_fma(q, gpos_l)
         # The z axis made on the device: a copy from the host would wait
         # for the card's queue to drain.
         ez = torch.cat([xpos.new_zeros(2), xpos.new_ones(1)]).expand(gpos.shape)
-        ep = fma32(end.expand(gpos.shape), _quat_rotate(_quat_mul(q, gquat_l), ez), gpos)
+        ep = fma32(end.expand(gpos.shape), quat_rotate_fma(quat_mul_fma(q, gquat_l), ez), gpos)
         fx = torch.clamp((ep[..., 0] - model.hfield_xy0[0]) / model.hfield_cell[0], 0.0, hi_x)
         fy = torch.clamp((ep[..., 1] - model.hfield_xy0[1]) / model.hfield_cell[1], 0.0, hi_y)
         ix, iy = torch.floor(fx), torch.floor(fy)

@@ -3,11 +3,10 @@
 Port of ``flygym_tpu/olfaction.py``, batch-first. Static odor sources with
 per-dimension peak intensities; inverse-square (``peak / r^2``) or Gaussian
 diffusion; four sensors (left/right antenna, left/right palp) give an
-(n_dimensions, 4) observation per world.
-
-Not ported: ``OdorField.for_fly``, which needs a composed world; the port
-builds the field from the tables that ``scripts/export_env_golden.py``
-exports (:meth:`OdorField.for_compiled`).
+(n_dimensions, 4) observation per world. :meth:`OdorField.for_fly` builds
+the field for a fly of a world the port compiled, and
+:meth:`OdorField.for_compiled` from the tables that
+``scripts/export_env_golden.py`` exports.
 """
 
 from dataclasses import dataclass
@@ -49,6 +48,32 @@ class OdorField:
                 "peak_intensity must have one row per odor source "
                 f"({self.source_pos.shape[0]}), got {self.peak_intensity.shape[0]}"
             )
+
+    @classmethod
+    def for_fly(cls, world, fly_name: str, source_pos, peak_intensity, *,
+                diffusion: str = "inverse_square", gaussian_scale: float = 10.0) -> "OdorField":
+        """Build for a fly of a compiled world (``world.compile()``) with the
+        canonical 4 sensors: the antennae (funiculus segments) and the
+        maxillary palps (offsets on the rostrum), as
+        ``flygym_tpu/olfaction.py:47`` does."""
+        ids = world.compiled.body_name2id
+        ns = fly_name
+        sensor_bodies = np.array([ids[f"{ns}/l_funiculus"], ids[f"{ns}/r_funiculus"],
+                                  ids[f"{ns}/c_rostrum"], ids[f"{ns}/c_rostrum"]], np.int64)
+        sensor_offsets = np.array([
+            [0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0],
+            [0.05, 0.1, -0.1],  # left maxillary palp, rostrum frame
+            [0.05, -0.1, -0.1],  # right maxillary palp
+        ], np.float32)
+        source_pos = np.atleast_2d(np.asarray(source_pos, np.float32))
+        peak_intensity = np.atleast_2d(np.asarray(peak_intensity, np.float32))
+        if peak_intensity.shape[0] != source_pos.shape[0]:
+            raise ValueError("peak_intensity must have one row per odor source "
+                             f"({source_pos.shape[0]}), got {peak_intensity.shape[0]}")
+        return cls(source_pos=source_pos, peak_intensity=peak_intensity,
+                   sensor_bodies=sensor_bodies, sensor_offsets=sensor_offsets,
+                   diffusion=diffusion, gaussian_scale=gaussian_scale)
 
     @classmethod
     def for_compiled(cls, compiled, **overrides) -> "OdorField":

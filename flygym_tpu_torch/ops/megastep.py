@@ -550,7 +550,12 @@ def megastep_supported(model: PhysicsModel) -> bool:
     qacc is the tree solve of Mh against the forces), candidate paths that
     run down one chain of the tree per body, pair rows without sensors or
     adhesion, and compressed pair rows (:func:`_winner_paths_ok`) on flat
-    ground only. There is no VMEM estimate."""
+    ground only. Its sizes must fit K2: the walk tables' indices
+    (``_pack16``: the Hessian entries and candidates below 2^15) and the
+    first scratch slot in a block's shared memory (``scratch_layout`` moves
+    the later slots to global memory where shared memory runs out). The
+    fly at every preset passes: ``JointPreset.ALL_POSSIBLE`` (nv 210, 3,408
+    Hessian entries) needs 103 KB of shared memory."""
     compressed = model.pair_compress and model.ncand_pair
     if (
         model.solver_type != "newton"
@@ -564,6 +569,8 @@ def megastep_supported(model: PhysicsModel) -> bool:
         st = _Static(model)
     except ValueError:  # a compressed group breaks its invariants
         return False
+    if len(st.pair_keys) >= 1 << 15 or st.ncand >= 1 << 15 or not _first_slot_fits(model):
+        return False
     pairs = range(st.ng_rows, st.ncand)
     if any(int(st.can_sensor[c]) >= 0 or int(st.can_adh_act[c]) >= 0 for c in pairs):
         return False
@@ -572,6 +579,12 @@ def megastep_supported(model: PhysicsModel) -> bool:
         return all(_path_on_chain(st, b) for b in bodies) and _winner_paths_ok(st)
     bodies |= {int(st.geom_body[int(st.can_geom2[c])]) for c in pairs}
     return all(_path_on_chain(st, b) for b in bodies) and all(_fill_by_part(st, c) for c in pairs)
+
+
+def _first_slot_fits(model: PhysicsModel) -> bool:
+    """The Newton loop's candidate rows, K2's first scratch slot, fit in a
+    block's shared memory."""
+    return scratch_layout(model)["n_shared"] > 0
 
 
 def _path_on_chain(st: _Static, body: int) -> bool:

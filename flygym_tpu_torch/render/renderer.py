@@ -5,9 +5,11 @@ batch: frames of the selected worlds are rendered in one call of
 :func:`~flygym_tpu_torch.render.raycast.render_pixels` on the simulation's
 device and buffered there as uint8 tensors; :meth:`Renderer.save_video`
 copies them to the host. The cameras, the geom names of the mesh SDF pack
-and the body names of light targets come from the export's
-``meta["render"]`` (:attr:`CompiledModel.render`), as the port has no
-composed world.
+and the body names of light targets come from ``meta["render"]``
+(:attr:`CompiledModel.render`), which every world the port compiles
+carries, as do the exported benchmark fly, two-fly and terrain worlds.
+:func:`launch_interactive_viewer` opens a composed world's MJCF
+(``ModelSpec.to_mjcf_xml``) in MuJoCo's viewer.
 """
 
 from dataclasses import dataclass
@@ -25,7 +27,7 @@ from flygym_tpu_torch.engine.model import State
 from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.render.raycast import capsule_mask, render_pixels
 
-__all__ = ["Camera", "Renderer", "launch_interactive_viewer", "preview_model"]
+__all__ = ["Camera", "Renderer", "launch_interactive_viewer", "preview_model", "viewer_world"]
 
 
 @dataclass(frozen=True)
@@ -358,11 +360,12 @@ class Renderer:
         return False
 
 
-def preview_model(compiled: CompiledModel, camera="trackcam", *, duration_s: float = 0.02,
+def preview_model(compiled, camera="trackcam", *, duration_s: float = 0.02,
                   camera_res=(240, 320), save_path: PathLike | None = None, device="cuda"):
     """A short warm-up and one frame (the reference's ``rendering.py:
-    300-351``): the (H, W, 3) uint8 frame on ``device``, also written as an
-    image to ``save_path`` if given."""
+    300-351``) of a :class:`CompiledModel` or a composed world: the (H, W,
+    3) uint8 frame on ``device``, also written as an image to ``save_path``
+    if given."""
     from flygym_tpu_torch.simulation import Simulation
 
     sim = Simulation(compiled, device=device)
@@ -376,10 +379,98 @@ def preview_model(compiled: CompiledModel, camera="trackcam", *, duration_s: flo
     return frame
 
 
-def launch_interactive_viewer(*_args, **_kwargs):
-    """MuJoCo's interactive viewer loads the world's MJCF, which only the
-    JAX package's compose writes; the port waits for its own compile
-    (``ROADMAP.md`` queue 1 item 9)."""
-    raise NotImplementedError(
-        "launch_interactive_viewer needs the world's MJCF, which the port cannot write "
-        "before it compiles worlds itself (ROADMAP.md queue 1 item 9)")
+def viewer_world():
+    """The world ``scripts/launch_interactive_viewer.py`` opens: the fly
+    with every biological joint, position actuators on the active leg DoFs
+    (kp 50, the neutral pose), joint sites, colours and the tracking camera,
+    on flat ground at (0, 0, 0.8) with the default contact segments."""
+    from flygym_tpu_torch.anatomy import (
+        ActuatedDOFPreset, AxisOrder, ContactBodiesPreset, JointPreset, Skeleton)
+    from flygym_tpu_torch.compose import (
+        ActuatorType, FlatGroundWorld, Fly, KinematicPosePreset)
+    from flygym_tpu_torch.utils.math import Rotation3D
+
+    fly = Fly()
+    skeleton = Skeleton(joint_preset=JointPreset.ALL_BIOLOGICAL,
+                        axis_order=AxisOrder.YAW_PITCH_ROLL)
+    fly.add_joints(skeleton, KinematicPosePreset.NEUTRAL)
+    fly.add_actuators(skeleton.get_actuated_dofs_from_preset(ActuatedDOFPreset.LEGS_ACTIVE_ONLY),
+                      ActuatorType.POSITION, neutral_input=KinematicPosePreset.NEUTRAL, kp=50.0)
+    fly.add_joint_sites(fly.skeleton.anatomical_joints)
+    fly.colorize()
+    fly.add_tracking_camera()
+    world = FlatGroundWorld()
+    world.add_fly(fly, (0, 0, 0.8), Rotation3D("quat", (1, 0, 0, 0)),
+                  bodysegs_with_ground_contact=ContactBodiesPreset.LEGS_THORAX_ABDOMEN_HEAD)
+    return world
+
+
+def launch_interactive_viewer(world=None, run_async: bool = False,
+                              init_keyframe: str | None = "neutral",
+                              fallback_path: PathLike | None = None):
+    """Open a composed world in MuJoCo's interactive viewer (reference
+    ``rendering.py:271-297``; ``flygym_tpu/render/renderer.py:457`` and
+    ``scripts/launch_interactive_viewer.py``).
+
+    The world's compiled model is written as standalone MJCF (primitive
+    geoms and explicit inertials, ``world.spec.to_mjcf_xml()``), which the
+    stock viewer loads. ``mujoco`` is imported here, when the function is
+    called.
+
+    Args:
+        world: A composed world; None composes :func:`viewer_world`.
+        run_async: Launch in a separate process and return it (for
+            notebooks).
+        init_keyframe: Keyframe to reset to ("neutral", the only one the
+            composer writes), or None for the model's default state.
+        fallback_path: On a host without a display, write the MJCF here and
+            return its path instead of raising.
+
+    Raises:
+        TypeError: ``world`` is not a composed world (a loaded
+            :class:`CompiledModel` has no model description to write).
+        ImportError: ``mujoco`` is not installed.
+        RuntimeError: No display, and no ``fallback_path``.
+    """
+    import os
+    import sys
+
+    if world is not None and not hasattr(world, "spec"):
+        raise TypeError("launch_interactive_viewer takes a composed world (its MJCF is written "
+                        f"from the world's model description), not a {type(world).__name__}")
+    try:
+        import mujoco
+        import mujoco.viewer
+    except ImportError as e:
+        raise ImportError(
+            "launch_interactive_viewer needs the 'mujoco' package (pip install mujoco), "
+            "which is not installed; write the MJCF with world.save_xml_with_assets(path) "
+            "and open it where MuJoCo is") from e
+    world = viewer_world() if world is None else world
+    xml = world.spec.to_mjcf_xml()
+    if sys.platform.startswith("linux") and not (
+        os.environ.get("DISPLAY") or os.environ.get("WAYLAND_DISPLAY")
+    ):
+        # GLFW hangs or aborts rather than failing cleanly without a display.
+        if fallback_path is not None:
+            Path(fallback_path).write_text(xml)
+            return Path(fallback_path)
+        raise RuntimeError(
+            "Interactive viewing needs a display. On a headless host use preview_model "
+            "for offline frames, or world.save_xml_with_assets(path) and open the MJCF "
+            "elsewhere (python -m mujoco.viewer).")
+
+    mj_model = mujoco.MjModel.from_xml_string(xml)
+    mj_data = mujoco.MjData(mj_model)
+    if init_keyframe is not None and mj_model.nkey > 0:
+        key_id = mujoco.mj_name2id(mj_model, mujoco.mjtObj.mjOBJ_KEY, init_keyframe)
+        if key_id >= 0:
+            mujoco.mj_resetDataKeyframe(mj_model, mj_data, key_id)
+    if run_async:
+        from multiprocessing import Process
+
+        p = Process(target=mujoco.viewer.launch, args=(mj_model, mj_data))
+        p.start()  # the viewer owns its own lifetime
+        return p
+    mujoco.viewer.launch(mj_model, mj_data)
+    return None

@@ -2,8 +2,8 @@
 
 Port of ``flygym_tpu/render/sdf.py``, batch-first. Each body segment's
 anatomical mesh is baked offline into a small body-frame signed-distance
-grid (``flygym_tpu/assets/model/sdf_meshes.npz``, read by path from the JAX
-package's assets, as :mod:`flygym_tpu_torch.demo.spotlight` reads its clip).
+grid (``flygym_tpu_torch/assets/model/sdf_meshes.npz``, the port's copy of
+the JAX package's pack).
 The raycaster's capsule pass proposes up to two candidate geoms per ray; each
 candidate's grid is sphere traced for a fixed number of steps in its body
 frame near the capsule hit, and the nearest mesh hit wins, with the SDF
@@ -21,7 +21,7 @@ from flygym_tpu_torch.render.raycast import _gather_rows
 
 __all__ = ["SDF_MESHES", "build_sdf_pack", "sdf_refine"]
 
-SDF_MESHES = Path(__file__).resolve().parents[2] / "flygym_tpu/assets/model/sdf_meshes.npz"
+SDF_MESHES = Path(__file__).resolve().parents[1] / "assets/model/sdf_meshes.npz"
 _BIG = 1e30
 N_MARCH = 40
 HIT_EPS_VOX = 0.6  # a hit where the SDF is below this many voxels

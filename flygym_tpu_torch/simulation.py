@@ -1,6 +1,7 @@
 """Single-world simulation runtime.
 
-Port of ``flygym_tpu/simulation.py``: construct from a compiled model,
+Port of ``flygym_tpu/simulation.py``: construct from a composed world
+(which it compiles, as the JAX package does) or from a compiled model,
 ``step()`` / ``step_with_profile()`` / ``warmup()`` / ``reset()``, roll out,
 read state in the fly's canonical orders, write control inputs, attach a
 renderer and render as simulated time passes, save and load the state, and
@@ -44,8 +45,11 @@ class Simulation:
     """Physics of one world on ``device``.
 
     Args:
-        compiled: A :class:`CompiledModel`, e.g. from
-            :func:`flygym_tpu_torch.load_compiled`.
+        world: A composed world with at least one fly
+            (:class:`~flygym_tpu_torch.compose.world.BaseWorld`), compiled
+            here on the CPU; or a :class:`CompiledModel`, e.g. from
+            :func:`flygym_tpu_torch.load_compiled` or a world's
+            ``compiled``.
         device: Where the model and state live: the card by default; pass
             ``"cpu"`` to run on the CPU.
         megastep: Step through the mega-step kernel. None takes it on a CUDA
@@ -63,8 +67,15 @@ class Simulation:
     # Frames of a batch keep their world axis (BatchSimulation).
     _batched_frames = False
 
-    def __init__(self, compiled: CompiledModel, *, device="cuda", megastep: bool | None = None,
+    def __init__(self, world, *, device="cuda", megastep: bool | None = None,
                  megastep_k: int = 8, terrain_resample: int = 8) -> None:
+        if isinstance(world, CompiledModel):
+            self.world, compiled = None, world
+        else:
+            if len(world.fly_lookup) == 0:
+                raise ValueError("The world must contain at least one fly.")
+            world.compile()
+            self.world, compiled = world, world.compiled
         if not compiled.flies:
             raise ValueError("The compiled world must contain at least one fly.")
         self.compiled = compiled

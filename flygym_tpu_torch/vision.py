@@ -20,8 +20,8 @@ Output: (B, 2 eyes, n_omm, 2 channels) intensities in [0, 1].
   on a heightfield world, which JAX keeps off its kernel too,
   :meth:`Retina.render`.
 
-Not ported: ``Retina.for_fly``, which needs a composed world; the port builds
-the retina from the exported env metadata (:meth:`Retina.for_compiled`).
+:meth:`Retina.for_fly` builds the retina for a fly of a world the port
+compiled, :meth:`Retina.for_compiled` from an exported world's eye bodies.
 """
 
 from dataclasses import dataclass
@@ -161,6 +161,14 @@ class Retina:
             blur_weights=blur,
             cone_half_rad=float(np.deg2rad(acceptance_fwhm_deg / 2.0)),
         )
+
+    @classmethod
+    def for_fly(cls, world, fly_name: str, **kwargs) -> "Retina":
+        """Build for a fly of a compiled world (``world.compile()``) from its
+        eye segments, as ``flygym_tpu/vision.py:206`` does."""
+        ids = world.compiled.body_name2id
+        return cls.build(world.compiled.model, left_eye_body=ids[f"{fly_name}/l_eye"],
+                         right_eye_body=ids[f"{fly_name}/r_eye"], **kwargs)
 
     @classmethod
     def for_compiled(cls, compiled, fly_name: str | None = None, **kwargs) -> "Retina":

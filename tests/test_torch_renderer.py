@@ -250,9 +250,30 @@ def test_preview_model(compiled, tmp_path):
     assert frame.shape == (24, 32, 3) and (tmp_path / "preview.png").exists()
 
 
-def test_interactive_viewer_waits_for_the_compile(compiled):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+def test_interactive_viewer_waits_for_the_compile(compiled, tmp_path, monkeypatch):
+    """The viewer opens the MJCF of a world the port composed and compiled;
+    a loaded file has no model description to write. Without a display it
+    writes the MJCF to ``fallback_path`` or raises; without MuJoCo it raises
+    an ImportError naming it."""
+    import importlib.util
+    import sys
+
+    from flygym_tpu_torch.render.renderer import viewer_world
+
+    with pytest.raises(TypeError, match="composed world"):
         launch_interactive_viewer(compiled)
+    world = viewer_world()
+    assert world.compile()[0].nv == 132
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    if importlib.util.find_spec("mujoco") is not None:
+        out = launch_interactive_viewer(world, fallback_path=tmp_path / "world.xml")
+        assert out.read_text() == world.spec.to_mjcf_xml()
+        with pytest.raises(RuntimeError, match="display"):
+            launch_interactive_viewer(world)
+    monkeypatch.setitem(sys.modules, "mujoco", None)
+    with pytest.raises(ImportError, match="mujoco"):
+        launch_interactive_viewer(world)
 
 
 def test_render_hooks_fill_the_report(sim, capsys):

@@ -1,7 +1,7 @@
 """The benchmark's world sweep and entry point on the CPU
 (``flygym_tpu_torch/demo/benchmark.py``: ``make_model``, ``run_benchmark``,
-``main``), at a tiny depth: the columns, the printed lines, bench.py's JSON
-line, and which errors end the sweep."""
+``main``), at a tiny depth: the world make_model composes, the columns, the
+printed lines, bench.py's JSON line, and which errors end the sweep."""
 
 import contextlib
 import io
@@ -19,22 +19,39 @@ TINY = dict(sim_steps=16, warmup_steps=8, device="cpu")
 
 
 def test_make_model_is_the_exported_benchmark_fly():
-    """The JAX defaults, given as the JAX package's own enums and rotation
-    or as plain values, are the exported fly; anything else raises."""
+    """make_model composes the benchmark fly and world in the port: at the
+    JAX defaults, given as the port's enums, the JAX package's enums and
+    rotation, or plain values, it compiles to the exported fly (bit-equal
+    but the inverse weights, ``tests/test_torch_compile.py``); every other
+    argument of the JAX package's make_model compiles too."""
     from flygym_tpu.anatomy import ActuatedDOFPreset, JointPreset
     from flygym_tpu.compose import ActuatorType, KinematicPosePreset
     from flygym_tpu.utils.math import Rotation3D
 
-    compiled = benchmark.make_model()
-    assert compiled.model.nv == 72 and compiled.model.ncand == 110
-    assert benchmark.make_model(position_gain=50, spawn_position=[0, 0, 0.8]).model.nv == 72
-    assert benchmark.make_model(
-        JointPreset.LEGS_ONLY, ActuatedDOFPreset.LEGS_ACTIVE_ONLY, ActuatorType.POSITION, 50.0,
-        KinematicPosePreset.NEUTRAL, (0, 0, 0.8), Rotation3D("quat", (1, 0, 0, 0))).model.nv == 72
-    for kwargs in ({"simplify_geom": True}, {"trim_contacts": True},
-                   {"joints_preset": "all"}, {"position_gain": 20.0}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            benchmark.make_model(**kwargs)
+    from flygym_tpu_torch.compose.bridge import load_compiled
+
+    exported = load_compiled().model
+    for args, kwargs in [
+            ((), {}), ((), {"position_gain": 50, "spawn_position": [0, 0, 0.8]}),
+            ((JointPreset.LEGS_ONLY, ActuatedDOFPreset.LEGS_ACTIVE_ONLY, ActuatorType.POSITION,
+              50.0, KinematicPosePreset.NEUTRAL, (0, 0, 0.8), Rotation3D("quat", (1, 0, 0, 0))),
+             {}),
+            (("legs_only", "legs_active_only", "position", 50.0, "neutral", (0, 0, 0.8),
+              (1, 0, 0, 0)), {})]:
+        fly, world, cam = benchmark.make_model(*args, **kwargs)
+        model, _state = world.compile()
+        assert fly.name == "nmf" and cam.full_identifier == "nmf/trackcam"
+        assert torch.equal(model.qpos0, exported.qpos0)
+        assert torch.equal(model.body_inertia, exported.body_inertia)
+        assert torch.allclose(model.can_invweight, exported.can_invweight, rtol=5e-5)
+    for kwargs, check in [
+            ({"simplify_geom": True}, lambda m: not torch.equal(m.body_inertia,
+                                                                exported.body_inertia)),
+            ({"trim_contacts": True}, lambda m: m.ncand == 36 and m.nsensor_contact == 0),
+            ({"joints_preset": "all_biological"}, lambda m: m.nv == 132),
+            ({"position_gain": 20.0}, lambda m: float(m.act_gain[0]) == 20.0)]:
+        _fly, world, _cam = benchmark.make_model(**kwargs)
+        assert check(world.compile()[0]), kwargs
     with pytest.raises(TypeError):
         benchmark.make_model(gain=1.0)
 
@@ -66,9 +83,13 @@ def test_run_benchmark_returns_its_columns():
 def test_run_simulation_times_a_second_replay(monkeypatch):
     """bench.py's protocol: settle, one untimed replay, a timed replay from
     its end state, so the simulation has stepped settle + 2 x n steps."""
-    compiled = benchmark.make_model()
+    fly, world, _cam = benchmark.make_model()
+    world.compile()
+    compiled = world.compiled
     targets = benchmark.ReplayTargetData(1e-4, benchmark._position_dofs(compiled)) \
         .make_target_angles_all_worlds(2, 8)
+    by_dofs = benchmark.ReplayTargetData(1e-4, fly.get_actuated_jointdofs_order("position"))
+    np.testing.assert_array_equal(by_dofs.make_target_angles_all_worlds(2, 8), targets)
     replays = []
     real = benchmark.replay_episode
     monkeypatch.setattr(benchmark, "replay_episode",
