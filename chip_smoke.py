@@ -55,6 +55,10 @@ Phases (each failure ends the run with a non-zero exit code):
    share of each phase of K2's step from the profile build's counters,
    beside the shares of K2 before its redesign on the same launch (its
    outputs held equal to the shipped build's).
+   Every check of K chained plain steps, here and in later phases, replays
+   one captured plain step K times (``plain_steps``); this phase holds
+   such a chain against the eager chain at 1000 worlds and K = 2, to the
+   last bit.
    (The plain version takes seconds per step whatever the worlds, so
    phases 3, 10, 13 and 16 hold K = 8 at 4096 worlds only; phases 3 and
    13 hold no second width at K = 8 and K = 1 respectively, phase 16 the
@@ -330,11 +334,40 @@ Phases (each failure ends the run with a non-zero exit code):
     (``MJCF_SHA256``, ``tests/test_torch_compile.py``); without MuJoCo,
     ``launch_interactive_viewer`` raises an ImportError naming it.
 
+49. The tree-LDL solve under autograd (``ops/ldl.py:tree_ldl_solve_grad``)
+    at 4096 worlds of ``ldl.sample_problems``: its forward (one K1b launch)
+    bit-equal to the wrapper's; gH and gb of its backward (one more K1b
+    launch on the same factor) against autograd through the plain factor
+    and solve on the card within ``GRAD_KERNEL_BAR``, gH only on the
+    entries K1 reads; launches 0 K1, 1 K1b, 1 backward K1b; the forward and
+    the forward with its backward timed, beside the plain versions'.
+    K1 and K1b outside the Function, K2 and K3 given an input that
+    requires grad raise.
+50. Gradients through the engine step on the card: JAX's differentiable
+    test's capsule composed by the port, its 15-step rollout's gradient
+    with respect to qvel0 and to gravity against the JAX golden
+    (``flygym_tpu_torch/assets/grad_golden.npz``) within
+    ``GRAD_STEP_BAR``, against central differences within JAX's 5%, the
+    forward with ``differentiable`` on and off bit-equal; the benchmark fly
+    at B = 1 from its settled golden world, 2 steps, with the kernels and
+    with the plain tree LDL on the card, each against the golden; example
+    10's loss (``demo/gradient_optimization.stance_loss``) at 5 steps, its
+    value and gradient at the golden's two offsets against JAX's within
+    ``GRAD_STEP_BAR``; example 10 (``main``) at ``EXAMPLE_10``: the loss
+    and seconds of each iteration, K1, K1b and backward K1b launches, no
+    plain tree-LDL call.
+51. ``utils/pose_conversion.convert_pose_axis_order`` from YPR to PRY on
+    LEGS_ONLY on the card (2000 Adam steps, each cost and gradient one CUDA
+    graph's replay): the body positions of both poses within
+    ``POSE_BAR_MM``; the fit's seconds; the graph's gradient against the
+    eager cost and backward's at 3 seeded qpos within ``GRAD_KERNEL_BAR``.
+
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import multiprocessing
 import re
@@ -346,6 +379,7 @@ import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
+from unittest import mock
 
 N_WORLDS = 4096
 N_STEPS = 1000
@@ -471,6 +505,22 @@ SOLVER_STEPS = 20  # soft welds and PGS (phase 39), engine steps timed
 # quaternions.
 COMPOSED_BARS = {"model.can_invweight": 5e-5, "model.act_acc0": 2e-6}
 XQUAT_ULPS = 2
+# Phases 49-51: gradients through the step. The tree-LDL Function's
+# gradients against autograd through the plain factor and solve on the card
+# (the same sums in other orders; the plain scatters accumulate in an order
+# that changes from run to run on CUDA), relative to the largest |g|.
+GRAD_KERNEL_BAR = 1e-4
+# The rollouts' gradients on the card against the JAX golden
+# (scripts/export_grad_golden.py) and against the plain tree LDL on the
+# card, relative to the largest |g|: the CPU holds them to 1e-4
+# (tests/test_torch_grad.py); the card's reductions and matrix products sum
+# in other orders, and the line search feeds back only the sign of phi',
+# whose bracket one ulp can move, so a few steps from rest only.
+GRAD_STEP_BAR = 1e-3
+FD_BAR = 0.05  # JAX's bar for the gradient against central differences
+EXAMPLE_10 = {"n_steps": 40, "n_iters": 3}  # example 10 reduced (its main: 400 and 30)
+POSE_BAR_MM = 0.1  # tests/core/test_pose_conversion.py:68
+GRAD_GOLDEN = Path(__file__).resolve().parent / "flygym_tpu_torch" / "assets" / "grad_golden.npz"
 # make_model's options composed and run at N_WORLDS (phases 45-47).
 COMPOSED_OPTIONS = {
     "benchmark": {},
@@ -863,6 +913,53 @@ def k2_inputs(compiled, golden, n_worlds: int, k_steps: int):
     return replace(state, ctrl=seq[0]), seq
 
 
+def plain_steps(static, state, seq=None, planes=None):
+    """What ``megastep_plain(static, state, seq, planes)`` returns, in
+    inference mode. One step (``seq`` None) runs eagerly. A chain of K
+    steps captures one plain step in a CUDA graph and replays it once per
+    step, each replay's state copied into the next one's inputs: the same
+    ops on the same values as the eager chain, and so the same bits (phase
+    3 holds a replayed chain against the eager one). A plain step is
+    ~300,000 to ~1,300,000 eager ops, on each of which the host spends
+    ~10 us; a replay costs the card's time only. On an NVIDIA H100 80GB
+    HBM3 at 700 W the benchmark fly's 8 steps at 4096 worlds took 10.7 s
+    so, against 2.9 s for one eager step, and the strict fly's 33.4 s
+    against 103.9 s eagerly."""
+    import torch
+
+    from flygym_tpu_torch.engine.maths import powf
+    from flygym_tpu_torch.ops import megastep
+
+    with torch.inference_mode():
+        if seq is None:
+            return megastep.megastep_plain(static, state, None, planes)
+        powf(state.qpos[:1, :1].abs(), 2.0)  # its tables are made before the capture
+        carried = ("qpos", "qvel", "act", "qacc")
+        inp = replace(state, ctrl=seq[0].clone(),
+                      **{f: getattr(state, f).clone() for f in carried})
+        # Winners are checked on the host, which a capture cannot read:
+        # checked here, before it, instead.
+        winners = planes is not None and not static.has_hfield
+        if winners:
+            megastep._check_winners(static, planes)
+        graph = torch.cuda.CUDAGraph()
+        with mock.patch.object(megastep, "_check_winners", lambda *_: None) if winners \
+                else contextlib.nullcontext(), torch.cuda.graph(graph):
+            out = megastep.megastep_plain(static, inp, None, planes)
+        rows = []
+        for i in range(len(seq)):
+            if i:
+                inp.ctrl.copy_(seq[i])
+                for f in carried:
+                    getattr(inp, f).copy_(getattr(out, f))
+            graph.replay()
+            rows.append(out.qpos.clone())
+        new = replace(out.map(torch.clone), ctrl=seq[-1],
+                      time=state.time + len(seq) * static.timestep)
+        del graph, out
+        return new, torch.stack(rows)
+
+
 def k2_against_plain(label: str, model, inputs, note=None,
                      checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)),
                      timed=True) -> dict:
@@ -875,8 +972,9 @@ def k2_against_plain(label: str, model, inputs, note=None,
     its plain version's (the check's call at N_WORLDS, host clock;
     None where ``checks`` lacks it), and each launch's bound from the plain
     version's operations. The plain version runs one eager op per operation
-    of the kernel, so its time is the host's and hardly grows with the
-    worlds; it runs in inference mode, which saves autograd's bookkeeping."""
+    of the kernel, so one step's time is the host's and hardly grows with
+    the worlds; a chain of K steps is one captured step replayed K times
+    (``plain_steps``), and its time is the capture's and the replays'."""
     import torch
 
     from flygym_tpu_torch.ops import megastep
@@ -892,8 +990,7 @@ def k2_against_plain(label: str, model, inputs, note=None,
         got = fn(state, planes) if k == 1 else fn(state, seq, planes)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            want = megastep.megastep_plain(fn.static, state, None if k == 1 else seq, planes)
+        want = plain_steps(fn.static, state, None if k == 1 else seq, planes)
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
         if n == N_WORLDS:
@@ -970,6 +1067,7 @@ def phase_megastep(compiled, model) -> dict:
         "megastep", model, lambda fn, n, k, seed: (*k2_inputs(compiled, golden, n, k), None),
         checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)))
     fn = k2["fns"][MEGASTEP_K]
+    plain_replay_is_eager(fn.static, *k2_inputs(compiled, golden, 1000, 2))
     for n in SWEEP_WORLDS:
         state, seq = k2_inputs(compiled, golden, n, MEGASTEP_K)
         ms_ = time_ms(lambda: fn(state, seq), TIMED_LAUNCHES)
@@ -980,6 +1078,29 @@ def phase_megastep(compiled, model) -> dict:
     thread_sweep(compiled.model, state, seq, want)
     k2_profile(model, state, seq, want)
     return k2
+
+
+def plain_replay_is_eager(static, state, seq) -> None:
+    """The plain chain replayed from its CUDA graph (``plain_steps``)
+    against the eager chain of ``megastep_plain`` on the same inputs: every
+    output and qpos row equal to the last bit."""
+    import torch
+
+    from flygym_tpu_torch.ops import megastep
+
+    with torch.inference_mode():
+        want, wtraj = megastep.megastep_plain(static, state, seq)
+    got, traj = plain_steps(static, state, seq)
+    pairs = [("qpos rows", traj, wtraj)] + [
+        (f, getattr(got, f), getattr(want, f)) for f in
+        ("qpos", "qvel", "ctrl", "act", "time", "qacc", "xpos", "xquat", "site_xpos",
+         "actuator_force", "contact_sensordata")]
+    for name, a, b in pairs:
+        check(a.shape == b.shape and bool(torch.equal(a, b)),
+              f"the replayed plain chain's {name} differs from the eager chain's")
+    print(f"[megastep] the plain chain replayed from one captured step against the eager "
+          f"chain at B={state.qpos.shape[0]}, K={len(seq)}: all {len(pairs)} outputs "
+          f"equal to the last bit")
 
 
 def thread_sweep(model, state, seq, want) -> None:
@@ -2034,7 +2155,7 @@ def actuator_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
 
 def phase_strict_kernel(model) -> dict:
     """K2 with the exact Newton against its plain version; times and bounds
-    at N_WORLDS. The plain strict step takes ~8 s on the card whatever the
+    at N_WORLDS. The plain strict step takes ~13 s on the card whatever the
     worlds, so K = 1 is held at 1000 worlds and K = 8 at 4096 only."""
     from flygym_tpu_torch.compose.bridge import STRICT_GOLDEN, load_actuator_golden
 
@@ -2657,8 +2778,7 @@ def phase_taxis_kernel(taxis_compiled) -> dict:
     got, traj = fn(state, seq)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        want, wtraj = megastep.megastep_plain(fn.static, state, seq)
+    want, wtraj = plain_steps(fn.static, state, seq)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     worst, gaps = 0.0, []
@@ -3447,6 +3567,370 @@ def phase_mjcf(world) -> None:
         check(False, "launch_interactive_viewer ran without MuJoCo")
 
 
+# ---------------------------------------------------------------------------
+# Phases 49-51: gradients through the step
+# ---------------------------------------------------------------------------
+
+
+def grad_work(tables, B: int) -> tuple:
+    """Operations and bytes of the Function's backward at B worlds: K1b's
+    adjoint solve and gH on the envelope (two products, a sum, a negation
+    and a scale per entry); L's chain entries, d, g and x read, gb and the
+    dense gH written (fp32)."""
+    nv, n_chain, n_env = tables.nv, tables.n_chain, tables.n_env
+    return (B * (4 * n_chain + nv + 5 * n_env),
+            4 * B * (n_chain + 3 * nv + nv + nv * nv))
+
+
+def rel_gap(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def expect_refusal(fn, what: str) -> None:
+    """``fn`` must raise the kernels' refusal of an input that requires grad."""
+    try:
+        fn()
+    except RuntimeError as e:
+        check("would cut the graph" in str(e), f"{what}: another error: {e}")
+        print(f"[grad kernels] {what}: raises ({str(e)[:60]}...)")
+        return
+    check(False, f"{what}: ran on an input that requires grad")
+
+
+def phase_grad_kernels(model, env_compiled) -> dict:
+    """Phase 49: K1 and K1b under autograd at N_WORLDS, and the kernels'
+    refusals of inputs that require grad."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_golden
+    from flygym_tpu_torch.engine import linalg
+    from flygym_tpu_torch.ops import ldl
+    from flygym_tpu_torch.ops import retina as rk
+    from flygym_tpu_torch.ops.megastep import make_megastep
+    from flygym_tpu_torch.vision import Retina
+
+    tables = model.ldl
+    H, b = ldl.sample_problems(model, N_WORLDS, seed=49)
+    w = torch.randn(b.shape, generator=torch.Generator().manual_seed(49)).to(b.device)
+    L, d = ldl.tree_ldl_factor(tables, H)
+    Hg, bg = H.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    Hp, bp = H.clone().requires_grad_(True), b.clone().requires_grad_(True)
+
+    def fwd():
+        return ldl.tree_ldl_solve_grad(tables, Hg, L, d, bg)
+
+    def fwd_bwd():
+        return torch.autograd.grad((fwd() * w).sum(), (Hg, bg))
+
+    def plain_fwd():
+        return linalg.tree_ldl_solve(tables, *linalg.tree_ldl_factor(tables, Hp), bp)
+
+    def plain_fwd_bwd():
+        return torch.autograd.grad((plain_fwd() * w).sum(), (Hp, bp))
+
+    reset_counts()
+    x = fwd()
+    gH, gb = torch.autograd.grad((x * w).sum(), (Hg, bg))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[grad kernels] one forward and backward at B={N_WORLDS}: launches {counts}")
+    check(counts["tree_ldl_factor"] == 0 and counts["tree_ldl_solve"] == 1
+          and counts["tree_ldl_solve_backward"] == 1, f"launches {counts}")
+    same = torch.equal(x.detach(), ldl.tree_ldl_solve(tables, L, d, b))
+    print(f"[grad kernels] the Function's forward equal to the wrapper's: {same}")
+    check(same, "the Function's forward differs from tree_ldl_solve")
+    pH, pb = plain_fwd_bwd()
+    gaps = {"gH": rel_gap(gH, pH), "gb": rel_gap(gb, pb)}
+    err = (gb - pb).abs().max().item()
+    i, a = tables.env_index
+    mask = torch.zeros(gH.shape[1:], dtype=torch.bool, device=gH.device)
+    mask[i, a] = True
+    print(f"[grad kernels] against autograd through the plain versions on the card: "
+          f"max|gH gap| / max|gH| {gaps['gH']:.3e} (max|gH| {pH.abs().max().item():.3e}), "
+          f"max|gb gap| / max|gb| {gaps['gb']:.3e} (max|gb gap| {err:.3e}); bar "
+          f"{GRAD_KERNEL_BAR}; gH off the envelope: {int((gH[:, ~mask] != 0).sum())} entries")
+    check(max(gaps.values()) <= GRAD_KERNEL_BAR, f"gradient gaps {gaps}")
+    check(bool(torch.isfinite(gH).all() and torch.isfinite(gb).all()), "gradients not finite")
+    check(not bool(gH[:, ~mask].any()), "gH off the entries K1 reads")
+
+    expect_refusal(lambda: ldl.tree_ldl_factor(tables, Hg), "K1 given H that requires grad")
+    expect_refusal(lambda: ldl.tree_ldl_solve(tables, L, d, bg),
+                   "K1b given b that requires grad")
+    state = load_golden()["state"].map(lambda t: t[:4].to("cuda"))
+    k2 = make_megastep(model, 1)
+    expect_refusal(lambda: k2(replace(state, ctrl=state.ctrl.clone().requires_grad_(True))),
+                   "K2 given ctrl that requires grad")
+    env_model = env_compiled.model.to("cuda")
+    rt = rk.RetinaTables(env_model, Retina.for_compiled(env_compiled))
+    st = env_compiled.initial_state.to("cuda")
+    expect_refusal(lambda: rk.launch_retina(rt, rk.pack_rows(
+        rt, st.xpos.clone().requires_grad_(True), st.xquat)), "K3 given poses that require grad")
+
+    t_fwd = time_ms(fwd, TIMED_LAUNCHES)
+    t_both = time_ms(fwd_bwd, TIMED_LAUNCHES)
+    t_plain_fwd = time_ms(plain_fwd, TIMED_LAUNCHES)
+    t_plain_both = time_ms(plain_fwd_bwd, TIMED_LAUNCHES)
+    bound = bound_ms(*grad_work(tables, N_WORLDS))
+    back, plain_back = t_both - t_fwd, t_plain_both - t_plain_fwd
+    print(f"[grad kernels] at B={N_WORLDS} on {card_line()}: the Function's forward "
+          f"{t_fwd:.4f} ms, forward and backward {t_both:.4f} ms (backward {back:.4f} ms: one "
+          f"K1b launch and gH); through the plain versions: forward (factor and solve) "
+          f"{t_plain_fwd:.4f} ms, forward and backward {t_plain_both:.4f} ms (backward "
+          f"{plain_back:.4f} ms); the backward's bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{back / bound[0]:.1f}x it")
+    return {"err": err, "ms": back, "plain_ms": plain_back, "bound": bound,
+            "forward_ms": t_fwd, "forward_backward_ms": t_both}
+
+
+class PlainLdlCalls:
+    """Counts calls of the plain tree LDL (``engine/linalg.py``) while on:
+    on the card's gradient path there must be none."""
+
+    def __enter__(self):
+        from flygym_tpu_torch.engine import linalg
+
+        self.calls, self.saved = 0, (linalg.tree_ldl_factor, linalg.tree_ldl_solve)
+
+        def counted(fn):
+            def call(*args):
+                self.calls += 1
+                return fn(*args)
+            return call
+
+        linalg.tree_ldl_factor, linalg.tree_ldl_solve = map(counted, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from flygym_tpu_torch.engine import linalg
+
+        linalg.tree_ldl_factor, linalg.tree_ldl_solve = self.saved
+
+
+class PlainLdlRoute:
+    """The engine step's contact solve through the plain tree LDL under
+    autograd on the card (the JAX package's differentiable route), to hold
+    the kernels' gradients against it."""
+
+    def __enter__(self):
+        from flygym_tpu_torch.engine import contact, linalg
+
+        self.saved = contact._factor, contact._solve
+        contact._factor = lambda model, H: linalg.tree_ldl_factor(model.ldl, H)
+        contact._solve = lambda model, H, L, d, b: linalg.tree_ldl_solve(model.ldl, L, d, b)
+        return self
+
+    def __exit__(self, *exc):
+        from flygym_tpu_torch.engine import contact
+
+        contact._factor, contact._solve = self.saved
+
+
+def fly_grads(model, state, n_steps: int) -> tuple:
+    """The golden's benchmark-fly loss (scripts/export_grad_golden.py) and
+    its gradients with respect to ctrl and qvel."""
+    import torch
+
+    from flygym_tpu_torch.engine.step import step
+
+    ctrl = state.ctrl.clone().requires_grad_(True)
+    qvel = state.qvel.clone().requires_grad_(True)
+    s = replace(state, ctrl=ctrl, qvel=qvel)
+    for _ in range(n_steps):
+        s = step(model, s)
+    loss = (s.qpos[0, 0] + s.qpos[0, 2] + 1e-3 * s.qvel.sum()
+            + 1e-4 * s.contact_sensordata.sum())
+    g_ctrl, g_qvel = torch.autograd.grad(loss, (ctrl, qvel))
+    return loss.detach(), g_ctrl[0], g_qvel[0]
+
+
+def phase_grad_step(compiled) -> dict:
+    """Phase 50: the capsule's rollout, the benchmark fly's steps and
+    example 10 on the card; returns example 10's launch counts."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_golden
+    from flygym_tpu_torch.demo import gradient_optimization as go
+    from flygym_tpu_torch.engine.step import step
+
+    with np.load(GRAD_GOLDEN) as g:
+        golden = {k: torch.from_numpy(g[k]) for k in g.files}
+    c = go.capsule_world()
+    model, state = c.model.to("cuda"), c.initial_state.to("cuda")
+    qvel0 = golden["qvel0"][None].to("cuda")
+    n = int(golden["n_steps"])
+
+    reset_counts()
+    with PlainLdlCalls() as plain:
+        t0 = time.perf_counter()
+        v = qvel0.clone().requires_grad_(True)
+        loss = go.capsule_loss(model, state, v, n)
+        (g,) = torch.autograd.grad(loss, v)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts()
+    grav = model.gravity.clone().requires_grad_(True)
+    (gg,) = torch.autograd.grad(go.capsule_loss(replace(model, gravity=grav), state, qvel0, n),
+                                grav)
+    gaps = {"qvel0": rel_gap(g[0].cpu(), golden["grad_qvel0"]),
+            "gravity": rel_gap(gg.cpu(), golden["grad_gravity"])}
+    print(f"[grad capsule] {n}-step rollout: loss {loss.item():.7f} (JAX {golden['loss'].item():.7f}); "
+          f"grad qvel0 {g[0].tolist()}, gravity {gg.tolist()}; forward and backward {seconds:.3f} s "
+          f"on {card_line()}; launches {counts}; plain tree-LDL calls {plain.calls}")
+    print(f"[grad capsule] against the JAX golden: max gap / max|g| qvel0 {gaps['qvel0']:.3e}, "
+          f"gravity {gaps['gravity']:.3e}; bar {GRAD_STEP_BAR}")
+    check(counts["tree_ldl_factor"] == n
+          and counts["tree_ldl_solve"] == counts["tree_ldl_solve_backward"]
+          == n * max(model.solver_iterations, 1), f"capsule launches {counts}")
+    check(plain.calls == 0, f"{plain.calls} plain tree-LDL calls on the capsule's path")
+    check(max(gaps.values()) <= GRAD_STEP_BAR, f"capsule gradient gaps {gaps}")
+    check(bool(torch.isfinite(gg).all()) and gg[2].item() != 0.0, f"gravity gradient {gg}")
+    with torch.no_grad():
+        for i in golden["fd_index"].tolist():
+            e = torch.zeros_like(qvel0)
+            e[0, i] = float(golden["fd_eps"])
+            fd = (go.capsule_loss(model, state, qvel0 + e, n)
+                  - go.capsule_loss(model, state, qvel0 - e, n)).item() / (2 * float(golden["fd_eps"]))
+            print(f"[grad capsule] qvel0[{i}]: gradient {g[0, i].item():.6e}, central difference "
+                  f"{fd:.6e} (the golden's {golden['fd_qvel0'][golden['fd_index'] == i].item():.6e})")
+            check(abs(g[0, i].item() - fd) < FD_BAR * max(abs(fd), 1e-3),
+                  f"qvel0[{i}]: gradient {g[0, i].item()} against {fd}")
+        outs = []
+        for diff in (True, False):
+            s = replace(state, qvel=qvel0)
+            for _ in range(n):
+                s = step(replace(model, differentiable=diff), s)
+            outs.append(s.qpos)
+        print(f"[grad capsule] forward with differentiable on and off bit-equal: "
+              f"{torch.equal(*outs)}")
+        check(torch.equal(*outs), "the forward differs with differentiable on and off")
+
+    fly_model = replace(compiled.model.to("cuda"), differentiable=True)
+    fly_state = load_golden()["state"].map(lambda t: t[:1].to("cuda"))
+    fn = int(golden["fly.n_steps"])
+    reset_counts()
+    t0 = time.perf_counter()
+    kernel = fly_grads(fly_model, fly_state, fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    with PlainLdlRoute():
+        plain_grads = fly_grads(fly_model, fly_state, fn)
+    fly_gaps = {"kernels vs plain, ctrl": rel_gap(kernel[1], plain_grads[1]),
+                "kernels vs plain, qvel": rel_gap(kernel[2], plain_grads[2]),
+                "kernels vs JAX, ctrl": rel_gap(kernel[1].cpu(), golden["fly.grad_ctrl"]),
+                "kernels vs JAX, qvel": rel_gap(kernel[2].cpu(), golden["fly.grad_qvel"]),
+                "plain vs JAX, ctrl": rel_gap(plain_grads[1].cpu(), golden["fly.grad_ctrl"]),
+                "plain vs JAX, qvel": rel_gap(plain_grads[2].cpu(), golden["fly.grad_qvel"])}
+    print(f"[grad fly] the benchmark fly at B=1, {fn} steps from its settled world 0: loss "
+          f"{kernel[0].item():.7f} (plain {plain_grads[0].item():.7f}, JAX "
+          f"{golden['fly.loss'].item():.7f}); forward and backward {seconds:.3f} s on "
+          f"{card_line()}; launches {counts}")
+    print("[grad fly] max gap / max|g|: " + ", ".join(f"{k} {v:.3e}" for k, v in fly_gaps.items())
+          + f"; bar {GRAD_STEP_BAR}")
+    check(counts["tree_ldl_solve_backward"] == counts["tree_ldl_solve"] > 0, f"fly launches {counts}")
+    check(max(fly_gaps.values()) <= GRAD_STEP_BAR, f"fly gradient gaps {fly_gaps}")
+
+    sn = int(golden["stance.n_steps"])
+    stance, _offset0 = go.stance_loss(sn, "cuda")
+    for j, offset in enumerate(golden["stance.offset"]):
+        x = offset.to("cuda").requires_grad_(True)
+        val, lean, z = stance(x)
+        (gs,) = torch.autograd.grad(val, x)
+        value_gaps = {k: abs(v.item() - golden[f"stance.{k}"][j].item())
+                      / abs(golden[f"stance.{k}"][j].item())
+                      for k, v in (("loss", val), ("lean", lean), ("z", z))}
+        grad_gap = rel_gap(gs.cpu(), golden["stance.grad"][j])
+        print(f"[example 10 golden] offset {j} ({'zero' if j == 0 else 'seeded'}), {sn} steps: "
+              f"loss {val.item():.7f} (JAX {golden['stance.loss'][j].item():.7f}); relative gaps "
+              + ", ".join(f"{k} {v:.3e}" for k, v in value_gaps.items())
+              + f", gradient {grad_gap:.3e} of max|g|; bar {GRAD_STEP_BAR}")
+        check(max(*value_gaps.values(), grad_gap) <= GRAD_STEP_BAR,
+              f"example 10 against JAX at offset {j}: {value_gaps}, gradient {grad_gap}")
+
+    reset_counts()
+    with PlainLdlCalls() as plain:
+        t0 = time.perf_counter()
+        history = go.main(**EXAMPLE_10, device="cuda")
+        seconds = time.perf_counter() - t0
+    counts = read_counts()
+    steps = EXAMPLE_10["n_steps"] * EXAMPLE_10["n_iters"]
+    solves = steps * max(compiled.model.solver_iterations, 1)
+    # The loss reads the last state's xpos, the pose before that step's
+    # integration: the last step's solves do not reach it, and autograd
+    # runs no backward for them.
+    back = solves - EXAMPLE_10["n_iters"] * max(compiled.model.solver_iterations, 1)
+    print(f"[example 10] {EXAMPLE_10['n_iters']} iterations of {EXAMPLE_10['n_steps']} steps "
+          f"in {seconds:.2f} s on {card_line()}: per iteration "
+          + ", ".join(f"loss {h['loss']:+.5f} in {h['seconds']:.3f} s" for h in history)
+          + f"; launches {counts}; plain tree-LDL calls {plain.calls}")
+    check(plain.calls == 0, f"{plain.calls} plain tree-LDL calls on example 10's path")
+    check(counts["tree_ldl_factor"] == steps and counts["tree_ldl_solve"] == solves
+          and counts["tree_ldl_solve_backward"] == back and counts["megastep"] == 0,
+          f"example 10's launches {counts}, expected {steps} K1, {solves} K1b and {back} "
+          f"backward K1b")
+    check(all(np.isfinite([h["loss"], h["lean"], h["z"]]).all() for h in history),
+          "example 10: a loss is not finite")
+    return counts
+
+
+def phase_pose_conversion() -> None:
+    """Phase 51: the pose conversion YPR -> PRY on LEGS_ONLY on the card."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch.anatomy import AxisOrder, JointPreset, Skeleton
+    from flygym_tpu_torch.compose import KinematicPosePreset
+    from flygym_tpu_torch.compose.fly import Fly
+    from flygym_tpu_torch.utils.pose_conversion import (convert_pose_axis_order, graphed_backward,
+                                                        pose_cost)
+
+    pose = KinematicPosePreset.NEUTRAL.get_pose_by_axis_order(AxisOrder.YPR)
+    t0 = time.perf_counter()
+    converted = convert_pose_axis_order(pose, AxisOrder.PRY, joint_preset=JointPreset.LEGS_ONLY,
+                                        device="cuda")
+    seconds = time.perf_counter() - t0
+
+    def fk(p, order):
+        fly = Fly()
+        fly.add_joints(Skeleton(axis_order=order, joint_preset=JointPreset.LEGS_ONLY),
+                       neutral_pose=p)
+        _model, state = fly.compile()
+        return state.xpos[0].numpy()
+
+    err = float(np.abs(fk(pose, AxisOrder.YPR) - fk(converted, AxisOrder.PRY)).max())
+    print(f"[pose conversion] YPR -> PRY on LEGS_ONLY, 2000 Adam steps on the card: "
+          f"{seconds:.2f} s on {card_line()}; largest body position gap {err:.4f} mm "
+          f"(bar {POSE_BAR_MM})")
+    check(converted.axis_order is AxisOrder.PRY and err < POSE_BAR_MM,
+          f"pose conversion: gap {err} mm")
+
+    # The fit's CUDA graph against the eager cost and backward at seeded qpos.
+    ref, fitted = Fly(), Fly()
+    ref.add_joints(Skeleton(axis_order=AxisOrder.YPR, joint_preset=JointPreset.LEGS_ONLY),
+                   neutral_pose=pose)
+    fitted.add_joints(Skeleton(axis_order=AxisOrder.PRY, joint_preset=JointPreset.LEGS_ONLY),
+                      neutral_pose=pose)
+    _m, ref_state = ref.compile()
+    model = fitted.compile()[0].to("cuda")
+    cost = pose_cost(model, ref_state.xpos[0].numpy(), ref_state.xquat[0].numpy())
+    qpos = torch.zeros(model.nq, device="cuda", requires_grad=True)
+    replay = graphed_backward(cost, qpos)
+    gen = torch.Generator().manual_seed(0)
+    gaps = []
+    for _ in range(3):
+        q = (torch.rand(model.nq, generator=gen) - 0.5).to("cuda")
+        with torch.no_grad():
+            qpos.copy_(q)
+        replay()
+        x = q.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(cost(x), x)
+        gaps.append(rel_gap(qpos.grad, want))
+    print(f"[pose conversion] the fit's CUDA graph against the eager cost and backward at 3 "
+          f"seeded qpos: max gap / max|g| {max(gaps):.3e} (bar {GRAD_KERNEL_BAR})")
+    check(max(gaps) <= GRAD_KERNEL_BAR, f"the pose fit's graph: gaps {gaps}")
+
+
 def main() -> int:
     import torch
 
@@ -3665,6 +4149,12 @@ def main() -> int:
         lap("phase 47 (every biological joint; the composed tethered and terrain worlds)")
         phase_mjcf(composed["benchmark"][1])
         lap("phase 48 (the MJCF)")
+        grad_kernels = phase_grad_kernels(model, env_compiled)
+        lap("phase 49 (K1 and K1b under autograd)")
+        grad_counts = phase_grad_step(compiled)
+        lap("phase 50 (gradients through the step, example 10)")
+        phase_pose_conversion()
+        lap("phase 51 (the pose conversion)")
         print(f"[composed] K2 launches on {card_line()}: benchmark {composed_counts['megastep']}, "
               + ", ".join(f"{k} {v['megastep']}" for k, v in option_counts.items())
               + f", all biological {biological_counts['megastep']}")
@@ -3702,6 +4192,25 @@ def main() -> int:
             ("tree_ldl_solve", "flygym_tpu/ops/ldl_pallas.py:72"),
         )
     ]
+    # K1b run again on the same factor as the backward of the solve under
+    # autograd: its launches on example 10's path (phase 50), its time the
+    # backward's (one K1b launch and gH) at N_WORLDS, against the same
+    # backward through the plain factor and solve (phase 49).
+    entries.append({
+        "name": "tree_ldl_solve_backward",
+        "route": "cuda",
+        "source": "flygym_tpu_torch/csrc/tree_ldl.cu",
+        "replaces": "flygym_tpu/ops/ldl_pallas.py:72",
+        "launches": grad_counts["tree_ldl_solve_backward"],
+        "max_abs_err": grad_kernels["err"],
+        "ms": grad_kernels["ms"],
+        "plain_ms": grad_kernels["plain_ms"],
+        "bound_ms": grad_kernels["bound"][0],
+        "bound_by": grad_kernels["bound"][1],
+        "library_ms": None,
+        "forward_ms": grad_kernels["forward_ms"],
+        "forward_backward_ms": grad_kernels["forward_backward_ms"],
+    })
     entries.append(k2_entry("megastep", k2, mega_counts["megastep"], MEGASTEP_K))
     entries.append({
         "name": "retina",

@@ -31,8 +31,10 @@ reads) is kept as :attr:`CompiledModel.render`; every world the port
 compiles has it, and of the exported files the benchmark fly, example 11's
 two flies and config 3's terrain fly.
 
-Differentiable mode, which the port does not have yet, is refused here
-with ``NotImplementedError`` rather than simulated wrongly.
+Differentiable mode (``differentiable``) loads like any other option: the
+engine step then solves its contacts through the tree-LDL autograd Function
+(:func:`flygym_tpu_torch.ops.ldl.tree_ldl_solve_grad`), and K2's gate does
+not look at it, as JAX's does not.
 """
 
 import json
@@ -167,15 +169,6 @@ def _tuples(x):
     return tuple(_tuples(v) for v in x) if isinstance(x, list) else x
 
 
-def _refuse_unported(static: dict) -> None:
-    """Differentiable mode, which the port does not have yet, is refused."""
-    if static["differentiable"]:
-        raise NotImplementedError(
-            "the PyTorch port does not support differentiable mode (gradients "
-            "through the step wait for the tree-LDL kernels under autograd)"
-        )
-
-
 def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
     """Build the port's compiled model from exported arrays and metadata.
 
@@ -196,7 +189,6 @@ def model_from_numpy(arrays: dict, meta: dict) -> CompiledModel:
 def physics_model(arrays: dict, static: dict) -> PhysicsModel:
     """The :class:`PhysicsModel` of ``arrays``' ``model.<field>`` entries and
     the static fields ``static`` (``meta["model"]``), on the CPU."""
-    _refuse_unported(static)
     kw = {}
     for f in fields(PhysicsModel):
         if f.name in ("ldl", "weld_ref"):

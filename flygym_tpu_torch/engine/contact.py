@@ -36,6 +36,11 @@ Port of ``flygym_tpu/engine/contact.py`` (lines 46-253, 256-357, 441-782):
    functions of :mod:`flygym_tpu_torch.engine.linalg` on the CPU). With
    ``solver_exact`` (MuJoCo's exact Newton, for parity studies) every
    iteration after the first re-factors it from the current active set.
+   In differentiable mode (``model.differentiable``) the factor is made
+   without autograd and every solve is the tree-LDL solve under autograd
+   (:func:`~flygym_tpu_torch.ops.ldl.tree_ldl_solve_grad`), whose backward
+   launches the solve kernel again on the same factor; PGS differentiates
+   as it is.
 
 ``samples["winners"]`` counts calls of a winner sampler.
 :func:`compute_candidate_invweight` and :func:`compute_actuator_acc0` run
@@ -446,8 +451,8 @@ def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,
         info: :class:`ContactInfo` for the sensors, or None without contacts.
     """
     if model.ncand == 0:
-        L, d = ldl.tree_ldl_factor(model.ldl, Mh)
-        return ldl.tree_ldl_solve(model.ldl, L, d, qfrc_smooth), None
+        L, d = _factor(model, Mh)
+        return _solve(model, Mh, L, d, qfrc_smooth), None
 
     B, K, nv = Mh.shape[0], model.ncon, model.nv
     dist_all, cpos_all, normal_all = contact_candidates(model, gpos, gquat)
@@ -556,6 +561,22 @@ def solve_contacts(model: PhysicsModel, Mh, qfrc_smooth, qvel, qacc_warm, xpos,
     return qacc, info
 
 
+def _factor(model: PhysicsModel, H):
+    """The tree-LDL factor of H (the K1 op). In differentiable mode it is
+    made without autograd: :func:`_solve` differentiates the solve in H."""
+    return ldl.tree_ldl_factor(model.ldl, H.detach() if model.differentiable else H)
+
+
+def _solve(model: PhysicsModel, H, L, d, b):
+    """H⁻¹ b through H's factor (L, d) (the K1b op). In differentiable mode
+    through :func:`~flygym_tpu_torch.ops.ldl.tree_ldl_solve_grad`, whose
+    backward is K1b again on the same factor: the switch the JAX package
+    makes to its plain tree LDL (``flygym_tpu/engine/contact.py:468-479``)."""
+    if model.differentiable:
+        return ldl.tree_ldl_solve_grad(model.ldl, H, L, d, b)
+    return ldl.tree_ldl_solve(model.ldl, L, d, b)
+
+
 def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-world dot product of (B, n) vectors."""
     return torch.sum(a * b, dim=-1)
@@ -585,18 +606,19 @@ def _solve_primal_newton(model: PhysicsModel, Mh, Jp, D, aref, qfrc, qacc_warm):
 
     def factor_at(act):
         H = Mh + (JpT * (D * act)[:, None, :]) @ Jp
-        return ldl.tree_ldl_factor(model.ldl, H + 1e-9 * eye)
+        H = H + 1e-9 * eye
+        return (H, *_factor(model, H))
 
     _, act_w = jar_active(qacc_warm)
-    L_fac, d_fac = factor_at(act_w)
+    H_fac, L_fac, d_fac = factor_at(act_w)
 
     a = qacc_warm
     for it in range(max(model.solver_iterations, 1)):
         jar, act = jar_active(a)
         if model.solver_exact and it > 0:
-            L_fac, d_fac = factor_at(act)
+            H_fac, L_fac, d_fac = factor_at(act)
         grad = mv(Mh, a) - qfrc + mv(JpT, D * act * jar)
-        delta = -ldl.tree_ldl_solve(model.ldl, L_fac, d_fac, grad)
+        delta = -_solve(model, H_fac, L_fac, d_fac, grad)
 
         Jd = mv(Jp, delta)
         Md = mv(Mh, delta)
@@ -668,8 +690,13 @@ def _solve_dual_pgs(model: PhysicsModel, Mh, Jp, D, aref, qfrc, row_active):
     diag = torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1) + R, min=1e-12)
     on = row_active.to(Jp.dtype)
     lam = torch.zeros_like(D)
+    # Row r's update is a select, not a write into lam, so that autograd
+    # can differentiate the sweeps (JAX's ``lam_c.at[r].set``); the values
+    # are those of the in-place write.
+    pick = torch.eye(Jp.shape[1], dtype=torch.bool, device=Jp.device)
     for _sweep in range(max(model.solver_iterations, 8)):
         for r in range(Jp.shape[1]):
             res = _bdot(A[:, r], lam) + R[:, r] * lam[:, r] + b0[:, r]
-            lam[:, r] = torch.clamp(lam[:, r] - res / diag[:, r], min=0.0) * on[:, r]
+            new = torch.clamp(lam[:, r] - res / diag[:, r], min=0.0) * on[:, r]
+            lam = torch.where(pick[r], new[:, None], lam)
     return qacc_smooth + mv(X, lam), lam

@@ -50,7 +50,9 @@ def _local_transforms(model: PhysicsModel, qpos: torch.Tensor, fused: bool = Fal
     """
     quat_mul = quat_mul_fma if fused else _quat_mul
     B, nb = qpos.shape[0], model.nbody
-    identity = qpos.new_tensor([1.0, 0.0, 0.0, 0.0])
+    # Made on the device (a host list would be a copy from the host at
+    # every call, which a CUDA graph cannot hold).
+    identity = torch.eye(1, 4, dtype=qpos.dtype, device=qpos.device)[0]
 
     if model.nhinge:
         angles = qpos[:, model.hinge_qadr]

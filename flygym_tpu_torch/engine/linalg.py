@@ -175,6 +175,8 @@ class LdlTables:
     n_chain: int  # entries of the ancestor chains, summed over the DoFs
     n_env: int  # entries of the envelope: nv diagonals and the chains
     kernel: torch.Tensor  # int32: the sections of kernel_tables, one buffer
+    env_index: torch.Tensor  # (2, n_env) int64: (row, column) of H of each envelope entry
+    env_half: torch.Tensor  # (n_env,) float32: 0.5 on the diagonal's entries, else 1
 
     @classmethod
     def from_static(cls, nv, dof_chains, dof_height_levels, dof_depth_levels):
@@ -183,6 +185,8 @@ class LdlTables:
         for i, chain in enumerate(dof_chains):
             anc[i, : len(chain)] = torch.tensor(chain, dtype=torch.int64)
         n_chain = sum(len(c) for c in dof_chains)
+        env = [(i, a) for i, chain in enumerate(dof_chains) for a in (*chain, i)]
+        env_index = torch.tensor(env, dtype=torch.int64).reshape(-1, 2).T.contiguous()
         return cls(
             nv=nv,
             maxc=maxc,
@@ -193,6 +197,8 @@ class LdlTables:
             n_env=nv + n_chain,
             kernel=torch.from_numpy(pack_kernel_tables(
                 kernel_tables(nv, dof_chains, dof_height_levels, dof_depth_levels))),
+            env_index=env_index,
+            env_half=torch.where(env_index[0] == env_index[1], 0.5, 1.0),
         )
 
     def to(self, device) -> "LdlTables":

@@ -110,14 +110,34 @@ def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
     return torch.where(top < _TOP_TINY, torch.ones_like(y) if cos else y, out)
 
 
+class _SinCosF(torch.autograd.Function):
+    """glibc's sinf or cosf with JAX's derivative rules (``sin_p``'s and
+    ``cos_p``'s JVPs), g·cos(x) and −g·sin(x), rounded as :func:`cosf` and
+    :func:`sinf`: the polynomial's own derivative is another function,
+    which autograd would otherwise differentiate."""
+
+    @staticmethod
+    def forward(ctx, y, cos: bool):
+        ctx.cos = cos
+        ctx.save_for_backward(y)
+        return _sincosf(y, cos)
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (-(g * sinf(y)) if ctx.cos else g * cosf(y)), None
+
+
 def sinf(y: torch.Tensor) -> torch.Tensor:
-    """sin of a float32 tensor, rounded as glibc's sinf rounds it."""
-    return _sincosf(y, cos=False)
+    """sin of a float32 tensor, rounded as glibc's sinf rounds it; its
+    gradient is JAX's, g·cosf(x)."""
+    return _SinCosF.apply(y, False)
 
 
 def cosf(y: torch.Tensor) -> torch.Tensor:
-    """cos of a float32 tensor, rounded as glibc's cosf rounds it."""
-    return _sincosf(y, cos=True)
+    """cos of a float32 tensor, rounded as glibc's cosf rounds it; its
+    gradient is JAX's, −g·sinf(x)."""
+    return _SinCosF.apply(y, True)
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +201,57 @@ def _powf_tables(dev) -> tuple:
 _powf_tables(torch.device("cpu"))  # so that no CPU call makes them (or counts them)
 
 
+def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
+    """``g`` summed over the dimensions along which an operand of ``shape``
+    was broadcast to ``g``'s shape."""
+    lead = g.dim() - len(shape)
+    if lead:
+        g = g.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _PowF(torch.autograd.Function):
+    """glibc's powf with JAX's derivative rules (``_pow_jvp_lhs`` and
+    ``_pow_jvp_rhs`` of ``jax/_src/lax/lax.py``), each power rounded as
+    :func:`powf`: for x, g·y·x^(y−1), and 0 where y = 0; for a tensor
+    exponent y, g·log(x)·x^y, x = 0 read as 1 inside the log. The forward
+    goes through the integer bits of x, which autograd cannot see."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        out = _powf(x, y)
+        ctx.y_float = None if isinstance(y, torch.Tensor) else y
+        ctx.save_for_backward(x, out, y if isinstance(y, torch.Tensor) else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, y_t = ctx.saved_tensors
+        y = ctx.y_float if y_t is None else y_t
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            jac = y * powf(x, y - 1.0)
+            if y_t is None:
+                gx = torch.zeros_like(g) if y == 0 else g * jac
+            else:
+                gx = torch.where(y_t == 0, 0.0, g * jac)
+            gx = _sum_to(gx, x.shape)
+        if y_t is not None and ctx.needs_input_grad[1]:
+            gy = _sum_to(g * (torch.log(torch.where(x == 0, 1.0, x)) * out), y_t.shape)
+        return gx, gy
+
+
 def powf(x: torch.Tensor, y) -> torch.Tensor:
     """x ** y of a float32 tensor x >= 0 and a positive exponent ``y`` (a
     float or a float32 tensor), rounded as glibc's powf rounds it. XLA's CPU
     backend flushes subnormal floats to zero, so x below 2^-126 gives 0, and
     so does a result below 2^-126. Negative or non-finite arguments are not
-    handled."""
+    handled. Its gradients are JAX's rules (:class:`_PowF`)."""
+    return _PowF.apply(x, y)
+
+
+def _powf(x: torch.Tensor, y) -> torch.Tensor:
     invc_tab, logc_tab, exp2_tab = _powf_tables(x.device)
     ix = x.view(torch.int32)
     tmp = ix - 0x3F330000

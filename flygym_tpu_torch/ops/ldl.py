@@ -16,16 +16,29 @@ model whose world does not fit in a block's shared memory raises
 (:func:`shared_bytes`).
 
 ``launches`` counts kernel launches per wrapper. Only a launch adds to it.
+
+Gradients: :func:`tree_ldl_solve_grad` is the solve under autograd (a
+``torch.autograd.Function``). Its forward is one K1b launch on a factor of
+H made without autograd, its backward the adjoint solve, one more K1b
+launch on the same factor (H is symmetric), counted apart in
+``launches["tree_ldl_solve_backward"]``. The JAX package has no backward
+kernel: its differentiable mode swaps the Pallas ops for the plain tree LDL
+and lets ``jax.grad`` through it (``flygym_tpu/engine/contact.py:468-479``).
+Outside the Function, a kernel given a tensor that requires grad raises, as
+JAX's Pallas ops, which have no VJP, do: its output would have no graph.
 """
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from flygym_tpu_torch.engine import linalg
 from flygym_tpu_torch.engine.linalg import LdlTables
+from flygym_tpu_torch.ops import refuse_grad
 
 __all__ = [
     "tree_ldl_factor",
     "tree_ldl_solve",
+    "tree_ldl_solve_grad",
     "launches",
     "reset_launches",
     "sample_problems",
@@ -38,7 +51,7 @@ __all__ = [
 WORLDS = 4  # worlds per block: LDL_WORLDS in tree_ldl.cu (kernel_shape's threads / 32)
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on the H100
 
-launches = {"tree_ldl_factor": 0, "tree_ldl_solve": 0}
+launches = {"tree_ldl_factor": 0, "tree_ldl_solve": 0, "tree_ldl_solve_backward": 0}
 
 
 def reset_launches() -> None:
@@ -93,6 +106,7 @@ def tree_ldl_factor(tables: LdlTables, H: torch.Tensor):
     if H.device.type == "cpu":
         return linalg.tree_ldl_factor(tables, H)
     _device_path(tables, H.device)
+    refuse_grad("tree_ldl_factor", H)
     if B == 0:
         return H.new_zeros((0, nv, maxc)), H.new_zeros((0, nv))
 
@@ -111,6 +125,11 @@ def tree_ldl_factor(tables: LdlTables, H: torch.Tensor):
 
 def tree_ldl_solve(tables: LdlTables, L: torch.Tensor, d: torch.Tensor, b: torch.Tensor):
     """Solve L D Lᵀ x = b per world. L (B, nv, maxc), d (B, nv), b (B, nv) → x (B, nv)."""
+    return _solve(tables, L, d, b, "tree_ldl_solve")
+
+
+def _solve(tables: LdlTables, L, d, b, count: str):
+    """:func:`tree_ldl_solve`, its launch counted under ``count``."""
     B, nv, maxc = b.shape[0], tables.nv, tables.maxc
     _check("L", L, (B, nv, maxc), b.device)
     _check("d", d, (B, nv), b.device)
@@ -118,6 +137,7 @@ def tree_ldl_solve(tables: LdlTables, L: torch.Tensor, d: torch.Tensor, b: torch
     if b.device.type == "cpu":
         return linalg.tree_ldl_solve(tables, L, d, b)
     _device_path(tables, b.device)
+    refuse_grad("tree_ldl_solve", L, d, b)
     if B == 0:
         return b.new_zeros((0, nv))
 
@@ -130,8 +150,54 @@ def tree_ldl_solve(tables: LdlTables, L: torch.Tensor, d: torch.Tensor, b: torch
         L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), tables.kernel.data_ptr(), nv,
         maxc, tables.n_env, tables.n_chain, B, _stream(b))
     _raise_on_error(lib, err, "tree_ldl_solve")
-    launches["tree_ldl_solve"] += 1
+    launches[count] += 1
     return x
+
+
+class _TreeLdlSolve(torch.autograd.Function):
+    """x = H⁻¹ b through a given tree-LDL factor (L, d) of H.
+
+    Forward: :func:`tree_ldl_solve` (one K1b launch on the card). Backward:
+    gb = H⁻¹ g, one more K1b launch on the same factor, and gH on exactly
+    the entries K1 reads (each DoF's row over its ancestors, and the
+    diagonal: ``LdlTables.env_index``), where the plain factor reads H and
+    ``jax.grad`` through it puts its gradient: off the diagonal
+    gH[i, a] = −(gb_i x_a + gb_a x_i), on it gH[i, i] = −gb_i x_i, zero
+    elsewhere (x depends on H[i, a] and H[a, i] as one symmetric entry)."""
+
+    @staticmethod
+    def forward(ctx, H, b, tables, L, d):
+        x = _solve(tables, L, d, b, "tree_ldl_solve")
+        ctx.tables = tables
+        ctx.save_for_backward(L, d, x)
+        return x
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        L, d, x = ctx.saved_tensors
+        tables = ctx.tables
+        gb = _solve(tables, L, d, g.contiguous(), "tree_ldl_solve_backward")
+        gH = None
+        if ctx.needs_input_grad[0]:
+            B, nv = x.shape
+            i, a = tables.env_index
+            # 0.5 on the diagonal: -(gb_i x_i + gb_i x_i) / 2 is -gb_i x_i exactly.
+            vals = -(gb[:, i] * x[:, a] + gb[:, a] * x[:, i]) * tables.env_half
+            gH = x.new_zeros((B, nv * nv))
+            gH[:, i * nv + a] = vals
+            gH = gH.reshape(B, nv, nv)
+        return gH, gb, None, None, None
+
+
+def tree_ldl_solve_grad(tables: LdlTables, H: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """:func:`tree_ldl_solve` under autograd: x = H⁻¹ b, differentiable in H
+    (B, nv, nv) and b (B, nv); (L, d) is the factor of H, made without
+    autograd (``tree_ldl_factor(tables, H.detach())``), and is not
+    differentiated. A factor that serves several solves gives each its own
+    node with H as input, and autograd sums their gH."""
+    return _TreeLdlSolve.apply(H, b, tables, L, d)
 
 
 def kernel_shape(tables: LdlTables) -> dict:

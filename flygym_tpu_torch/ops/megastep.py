@@ -38,6 +38,9 @@ Three parts:
   takes either as ``terrain_planes=``.
 
 ``launches["megastep"]`` counts kernel launches; only a launch adds to it.
+K2 has no gradient, as JAX's Pallas kernel has no VJP: given a tensor that
+requires grad in grad mode, the wrapper raises (``ops.refuse_grad``) where
+its output would otherwise carry no graph.
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
 and gates, the streamed emitter, H0-matvec mode, sublane packing, the
@@ -59,6 +62,7 @@ from flygym_tpu_torch.engine.maths import powf, sqrt_rn
 from flygym_tpu_torch.engine.maths import sinf as _sinf
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State
 from flygym_tpu_torch.engine.terrain import make_plane_sampler
+from flygym_tpu_torch.ops import refuse_grad
 
 __all__ = [
     "emit_step",
@@ -2504,6 +2508,7 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
             built["n_global"] = scratch_layout(model)["n_global"]
         lib = built["lib"]
         packed = _pack(st, state, ctrl_seq, terrain_planes, K)
+        refuse_grad("megastep", packed)
         out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
         scratch = torch.empty((B, max(built["n_global"], 1)), dtype=torch.float32, device=dev)
         if B:

@@ -18,6 +18,8 @@ Port of ``flygym_tpu/ops/retina_pallas.py:49-554``. Three parts:
   the same bits as sweeping every geom.
 
 ``launches["retina"]`` counts kernel launches; only a launch adds to it.
+K3 has no gradient: given rows that require grad in grad mode, a launch
+raises (``ops.refuse_grad``), as JAX's Pallas kernel, which has no VJP, does.
 
 Not ported (TPU lane choices, see ROADMAP "Not to port"): the worlds-major
 and ray-major layouts and the ``layout=`` argument.
@@ -28,6 +30,7 @@ import torch
 
 from flygym_tpu_torch.engine.maths import quat_mul, quat_rotate, sqrt_rn
 from flygym_tpu_torch.engine.model import PhysicsModel, State
+from flygym_tpu_torch.ops import refuse_grad
 
 __all__ = [
     "contributing_pairs",
@@ -402,6 +405,7 @@ def _check_rows(tables: RetinaTables, packed: torch.Tensor) -> None:
 
 
 def _launch(lib, entry: str, tables: RetinaTables, packed: torch.Tensor, *extra) -> torch.Tensor:
+    refuse_grad("retina", packed)
     B = packed.shape[0]
     out = torch.empty((B, 2, tables.R, 2), dtype=torch.float32, device=packed.device)
     err = getattr(lib, entry)(

@@ -121,7 +121,8 @@ def test_wrappers_take_the_plain_path_on_cpu(tables, problems):
     torch.testing.assert_close(L, L0, rtol=0, atol=0)
     torch.testing.assert_close(x, linalg.tree_ldl_solve(tables, L0, d0, torch.from_numpy(b)),
                                rtol=0, atol=0)
-    assert ldl.launches == {"tree_ldl_factor": 0, "tree_ldl_solve": 0}
+    assert ldl.launches == {"tree_ldl_factor": 0, "tree_ldl_solve": 0,
+                            "tree_ldl_solve_backward": 0}
 
 
 @pytest.mark.parametrize(

@@ -75,11 +75,16 @@ def test_fresh_export_loads_like_the_committed_one(fresh_export, compiled):
 
 @pytest.mark.parametrize("key, value, what", [("differentiable", True, "differentiable mode")])
 def test_unported_features_are_refused(key, value, what):
-    """On example 11's two-fly world, whose 49 uncompressed pair rows load."""
+    """Differentiable mode loads and K2's gate takes it. The test keeps the
+    name it had while the bridge refused features; no feature is refused
+    any longer: differentiable mode, the last one, loads on example 11's
+    two-fly world (49 uncompressed pair rows), and K2's gate does not look
+    at it, as JAX's does not."""
     arrays, meta = _read_npz(TWOFLY)
     meta["model"][key] = value
-    with pytest.raises(NotImplementedError, match=what):
-        model_from_numpy(arrays, meta)
+    model = model_from_numpy(arrays, meta).model
+    assert getattr(model, key) == value, what
+    assert megastep_supported(model)
 
 
 @pytest.mark.parametrize(

@@ -255,5 +255,6 @@ def test_engine_launches_per_step_on_the_card():
     ms.reset_launches()
     sim.rollout(None, 2, record_trajectory=False)
     torch.cuda.synchronize()
-    assert ldl.launches == {"tree_ldl_factor": 2 * ITERATIONS, "tree_ldl_solve": 2 * ITERATIONS}
+    assert ldl.launches == {"tree_ldl_factor": 2 * ITERATIONS, "tree_ldl_solve": 2 * ITERATIONS,
+                            "tree_ldl_solve_backward": 0}
     assert ms.launches["megastep"] == 0 and torch.isfinite(sim.state.qpos).all()
