@@ -18,8 +18,10 @@ Phases (each failure ends the run with a non-zero exit code):
    example 11's two flies, the default two-fly contact preset, the 3-fly
    pile, the strict, muscle-driven and mixed-kind flies, the tethered
    fly (no contact candidate), the benchmark fly at condim 1, 4 and 6, and
-   config 4's and config 2's worlds, and the worlds the port composes for
-   phases 45-47 (one generated header each; worlds with the same header
+   config 4's and config 2's worlds, the worlds the port composes for
+   phases 45-47, and config 5's world composed by the env (phase 53) and
+   ``VectorFlyEnv()``'s (phases 54-56) (one generated header each; worlds
+   with the same header
    share its build), and for the benchmark fly K2's profile build (clock64
    phase counters), its builds at the other threads per block of
    ``SWEEP_THREADS`` and the profile build of K2 as it stood before its
@@ -361,6 +363,29 @@ Phases (each failure ends the run with a non-zero exit code):
     graph's replay): the body positions of both poses within
     ``POSE_BAR_MM``; the fit's seconds; the graph's gradient against the
     eager cost and backward's at 3 seeded qpos within ``GRAD_KERNEL_BAR``.
+
+52. K2's pow (``ms_powf``, ``ops/megastep.py:kernel_powf``) against the
+    plain ``powf`` on the card and on the CPU, to the last bit, over 2^20
+    x (normal, tiny, subnormal, zero) at the exponents ``POWF_EXPONENTS``:
+    a subnormal x reads as 2^-150, so x^y is nonzero below y ~0.84.
+53. Config 5 on the env that composes its own world
+    (``demo/multimodal_navigation.py:build_env``: ``_build_default_world``,
+    the attractor, ``OdorField.for_fly``): its tables equal to
+    ``env_fly.npz``'s; phase 8 on it at 4096 worlds (K2 110, K3 110,
+    K1/K1b 0, env-steps/s, the split, auto-reset); its 8-world K2 path
+    against the ``.npz`` env's from the env golden's settled state, 5 env
+    steps, within ``GOLDEN_TOLERANCE`` (the composed compile's
+    ``can_invweight`` parts from the file's in the last bits,
+    ``tests/test_torch_compile.py``).
+54. Example 06's batched half (``VectorFlyEnv()``, one env step: K2 1)
+    and example 09 (3 env steps with vision and odor: K2 3, K3 3) at 4096
+    worlds; no tree-LDL launch; observations finite.
+55. Example 13 (``demo/rl_training_es.py:train``) at its own size, 1024
+    envs x 50 updates x 100 env steps: seconds per update, the curve, K2
+    5,000 launches (K = 10), no K3 or tree-LDL launch.
+56. Example 13 at ``--small`` (64 x 10 x 25: K2 250) with JAX's learning
+    criterion (``tests/examples/test_rl_training.py``): the last two
+    updates' mean reward above twice the first two's.
 
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
@@ -1513,18 +1538,15 @@ def env_actions(env, n_steps: int, seed: int) -> list:
     ]
 
 
-def phase_env(env_compiled) -> tuple:
-    """Config 5 at N_WORLDS through the default env step; returns the
-    launch counts and the timed steps' walltime."""
+def phase_env(env, label: str = "env") -> tuple:
+    """Config 5 at N_WORLDS through the default env step of ``env`` (a
+    ``VectorFlyEnv`` with vision and odor on the card); returns the launch
+    counts and the timed steps' walltime."""
     import torch
 
-    from flygym_tpu_torch.env import VectorFlyEnv
-    from flygym_tpu_torch.olfaction import OdorField
     from flygym_tpu_torch.ops import retina as rk
 
-    env = VectorFlyEnv(env_compiled, enable_vision=True,
-                       odor_field=OdorField.for_compiled(env_compiled))
-    check(env.megastep, "the env's default step is not the mega-step on the card")
+    check(env.megastep, f"{label}: the env's default step is not the mega-step on the card")
     step = env.make_batched_step()
     gen = torch.Generator(device="cuda").manual_seed(0)
     actions = env_actions(env, ENV_WARMUP_STEPS + ENV_STEPS, seed=1)
@@ -1551,21 +1573,22 @@ def phase_env(env_compiled) -> tuple:
     wall = time.perf_counter() - t0
     counts = read_counts()
     n_steps = ENV_WARMUP_STEPS + ENV_STEPS
-    print(f"[env] config 5, {N_WORLDS} worlds: {ENV_WARMUP_STEPS} + {ENV_STEPS} env steps "
+    print(f"[{label}] config 5, {N_WORLDS} worlds: {ENV_WARMUP_STEPS} + {ENV_STEPS} env steps "
           f"({env.decision_interval} physics steps each); launches {counts}")
     for name, n in {"megastep": n_steps, "retina": n_steps,
                     "tree_ldl_factor": 0, "tree_ldl_solve": 0}.items():
-        check(counts[name] == n, f"env: {name} launches {counts[name]} != {n}")
-    check(bool(ok.item()), "env: an observation is not finite, or vision is outside [0, 1]")
+        check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n}")
+    check(bool(ok.item()), f"{label}: an observation is not finite, or vision is outside [0, 1]")
     for name in ("qpos", "qvel", "xpos"):
-        check(bool(torch.isfinite(getattr(states, name)).all()), f"env: state.{name} not finite")
+        check(bool(torch.isfinite(getattr(states, name)).all()),
+              f"{label}: state.{name} not finite")
     z = states.qpos[:, 2]
-    print(f"[env] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
+    print(f"[{label}] root z min/mean/max {z.min().item():.4f}/{z.mean().item():.4f}/"
           f"{z.max().item():.4f} mm, done share {done.float().mean().item():.4f}, "
           f"reward mean {reward.mean().item():.3e}, vision mean {obs['vision'].mean().item():.4f}, "
           f"odor mean {obs['odor_intensity'].mean().item():.3e}")
     rate = ENV_STEPS * N_WORLDS / wall
-    print(f"[env] {ENV_STEPS} timed env steps in {wall:.3f} s, {wall / ENV_STEPS * 1e3:.3f} ms "
+    print(f"[{label}] {ENV_STEPS} timed env steps in {wall:.3f} s, {wall / ENV_STEPS * 1e3:.3f} ms "
           f"per env step: {rate:.0f} env-steps/s, {rate * env.decision_interval:.0f} "
           f"world-steps/s on {card_line()}")
 
@@ -1590,7 +1613,7 @@ def phase_env(env_compiled) -> tuple:
         ev[5].synchronize()
         for i in range(5):
             parts[i] += ev[i].elapsed_time(ev[i + 1]) / 5
-    print(f"[env] one env step: K2 launch with its packing {parts[0]:.3f} ms, "
+    print(f"[{label}] one env step: K2 launch with its packing {parts[0]:.3f} ms, "
           f"K3's packing (pack_rows) {parts[1]:.3f} ms, K3 {parts[2]:.3f} ms, "
           f"blur {parts[3]:.3f} ms, observations, odor, reward and done {parts[4]:.3f} ms")
 
@@ -1608,21 +1631,24 @@ def phase_env(env_compiled) -> tuple:
         if i == 0:
             flipped = torch.zeros(N_WORLDS, dtype=torch.bool, device="cuda")
             flipped[::4] = True
-            check(bool(done[flipped].all()), "auto-reset: a flipped world is not done")
+            check(bool(done[flipped].all()), f"{label} auto-reset: a flipped world is not done")
         n_done += int(done.sum().item())
         for name in ("qpos", "qvel", "xpos", "time"):
             got, want = getattr(states, name)[done], getattr(fresh, name)[done]
-            check(torch.equal(got, want), f"auto-reset step {i}: done worlds' {name} not fresh")
-        check(bool(torch.isfinite(obs["vision"]).all()), f"auto-reset step {i}: vision not finite")
-    print(f"[env] auto-reset: {AUTO_RESET_STEPS} steps, {n_done} done worlds replaced by fresh states")
+            check(torch.equal(got, want),
+                  f"{label} auto-reset step {i}: done worlds' {name} not fresh")
+        check(bool(torch.isfinite(obs["vision"]).all()),
+              f"{label} auto-reset step {i}: vision not finite")
+    print(f"[{label}] auto-reset: {AUTO_RESET_STEPS} steps, {n_done} done worlds replaced by "
+          f"fresh states")
 
     # The method entry points render through K3 too: one launch per step.
     before = rk.launches["retina"]
     states, obs, _reward, _done, _ = env.step(states, actions[0])
     env.observe(states)
     check(rk.launches["retina"] == before + 2,
-          f"env.step and env.observe: {rk.launches['retina'] - before} K3 launches, not 2")
-    check(bool(torch.isfinite(obs["vision"]).all()), "env.step: vision not finite")
+          f"{label}: env.step and env.observe: {rk.launches['retina'] - before} K3 launches, not 2")
+    check(bool(torch.isfinite(obs["vision"]).all()), f"{label}: env.step: vision not finite")
     return counts, wall
 
 
@@ -3312,6 +3338,16 @@ def compose(name: str):
     return fly, world
 
 
+def compose_default_env():
+    """``VectorFlyEnv()``'s world (``env/gym.py:_build_default_world``),
+    compiled on the CPU."""
+    from flygym_tpu_torch.env.gym import _build_default_world
+
+    _fly, world = _build_default_world()
+    world.compile()
+    return world
+
+
 def compose_all() -> dict:
     """Every world of phases 45-47, composed and compiled on the CPU."""
     out = {}
@@ -3931,6 +3967,169 @@ def phase_pose_conversion() -> None:
     check(max(gaps) <= GRAD_KERNEL_BAR, f"the pose fit's graph: gaps {gaps}")
 
 
+# Phase 52: K2's pow against the plain powf.
+POWF_EXPONENTS = (0.25, 0.5, 0.8, 0.9, 1.0, 1.5, 3.0)
+POWF_SAMPLES = 1 << 20
+# Phases 55-56: example 13 at its own size and at --small.
+ES_FULL = dict(n_envs=1024, n_updates=50, episode_len=100)
+ES_SMALL = dict(n_envs=64, n_updates=10, episode_len=25)
+
+
+def phase_powf(model) -> None:
+    """K2's ``ms_powf`` (the impedance's pow, ``ops/megastep.py:
+    kernel_powf``, from ``model``'s build) against the plain ``powf`` on the
+    same CUDA tensors and on the CPU, to the last bit: normal, tiny,
+    subnormal (every exponent field 0, seeded mantissas) and zero x at
+    exponents below and above 1; a subnormal x reads as 2^-150, so x^y is
+    not 0 where y < ~0.84."""
+    import torch
+
+    from flygym_tpu_torch.engine import maths
+    from flygym_tpu_torch.ops import megastep
+
+    gen = torch.Generator().manual_seed(52)
+    n = POWF_SAMPLES // 4
+    sub = torch.randint(1, 1 << 23, (n,), generator=gen, dtype=torch.int32).view(torch.float32)
+    x = torch.cat([torch.rand(n, generator=gen), torch.rand(n, generator=gen) * 2.0**-100, sub,
+                   torch.rand(n, generator=gen) * 2.0**-120])
+    x[:4] = torch.tensor([0.0, 2.0**-149, 2.0**-130, 1.0])
+    xc = x.cuda()
+    for y in POWF_EXPONENTS:
+        yc = torch.full_like(xc, y)
+        got = megastep.kernel_powf(model, xc, yc)
+        plain_card = maths.powf(xc, yc)
+        plain_cpu = maths.powf(x, torch.full_like(x, y))
+        check(torch.equal(got, plain_card), f"powf y={y}: K2's ms_powf differs from the plain "
+              f"powf on the card in {int((got != plain_card).sum())} of {x.numel()}")
+        check(torch.equal(got.cpu(), plain_cpu), f"powf y={y}: K2's ms_powf differs from the "
+              f"plain powf on the CPU")
+        nonzero = int((got[2 * n:3 * n] != 0).sum())
+        check((nonzero == n) == (y < 0.84), f"powf y={y}: {nonzero} of {n} subnormal x nonzero")
+        print(f"[powf] y={y}: K2's ms_powf equal to the plain powf (card and CPU) over "
+              f"{x.numel()} x; subnormal x giving nonzero {nonzero} of {n}")
+
+
+def phase_composed_env(env_compiled) -> tuple:
+    """Config 5 on the env that composes its own world
+    (``demo/multimodal_navigation.py:build_env``): its tables against
+    ``env_fly.npz``'s; phase 8's path at N_WORLDS; and its 8-world K2 path
+    against the ``.npz`` env's from the golden's settled state, 5 env steps
+    (within GOLDEN_TOLERANCE: the composed compile's ``can_invweight`` parts
+    from the file's in the last bits). Returns phase 8's counts and time."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import load_env_golden
+    from flygym_tpu_torch.demo import multimodal_navigation as nav
+    from flygym_tpu_torch.demo.benchmark import GOLDEN_TOLERANCE
+    from flygym_tpu_torch.env import VectorFlyEnv
+    from flygym_tpu_torch.olfaction import OdorField
+
+    t0 = time.perf_counter()
+    env = nav.build_env()
+    print(f"[env composed] composed, compiled and built on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    meta = env_compiled.env
+    for key in ("act_ids", "adh_ids", "qpos_adrs", "qvel_adrs", "sensor_slots", "tip_bodies"):
+        check(getattr(env, f"_{key}").tolist() == meta[key], f"env composed: {key} differs")
+    check(env._root_body == meta["root_body"] and [env.retina.left_eye_body,
+          env.retina.right_eye_body] == meta["eye_bodies"], "env composed: root or eyes differ")
+    counts, wall = phase_env(env, label="env composed")
+
+    golden = load_env_golden()
+    file_env = VectorFlyEnv(env_compiled, enable_vision=True,
+                            odor_field=OdorField.for_compiled(env_compiled))
+    runs = {}
+    for name, e in (("composed", env), ("file", file_env)):
+        step = e.make_batched_step()
+        states, rec = golden["state"].to("cuda"), []
+        for i in range(golden["joints"].shape[0]):
+            action = {k: torch.as_tensor(golden[k][i]).cuda() for k in ("joints", "adhesion")}
+            states, obs, _r, _d, _ = step(states, action)
+            rec.append((states.qpos.cpu().numpy(), states.qvel.cpu().numpy(),
+                        obs["vision"].cpu().numpy()))
+        runs[name] = rec
+    gaps = {key: max(float(np.abs(a[j] - b[j]).max()) for a, b in zip(runs["composed"],
+                                                                      runs["file"]))
+            for j, key in enumerate(("qpos", "qvel", "vision"))}
+    print(f"[env composed] 8 worlds x {len(runs['file'])} env steps on K2 against the .npz "
+          f"env's: max gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    for key in ("qpos", "qvel"):
+        check(gaps[key] <= GOLDEN_TOLERANCE[key], f"env composed {key}: {gaps[key]:.3e}")
+    return counts, wall
+
+
+def phase_rl_examples() -> dict:
+    """Example 06's batched half (``VectorFlyEnv()``, one env step) and
+    example 09 (3 env steps with vision and odor) at N_WORLDS: launches,
+    finite observations, seconds."""
+    import torch
+
+    from flygym_tpu_torch.demo import multimodal_navigation as nav
+    from flygym_tpu_torch.demo import rl_environment
+
+    out = {}
+    for label, fn, want in (
+        ("example 06", lambda: rl_environment.vector_half(N_WORLDS),
+         {"megastep": 1, "retina": 0}),
+        ("example 09", lambda: nav.main(N_WORLDS),
+         {"megastep": 3, "retina": 3}),
+    ):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        for name, n in {**want, "tree_ldl_factor": 0, "tree_ldl_solve": 0}.items():
+            check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n}")
+        for key, v in res["obs"].items():
+            check(bool(torch.isfinite(v).all()), f"{label}: {key} not finite")
+        check(bool(torch.isfinite(res["rewards"]).all()), f"{label}: rewards not finite")
+        print(f"[{label}] {N_WORLDS} worlds in {seconds:.2f} s with the env's build; "
+              f"launches {counts}")
+        out[label] = counts
+    return out
+
+
+def phase_es(label: str, size: dict, learn: bool) -> dict:
+    """Example 13 (``demo/rl_training_es.py:train``) at ``size`` on the
+    card: seconds per update, the curve, one K = 10 K2 launch per env step
+    and no tree-LDL launch; with ``learn``, JAX's learning criterion
+    (``tests/examples/test_rl_training.py``: the last two updates' mean
+    reward above twice the first two's)."""
+    import numpy as np
+
+    from flygym_tpu_torch.demo import rl_training_es
+
+    reset_counts()
+    timings = []
+    t0 = time.perf_counter()
+    curve, _theta = rl_training_es.train(**size, verbose=False, timings=timings)
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    n_steps = size["n_updates"] * size["episode_len"]
+    for name, n in {"megastep": n_steps, "retina": 0, "tree_ldl_factor": 0,
+                    "tree_ldl_solve": 0}.items():
+        check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n}")
+    check(bool(np.isfinite(curve).all()) and len(curve) == size["n_updates"],
+          f"{label}: the curve is not finite")
+    t = np.asarray(timings)
+    fifth = max(len(curve) // 5, 1)
+    print(f"[{label}] {size}: {total:.2f} s in all; seconds per update first {t[0]:.3f}, "
+          f"median {np.median(t):.3f}, mean of the rest {t[1:].mean() if len(t) > 1 else t[0]:.3f}"
+          f" ({size['n_envs'] * size['episode_len'] * 10 / np.median(t):.0f} world-steps/s) on "
+          f"{card_line()}; launches {counts}")
+    print(f"[{label}] mean reward first fifth {curve[:fifth].mean():+.5f} -> last fifth "
+          f"{curve[-fifth:].mean():+.5f}; curve {np.round(curve, 5).tolist()}")
+    if learn:
+        first, last = curve[:2].mean(), curve[-2:].mean()
+        check(last > 2.0 * first, f"{label}: ES did not learn ({first:+.5f} -> {last:+.5f})")
+        print(f"[{label}] JAX's learning criterion met: {first:+.5f} -> {last:+.5f} "
+              f"({last / first:.2f}x)")
+    return {"counts": counts, "seconds": t, "curve": curve}
+
+
 def main() -> int:
     import torch
 
@@ -3950,6 +4149,8 @@ def main() -> int:
             MUSCLE_GOLDEN, STRICT_FLY, STRICT_GOLDEN, TAXIS_FLY, TERRAIN_FLY, TETHERED_FLY,
             TETHERED_GOLDEN, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_FULL, TWOFLY_FULL_GOLDEN,
             read_meta)
+        from flygym_tpu_torch.env import VectorFlyEnv
+        from flygym_tpu_torch.olfaction import OdorField
         from flygym_tpu_torch.ops.megastep import megastep_supported
 
         compiled = flygym_tpu_torch.load_compiled()
@@ -3970,6 +4171,8 @@ def main() -> int:
         pgs_compiled = flygym_tpu_torch.load_compiled(ASSETS / "pgs_fly.npz")
         terrain_condim = terrain_at_condim(CONDIM_TIMED)
         composed = compose_all()
+        env_world = compose("env_fly")[1]  # phase 53's world, for phase 1's build
+        default_world = compose_default_env()
         count_ops_in_background(ops_pool, [
             ("compose:benchmark", 0), (BENCHMARK_FLY, 0), (TERRAIN_FLY, 0), (TWOFLY, 0), (TWOFLY_FULL, 0), (THREEFLY, 0),
             (STRICT_FLY, 0), (MUSCLE_FLY, 0), (MIXED_FLY, 0), (TETHERED_FLY, 0),
@@ -3986,7 +4189,9 @@ def main() -> int:
                      f"terrain fly, condim {CONDIM_TIMED}": terrain_condim,
                      "taxis fly": taxis_compiled, "cpg fly": cpg_compiled,
                      **{f"composed {name}": w.compiled for name, (_f, w) in composed.items()
-                        if megastep_supported(w.compiled.model)}},
+                        if megastep_supported(w.compiled.model)},
+                     "composed env fly": env_world.compiled,
+                     "default env fly": default_world.compiled},
                     compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
@@ -4015,7 +4220,8 @@ def main() -> int:
                      golden_path=ASSETS / "benchmark_fly_megastep_golden.npz", megastep=True)
         lap("phases 2-6 (K1, K1b, K2, the replay)")
         retina = phase_retina(env_compiled, env_compiled.model.to("cuda"))
-        env_counts, _env_wall = phase_env(env_compiled)
+        env_counts, _env_wall = phase_env(VectorFlyEnv(
+            env_compiled, enable_vision=True, odor_field=OdorField.for_compiled(env_compiled)))
         phase_env_golden(env_compiled, label="env golden megastep", megastep=None)
         phase_env_golden(env_compiled, label="env golden engine", megastep=False)
         lap("phases 7-9 (K3, config 5)")
@@ -4155,6 +4361,21 @@ def main() -> int:
         lap("phase 50 (gradients through the step, example 10)")
         phase_pose_conversion()
         lap("phase 51 (the pose conversion)")
+        phase_powf(model)
+        lap("phase 52 (K2's pow of subnormal x)")
+        composed_env_counts, _wall = phase_composed_env(env_compiled)
+        lap("phase 53 (config 5 on the env that composes its world)")
+        example_counts = phase_rl_examples()
+        lap("phase 54 (examples 06 and 09)")
+        es_full = phase_es("example 13", ES_FULL, learn=False)
+        lap("phase 55 (example 13 at its own size)")
+        es_small = phase_es("example 13 --small", ES_SMALL, learn=True)
+        lap("phase 56 (example 13 at --small)")
+        print(f"[rl] K2 launches on {card_line()}: config 5 composed "
+              f"{composed_env_counts['megastep']}, example 06 {example_counts['example 06']['megastep']}"
+              f", example 09 {example_counts['example 09']['megastep']}, example 13 "
+              f"{es_full['counts']['megastep']} (--small {es_small['counts']['megastep']}); "
+              f"tree-LDL 0 on each")
         print(f"[composed] K2 launches on {card_line()}: benchmark {composed_counts['megastep']}, "
               + ", ".join(f"{k} {v['megastep']}" for k, v in option_counts.items())
               + f", all biological {biological_counts['megastep']}")

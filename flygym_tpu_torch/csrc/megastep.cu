@@ -274,8 +274,10 @@ MS_FN float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi)
 // (sysdeps/ieee754/flt-32/e_powf.c), which is how the JAX package's CPU
 // backend rounds pow: log2(x) from a 16-entry table and a float64
 // polynomial, times y, exp2 from a 32-entry table and a float64
-// polynomial, rounded to float32; subnormal arguments and results are 0, as
-// XLA's CPU backend flushes them. It is not correctly rounded, and x*x*x
+// polynomial, rounded to float32. XLA's CPU backend reads subnormal floats
+// as zero: glibc normalises a subnormal x as the bits of x * 2^23 less 23
+// exponents, which reads as 2^-150 there, so x^y is 2^(-150 y); a subnormal
+// result is 0, and so is 0^y. It is not correctly rounded, and x*x*x
 // differs from it in a quarter of arguments. The plain version
 // (engine/maths.py powf) is the same algorithm.
 MS_TABLE double kPowInvC[16] = {
@@ -306,7 +308,8 @@ constexpr double kExp2Shift = 0x1.8p52 / 32;
 MS_FN float ms_powf(float x, float y) {
   uint32_t ix;
   memcpy(&ix, &x, sizeof ix);
-  if (ix < 0x00800000u) return 0.0f;
+  if (ix == 0) return 0.0f;
+  if (ix < 0x00800000u) ix = 0u - (23u << 23);
   const uint32_t tmp = ix - 0x3f330000u;
   const int i = static_cast<int>((tmp >> 19) % 16);
   const uint32_t top = tmp & 0xff800000u;
@@ -1493,6 +1496,13 @@ megastep_kernel(const float* __restrict__ in, float* __restrict__ out,
 #endif
 }
 
+// ms_powf elementwise, to hold the step's pow against its plain version.
+__global__ void powf_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                            float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = ms_powf(x[i], y[i]);
+}
+
 // The kernel's dynamic shared memory above the default 48 KB.
 cudaError_t set_attributes() {
   return cudaFuncSetAttribute(megastep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1543,6 +1553,14 @@ extern "C" int megastep_shape(int* shape) {
   return static_cast<int>(err);
 }
 
+// out[i] = ms_powf(x[i], y[i]) for i < n, the step's pow alone.
+extern "C" int megastep_powf_f32(const void* x, const void* y, void* out, int n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  powf_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -1560,6 +1578,12 @@ extern "C" int megastep_host_f32(const float* in, float* out, float* scratch, in
     Prof p;
     run_world(in, out, S, w, B, K, p);
   }
+  return 0;
+}
+
+// out[i] = ms_powf(x[i], y[i]) for i < n, the step's pow alone.
+extern "C" int megastep_powf_host_f32(const float* x, const float* y, float* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = ms_powf(x[i], y[i]);
   return 0;
 }
 #endif

@@ -206,9 +206,7 @@ def build_world(name: str):
             world.add_object("pillar", (25.0, 12.0, 3.0), radius=3.0)
         return fly, world
     if name == "env_fly":
-        fly = _position_legs(_legs_fly("fly0", JointPreset.LEGS_ONLY))
-        world = FlatGroundWorld()
-        world.add_fly(fly, (0, 0, 1.2), _QUAT)
-        world.add_object("attractor", (30.0, 0.0, 3.0), radius=3.0)
-        return fly, world
+        from flygym_tpu_torch.demo.multimodal_navigation import build_world as env_world
+
+        return env_world()
     raise ValueError(f"unknown world {name!r}; the worlds are {sorted(WORLDS)}")

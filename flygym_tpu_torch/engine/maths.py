@@ -14,6 +14,8 @@ float32 are glibc's ``sinf``/``cosf``/``powf`` algorithms (:func:`sinf`,
 jitted or not.
 """
 
+import struct
+
 import numpy as np
 import torch
 
@@ -201,6 +203,11 @@ def _powf_tables(dev) -> tuple:
 _powf_tables(torch.device("cpu"))  # so that no CPU call makes them (or counts them)
 
 
+def _f32(v: float) -> float:
+    """``v`` rounded to the nearest float32."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
 def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
     """``g`` summed over the dimensions along which an operand of ``shape``
     was broadcast to ``g``'s shape."""
@@ -220,6 +227,8 @@ class _PowF(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y):
+        if not isinstance(y, torch.Tensor):
+            y = _f32(y)  # a Python exponent is float32 to jnp.power
         out = _powf(x, y)
         ctx.y_float = None if isinstance(y, torch.Tensor) else y
         ctx.save_for_backward(x, out, y if isinstance(y, torch.Tensor) else None)
@@ -231,7 +240,7 @@ class _PowF(torch.autograd.Function):
         y = ctx.y_float if y_t is None else y_t
         gx = gy = None
         if ctx.needs_input_grad[0]:
-            jac = y * powf(x, y - 1.0)
+            jac = y * powf(x, y - 1.0 if y_t is not None else _f32(y - 1.0))
             if y_t is None:
                 gx = torch.zeros_like(g) if y == 0 else g * jac
             else:
@@ -243,17 +252,28 @@ class _PowF(torch.autograd.Function):
 
 
 def powf(x: torch.Tensor, y) -> torch.Tensor:
-    """x ** y of a float32 tensor x >= 0 and a positive exponent ``y`` (a
-    float or a float32 tensor), rounded as glibc's powf rounds it. XLA's CPU
-    backend flushes subnormal floats to zero, so x below 2^-126 gives 0, and
-    so does a result below 2^-126. Negative or non-finite arguments are not
-    handled. Its gradients are JAX's rules (:class:`_PowF`)."""
+    """x ** y of a float32 tensor x >= 0 and a finite exponent ``y`` (a
+    float or a float32 tensor), rounded as glibc's powf rounds it under
+    XLA's CPU backend, which reads subnormal floats as zero: glibc
+    normalises a subnormal x as the bits of x * 2^23 less 23 exponents,
+    which then reads as 2^-150, so x^y is 2^(-150 y); a result below 2^-126
+    is 0, 0^y is 0, 1 or inf as y > 0, = 0 or < 0, and a result past the
+    float range is inf. Negative or non-finite arguments are not handled.
+    Its gradients are JAX's rules (:class:`_PowF`)."""
     return _PowF.apply(x, y)
+
+
+# glibc's subnormal x: the bits of x * 2^23 (0 under denormals-are-zero)
+# less 23 << 23, as an int32; its log2 comes out as exactly -150.
+_POWF_SUBNORMAL_BITS = -(23 << 23)
+# glibc's overflow threshold of y log2(x).
+_POWF_OVERFLOW = float.fromhex("0x1.fffffffd1d571p+6")
 
 
 def _powf(x: torch.Tensor, y) -> torch.Tensor:
     invc_tab, logc_tab, exp2_tab = _powf_tables(x.device)
-    ix = x.view(torch.int32)
+    ix0 = x.view(torch.int32)
+    ix = torch.where(ix0 < 0x00800000, _POWF_SUBNORMAL_BITS, ix0)
     tmp = ix - 0x3F330000
     i = ((tmp >> 19) & 15).long()
     top = tmp & -0x800000  # 0xff800000
@@ -284,8 +304,13 @@ def _powf(x: torch.Tensor, y) -> torch.Tensor:
     yv = c[2] * r + 1.0
     yv = zc * r2 + yv
     out = (yv * t.view(torch.float64)).float()
-    flush = (ix < 0x00800000) | (ylogx <= -150.0) | (out < float(2.0**-126))
-    return torch.where(flush, 0.0, out)
+    out = torch.where(ylogx > _POWF_OVERFLOW, float("inf"), out)
+    out = torch.where((ylogx <= -150.0) | (out < float(2.0**-126)), 0.0, out)
+    if isinstance(y, torch.Tensor):
+        zero_pow = torch.where(y > 0, 0.0, torch.where(y == 0, 1.0, float("inf")))
+    else:
+        zero_pow = 0.0 if y > 0 else 1.0 if y == 0 else float("inf")
+    return torch.where(ix0 == 0, zero_pow, out)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,16 @@ steps are one launch of the mega-step kernel K2 fusing them
 observed, is one launch of the retina kernel K3 and the acceptance blur
 (K3's plain version for CPU tensors).
 
-The world comes as an exported :class:`CompiledModel` with ``meta["env"]``
-(``scripts/export_env_golden.py``); random numbers come from explicit
-``torch.Generator``s. ``FlyEnv`` imports ``gymnasium`` when it is built; its
-frame, a fixed camera behind and above the root body, is
-:func:`env_frame`, which needs no ``gymnasium``.
+The env builds its world as JAX's does: with no world it composes
+:func:`_build_default_world` (the flagship walking fly on flat ground),
+and a composed world (``compose``) is compiled and its tables read from the
+compile's name maps and the fly's actuators, legs and contact sensors. An
+exported :class:`CompiledModel` with ``meta["env"]``
+(``scripts/export_env_golden.py``) is taken as well, its tables read from
+the metadata. Random numbers come from explicit ``torch.Generator``s.
+``FlyEnv`` imports ``gymnasium`` when it is built; its frame, a fixed camera
+behind and above the root body, is :func:`env_frame`, which needs no
+``gymnasium``.
 """
 
 import numpy as np
@@ -34,13 +39,14 @@ from dataclasses import replace
 import torch
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
+from flygym_tpu_torch.compose.fly import ActuatorType
 from flygym_tpu_torch.engine.maths import quat_rotate
 from flygym_tpu_torch.engine.model import State
 from flygym_tpu_torch.engine.step import step as engine_step
 from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
 
-__all__ = ["FlyEnv", "VectorFlyEnv", "env_frame"]
+__all__ = ["FlyEnv", "VectorFlyEnv", "env_frame", "world_tables"]
 
 RESET_NOISE = 0.01  # rad (and mm) of Gaussian noise on qpos at reset
 # FlyEnv's frame: 240 x 320 pixels, fovy 30 deg, 7.5 mm behind and 6 mm
@@ -52,55 +58,128 @@ FRAME_OFFSET = (0.0, -7.5, 6.0)
 FRAME_QUAT = (0.8944271909999159, 0.447213595499958, 0.0, 0.0)  # (sqrt 0.8, sqrt 0.2, 0, 0)
 
 
+def _build_default_world(fly_name: str = "fly0"):
+    """``(fly, world)``: JAX's default env world (``flygym_tpu/env/gym.py:
+    35-67``): a LEGS_ONLY fly (yaw-pitch-roll), position actuators at kp 50
+    on the LEGS_ACTIVE_ONLY DoFs with the neutral pose as their input, leg
+    adhesion, on :class:`FlatGroundWorld` at (0, 0, 1.2)."""
+    from flygym_tpu_torch.anatomy import ActuatedDOFPreset, AxisOrder, JointPreset, Skeleton
+    from flygym_tpu_torch.compose import FlatGroundWorld, Fly, KinematicPosePreset
+    from flygym_tpu_torch.utils.math import Rotation3D
+
+    fly = Fly(name=fly_name)
+    skeleton = Skeleton(axis_order=AxisOrder.YAW_PITCH_ROLL, joint_preset=JointPreset.LEGS_ONLY)
+    fly.add_joints(skeleton, neutral_pose=KinematicPosePreset.NEUTRAL)
+    dofs = fly.skeleton.get_actuated_dofs_from_preset(ActuatedDOFPreset.LEGS_ACTIVE_ONLY)
+    fly.add_actuators(dofs, ActuatorType.POSITION, kp=50.0,
+                      neutral_input=KinematicPosePreset.NEUTRAL)
+    fly.add_leg_adhesion()
+    world = FlatGroundWorld()
+    world.add_fly(fly, (0, 0, 1.2), Rotation3D("quat", (1, 0, 0, 0)))
+    return fly, world
+
+
+def world_tables(world, fly_name: str) -> dict:
+    """The env's index tables of ``fly_name`` in a compiled ``world``
+    (``world.compiled``), as JAX's ``VectorFlyEnv.__init__`` reads them
+    (``flygym_tpu/env/gym.py:112-153``), with the keys of ``meta["env"]``:
+    ``act_ids`` (the position actuators), ``adh_ids`` (adhesion, legs in
+    order), ``qpos_adrs`` and ``qvel_adrs`` (the actuated hinges),
+    ``root_body``, ``tip_bodies`` (the tarsus5 segments) and
+    ``sensor_slots`` (the legs' ground-contact sensors)."""
+    c = world.compiled
+    fly = world.fly_lookup[fly_name]
+    legs = fly.get_legs_order()
+    order = fly.get_actuated_jointdofs_order(ActuatorType.POSITION)
+    sensors = world.legpos_to_groundcontactsensors_by_fly[fly_name]
+    return {
+        "act_ids": [c.actuator_name2id[a.full_identifier]
+                    for a in fly.jointdof_to_specactuator_by_type[ActuatorType.POSITION].values()],
+        "adh_ids": [c.actuator_name2id[fly.leg_to_adhesionactuator[leg].full_identifier]
+                    for leg in legs],
+        "qpos_adrs": [c.hinge_qadr[f"{fly_name}/{d.name}"] for d in order],
+        "qvel_adrs": [c.hinge_vadr[f"{fly_name}/{d.name}"] for d in order],
+        "root_body": c.body_name2id[f"{fly_name}/{fly.root_segment.name}"],
+        "tip_bodies": [c.body_name2id[f"{fly_name}/{leg}_tarsus5"] for leg in legs],
+        "sensor_slots": [c.sensor_name2slot[sensors[leg].full_identifier] for leg in legs],
+    }
+
+
 class VectorFlyEnv:
     """Batched fly environment on ``device``.
 
     Args:
-        compiled: An exported env world, e.g.
-            ``load_compiled(flygym_tpu_torch.compose.bridge.ENV_FLY)``.
+        world: A composed world (``compose``), compiled here as JAX's env
+            compiles it (``world.compile()``); None composes
+            :func:`_build_default_world`. An exported env world
+            (``load_compiled(flygym_tpu_torch.compose.bridge.ENV_FLY)``, a
+            :class:`CompiledModel` with ``meta["env"]``) is taken too.
+        fly_name: Which fly is the agent (default: the world's first; an
+            exported env's own).
+        decision_interval: Physics steps per env step: 10, a 1 kHz control
+            rate at dt = 1e-4 s.
+        enable_vision: Add the retina's output to the observations,
+            rendered by K3 and the blur (``render_vision``).
+        odor_field: An :class:`~flygym_tpu_torch.olfaction.OdorField` to add
+            odor observations, or None.
         device: The card by default; pass ``"cpu"`` to run on the CPU.
         megastep: None takes the mega-step kernel K2 on a CUDA device for a
             supported model, the engine step otherwise; False forces the
             engine step; True on an unsupported model raises. On the CPU the
             mega-step runs its plain version.
-        enable_vision: Add the retina's output to the observations,
-            rendered by K3 and the blur (``render_vision``).
-        odor_field: An :class:`~flygym_tpu_torch.olfaction.OdorField` to add
-            odor observations, or None.
+
+    ``world``, ``fly`` and ``fly_name`` are JAX's attributes; ``world`` and
+    ``fly`` are None for an exported env.
     """
 
-    def __init__(self, compiled: CompiledModel, *, device="cuda", megastep: bool | None = None,
-                 enable_vision: bool = False, odor_field=None):
-        env = compiled.env
-        if env is None:
-            raise ValueError("the compiled model carries no env metadata (meta['env'])")
+    def __init__(self, world=None, fly_name: str | None = None, *, decision_interval: int = 10,
+                 enable_vision: bool = False, odor_field=None, device="cuda",
+                 megastep: bool | None = None):
         self.device = checked_device(device)
+        if isinstance(world, CompiledModel):
+            compiled, tables = world, world.env
+            if tables is None:
+                raise ValueError("the compiled model carries no env metadata (meta['env'])")
+            if fly_name is not None and fly_name != tables["fly"]:
+                raise ValueError(f"the env's fly is {tables['fly']!r}, not {fly_name!r}")
+            self.world = self.fly = None
+            self.fly_name = tables["fly"]
+        else:
+            if world is None:
+                fly, world = _build_default_world()
+                fly_name = fly.name
+            if fly_name is None:
+                fly_name = next(iter(world.fly_lookup))
+            world.compile()
+            compiled, tables = world.compiled, world_tables(world, fly_name)
+            self.world, self.fly, self.fly_name = world, world.fly_lookup[fly_name], fly_name
         supported = megastep_supported(compiled.model)
         if megastep is None:
             megastep = self.device.type == "cuda" and supported
         elif megastep and not supported:
             raise NotImplementedError("the mega-step kernel does not support this model")
         self.megastep = bool(megastep)
-        self.fly_name = env["fly"]
         self.model = compiled.model.to(self.device)
         self._state0 = compiled.initial_state.to(self.device)
-        # Physics steps per env step: 10, a 1 kHz control rate at dt = 1e-4 s.
-        self.decision_interval = int(env["decision_interval"])
+        self.decision_interval = int(decision_interval)
         self.odor_field = odor_field
 
-        ids = lambda k: torch.tensor(env[k], dtype=torch.int64, device=self.device)
+        ids = lambda k: torch.tensor(tables[k], dtype=torch.int64, device=self.device)
         self._act_ids, self._adh_ids = ids("act_ids"), ids("adh_ids")
         self._qpos_adrs, self._qvel_adrs = ids("qpos_adrs"), ids("qvel_adrs")
         self._sensor_slots, self._tip_bodies = ids("sensor_slots"), ids("tip_bodies")
-        self._root_body = int(env["root_body"])
-        self.n_actuated = len(env["act_ids"])
+        self._root_body = int(tables["root_body"])
+        self.n_actuated = len(tables["act_ids"])
         self._megastep_fn = (
             make_megastep(self.model, self.decision_interval) if self.megastep else None
         )
         if enable_vision:
             from flygym_tpu_torch.vision import Retina
 
-            self.retina = Retina.for_compiled(compiled)
+            if self.world is None:
+                self.retina = Retina.for_compiled(compiled)
+            else:
+                self.retina = Retina.for_fly(self.world, self.fly_name)
             self.render_vision = self.retina.make_render_batched(self.model)
         else:
             self.retina = self.render_vision = None
@@ -265,7 +344,12 @@ class FlyEnv:
     """A ``gymnasium.Env`` of one world around :class:`VectorFlyEnv`.
 
     Args:
-        compiled, device, ``kwargs``: As for :class:`VectorFlyEnv`.
+        args, kwargs: :class:`VectorFlyEnv`'s (the world, the fly's name,
+            ``decision_interval``, ``enable_vision``, ``odor_field``,
+            ``device``, ``megastep``), passed on as JAX's ``FlyEnv`` passes
+            them (``flygym_tpu/env/gym.py:341-346``).
+        render_camera: Kept, as JAX keeps it; :meth:`render` takes its
+            fixed camera.
 
     Observations are numpy arrays without the world axis, the action a dict
     of (n_actuated,) joint targets and (6,) adhesion. ``reset(seed=)``
@@ -275,11 +359,12 @@ class FlyEnv:
 
     metadata = {"render_modes": ["rgb_array"]}
 
-    def __init__(self, compiled: CompiledModel, *, device="cuda", **kwargs):
+    def __init__(self, *args, render_camera: str | None = None, **kwargs):
         import gymnasium
         from gymnasium import spaces
 
-        self._core = VectorFlyEnv(compiled, device=device, **kwargs)
+        self._core = VectorFlyEnv(*args, **kwargs)
+        self._render_camera = render_camera
         self._state = None
         self._generator = torch.Generator().manual_seed(0)
         n = self._core.n_actuated

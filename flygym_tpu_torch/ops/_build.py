@@ -300,6 +300,9 @@ def load_megastep(header: str, profile: bool = False, source: Path | None = None
         else:
             lib.megastep_f32.argtypes = [p, p, p, i, i, p]
             lib.megastep_f32.restype = i
+            if hasattr(lib, "megastep_powf_f32"):  # not in the build before the redesign
+                lib.megastep_powf_f32.argtypes = [p, p, p, i, p]
+                lib.megastep_powf_f32.restype = i
             lib.megastep_shape.argtypes = [p]
             lib.megastep_shape.restype = i
         lib.cuda_error_string.argtypes = [i]
@@ -329,6 +332,8 @@ def build_megastep_host(header: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.megastep_host_f32.argtypes = [p, p, p, i, i, i]
     lib.megastep_host_f32.restype = i
+    lib.megastep_powf_host_f32.argtypes = [p, p, p, i]
+    lib.megastep_powf_host_f32.restype = i
     return lib
 
 

@@ -2428,6 +2428,28 @@ def kernel_shape(model: PhysicsModel) -> dict:
     return dict(zip(("threads", "shared_bytes", "n_global", "blocks_per_sm"), shape))
 
 
+def kernel_powf(model: PhysicsModel, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x ** y`` elementwise through K2's own pow (``ms_powf`` of
+    ``csrc/megastep.cu``, the impedance's), from ``model``'s build, on
+    CUDA tensors of float32: the device function alone, to hold against
+    :func:`~flygym_tpu_torch.engine.maths.powf`. Not counted in
+    ``launches``. The host build's ``megastep_powf_host_f32`` is the same
+    code compiled by g++."""
+    from flygym_tpu_torch.ops._build import load_megastep
+
+    if x.device.type != "cuda" or y.device != x.device:
+        raise RuntimeError(f"kernel_powf runs on CUDA tensors, got {x.device} and {y.device}")
+    x = x.to(torch.float32).contiguous()
+    y = y.to(torch.float32).expand_as(x).contiguous()
+    lib = load_megastep(model_header(model)[0])
+    out = torch.empty_like(x)
+    if x.numel():
+        _raise_on_error(lib, lib.megastep_powf_f32(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream))
+    return out
+
+
 def _raise_on_error(lib, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"megastep launch failed: {lib.cuda_error_string(err).decode()}")

@@ -153,16 +153,19 @@ def test_engine_sin_cos_round_as_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("power", [3.0, 2.0, 1.5])
+@pytest.mark.parametrize("power", [3.0, 2.0, 1.5, 0.8, 0.5, 0.25])
 def test_powf_rounds_as_jax(power):
     """The impedance's pow against the JAX package's ``x ** power`` on the
     CPU (glibc's powf), to the last bit, over [0, 1] with tiny and
-    subnormal-result arguments; with a float and with a tensor exponent."""
+    subnormal-result arguments and subnormal x (which XLA's pow reads as
+    2^-150, so that x^y is not 0 below y ~0.84); with a float and with a
+    tensor exponent."""
     rng = np.random.default_rng(1)
     x = rng.uniform(0.0, 1.0, 400000).astype(np.float32)
     x[::7] *= 1e-6
     x[::13] *= np.float32(2.0**-40)
-    x[:6] = [0.0, 1.0, 0.5, 1e-45, 3e-39, 2.0**-42]
+    x[:11] = [0.0, 1.0, 0.5, 1e-45, 3e-39, 2.0**-42, 2.0**-130, 2.0**-149, 1.1754942e-38,
+              2.0**-126, 2.0**-127]
     want = np.asarray(jnp.asarray(x) ** power)
     np.testing.assert_array_equal(maths.powf(torch.from_numpy(x), power).numpy(), want)
     tensor_power = torch.full((x.size,), power)

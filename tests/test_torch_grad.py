@@ -100,7 +100,7 @@ def _rel(got, want):
 def _maths_inputs(seed=0, n=4096):
     rng = np.random.default_rng(seed)
     x = rng.uniform(0.0, 1.0, n).astype(np.float32)
-    x[:4] = [0.0, 1.0, 0.5, 2.0**-130]  # a zero, a one and a subnormal flushed to zero
+    x[:4] = [0.0, 1.0, 0.5, 2.0**-130]  # a zero, a one, a half and a subnormal
     y = rng.uniform(1.0, 4.0, n).astype(np.float32)
     a = rng.uniform(-8.0, 8.0, n).astype(np.float32)
     w = rng.standard_normal(n).astype(np.float32)
@@ -147,16 +147,34 @@ def test_maths_gradients_are_jax_rules(case):
     if case == "powf_x":
         # x = 2^-130 (element 3): XLA's pow reads a subnormal x as 2^-150
         # (glibc's normalisation under denormals-are-zero), so x^(y-1) is
-        # 2^(-150 (y-1)), not 0, where y - 1 < 1; the port's powf, whose
-        # forward this PR keeps bit for bit, reads it as 0 (ROADMAP queue 3).
+        # 2^(-150 (y-1)), not 0, where y - 1 < ~0.84; so does the port's.
         y3 = np.float64(y[3])
-        assert got[3] == 0.0
+        assert got[3] == want[3] != 0.0
         assert np.isclose(want[3], w[3] * y3 * 2.0 ** (-150 * (y3 - 1)), rtol=1e-6, atol=0.0)
-        got, want = np.delete(got, 3), np.delete(want, 3)
     if case == "powf_y":
         np.testing.assert_allclose(got, want, rtol=MATHS_BAR, atol=0.0)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("power", [0.25, 0.5, 0.8, 1.5, 3.0])
+def test_powf_of_subnormal_x_is_jax(power):
+    """powf's forward and its gradient in x equal ``jnp.power`` and its VJP
+    to the last bit where x is subnormal (read as 2^-150) or tiny, at
+    exponents below and above 1 (below 1, x^(y-1) is large, not 0)."""
+    rng = np.random.default_rng(4)
+    x = np.concatenate([
+        np.float32([2.0**-130, 2.0**-149, 1e-45, 3e-39, 1.1754942e-38, 2.0**-126, 2.0**-100]),
+        rng.uniform(0.0, 1.0, 256).astype(np.float32) * np.float32(2.0**-126),
+        rng.uniform(0.0, 1.0, 256).astype(np.float32)]).astype(np.float32)
+    w = rng.standard_normal(x.size).astype(np.float32)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = maths.powf(tx, power)
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(jnp.power(jnp.asarray(x), power)))
+    (out * torch.from_numpy(w)).sum().backward()
+    want = _vjp_jax(lambda u: jnp.power(u, power), [x], w, 0)
+    assert np.isfinite(want).all()
+    np.testing.assert_array_equal(tx.grad.numpy(), want)
 
 
 def test_powf_output_has_a_graph_and_broadcasts():

@@ -22,6 +22,7 @@ import torch
 
 from flygym_tpu_torch import BatchSimulation, load_compiled
 from flygym_tpu_torch.compose.bridge import ASSETS, TETHERED_FLY, TWOFLY, TWOFLY_FULL, load_golden
+from flygym_tpu_torch.engine import maths
 from flygym_tpu_torch.ops import _build
 from flygym_tpu_torch.ops import megastep as ms
 
@@ -186,6 +187,29 @@ def test_host_build_of_the_kernel_matches_plain(compiled, static, first_state, p
         want = getattr(plain_first, name)
         gap = (getattr(got, name) - want).abs().max()
         assert gap <= RTOL_OF_MAX * want.abs().max(), (name, gap)
+
+
+def test_host_build_powf_equals_jax(compiled):
+    """K2's ``ms_powf`` (the impedance's pow), compiled as host C++ with
+    g++, equals ``jnp.power`` on the CPU to the last bit: normal, tiny,
+    subnormal and zero x at exponents below and above 1 (a subnormal x reads
+    as 2^-150, so x^y is not 0 where y < ~0.84)."""
+    import jax.numpy as jnp
+
+    lib = _build.build_megastep_host(ms.model_header(compiled.model)[0])
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0.0, 1.0, 20000).astype(np.float32)
+    x[::5] *= np.float32(2.0**-40)
+    x[:8] = [0.0, 2.0**-130, 2.0**-149, 1e-45, 3e-39, 1.1754942e-38, 2.0**-126, 1.0]
+    for power in (0.25, 0.5, 0.8, 0.84, 1.0, 1.5, 3.0):
+        y = np.full_like(x, power)
+        out = np.empty_like(x)
+        assert lib.megastep_powf_host_f32(x.ctypes.data, y.ctypes.data, out.ctypes.data,
+                                          x.size) == 0
+        want = np.asarray(jnp.power(jnp.asarray(x), jnp.asarray(y)))
+        np.testing.assert_array_equal(out, want, err_msg=str(power))
+        np.testing.assert_array_equal(
+            out, maths.powf(torch.from_numpy(x), torch.from_numpy(y)).numpy())
 
 
 @pytest.mark.parametrize("name", ["sinf", "cosf"])
