@@ -19,8 +19,11 @@ Phases (each failure ends the run with a non-zero exit code):
    pile, the strict, muscle-driven and mixed-kind flies, the tethered
    fly (no contact candidate), the benchmark fly at condim 1, 4 and 6, and
    config 4's and config 2's worlds, the worlds the port composes for
-   phases 45-47, and config 5's world composed by the env (phase 53) and
-   ``VectorFlyEnv()``'s (phases 54-56) (one generated header each; worlds
+   phases 45-47 and 60, config 5's world composed by the env (phase 53) and
+   ``VectorFlyEnv()``'s (phases 54-56), example 11's world at condim 1, 4
+   and 6 and on the blocks terrain with compressed pair rows (phases
+   57-59), and the worlds example 11 in torch composes (phase 61) (one
+   generated header each; worlds
    with the same header
    share its build), and for the benchmark fly K2's profile build (clock64
    phase counters), its builds at the other threads per block of
@@ -387,9 +390,47 @@ Phases (each failure ends the run with a non-zero exit code):
     criterion (``tests/examples/test_rl_training.py``): the last two
     updates' mean reward above twice the first two's.
 
+57. K2 with fly-fly pair rows at condim 1, 4 and 6 (slice g.3 on pair
+    rows: the torsion and rolling rows on both bodies' signed paths):
+    example 11's world at condim 1 and 4 composed by the port and
+    ``twofly_condim6.npz``, each held against its plain version with one
+    K = 1 launch at ``PAIR_CHECK_WORLDS`` from the condim-6 golden's
+    settled worlds with seeded root and joint noise, 0 gaps; condim 6's
+    K = 1 and K = 8 launches timed at 4096 worlds with their bounds.
+58. Example 11 at condim 6 at 4096 worlds: ``rollout(None, 800)`` from the
+    drop (K2 100, K1/K1b 0), example 11's check in every world that did
+    not slide off and the share that passes it, world-steps/s and the
+    card's busy share; the engine path 8 steps (K1 8, K1b 16); the
+    golden (8 worlds x 16 steps): the K2 path 0 gaps to the JAX emitter,
+    the engine path within 3 times the probe's spread.
+59. Example 11's flies on the blocks terrain with compressed pair rows
+    (slice g.2, ``twofly_terrain.npz``): K2 against its plain version, one
+    K = 1 launch at ``PAIR_CHECK_WORLDS`` with the joint sampler's planes
+    and winners, 0 gaps; the joint sampler on the card against the CPU
+    (planes within ``PLANE_ATOL``, winners equal but near-ties); K2 and
+    the sampler timed at 4096 worlds; the 800-step rollout at 4096 worlds
+    (K2 100, winner samples 100, plane samples 100 or more) and the
+    engine path as in phase 58; the golden, the K2 path fed the stored
+    planes and winners with 0 gaps.
+60. ``JointPreset.ALL_POSSIBLE`` (nv 210; slice g.5) composed by the port:
+    ``ALL_POSSIBLE_STEPS`` steps at 4096 worlds (K2 50, world-steps/s),
+    then K2 against its plain version from the end state, one K = 1
+    launch at ``PAIR_CHECK_WORLDS``, 0 gaps; K = 1 and K = 8 timed at 4096
+    worlds with their bounds.
+61. Example 11 in torch (``demo/two_flies.main``) at 4096 worlds, at B = 1
+    and at B = 1 at condim 1 and 4: K2 100 each, the example's check (but
+    at condim 1, where the top fly slides off without friction), the
+    240 x 320 PNG from ``bottom/trackcam``; ``twofly_condim6.npz`` at B = 1,
+    the 800-step drop (the example's check) and 800 more steps timed.
+
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --slide-off N`` runs one measurement instead and
+exits: the default two-fly preset's drop in N worlds over 800 steps on the
+port's engine path and on K2, the worlds whose top fly ends off the bottom
+one, with 95% intervals, beside the JAX engine's 5 of 512.
 """
 
 import contextlib
@@ -476,6 +517,9 @@ RETINA_BRANCHES = {"cone": None, "hard": 0.0}  # acceptance_fwhm_deg
 # qvel 1e-3, qacc rtol 6e-3 / atol 0.2, actuator_force 1e-4, sensors 2e-3).
 K2_RTOL = 1e-6
 TIMED_LAUNCHES = 20
+# K2's launches per timed run in k2_against_plain (two runs each; K = 8
+# launches of the multi-fly headers take 40-230 ms).
+K2_TIMED_LAUNCHES = 10
 # K2's flat K = 8 launch is also timed at these widths, and built and timed
 # at each of these threads per block (phase 3).
 SWEEP_WORLDS = (1024, 16384)
@@ -552,6 +596,7 @@ COMPOSED_OPTIONS = {
     "trim_contacts": {"trim_contacts": True},
     "simplify_geom": {"simplify_geom": True},
     "all_biological": {"joints_preset": "all_biological", "actuated_dofs_preset": "all"},
+    "all_possible": {"joints_preset": "all_possible", "actuated_dofs_preset": "all"},
 }
 # JAX's make_model docstring: the trimmed fly's COM within this of the full
 # preset's over its flat-ground replay (flygym_tpu/demo/benchmark.py:57-68).
@@ -559,6 +604,17 @@ TRIM_CLAIM_MM = 1e-3
 # SHA-256 of the benchmark world's MJCF (ModelSpec.to_mjcf_xml) as the CPU
 # writes it, the JAX package's string too (tests/test_torch_compile.py).
 MJCF_SHA256 = "6db61d17e20717efa5381470bc29192dcbda060fa191d5bb77dca2ffb61ac97e"
+# Phases 57-61: example 11's two flies with pair rows at condim 1, 4 and 6
+# and on the blocks terrain with compressed pair rows, and ALL_POSSIBLE.
+PAIR_CONDIMS = (1, 4, 6)
+PAIR_CHECK_WORLDS = 1000  # K2 against its plain version, one K = 1 launch
+ALL_POSSIBLE_STEPS = 400  # 50 K = 8 launches
+# The engine path of phases 58-59 (condim 6: ~0.28 s a step at 4096 worlds).
+PAIR_ENGINE_STEPS = 8
+# The joint sampler's planes on the card against the CPU's and against the
+# JAX golden's: the plane sampler on the card and XLA's jitted one have
+# parted by up to ~6e-8 (the terrain golden's planes).
+PLANE_ATOL = 1e-6
 
 
 START = time.perf_counter()
@@ -964,9 +1020,9 @@ def plain_steps(static, state, seq=None, planes=None):
                       **{f: getattr(state, f).clone() for f in carried})
         # Winners are checked on the host, which a capture cannot read:
         # checked here, before it, instead.
-        winners = planes is not None and not static.has_hfield
+        winners = planes is not None and bool(static.pair_comp_groups)
         if winners:
-            megastep._check_winners(static, planes)
+            megastep._check_winners(static, megastep._split_aux(static, planes)[1])
         graph = torch.cuda.CUDAGraph()
         with mock.patch.object(megastep, "_check_winners", lambda *_: None) if winners \
                 else contextlib.nullcontext(), torch.cuda.graph(graph):
@@ -987,7 +1043,7 @@ def plain_steps(static, state, seq=None, planes=None):
 
 def k2_against_plain(label: str, model, inputs, note=None,
                      checks=((N_WORLDS, 1), (N_WORLDS, MEGASTEP_K), (1000, 1)),
-                     timed=True) -> dict:
+                     timed=True, entry_at=None) -> dict:
     """K2 built for ``model`` at K = 1 and K = MEGASTEP_K against its plain
     version at each (worlds, K) of ``checks``, on ``inputs(fn, n_worlds, k,
     seed) -> (state, (K, B, nu) controls, planes or winners or None)``, to
@@ -999,7 +1055,10 @@ def k2_against_plain(label: str, model, inputs, note=None,
     version's operations. The plain version runs one eager op per operation
     of the kernel, so one step's time is the host's and hardly grows with
     the worlds; a chain of K steps is one captured step replayed K times
-    (``plain_steps``), and its time is the capture's and the replays'."""
+    (``plain_steps``), and its time is the capture's and the replays'.
+    With ``entry_at`` (one (worlds, K) of ``checks``) the kernel is also
+    timed there, beside that check's plain time and the bound at that
+    width (``entry``: the kernels line's numbers, ``k2_entry_at``)."""
     import torch
 
     from flygym_tpu_torch.ops import megastep
@@ -1008,7 +1067,7 @@ def k2_against_plain(label: str, model, inputs, note=None,
            for k in sorted({1, MEGASTEP_K, *(k for _n, k in checks)})}
     fields = ("qpos", "qvel", "qacc", "act", "xpos", "xquat", "actuator_force",
               "contact_sensordata")
-    worst, plain_ms = 0.0, {k: None for k in fns}
+    worst, plain_ms, plain_at = 0.0, {k: None for k in fns}, {}
     for n, k in checks:
         fn = fns[k]
         state, seq, planes = inputs(fn, n, k, n + k)
@@ -1018,6 +1077,7 @@ def k2_against_plain(label: str, model, inputs, note=None,
         want = plain_steps(fn.static, state, None if k == 1 else seq, planes)
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
+        plain_at[(n, k)] = plain
         if n == N_WORLDS:
             plain_ms[k] = plain
         pairs = []
@@ -1037,15 +1097,29 @@ def k2_against_plain(label: str, model, inputs, note=None,
         print(f"[{label}] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps)
               + (f"; {note(state, planes)}" if note else "") + f"; plain {plain:.1f} ms")
 
+    entry = None
+    if entry_at is not None:
+        n, k = entry_at
+        fn = fns[k]
+        state, seq, planes = inputs(fn, n, k, 1)
+        kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
+        n_in, n_out = megastep._io_rows(fn.static, k)
+        ops = megastep_ops(model)
+        bound = bound_ms(ops * k * n, 4 * (n_in + n_out) * n)
+        entry = {"k": k, "worlds": n, "ms": time_ms(kernel, K2_TIMED_LAUNCHES),
+                 "plain_ms": plain_at[(n, k)], "bound": bound}
+        print(f"[{label}] K={k} at B={n}: kernel {entry['ms']:.3f} ms per launch, plain "
+              f"{entry['plain_ms']:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}; {ops} ops per "
+              f"world-step), {entry['ms'] / bound[0]:.0f}x the bound")
     if not timed:
-        return {"err": worst, "fns": fns}
+        return {"err": worst, "fns": fns, "entry": entry}
     times = {}
     for k in (1, MEGASTEP_K):
         fn = fns[k]
         state, seq, planes = inputs(fn, N_WORLDS, k, 1)
         kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
-        k1 = time_ms(kernel, TIMED_LAUNCHES)
-        k2 = time_ms(kernel, TIMED_LAUNCHES, warm_up=False)
+        k1 = time_ms(kernel, K2_TIMED_LAUNCHES)
+        k2 = time_ms(kernel, K2_TIMED_LAUNCHES, warm_up=False)
         times[k] = (0.5 * (k1 + k2), plain_ms[k])
         plain = "not timed" if plain_ms[k] is None else f"{plain_ms[k]:.1f} ms"
         print(f"[{label}] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
@@ -1060,7 +1134,28 @@ def k2_against_plain(label: str, model, inputs, note=None,
         print(f"[{label}] {ops} ops per world-step; K={k} launch at B={N_WORLDS}: "
               f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}: {total_ops:.3e} ops, "
               f"{nbytes:.3e} bytes), {times[k][0] / bounds[k][0]:.0f}x the bound")
-    return {"err": worst, "times": times, "bounds": bounds, "fns": fns}
+    return {"err": worst, "times": times, "bounds": bounds, "fns": fns, "entry": entry}
+
+
+def k2_entry_at(name: str, k2: dict, launches: int) -> dict:
+    """The kernels line's entry of K2 built for one model, from the launch
+    ``k2_against_plain`` timed at its ``entry_at``."""
+    e = k2["entry"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "flygym_tpu_torch/csrc/megastep.cu",
+        "replaces": "flygym_tpu/ops/megastep.py:2477",
+        "launches": launches,
+        "max_abs_err": k2["err"],
+        "ms": e["ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound"][0],
+        "bound_by": e["bound"][1],
+        "library_ms": None,
+        "k_steps": e["k"],
+        "worlds": e["worlds"],
+    }
 
 
 def k2_entry(name: str, k2: dict, launches: int, k: int) -> dict:
@@ -1998,7 +2093,7 @@ def phase_compressed_kernel(full_model, pile_model) -> dict:
 
 
 def phase_twofly(twofly_compiled, label="twofly", what="example 11", rest_mm=REST_GAP_MM,
-                 slide_off_mm=None):
+                 slide_off_mm=None, engine_steps=TWOFLY_ENGINE_STEPS):
     """Two stacked flies at N_WORLDS through the default step, then the
     engine path from the same drop; returns the mega path's counts
     (launches, winner samples) and its walltime. The top fly must rest on
@@ -2041,7 +2136,8 @@ def phase_twofly(twofly_compiled, label="twofly", what="example 11", rest_mm=RES
     rows = "compressed row (its group's winner)" if compressed else "pair row"
     print(f"[{label}] top root z above the bottom's: min/mean/max {lift.min().item():.4f}/"
           f"{lift.mean().item():.4f}/{lift.max().item():.4f} mm; worlds with an active {rows} "
-          f"{share:.4f}; max|qvel| {st.qvel.abs().max().item():.2f}")
+          f"{share:.4f}; max|qvel| {st.qvel.abs().max().item():.2f}; worlds passing example "
+          f"11's check (more than {REST_GAP_MM} mm) {(lift > REST_GAP_MM).float().mean().item():.4f}")
     low = lift <= rest_mm
     if slide_off_mm is not None:
         sep = (st.qpos[:, q_top:q_top + 2] - st.qpos[:, q_bottom:q_bottom + 2]).norm(dim=1)
@@ -2065,15 +2161,15 @@ def phase_twofly(twofly_compiled, label="twofly", what="example 11", rest_mm=RES
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    esim.rollout(None, TWOFLY_ENGINE_STEPS, record_trajectory=False)
+    esim.rollout(None, engine_steps, record_trajectory=False)
     torch.cuda.synchronize()
     ewall = time.perf_counter() - t0
     ecounts = read_counts()
-    print(f"[{label} engine] {N_WORLDS} worlds, {TWOFLY_ENGINE_STEPS} steps from the drop in "
-          f"{ewall:.3f} s ({ewall / TWOFLY_ENGINE_STEPS * 1e3:.3f} ms per step); counts "
+    print(f"[{label} engine] {N_WORLDS} worlds, {engine_steps} steps from the drop in "
+          f"{ewall:.3f} s ({ewall / engine_steps * 1e3:.3f} ms per step); counts "
           f"{ecounts}")
-    want = {"megastep": 0, "tree_ldl_factor": TWOFLY_ENGINE_STEPS,
-            "tree_ldl_solve": 2 * TWOFLY_ENGINE_STEPS, "winners": 0}
+    want = {"megastep": 0, "tree_ldl_factor": engine_steps,
+            "tree_ldl_solve": 2 * engine_steps, "winners": 0}
     for name, n in want.items():
         check(ecounts[name] == n, f"{label} engine: {name} {ecounts[name]} != {n}")
     for name in ("qpos", "qvel", "qacc", "xpos", "contact_sensordata"):
@@ -2082,37 +2178,66 @@ def phase_twofly(twofly_compiled, label="twofly", what="example 11", rest_mm=RES
     return counts, wall
 
 
-def golden_winners(sim, golden, i: int, label: str) -> "torch.Tensor":
-    """The JAX emitter's stored winners for step ``i`` of a compressed
-    golden, on the card; at each chunk's first step the port's sampler on
-    the state must give them, but for groups whose two nearest members lie
-    within NEAR_TIE_MM (the sampler's distances equal JAX's to the last
-    bit on the CPU, tests/test_torch_compress.py)."""
+def golden_aux(sim, golden, i: int, label: str):
+    """What step ``i`` of a two-fly golden's K2 path reads from outside the
+    kernel, as the JAX emitter was fed it: the stored winners of a
+    compressed golden, on a heightfield world the stored planes (flattened)
+    before them, one sample per ``meta["winner_k"]`` (``aux_k``) steps;
+    None for a golden without. At each chunk's first step the port's
+    samplers on the state must give them: the planes within PLANE_ATOL and
+    the winners but for groups whose two nearest members lie within
+    NEAR_TIE_MM (the winner sampler's distances equal JAX's to the last bit
+    on the CPU, tests/test_torch_compress.py)."""
+    import torch
+
+    from flygym_tpu_torch.ops import megastep
+
+    rec, meta = golden["emitter"], golden["meta"]
+    if "widx" not in rec:
+        return None
+    k = meta.get("winner_k", meta.get("aux_k"))
+    widx = torch.as_tensor(rec["widx"][i // k]).cuda()
+    planes = torch.as_tensor(rec["planes"][i // k]).cuda() if "planes" in rec else None
+    if i % k == 0:
+        st = megastep._Static(sim.model)
+        got_planes, _w = megastep._split_aux(st, megastep._aux_sampler(sim.model, st)(
+            sim.state.xpos, sim.state.xquat))
+        gap = 0.0 if planes is None else (got_planes - planes).abs().max().item()
+        differ, ties = winners_near_tie(sim.model, sim.state, widx, label, i)
+        print(f"[{label}] step {i}: the port's samplers against the stored samples: "
+              + ("" if planes is None else f"planes max gap {gap:.3e}, ")
+              + f"{differ} of {widx.numel()} winners differ, {ties} groups within "
+                f"{NEAR_TIE_MM} mm of a tie")
+        check(gap <= PLANE_ATOL, f"{label}: the port's planes part by {gap:.3e} at step {i}")
+    if planes is None:
+        return widx
+    return torch.cat([planes.reshape(planes.shape[0], -1), widx], dim=1)
+
+
+def winners_near_tie(model, state, widx, label: str, i: int) -> tuple:
+    """The port's winners at ``state`` against ``widx``: they may part only
+    in groups whose two nearest members lie within NEAR_TIE_MM. Returns the
+    number of groups that part and of those near a tie."""
     import torch
 
     from flygym_tpu_torch.engine import contact
 
-    k = golden["meta"]["winner_k"]
-    want = torch.as_tensor(golden["emitter"]["widx"][i // k]).cuda()
-    if i % k == 0:
-        sampler = contact.make_pair_winner_sampler(sim.model)
-        got = sampler(sim.state.xpos, sim.state.xquat)
-        dist = sampler.distances(sim.state.xpos, sim.state.xquat)
-        _start, idx, pad = contact._group_table(tuple(sim.model.pair_groups), dist.device)
-        two = torch.sort(dist[:, idx] + pad, dim=-1).values[..., :2]
-        tie = (two[..., 1] - two[..., 0]) <= NEAR_TIE_MM
-        differ = got != want
-        print(f"[{label}] step {i}: the port's sampler against the stored winners: "
-              f"{int(differ.sum().item())} of {differ.numel()} groups differ, "
-              f"{int(tie.sum().item())} groups within {NEAR_TIE_MM} mm of a tie")
-        check(bool((~differ | tie).all()), f"{label}: the port's winners differ at step {i}")
-    return want
+    sampler = contact.make_pair_winner_sampler(model)
+    got = sampler(state.xpos, state.xquat)
+    dist = sampler.distances(state.xpos, state.xquat)
+    _start, idx, pad = contact._group_table(tuple(model.pair_groups), dist.device)
+    two = torch.sort(dist[:, idx] + pad, dim=-1).values[..., :2]
+    tie = (two[..., 1] - two[..., 0]) <= NEAR_TIE_MM
+    differ = got != widx
+    check(bool((~differ | tie).all()), f"{label}: the port's winners differ at step {i}")
+    return int(differ.sum().item()), int(tie.sum().item())
 
 
 def phase_twofly_golden(twofly_compiled, *, label: str, megastep, golden_path=None) -> None:
     """8 worlds from the JAX settled state, 16 steps vs a JAX path: the K2
     path to GOLDEN_TOLERANCE (on a compressed world with the JAX emitter's
-    stored winners), the engine path within the probe's bar."""
+    stored winners, on a heightfield world with its stored planes too:
+    ``golden_aux``), the engine path within the probe's bar."""
     import numpy as np
 
     from flygym_tpu_torch import BatchSimulation
@@ -2126,16 +2251,16 @@ def phase_twofly_golden(twofly_compiled, *, label: str, megastep, golden_path=No
     sim = BatchSimulation(twofly_compiled, n_worlds, megastep=megastep, megastep_k=1)
     check(sim.megastep == (not engine), f"{label}: wrong step")
     sim.state = golden["state"].to("cuda")
-    pinned = not engine and sim.model.pair_compress
-    fn = sim.step_fns(1)[0] if pinned else None
+    fn = None if engine else sim.step_fns(1)[0]
     worst = {"qpos": 0.0, "qvel": 0.0, "found_share": 0.0}
     ratio = {"qpos": 0.0, "qvel": 0.0}
     n_steps = rec["qpos"].shape[0]
     for i in range(n_steps):
-        if pinned:
-            sim.state = fn(sim.state, golden_winners(sim, golden, i, label))
-        else:
+        aux = None if engine else golden_aux(sim, golden, i, label)
+        if aux is None:
             sim.rollout(None, 1, record_trajectory=False)
+        else:
+            sim.state = fn(sim.state, aux)
         for key in ("qpos", "qvel"):
             got = getattr(sim.state, key).cpu().numpy()
             gap = float(np.abs(got - rec[key][i]).max())
@@ -3332,6 +3457,10 @@ def compose(name: str):
 
     if name in COMPOSED_OPTIONS:
         fly, world, _cam = make_model(**COMPOSED_OPTIONS[name])
+    elif name.startswith("two_flies_"):  # two_flies_c<condim> or two_flies_terrain
+        terrain = name == "two_flies_terrain"
+        return None, compose_two_flies(3 if terrain else int(name[len("two_flies_c"):]),
+                                       terrain)
     else:
         fly, world = build_world(name)
     world.compile()
@@ -4130,12 +4259,266 @@ def phase_es(label: str, size: dict, learn: bool) -> dict:
     return {"counts": counts, "seconds": t, "curve": curve}
 
 
+# ---------------------------------------------------------------------------
+# Phases 57-61: two flies at every contact setting JAX's K2 takes
+# ---------------------------------------------------------------------------
+
+
+def compose_two_flies(condim: int = 3, terrain: bool = False):
+    """Example 11's world at ``condim`` or on the blocks terrain, composed
+    and compiled by the port on the CPU (``demo/two_flies.py``)."""
+    from flygym_tpu_torch.demo.two_flies import make_two_fly_world
+
+    world = make_two_fly_world(condim=condim, terrain=terrain)
+    world.compile()
+    return world
+
+
+def phase_pair_condims(pair_worlds: dict) -> dict:
+    """Phase 57: K2 with pair rows at condim 1, 4 and 6 against its plain
+    version, one K = 1 launch at PAIR_CHECK_WORLDS from the condim-6
+    golden's settled worlds with seeded root and joint noise; condim 6's
+    K = 1 and K = 8 launches timed at N_WORLDS with their bounds. Returns
+    each condim's ``k2_against_plain``."""
+    from flygym_tpu_torch.compose.bridge import TWOFLY_CONDIM6_GOLDEN, load_pair_variant_golden
+
+    golden = load_pair_variant_golden(TWOFLY_CONDIM6_GOLDEN)
+    out = {}
+    for c in PAIR_CONDIMS:
+        model = pair_worlds[c].model.to("cuda")
+        out[c] = k2_against_plain(
+            f"pairs condim {c} kernel", model,
+            lambda fn, n, k, seed, model=model: (*twofly_inputs(model, golden, n, k, seed), None),
+            lambda state, _p, model=model: f"worlds with an active pair row "
+                                           f"{active_pair_share(model, state):.4f}",
+            checks=((PAIR_CHECK_WORLDS, 1),), timed=c == 6, entry_at=(PAIR_CHECK_WORLDS, 1))
+        check(out[c]["err"] == 0.0, f"pairs condim {c}: K2 parts from its plain version")
+    return out
+
+
+def phase_pair_terrain(compiled) -> tuple:
+    """Phase 59: example 11's flies on the blocks terrain with compressed pair
+    rows. K2 against its plain version, one K = 1 launch at
+    PAIR_CHECK_WORLDS (the golden's settled worlds with seeded noise, the
+    joint sampler's planes and winners); the joint sampler on the card
+    against the same sampler on the CPU; K2's and the sampler's times at
+    N_WORLDS; the 800-step rollout from the drop at N_WORLDS (K2 100,
+    plane and winner samples 100 each); the golden."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import TWOFLY_TERRAIN_GOLDEN, load_pair_variant_golden
+    from flygym_tpu_torch.engine import terrain
+    from flygym_tpu_torch.ops import megastep
+
+    golden = load_pair_variant_golden(TWOFLY_TERRAIN_GOLDEN)
+    model = compiled.model.to("cuda")
+    k2 = k2_against_plain(
+        "pairs terrain kernel", model,
+        lambda fn, n, k, seed: compressed_inputs(model, golden, n, k, seed, fn),
+        lambda state, _a: f"worlds with an active compressed row "
+                          f"{active_pair_share(model, state):.4f}",
+        checks=((PAIR_CHECK_WORLDS, 1),), timed=True, entry_at=(PAIR_CHECK_WORLDS, 1))
+    check(k2["err"] == 0.0, "pairs terrain: K2 parts from its plain version")
+    fn = k2["fns"][1]
+    state = twofly_inputs(model, golden, PAIR_CHECK_WORLDS, 1, 3)[0]
+    card = fn.sample_planes(state)
+    cpu = megastep.make_megastep(compiled.model).sample_planes(state.to("cpu"))
+    st = fn.static
+    planes, widx = megastep._split_aux(st, card)
+    cplanes, cwidx = megastep._split_aux(st, cpu)
+    gap = (planes.cpu() - cplanes).abs().max().item()
+    differ = int((widx.cpu() != cwidx).sum().item())
+    print(f"[pairs terrain] joint sampler at B={PAIR_CHECK_WORLDS}, card against CPU: planes "
+          f"max gap {gap:.3e}, {differ} of {widx.numel()} winners differ; shape "
+          f"{tuple(card.shape)} (4 x {st.ncand} plane rows, {len(st.pair_comp_groups)} winners)")
+    check(gap <= PLANE_ATOL, f"pairs terrain: the card's planes part from the CPU's by {gap:.3e}")
+    if differ:
+        winners_near_tie(model, state, cwidx.cuda(), "pairs terrain", 0)
+    big = twofly_inputs(model, golden, N_WORLDS, 1, 1)[0]
+    k2["sample_ms"] = time_ms(lambda: fn.sample_planes(big), TIMED_LAUNCHES)
+    print(f"[pairs terrain] joint sampler at B={N_WORLDS}: {k2['sample_ms']:.4f} ms per sample")
+    terrain.reset_samples()
+    counts, wall = phase_twofly(compiled, label="twofly terrain",
+                                what="example 11 on the blocks terrain, compressed pair rows",
+                                slide_off_mm=SLIDE_OFF_MM, engine_steps=PAIR_ENGINE_STEPS)
+    planes_sampled = terrain.samples["planes"]
+    print(f"[twofly terrain] plane samples in the rollout and its engine path: {planes_sampled}")
+    check(planes_sampled >= TWOFLY_STEPS // MEGASTEP_K,
+          f"twofly terrain: {planes_sampled} plane samples")
+    k8 = k2["times"][MEGASTEP_K][0]
+    print(f"[twofly terrain] device busy share: "
+          f"{100 * counts['megastep'] * k8 / (wall * 1e3):.1f}% "
+          f"({counts['megastep']} launches x {k8:.3f} ms over {wall:.3f} s)")
+    for megastep_ in (None, False):
+        phase_twofly_golden(
+            compiled, golden_path=TWOFLY_TERRAIN_GOLDEN, megastep=megastep_,
+            label=f"twofly terrain golden {'engine' if megastep_ is False else 'megastep'}")
+    return k2, counts
+
+
+def phase_all_possible(compiled) -> tuple:
+    """Phase 60: ``JointPreset.ALL_POSSIBLE`` (nv 210) at N_WORLDS through
+    the default step: a timed ALL_POSSIBLE_STEPS rollout at the neutral
+    targets (K = 8 launches); then K2 against its plain version, one K = 1
+    launch at PAIR_CHECK_WORLDS from the rollout's end state, and its K = 1
+    and K = 8 launches timed at N_WORLDS with their bounds."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+
+    model = compiled.model
+    print(f"[all possible] nv {model.nv}, nu {model.nu}, ncand {model.ncand}: "
+          f"{gate_reasons(model)}")
+    sim = BatchSimulation(compiled, N_WORLDS)
+    check(sim.megastep, "ALL_POSSIBLE's default step is not the mega-step on the card")
+    sim.set_leg_adhesion_states(compiled.fly_names[0], np.ones(6, np.float32))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.rollout(None, ALL_POSSIBLE_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"megastep": ALL_POSSIBLE_STEPS // MEGASTEP_K, "tree_ldl_factor": 0,
+            "tree_ldl_solve": 0}
+    for key, value in want.items():
+        check(counts[key] == value, f"all possible: {key} launches {counts[key]} != {value}")
+    st = sim.state
+    for name in ("qpos", "qvel", "xpos", "contact_sensordata"):
+        check(bool(torch.isfinite(getattr(st, name)).all()), f"all possible: {name} not finite")
+    z = st.qpos[:, 2]
+    print(f"[all possible] {N_WORLDS} worlds: {ALL_POSSIBLE_STEPS} steps from the spawn in "
+          f"{wall:.3f} s; launches {counts}; root z {z.min().item():.4f}-{z.max().item():.4f} mm; "
+          f"{ALL_POSSIBLE_STEPS * N_WORLDS / wall:.0f} world-steps/s on {card_line()}")
+    held = st.map(lambda x: x.clone())
+    k2 = k2_against_plain(
+        "all possible kernel", sim.model,
+        lambda fn, n, k, seed: (held.map(lambda x: x[:n].clone()),
+                                held.ctrl[:n].expand((k, n, model.nu)).clone(), None),
+        checks=((PAIR_CHECK_WORLDS, 1),), timed=True, entry_at=(PAIR_CHECK_WORLDS, 1))
+    check(k2["err"] == 0.0, "all possible: K2 parts from its plain version")
+    return k2, counts
+
+
+def phase_two_flies_example(condim6_pairs) -> dict:
+    """Phase 61: example 11 in torch (``demo/two_flies.main``) at N_WORLDS
+    and at B = 1, and at B = 1 at condim 1 and 4 (phase 57's composed
+    headers), its frame from ``bottom/trackcam`` as a PNG each; then the
+    condim-6 world (``condim6_pairs``, phase 58's header) at B = 1: a
+    TWOFLY_STEPS drop, then TWOFLY_STEPS more steps timed. Returns each
+    run's counts by label."""
+    import torch
+
+    from flygym_tpu_torch import Simulation
+    from flygym_tpu_torch.demo import two_flies
+
+    out = {}
+    frames = Path("outputs")
+    runs = [("4096 worlds", {"n_worlds": N_WORLDS}), ("B=1", {})]
+    runs += [(f"B=1, condim {c}", {"condim": c}) for c in PAIR_CONDIMS if c != 6]
+    for label, kwargs in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        r = two_flies.main(**kwargs, out=frames / f"11_two_flies_{len(out)}.png")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts["megastep"] == TWOFLY_STEPS // MEGASTEP_K and counts["tree_ldl_factor"] == 0,
+              f"example 11 ({label}): launches {counts}")
+        png = r["path"].read_bytes()
+        check(png[:8] == b"\x89PNG\r\n\x1a\n" and r["frame"].shape == (240, 320, 3)
+              and int(r["frame"].max()) > 0, f"example 11 ({label}): the frame")
+        print(f"[example 11] {label}: main in {wall:.2f} s (compile, build, {TWOFLY_STEPS} steps, "
+              f"the frame); K2 {counts['megastep']}; root z bottom {r['z_bottom']:.3f}, top "
+              f"{r['z_top']:.3f} mm; frame {r['path']} ({len(png)} bytes)")
+        out[label] = counts
+    sim = Simulation(condim6_pairs)
+    check(sim.megastep, "example 11 at condim 6, B = 1: not the mega-step")
+    sim.set_leg_adhesion_states("bottom", torch.ones(6, device="cuda"))
+    reset_counts()
+    sim.rollout(None, TWOFLY_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.rollout(None, TWOFLY_STEPS, record_trajectory=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["megastep"] == 2 * TWOFLY_STEPS // MEGASTEP_K,
+          f"example 11 at condim 6, B = 1: launches {counts}")
+    qpos = sim.state.qpos[0]
+    lift = (qpos[sim.model.free_joints[1][1] + 2] - qpos[sim.model.free_joints[0][1] + 2]).item()
+    check(lift > REST_GAP_MM, f"example 11 at condim 6, B = 1: the top root {lift:.3f} mm above")
+    print(f"[example 11] B=1 at condim 6: the top root {lift:.3f} mm above the bottom one; "
+          f"{TWOFLY_STEPS} more steps in {wall:.3f} s, {wall / TWOFLY_STEPS * 1e3:.4f} ms per step "
+          f"(K = {MEGASTEP_K} launches) on {card_line()}")
+    return out
+
+
+def wilson(k: int, n: int, z: float = 1.96) -> tuple:
+    """The Wilson score interval of k successes in n trials (95%)."""
+    p = k / n
+    centre = (p + z * z / (2 * n)) / (1 + z * z / n)
+    half = z * (p * (1 - p) / n + z * z / (4 * n * n)) ** 0.5 / (1 + z * z / n)
+    return centre - half, centre + half
+
+
+def slide_off(n_worlds: int) -> int:
+    """``--slide-off N``: the default two-fly preset's drop in N worlds
+    through the port's engine path (K1/K1b), 800 steps, top fly moved by a
+    seeded ±0.1 mm as in phase 17: how many worlds end with the top root
+    less than REST_GAP_MM above the bottom one, against the JAX engine's 5
+    of 512 (``scripts/export_compressed_golden.py --slide-off 512``) and
+    K2's share (phase 17), with 95% Wilson intervals."""
+    import torch
+
+    import flygym_tpu_torch
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.compose.bridge import TWOFLY_FULL
+    from flygym_tpu_torch.demo.hybrid_terrain import place_roots
+
+    print(card_line())
+    sims = {}
+    for path in ("engine", "K2"):
+        sim = BatchSimulation(flygym_tpu_torch.load_compiled(TWOFLY_FULL), n_worlds,
+                              megastep=path == "K2")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        offsets = (2.0 * torch.rand((n_worlds, 2), generator=gen, device="cuda") - 1.0) \
+            * TOP_OFFSET_MM
+        place_roots(sim, offsets, root=1)
+        sim.set_leg_adhesion_states("bottom", torch.ones(6, device="cuda"))
+        reset_counts()
+        t0 = time.perf_counter()
+        sim.rollout(None, TWOFLY_STEPS, record_trajectory=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sims[path] = sim
+        st = sim.state
+        (_b0, q_bottom, _v0), (_b1, q_top, _v1) = sim.model.free_joints
+        lift = st.qpos[:, q_top + 2] - st.qpos[:, q_bottom + 2]
+        sep = (st.qpos[:, q_top:q_top + 2] - st.qpos[:, q_bottom:q_bottom + 2]).norm(dim=1)
+        low = lift <= REST_GAP_MM
+        k = int(low.sum().item())
+        lo, hi = wilson(k, n_worlds)
+        print(f"[slide-off] {path} path, {n_worlds} worlds, {TWOFLY_STEPS} steps in {wall:.1f} s "
+              f"(launches {read_counts()}): top root {REST_GAP_MM} mm or less above the bottom "
+              f"one in {k} worlds ({k / n_worlds:.4f}, 95% interval {lo:.4f}-{hi:.4f}); their xy "
+              f"distances {[round(x, 3) for x in sep[low].tolist()]} mm; finite "
+              f"{bool(torch.isfinite(st.qpos).all())}")
+    jlo, jhi = wilson(5, 512)
+    print(f"[slide-off] the JAX engine: 5 of 512 (0.0098, 95% interval {jlo:.4f}-{jhi:.4f})")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--slide-off"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return slide_off(int(sys.argv[2]))
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -4147,8 +4530,8 @@ def main() -> int:
         from flygym_tpu_torch.compose.bridge import (
             ASSETS, BENCHMARK_FLY, BENCHMARK_GOLDEN, CPG_FLY, ENV_FLY, MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY,
             MUSCLE_GOLDEN, STRICT_FLY, STRICT_GOLDEN, TAXIS_FLY, TERRAIN_FLY, TETHERED_FLY,
-            TETHERED_GOLDEN, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_FULL, TWOFLY_FULL_GOLDEN,
-            read_meta)
+            TETHERED_GOLDEN, THREEFLY, THREEFLY_GOLDEN, TWOFLY, TWOFLY_CONDIM6,
+            TWOFLY_CONDIM6_GOLDEN, TWOFLY_FULL, TWOFLY_FULL_GOLDEN, TWOFLY_TERRAIN, read_meta)
         from flygym_tpu_torch.env import VectorFlyEnv
         from flygym_tpu_torch.olfaction import OdorField
         from flygym_tpu_torch.ops.megastep import megastep_supported
@@ -4173,6 +4556,13 @@ def main() -> int:
         composed = compose_all()
         env_world = compose("env_fly")[1]  # phase 53's world, for phase 1's build
         default_world = compose_default_env()
+        condim6_pairs = flygym_tpu_torch.load_compiled(TWOFLY_CONDIM6)
+        terrain_pairs = flygym_tpu_torch.load_compiled(TWOFLY_TERRAIN)
+        pair_worlds = {1: compose_two_flies(1).compiled, 4: compose_two_flies(4).compiled,
+                       6: condim6_pairs}
+        count_ops_in_background(ops_pool, [
+            (TWOFLY_CONDIM6, 0), (TWOFLY_TERRAIN, 0), ("compose:all_possible", 0),
+            ("compose:two_flies_c1", 0), ("compose:two_flies_c4", 0)])
         count_ops_in_background(ops_pool, [
             ("compose:benchmark", 0), (BENCHMARK_FLY, 0), (TERRAIN_FLY, 0), (TWOFLY, 0), (TWOFLY_FULL, 0), (THREEFLY, 0),
             (STRICT_FLY, 0), (MUSCLE_FLY, 0), (MIXED_FLY, 0), (TETHERED_FLY, 0),
@@ -4191,7 +4581,11 @@ def main() -> int:
                      **{f"composed {name}": w.compiled for name, (_f, w) in composed.items()
                         if megastep_supported(w.compiled.model)},
                      "composed env fly": env_world.compiled,
-                     "default env fly": default_world.compiled},
+                     "default env fly": default_world.compiled,
+                     **{f"two flies, condim {c}{'' if c == 6 else ' (composed)'}": pair_worlds[c]
+                        for c in PAIR_CONDIMS},
+                     "two flies on the blocks terrain, compressed": terrain_pairs,
+                     "example 11 composed": compose_two_flies(3).compiled},
                     compiled.model)
         lap("phase 1 (build)")
         model = compiled.model.to("cuda")
@@ -4371,6 +4765,28 @@ def main() -> int:
         lap("phase 55 (example 13 at its own size)")
         es_small = phase_es("example 13 --small", ES_SMALL, learn=True)
         lap("phase 56 (example 13 at --small)")
+        k2_condims = phase_pair_condims(pair_worlds)
+        k2_pairs6 = k2_condims[6]
+        lap("phase 57 (K2 with pair rows at condim 1, 4 and 6)")
+        pairs6_counts, pairs6_wall = phase_twofly(
+            condim6_pairs, label="twofly condim6", what="example 11 at condim 6",
+            slide_off_mm=SLIDE_OFF_MM, engine_steps=PAIR_ENGINE_STEPS)
+        k8 = k2_pairs6["times"][MEGASTEP_K][0]
+        print(f"[twofly condim6] device busy share: "
+              f"{100 * pairs6_counts['megastep'] * k8 / (pairs6_wall * 1e3):.1f}% "
+              f"({pairs6_counts['megastep']} launches x {k8:.3f} ms over {pairs6_wall:.3f} s)")
+        for megastep_ in (None, False):
+            phase_twofly_golden(
+                condim6_pairs, golden_path=TWOFLY_CONDIM6_GOLDEN, megastep=megastep_,
+                label=f"twofly condim6 golden {'engine' if megastep_ is False else 'megastep'}")
+        lap("phase 58 (example 11 at condim 6)")
+        k2_pairs_terrain, pairs_terrain_counts = phase_pair_terrain(terrain_pairs)
+        lap("phase 59 (example 11 on the blocks terrain, compressed pair rows)")
+        k2_all_possible, all_possible_counts = phase_all_possible(
+            composed["all_possible"][1].compiled)
+        lap("phase 60 (ALL_POSSIBLE)")
+        example_11_counts = phase_two_flies_example(condim6_pairs)
+        lap("phase 61 (example 11 in torch)")
         print(f"[rl] K2 launches on {card_line()}: config 5 composed "
               f"{composed_env_counts['megastep']}, example 06 {example_counts['example 06']['megastep']}"
               f", example 09 {example_counts['example 09']['megastep']}, example 13 "
@@ -4479,6 +4895,18 @@ def main() -> int:
     # The benchmark world the port composed: its replay's K = 8 launch.
     entries.append(k2_entry("megastep_composed", k2_composed, composed_counts["megastep"],
                             MEGASTEP_K))
+    # Slices g.3 on pair rows, g.2 and g.5: each header's K = 1 launch at
+    # PAIR_CHECK_WORLDS beside its plain version there; launches of the
+    # 800-step rollouts (100 K = 8: condim 1 and 4 those of example 11 in
+    # torch at B = 1) and of ALL_POSSIBLE's 400 (50 K = 8).
+    for c in (1, 4):
+        entries.append(k2_entry_at(f"megastep_pairs_condim{c}", k2_condims[c],
+                                   example_11_counts[f"B=1, condim {c}"]["megastep"]))
+    entries.append(k2_entry_at("megastep_pairs_condim6", k2_pairs6, pairs6_counts["megastep"]))
+    entries.append(k2_entry_at("megastep_pairs_terrain", k2_pairs_terrain,
+                               pairs_terrain_counts["megastep"]))
+    entries.append(k2_entry_at("megastep_all_possible", k2_all_possible,
+                               all_possible_counts["megastep"]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

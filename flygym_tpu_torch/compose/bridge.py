@@ -72,12 +72,17 @@ __all__ = [
     "THREEFLY",
     "THREEFLY_GOLDEN",
     "TWOFLY",
+    "TWOFLY_CONDIM6",
+    "TWOFLY_CONDIM6_GOLDEN",
     "TWOFLY_FULL",
     "TWOFLY_FULL_GOLDEN",
     "TWOFLY_GOLDEN",
+    "TWOFLY_TERRAIN",
+    "TWOFLY_TERRAIN_GOLDEN",
     "load_actuator_golden",
     "load_env_golden",
     "load_loop_golden",
+    "load_pair_variant_golden",
     "load_terrain_golden",
     "load_twofly_golden",
     "read_meta",
@@ -100,6 +105,10 @@ TWOFLY_FULL = ASSETS / "twofly_full.npz"
 TWOFLY_FULL_GOLDEN = ASSETS / "twofly_full_golden.npz"
 THREEFLY = ASSETS / "threefly.npz"
 THREEFLY_GOLDEN = ASSETS / "threefly_golden.npz"
+TWOFLY_CONDIM6 = ASSETS / "twofly_condim6.npz"
+TWOFLY_CONDIM6_GOLDEN = ASSETS / "twofly_condim6_golden.npz"
+TWOFLY_TERRAIN = ASSETS / "twofly_terrain.npz"
+TWOFLY_TERRAIN_GOLDEN = ASSETS / "twofly_terrain_golden.npz"
 STRICT_FLY = ASSETS / "strict_fly.npz"
 STRICT_GOLDEN = ASSETS / "strict_fly_golden.npz"
 MUSCLE_FLY = ASSETS / "muscle_fly.npz"
@@ -314,6 +323,26 @@ def load_twofly_golden(path=TWOFLY_GOLDEN) -> dict:
     a chunk per ``meta["winner_k"]`` steps, and ``settled_gap``, each
     fly's root height above the fly below after the settle."""
     return _load_probe_golden(path, ("offsets", "settled_gap"))
+
+
+def load_pair_variant_golden(path=TWOFLY_CONDIM6_GOLDEN) -> dict:
+    """The JAX golden of example 11's world at condim 6
+    (:data:`TWOFLY_CONDIM6_GOLDEN`) or on the blocks terrain with compressed
+    pair rows (:data:`TWOFLY_TERRAIN_GOLDEN`), written by
+    ``scripts/export_pair_variants_golden.py``: as
+    :func:`load_twofly_golden`, with ``active_pairs`` (each settled world's
+    active pair rows), the emitter's ``qacc`` and, on the terrain world, the
+    ``planes`` ((chunks, B, ncand, 4), compressed candidate order) and
+    ``widx`` it was fed every ``meta["aux_k"]`` steps; the condim-6 golden
+    adds ``c1`` and ``c4``, one emitter step of the world compiled at condim
+    1 and 4 from the same settled state."""
+    out = _load_probe_golden(path, ("offsets", "settled_gap", "active_pairs"))
+    arrays, _meta = _read_npz(path)
+    for key, value in arrays.items():
+        head, _, rest = key.partition(".")
+        if head in ("c1", "c4"):
+            out.setdefault(head, {})[rest] = value
+    return out
 
 
 def load_actuator_golden(path) -> dict:

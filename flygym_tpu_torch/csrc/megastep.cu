@@ -112,16 +112,20 @@
 
 // Heightfield worlds (slice d; the header defines MS_HFIELD): the local
 // ground plane [h, nx, ny, nz] of each candidate follows the state rows of
-// the input (N_AUX = 4 NCAND rows, sampled outside the kernel and read for
-// all K steps), and each candidate's contact frame (n, t1, t2) is kept in
-// the scratch rows S_FRAME. Flat worlds contact along the world's axes.
+// the input (4 NCAND rows, sampled outside the kernel and read for all K
+// steps), and each candidate's contact frame (n, t1, t2) is kept in the
+// scratch rows S_FRAME. Flat worlds contact along the world's axes. The
+// header's N_AUX counts the input rows past the state: the planes, then
+// the compressed pair groups' winners (below); 0 without either.
 #ifdef MS_HFIELD
 constexpr bool kHasHfield = true;
+constexpr int N_PLANE_ROWS = 4 * NCAND;
 #else
 constexpr bool kHasHfield = false;
-#ifndef MS_PAIRS_COMPRESSED
-constexpr int N_AUX = 0;
+constexpr int N_PLANE_ROWS = 0;
 #endif
+#if !defined(MS_HFIELD) && !defined(MS_PAIRS_COMPRESSED)
+constexpr int N_AUX = 0;
 #endif
 
 // Fly-fly pair rows (slice e; the header defines MS_PAIRS): candidates
@@ -141,9 +145,10 @@ constexpr int S_FRAME = 0;
 // members (kGroupBase[g] .. kGroupBase[g + 1] of the kMem* tables) are the
 // capsules of one opposing fly that face geom1. The group's winner, a
 // member index sampled outside the kernel from the cached pose (once per
-// launch, as the planes are), is input row NQ + NV + K NU + NA + NV + g
-// (N_AUX = NPAIR rows); run_world keeps it as a flat member index in
-// S_WIN. The row is the uncompressed pair row
+// launch, as the planes are), is input row NQ + NV + K NU + NA + NV +
+// N_PLANE_ROWS + g (NPAIR rows after the planes of a heightfield world,
+// whose pair rows' plane rows are sampled and not read); run_world keeps
+// it as a flat member index in S_WIN. The row is the uncompressed pair row
 // with the winner's geom2: its frame, r2, h2 and inverse weight read by
 // index, which gives the bits of the plain version's one-hot blend (one
 // term times 1, the rest exact zeros). Its DoF path is geom1's body path
@@ -1465,7 +1470,7 @@ MS_FN void run_world(const float* in, float* out, const Rows& S, int w, int B, i
   for (int i : par(NV)) S[S_A + i] = I[NQ + NV + K * NU + NA + i];
 #ifdef MS_PAIRS_COMPRESSED
   for (int g : par(NPAIR)) {
-    const int w_g = static_cast<int>(I[NQ + NV + K * NU + NA + NV + g]);
+    const int w_g = static_cast<int>(I[NQ + NV + K * NU + NA + NV + N_PLANE_ROWS + g]);
     S[S_WIN + g] = static_cast<float>(kGroupBase[g] + w_g);
   }
 #endif

@@ -9,7 +9,7 @@ a user can start from the world instead of the file.
 
 ``build_world(name)`` returns ``(fly, world)`` for a one-fly world and
 ``(None, world)`` for the multi-fly ones (``twofly``, ``twofly_full``,
-``threefly``). :data:`WORLDS` lists the names and, for each, the script
+``threefly``, ``twofly_condim6``, ``twofly_terrain``). :data:`WORLDS` lists the names and, for each, the script
 whose builder it repeats.
 """
 
@@ -45,6 +45,8 @@ WORLDS = {
     "terrain_fly": "scripts/export_terrain_golden.py:build_world",
     "twofly": "scripts/export_twofly_golden.py:build_world",
     "twofly_full": "scripts/export_compressed_golden.py:build_world",
+    "twofly_condim6": "scripts/export_pair_variants_golden.py:build_world",
+    "twofly_terrain": "scripts/export_pair_variants_golden.py:build_world",
     "threefly": "scripts/export_compressed_golden.py:build_world",
     "taxis_fly": "scripts/export_taxis_golden.py:build_world",
     "cpg_fly": "scripts/export_taxis_golden.py:build_world",
@@ -191,6 +193,12 @@ def build_world(name: str):
         return _two_flies(full_pairs=name == "twofly_full")
     if name == "threefly":
         return _three_flies()
+    if name in ("twofly_condim6", "twofly_terrain"):
+        from flygym_tpu_torch.demo.two_flies import make_two_fly_world
+
+        if name == "twofly_terrain":
+            return None, make_two_fly_world(terrain=True)
+        return None, make_two_fly_world(condim=int(name[len("twofly_condim"):]))
     if name == "softweld_fly":
         return _benchmark_fly(TetheredWorld(weld="soft"), spawn_position=(0.0, 0.0, 3.0))
     if name == "pgs_fly":

@@ -199,7 +199,9 @@ def rollout_batched(
             each chunk before its launch (``flygym_tpu/engine/step.py:256-277``).
         terrain_resample: On a heightfield world, or one with compressed
             pair rows, a mega-step carries ``sample_planes``: the ground
-            planes, or the pair groups' winners, it reads for all its steps.
+            planes, the pair groups' winners, or on a heightfield world with
+            compressed pair rows both in one tensor, that it reads for all
+            its steps.
             The K-chunk path samples them once per chunk; the one-step path
             once every ``terrain_resample`` steps when that number (> 1)
             divides ``n_steps``, and otherwise the step samples them at

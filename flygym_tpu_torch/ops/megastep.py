@@ -34,8 +34,9 @@ Three parts:
   On a heightfield world it carries ``sample_planes`` (the plane sampler of
   :mod:`flygym_tpu_torch.engine.terrain`), on a world with compressed pair
   rows the same name samples the groups' winners
-  (:func:`~flygym_tpu_torch.engine.contact.make_pair_winner_sampler`); it
-  takes either as ``terrain_planes=``.
+  (:func:`~flygym_tpu_torch.engine.contact.make_pair_winner_sampler`), and
+  on a heightfield world with compressed pair rows both, planes first; it
+  takes them as ``terrain_planes=``.
 
 ``launches["megastep"]`` counts kernel launches; only a launch adds to it.
 K2 has no gradient, as JAX's Pallas kernel has no VJP: given a tensor that
@@ -44,9 +45,7 @@ its output would otherwise carry no graph.
 
 Not ported (TPU devices, see ROADMAP "Not to port"): the VMEM estimators
 and gates, the streamed emitter, H0-matvec mode, sublane packing, the
-winners' expansion into mask rows. Not yet ported (K2 slice g): compressed
-pair rows on a heightfield world and pair rows at a condim other than 3;
-:func:`megastep_supported` refuses those models.
+winners' expansion into mask rows.
 """
 
 import weakref
@@ -546,28 +545,27 @@ class _Static:
 
 def megastep_supported(model: PhysicsModel) -> bool:
     """Whether K2 covers ``model``: the feature half of the JAX gate
-    (``megastep.py:934-989``) as far as the port goes — Newton (frozen or
-    ``solver_exact``), no welds, condim 1, 3, 4 or 6 on ground rows (pair
-    rows at condim 3 only; other condims run them on the engine step),
-    every actuator kind with its
-    activation states, worlds without contact candidates (a tethered fly:
-    qacc is the tree solve of Mh against the forces), candidate paths that
-    run down one chain of the tree per body, pair rows without sensors or
-    adhesion, and compressed pair rows (:func:`_winner_paths_ok`) on flat
-    ground only. Its sizes must fit K2: the walk tables' indices
-    (``_pack16``: the Hessian entries and candidates below 2^15) and the
-    first scratch slot in a block's shared memory (``scratch_layout`` moves
-    the later slots to global memory where shared memory runs out). The
-    fly at every preset passes: ``JointPreset.ALL_POSSIBLE`` (nv 210, 3,408
-    Hessian entries) needs 103 KB of shared memory."""
+    (``megastep.py:934-989``, which refuses PGS and welds) — Newton (frozen
+    or ``solver_exact``), no welds, condim 1, 3, 4 or 6 on ground rows and
+    pair rows alike, every actuator kind with its activation states, worlds
+    without contact candidates (a tethered fly: qacc is the tree solve of
+    Mh against the forces), flat ground or a heightfield, and fly-fly pair
+    rows, compressed (:func:`_winner_paths_ok`) or not. Three structural
+    checks of K2's walks stand where the JAX gate has none: candidate paths
+    that run down one chain of the tree per body (:func:`_path_on_chain`),
+    and on pair rows the Hessian fill by part (:func:`_fill_by_part`) or
+    the winners' paths (:func:`_winner_paths_ok`). A pair row that carries a
+    contact sensor or an adhesion actuator is refused: no compile makes one
+    (the JAX and the port's ``ModelSpec.compile`` fill pair rows without
+    those fields, both -1), so only a hand-made model can. Its sizes must
+    fit K2: the walk tables' indices (``_pack16``: the Hessian entries and
+    candidates below 2^15) and the first scratch slot in a block's shared
+    memory (``scratch_layout`` moves the later slots to global memory where
+    shared memory runs out). The fly at every preset passes:
+    ``JointPreset.ALL_POSSIBLE`` (nv 210, 3,408 Hessian entries) needs 103
+    KB of shared memory."""
     compressed = model.pair_compress and model.ncand_pair
-    if (
-        model.solver_type != "newton"
-        or model.welds
-        or (compressed and model.has_hfield)
-        or model.condim not in (1, 3, 4, 6)
-        or (model.ncand_pair and model.condim != 3)
-    ):
+    if model.solver_type != "newton" or model.welds or model.condim not in (1, 3, 4, 6):
         return False
     try:
         st = _Static(model)
@@ -575,9 +573,10 @@ def megastep_supported(model: PhysicsModel) -> bool:
         return False
     if len(st.pair_keys) >= 1 << 15 or st.ncand >= 1 << 15 or not _first_slot_fits(model):
         return False
-    pairs = range(st.ng_rows, st.ncand)
-    if any(int(st.can_sensor[c]) >= 0 or int(st.can_adh_act[c]) >= 0 for c in pairs):
+    # Every pair row of the model, a compressed group's members too.
+    if (model.can_sensor[st.ng_rows:] >= 0).any() or (model.can_adh_act[st.ng_rows:] >= 0).any():
         return False
+    pairs = range(st.ng_rows, st.ncand)
     bodies = {int(st.geom_body[int(g)]) for g in st.can_geom}
     if compressed:
         return all(_path_on_chain(st, b) for b in bodies) and _winner_paths_ok(st)
@@ -1692,17 +1691,38 @@ def _io_rows(st: _Static, k_steps: int) -> tuple:
     return n_in, n_out
 
 
+def _n_planes(st: _Static) -> int:
+    """The plane rows of a heightfield world, 4 per candidate (JAX
+    ``megastep.py:2457``; on compressed pair rows per kept candidate)."""
+    return 4 * st.ncand if st.has_hfield else 0
+
+
 def _n_aux(st: _Static) -> int:
-    """Input rows sampled outside the kernel: the planes of a heightfield
-    world (JAX ``megastep.py:2457``) or the winners of the compressed pair
-    groups, one row each (the JAX kernel expands them into mask rows)."""
-    return 4 * st.ncand if st.has_hfield else len(st.pair_comp_groups)
+    """Input rows sampled outside the kernel (JAX ``megastep.py:2457-2465``):
+    the planes of a heightfield world, then the winners of the compressed
+    pair groups, one row each (the JAX kernel expands them into mask
+    rows)."""
+    return _n_planes(st) + len(st.pair_comp_groups)
 
 
 def _aux_shape(st: _Static, B: int) -> tuple:
-    """The shape of ``terrain_planes``: (B, ncand, 4) planes or (B,
-    n_groups) winners."""
+    """The shape of ``terrain_planes``: (B, ncand, 4) planes, (B, n_groups)
+    winners, or on a heightfield world with compressed pair rows (B, 4
+    ncand + n_groups), the planes flattened, then the winners."""
+    if st.has_hfield and st.pair_comp_groups:
+        return (B, _n_aux(st))
     return (B, st.ncand, 4) if st.has_hfield else (B, len(st.pair_comp_groups))
+
+
+def _split_aux(st: _Static, aux: torch.Tensor) -> tuple:
+    """``terrain_planes`` → ((B, ncand, 4) planes or None, (B, n_groups)
+    winners or None)."""
+    if not st.pair_comp_groups:
+        return aux, None
+    if not st.has_hfield:
+        return None, aux
+    n = _n_planes(st)
+    return aux[:, :n].reshape(aux.shape[0], st.ncand, 4), aux[:, n:]
 
 
 def _check_winners(st: _Static, widx: torch.Tensor) -> None:
@@ -1753,7 +1773,9 @@ def megastep_plain(st: _Static, state: State, ctrl_seq: torch.Tensor | None = No
         terrain_planes: What the K steps read from outside the kernel:
             (B, ncand, 4) ground planes [h, nx, ny, nz] on a heightfield
             world, (B, n_groups) group-local winners on a world with
-            compressed pair rows; None otherwise.
+            compressed pair rows, both as (B, 4 ncand + n_groups) (planes
+            flattened, then winners) where the world has both (``_aux_shape``);
+            None otherwise.
 
     Returns:
         The new State for one step; ``(state, (K, B, nq) qpos rows)`` with a
@@ -1764,11 +1786,13 @@ def megastep_plain(st: _Static, state: State, ctrl_seq: torch.Tensor | None = No
         raise ValueError("planes or winners are needed on a heightfield world or one with "
                          "compressed pair rows, and only there")
     terrain = widx = None
-    if st.has_hfield:
-        terrain = [tuple(terrain_planes[:, c, k] for k in range(4)) for c in range(st.ncand)]
-    elif terrain_planes is not None:
-        _check_winners(st, terrain_planes)
-        widx = cols(terrain_planes.float())
+    if terrain_planes is not None:
+        planes, winners = _split_aux(st, terrain_planes)
+        if planes is not None:
+            terrain = [tuple(planes[:, c, k] for k in range(4)) for c in range(st.ncand)]
+        if winners is not None:
+            _check_winners(st, winners)
+            widx = cols(winners.float())
     q, v, act, warm = cols(state.qpos), cols(state.qvel), cols(state.act), cols(state.qacc)
     ctrls = [state.ctrl] if ctrl_seq is None else list(ctrl_seq)
     traj = []
@@ -2072,7 +2096,6 @@ def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
         # Heightfield world: 4 plane rows per candidate follow the state
         # rows of the input, and 9 frame rows per candidate the scratch.
         lines.append("#define MS_HFIELD 1")
-        const("N_AUX", _n_aux(st))
     if st.ncand_pair:
         # Fly-fly pair rows follow the NGROUND ground rows; each keeps its
         # contact frame in 9 scratch rows (unless the terrain rows do).
@@ -2081,8 +2104,10 @@ def model_header(model: PhysicsModel, threads: int | None = None) -> tuple:
         const("NPAIR", st.ncand_pair)
     if comp:
         # Compressed pair rows: one per group, whose geom2 is the group's
-        # winner, read from one input row per group after the state rows.
+        # winner, read from one input row per group after the state rows
+        # and the planes.
         lines.append("#define MS_PAIRS_COMPRESSED 1")
+    if _n_aux(st):
         const("N_AUX", _n_aux(st))
 
     # Scratch rows per world (scratch_layout): rows [0, N_SHARED) in the
@@ -2455,6 +2480,24 @@ def _raise_on_error(lib, err: int) -> None:
         raise RuntimeError(f"megastep launch failed: {lib.cuda_error_string(err).decode()}")
 
 
+def _aux_sampler(model: PhysicsModel, st: _Static):
+    """``sample(xpos, xquat)`` of what K2 reads from outside the kernel
+    (``_aux_shape``), or None: the plane sampler's rows of the kept
+    candidates (``_Static.pair_keep``; every candidate without compressed
+    rows), then the pair winner sampler's (JAX ``sample_planes``,
+    ``megastep.py:2656-2673``)."""
+    planes, winners = make_plane_sampler(model), make_pair_winner_sampler(model)
+    if planes is None or winners is None:
+        return planes or winners
+    keep = torch.as_tensor(st.pair_keep, device=model.can_geom.device)
+
+    def sample(xpos: torch.Tensor, xquat: torch.Tensor) -> torch.Tensor:
+        pl = planes(xpos, xquat)[:, keep]
+        return torch.cat([pl.reshape(pl.shape[0], -1), winners(xpos, xquat)], dim=1)
+
+    return sample
+
+
 def make_megastep(model: PhysicsModel, k_steps: int = 1):
     """A batched step through K2 that fuses ``k_steps`` physics steps.
 
@@ -2466,7 +2509,9 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
     launch reads for all its K steps from outside the kernel, under the
     state's cached pose: on a heightfield world the (B, ncand, 4) ground
     planes, on a world with compressed pair rows the (B, n_groups) winners
-    of the pair groups (JAX ``megastep.py:2656-2673``); without
+    of the pair groups, on a heightfield world with compressed pair rows
+    the planes of the kept candidates flattened, then the winners, (B, 4
+    ncand + n_groups) (JAX ``megastep.py:2656-2673``); without
     ``terrain_planes`` the function samples them itself. Otherwise
     ``fn.sample_planes`` is None. Winners that a caller passes are checked
     on the host (a read of the tensor); those of ``fn.sample_planes`` are
@@ -2487,7 +2532,7 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
     st = _Static(model)
     n_in, n_out = _io_rows(st, K)
     built = {}
-    sampler = make_plane_sampler(model) or make_pair_winner_sampler(model)
+    sampler = _aux_sampler(model, st)
     sampled = {}  # id -> weak reference of each tensor sample_planes made
 
     def sample_planes(state: State) -> torch.Tensor:
@@ -2516,7 +2561,7 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
             raise ValueError(f"terrain_planes: expected {_aux_shape(st, B)}, "
                              f"got {tuple(terrain_planes.shape)}")
         elif st.pair_comp_groups and not ours(terrain_planes):
-            _check_winners(st, terrain_planes)
+            _check_winners(st, _split_aux(st, terrain_planes)[1])
         dev = state.qpos.device
         if dev.type == "cpu":
             return megastep_plain(st, state, ctrl_seq, terrain_planes)

@@ -25,7 +25,8 @@ import torch
 
 from flygym_tpu_torch import BatchSimulation, load_compiled
 from flygym_tpu_torch.compose.bridge import (
-    MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN, TETHERED_FLY, TWOFLY_FULL, _read_npz,
+    ASSETS, MIXED_FLY, MIXED_GOLDEN, MUSCLE_FLY, MUSCLE_GOLDEN, TETHERED_FLY, TWOFLY_FULL,
+    _read_npz,
     load_actuator_golden)
 from flygym_tpu_torch.engine import actuation
 from flygym_tpu_torch.engine.model import ActKind
@@ -287,10 +288,11 @@ def test_runtime_sets_and_reads_every_kind(compiled, name):
 
 
 def test_megastep_takes_every_kind_and_refuses_slice_g(compiled):
-    """K2 takes every actuator kind and activation states, and worlds without
+    """K2 takes every actuator kind and activation states, worlds without
     contact candidates (slice g.1: the tethered fly with a hard weld has
-    none, and drives its 42 DoFs with motors). It still refuses compressed
-    pair rows on a heightfield (slice g.2)."""
+    none, and drives its 42 DoFs with motors) and compressed pair rows on a
+    heightfield (slice g.2). It refuses what JAX's gate refuses on
+    features: the PGS solver and welds (the soft-welded tether)."""
     for c in compiled.values():
         assert c.model.na > 0 and ms.megastep_supported(c.model)
     kinds = set(compiled["mixed_fly"].model.act_kind.tolist())
@@ -302,9 +304,12 @@ def test_megastep_takes_every_kind_and_refuses_slice_g(compiled):
     full = load_compiled(TWOFLY_FULL).model
     assert ms.megastep_supported(full)
     on_terrain = dataclasses.replace(full, has_hfield=True)
-    assert not ms.megastep_supported(on_terrain)
-    with pytest.raises(NotImplementedError, match="mega-step"):
-        ms.make_megastep(on_terrain)
+    assert ms.megastep_supported(on_terrain)
+    for name in ("pgs_fly", "softweld_fly"):
+        refused = load_compiled(ASSETS / f"{name}.npz").model
+        assert not ms.megastep_supported(refused), name
+        with pytest.raises(NotImplementedError, match="mega-step"):
+            ms.make_megastep(refused)
 
 
 @pytest.mark.cuda

@@ -397,13 +397,27 @@ def test_each_of_three_flies_has_its_own_getters(compiled):
 
 
 def test_megastep_refuses_compressed_rows_on_terrain(compiled):
-    """A heightfield world with compressed pair rows stays on the engine
-    step (ROADMAP queue 2): the default preset on a made-up height grid."""
+    """K2 takes compressed pair rows on a heightfield (slice g.2): example
+    11's world on the blocks terrain with compressed rows
+    (``twofly_terrain.npz``, 7 groups of 7), whose launch reads the kept
+    candidates' planes, then the winners, and the default preset read on a
+    height grid. It refuses a compressed row that carries a contact sensor,
+    which only a hand-made model has."""
+    from flygym_tpu_torch.compose.bridge import TWOFLY_TERRAIN
+
     m = compiled["twofly_full"].model
     grid = dataclasses.replace(m, has_hfield=True)
-    assert ms.megastep_supported(m) and not ms.megastep_supported(grid)
-    with pytest.raises(NotImplementedError, match="mega-step"):
-        ms.make_megastep(grid)
+    assert ms.megastep_supported(m) and ms.megastep_supported(grid)
+    terrain = load_compiled(TWOFLY_TERRAIN).model
+    assert terrain.has_hfield and terrain.pair_compress and ms.megastep_supported(terrain)
+    header = ms.model_header(terrain)[0]
+    assert "#define MS_HFIELD 1" in header and "#define MS_PAIRS_COMPRESSED 1" in header
+    st = ms.make_megastep(terrain).static
+    assert ms._aux_shape(st, 3) == (3, 4 * st.ncand + len(st.pair_comp_groups)) == (3, 915)
+    assert header.count("constexpr int N_AUX = 915;") == 1
+    sensor = terrain.can_sensor.clone()
+    sensor[-1] = 0
+    assert not ms.megastep_supported(dataclasses.replace(terrain, can_sensor=sensor))
 
 
 @pytest.fixture

@@ -356,14 +356,27 @@ def _host_build_matches_plain(worlds, key, condim: int, order: int) -> None:
 
 
 def test_pair_rows_at_other_condims_stay_on_the_engine_step(worlds):
-    """K2 takes ground rows at every condim; a world whose pair rows
-    compile at condim 4 runs on the engine step."""
-    from flygym_tpu_torch.compose.bridge import TWOFLY
+    """K2 takes ground rows and fly-fly pair rows at every condim: this
+    file's worlds, example 11's world compiled at condim 6
+    (``twofly_condim6.npz``, 10 rows on every candidate) and the two-fly
+    world read at condim 4. What it still refuses at any condim: a pair row
+    that carries a contact sensor or an adhesion actuator, which only a
+    hand-made model has (every compile fills pair rows with -1 there)."""
+    from flygym_tpu_torch.compose.bridge import TWOFLY, TWOFLY_CONDIM6
 
     arrays, meta = _read_npz(TWOFLY)
     meta["model"]["condim"] = 4
-    assert not ms.megastep_supported(model_from_numpy(arrays, meta).model)
+    at4 = model_from_numpy(arrays, meta).model
+    condim6 = load_compiled(TWOFLY_CONDIM6).model
+    assert condim6.condim == 6 and condim6.ncand_pair == 49
+    assert ms.megastep_supported(at4) and ms.megastep_supported(condim6)
+    assert ms.model_header(condim6)[0].count("constexpr int NROWS = 10;") == 1
     assert all(ms.megastep_supported(worlds[c][2].model) for c in CONDIMS)
+    last = condim6.ncand - 1
+    for field in ("can_sensor", "can_adh_act"):
+        values = getattr(condim6, field).clone()
+        values[last] = 0
+        assert not ms.megastep_supported(dataclasses.replace(condim6, **{field: values})), field
 
 
 # ---------------------------------------------------------------------------

@@ -356,23 +356,28 @@ def test_megastep_takes_solver_exact():
 
 
 def test_megastep_refuses_worlds_without_candidates():
-    """K2 takes a world without contact candidates now (slice g.1: the
-    tethered motor fly, whose hard weld compiles to none; qacc is the tree
-    solve of Mh alone), when asked for on the CPU. What it still refuses is
-    compressed pair rows on a heightfield (slice g.2): refused when asked
-    for, the engine step by default."""
+    """K2 takes a world without contact candidates (slice g.1: the tethered
+    motor fly, whose hard weld compiles to none; qacc is the tree solve of
+    Mh alone) and compressed pair rows on a heightfield (slice g.2), when
+    asked for on the CPU; the engine step by default there. What it refuses,
+    when asked for and by default, is what JAX's gate refuses on features:
+    the PGS solver and welds."""
     tethered = load_compiled(TETHERED_FLY)
     assert tethered.model.ncand == 0 and ms.megastep_supported(tethered.model)
     assert BatchSimulation(tethered, 2, device="cpu", megastep=True).megastep
     assert ms.make_megastep(tethered.model).static.ncand == 0
     full = load_compiled(TWOFLY_FULL)
     assert ms.megastep_supported(full.model)
-    bad = dataclasses.replace(full, model=dataclasses.replace(full.model, has_hfield=True))
-    assert not ms.megastep_supported(bad.model)
-    with pytest.raises(NotImplementedError, match="mega-step"):
-        BatchSimulation(bad, 2, device="cpu", megastep=True)
-    with pytest.raises(NotImplementedError, match="mega-step"):
-        ms.make_megastep(bad.model)
+    grid = dataclasses.replace(full, model=dataclasses.replace(full.model, has_hfield=True))
+    assert ms.megastep_supported(grid.model)
+    assert not BatchSimulation(grid, 2, device="cpu").megastep
+    for name in ("pgs_fly", "softweld_fly"):
+        bad = load_compiled(ASSETS / f"{name}.npz")
+        assert not ms.megastep_supported(bad.model), name
+        with pytest.raises(NotImplementedError, match="mega-step"):
+            BatchSimulation(bad, 2, device="cpu", megastep=True)
+        with pytest.raises(NotImplementedError, match="mega-step"):
+            ms.make_megastep(bad.model)
     # Without asking for it, an unsupported model takes the engine step.
     assert not BatchSimulation(bad, 2, device="cpu").megastep
 

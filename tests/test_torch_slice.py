@@ -92,10 +92,10 @@ def test_unported_features_are_refused(key, value, what):
     [
         # JAX's gate refuses PGS too (flygym_tpu/ops/megastep.py:976).
         ("solver_type", "pgs", False),
-        # K2 takes condim 1, 4 and 6 on ground rows; pair rows at a condim
-        # other than 3 run on the engine step.
-        ("condim", 4, False),
-        ("condim", 1, False),
+        # K2 takes condim 1, 4 and 6 on ground rows and pair rows alike, as
+        # JAX's gate does.
+        ("condim", 4, True),
+        ("condim", 1, True),
     ],
 )
 def test_ported_features_load(key, value, on_k2):
