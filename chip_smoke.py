@@ -383,9 +383,9 @@ Phases (each failure ends the run with a non-zero exit code):
 54. Example 06's batched half (``VectorFlyEnv()``, one env step: K2 1)
     and example 09 (3 env steps with vision and odor: K2 3, K3 3) at 4096
     worlds; no tree-LDL launch; observations finite.
-55. Example 13 (``demo/rl_training_es.py:train``) at its own size, 1024
-    envs x 50 updates x 100 env steps: seconds per update, the curve, K2
-    5,000 launches (K = 10), no K3 or tree-LDL launch.
+55. Example 13 (``demo/rl_training_es.py:train``) at its own width, 1024
+    envs x 100 env steps, and 10 of its 50 updates: seconds per update,
+    the curve, K2 1,000 launches (K = 10), no K3 or tree-LDL launch.
 56. Example 13 at ``--small`` (64 x 10 x 25: K2 250) with JAX's learning
     criterion (``tests/examples/test_rl_training.py``): the last two
     updates' mean reward above twice the first two's.
@@ -393,30 +393,32 @@ Phases (each failure ends the run with a non-zero exit code):
 57. K2 with fly-fly pair rows at condim 1, 4 and 6 (slice g.3 on pair
     rows: the torsion and rolling rows on both bodies' signed paths):
     example 11's world at condim 1 and 4 composed by the port and
-    ``twofly_condim6.npz``, each held against its plain version with one
-    K = 1 launch at ``PAIR_CHECK_WORLDS`` from the condim-6 golden's
-    settled worlds with seeded root and joint noise, 0 gaps; condim 6's
-    K = 1 and K = 8 launches timed at 4096 worlds with their bounds.
+    ``twofly_condim6.npz``, each held against its plain version at
+    ``PAIR_CHECK_WORLDS`` from the condim-6 golden's settled worlds with
+    seeded root and joint noise, 0 gaps: condim 1 and 4 one K = 1 launch,
+    condim 6 one K = 8 launch (phase 58's) against the chain of 8 plain
+    steps; condim 6's K = 1 and K = 8 launches timed at 4096 worlds with
+    their bounds.
 58. Example 11 at condim 6 at 4096 worlds: ``rollout(None, 800)`` from the
-    drop (K2 100, K1/K1b 0), example 11's check in every world that did
-    not slide off and the share that passes it, world-steps/s and the
-    card's busy share; the engine path 8 steps (K1 8, K1b 16); the
-    golden (8 worlds x 16 steps): the K2 path 0 gaps to the JAX emitter,
-    the engine path within 3 times the probe's spread.
+    drop (K2 100, K1/K1b 0), example 11's check in every world,
+    world-steps/s and the card's busy share; the engine path 8 steps (K1
+    8, K1b 16); the golden (8 worlds x 16 steps): the K2 path 0 gaps to
+    the JAX emitter, the engine path within 3 times the probe's spread.
 59. Example 11's flies on the blocks terrain with compressed pair rows
     (slice g.2, ``twofly_terrain.npz``): K2 against its plain version, one
-    K = 1 launch at ``PAIR_CHECK_WORLDS`` with the joint sampler's planes
-    and winners, 0 gaps; the joint sampler on the card against the CPU
-    (planes within ``PLANE_ATOL``, winners equal but near-ties); K2 and
-    the sampler timed at 4096 worlds; the 800-step rollout at 4096 worlds
-    (K2 100, winner samples 100, plane samples 100 or more) and the
-    engine path as in phase 58; the golden, the K2 path fed the stored
-    planes and winners with 0 gaps.
+    K = 8 launch at ``PAIR_CHECK_WORLDS`` with the joint sampler's planes
+    and winners against the chain of 8 plain steps, 0 gaps; the joint
+    sampler on the card against the CPU (planes within ``PLANE_ATOL``,
+    winners equal but near-ties); K2 and the sampler timed at 4096 worlds;
+    the 800-step rollout at 4096 worlds (K2 100, winner samples 100, plane
+    samples 100 or more, example 11's check in every world) and the engine
+    path as in phase 58; the golden, the K2 path fed the stored planes and
+    winners with 0 gaps.
 60. ``JointPreset.ALL_POSSIBLE`` (nv 210; slice g.5) composed by the port:
     ``ALL_POSSIBLE_STEPS`` steps at 4096 worlds (K2 50, world-steps/s),
-    then K2 against its plain version from the end state, one K = 1
-    launch at ``PAIR_CHECK_WORLDS``, 0 gaps; K = 1 and K = 8 timed at 4096
-    worlds with their bounds.
+    then K2 against its plain version from the end state with seeded
+    noise in qpos and qvel, one K = 1 launch at ``PAIR_CHECK_WORLDS``, 0
+    gaps; K = 1 and K = 8 timed at 4096 worlds with their bounds.
 61. Example 11 in torch (``demo/two_flies.main``) at 4096 worlds, at B = 1
     and at B = 1 at condim 1 and 4: K2 100 each, the example's check (but
     at condim 1, where the top fly slides off without friction), the
@@ -426,11 +428,6 @@ Phases (each failure ends the run with a non-zero exit code):
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
-
-``python3 chip_smoke.py --slide-off N`` runs one measurement instead and
-exits: the default two-fly preset's drop in N worlds over 800 steps on the
-port's engine path and on K2, the worlds whose top fly ends off the bottom
-one, with 95% intervals, beside the JAX engine's 5 of 512.
 """
 
 import contextlib
@@ -442,7 +439,7 @@ import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, as_completed
 from dataclasses import replace
 from pathlib import Path
 from unittest import mock
@@ -517,9 +514,6 @@ RETINA_BRANCHES = {"cone": None, "hard": 0.0}  # acceptance_fwhm_deg
 # qvel 1e-3, qacc rtol 6e-3 / atol 0.2, actuator_force 1e-4, sensors 2e-3).
 K2_RTOL = 1e-6
 TIMED_LAUNCHES = 20
-# K2's launches per timed run in k2_against_plain (two runs each; K = 8
-# launches of the multi-fly headers take 40-230 ms).
-K2_TIMED_LAUNCHES = 10
 # K2's flat K = 8 launch is also timed at these widths, and built and timed
 # at each of these threads per block (phase 3).
 SWEEP_WORLDS = (1024, 16384)
@@ -607,7 +601,10 @@ MJCF_SHA256 = "6db61d17e20717efa5381470bc29192dcbda060fa191d5bb77dca2ffb61ac97e"
 # Phases 57-61: example 11's two flies with pair rows at condim 1, 4 and 6
 # and on the blocks terrain with compressed pair rows, and ALL_POSSIBLE.
 PAIR_CONDIMS = (1, 4, 6)
-PAIR_CHECK_WORLDS = 1000  # K2 against its plain version, one K = 1 launch
+# K2 against its plain version at this many worlds: one K = 8 launch, the
+# main path's, for condim 6 and the terrain (phases 58-59 run 100 of them at
+# 4096 worlds), one K = 1 launch for condim 1 and 4 and ALL_POSSIBLE.
+PAIR_CHECK_WORLDS = 1000
 ALL_POSSIBLE_STEPS = 400  # 50 K = 8 launches
 # The engine path of phases 58-59 (condim 6: ~0.28 s a step at 4096 worlds).
 PAIR_ENGINE_STEPS = 8
@@ -950,9 +947,10 @@ def megastep_ops(model) -> int:
 
     if OPS_COUNTS:
         header = megastep.model_header(model.to("cpu"))[0]
-        done = dict(f.result() for f in OPS_COUNTS if f.exception() is None)
-        if header in done:
-            return done[header]
+        # The first count of this header to finish: the others need not end.
+        for f in as_completed(OPS_COUNTS):
+            if f.exception() is None and f.result()[0] == header:
+                return f.result()[1]
 
     class Count(TorchFunctionMode):
         n = 0
@@ -1106,7 +1104,7 @@ def k2_against_plain(label: str, model, inputs, note=None,
         n_in, n_out = megastep._io_rows(fn.static, k)
         ops = megastep_ops(model)
         bound = bound_ms(ops * k * n, 4 * (n_in + n_out) * n)
-        entry = {"k": k, "worlds": n, "ms": time_ms(kernel, K2_TIMED_LAUNCHES),
+        entry = {"k": k, "worlds": n, "ms": time_ms(kernel, TIMED_LAUNCHES),
                  "plain_ms": plain_at[(n, k)], "bound": bound}
         print(f"[{label}] K={k} at B={n}: kernel {entry['ms']:.3f} ms per launch, plain "
               f"{entry['plain_ms']:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}; {ops} ops per "
@@ -1118,8 +1116,8 @@ def k2_against_plain(label: str, model, inputs, note=None,
         fn = fns[k]
         state, seq, planes = inputs(fn, N_WORLDS, k, 1)
         kernel = (lambda: fn(state, planes)) if k == 1 else (lambda: fn(state, seq, planes))
-        k1 = time_ms(kernel, K2_TIMED_LAUNCHES)
-        k2 = time_ms(kernel, K2_TIMED_LAUNCHES, warm_up=False)
+        k1 = time_ms(kernel, TIMED_LAUNCHES)
+        k2 = time_ms(kernel, TIMED_LAUNCHES, warm_up=False)
         times[k] = (0.5 * (k1 + k2), plain_ms[k])
         plain = "not timed" if plain_ms[k] is None else f"{plain_ms[k]:.1f} ms"
         print(f"[{label}] K={k} at B={N_WORLDS}: kernel {times[k][0]:.3f} ms per launch "
@@ -1996,17 +1994,16 @@ def phase_terrain_golden(terrain_compiled, *, label: str, megastep) -> None:
               f"{label}: gaps {worst}, phase {phase_gap:.3e}; the K2 path must repeat JAX")
 
 
-def twofly_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
-    """The two-fly golden's settled worlds repeated to ``n_worlds`` on the
-    card, both roots moved by up to ±0.05 mm in xy and the joints by 0.01
-    rad (seeded), the forward kinematics redone; the controls (adhesion on
-    the bottom fly) as a (K, B, nu) sequence."""
+def jitter(model, state, seed: int, qvel_scale: float = 0.0):
+    """``state`` on the card with every root moved by up to ±0.05 mm in xy
+    and every hinge by 0.01 rad, and with ``qvel_scale`` qvel by that much
+    (seeded normal noise), the forward kinematics redone: worlds that
+    differ from each other, so that a world reading another's rows shows."""
     import torch
 
     from flygym_tpu_torch.engine.kinematics import forward_kinematics
 
-    idx = torch.arange(n_worlds) % golden["state"].qpos.shape[0]
-    state = golden["state"].map(lambda x: x[idx].clone()).to("cuda")
+    n_worlds = state.qpos.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qpos = state.qpos.clone()
     for _body, qadr, _vadr in model.free_joints:
@@ -2015,9 +2012,23 @@ def twofly_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
     hinges = model.hinge_qadr
     qpos[:, hinges] += 0.01 * torch.randn((n_worlds, len(hinges)), generator=gen,
                                           device="cuda")
+    qvel = state.qvel
+    if qvel_scale:
+        qvel = qvel + qvel_scale * torch.randn(qvel.shape, generator=gen, device="cuda")
     xpos, xquat = forward_kinematics(model, qpos)
+    return replace(state, qpos=qpos, qvel=qvel, xpos=xpos, xquat=xquat)
+
+
+def twofly_inputs(model, golden, n_worlds: int, k_steps: int, seed: int):
+    """The two-fly golden's settled worlds repeated to ``n_worlds`` on the
+    card and moved by ``jitter``; the controls (adhesion on the bottom fly)
+    as a (K, B, nu) sequence."""
+    import torch
+
+    idx = torch.arange(n_worlds) % golden["state"].qpos.shape[0]
+    state = jitter(model, golden["state"].map(lambda x: x[idx].clone()).to("cuda"), seed)
     seq = state.ctrl.expand((k_steps,) + state.ctrl.shape).clone()
-    return replace(state, qpos=qpos, xpos=xpos, xquat=xquat, ctrl=seq[0]), seq
+    return replace(state, ctrl=seq[0]), seq
 
 
 def active_pair_share(model, state) -> float:
@@ -4099,8 +4110,9 @@ def phase_pose_conversion() -> None:
 # Phase 52: K2's pow against the plain powf.
 POWF_EXPONENTS = (0.25, 0.5, 0.8, 0.9, 1.0, 1.5, 3.0)
 POWF_SAMPLES = 1 << 20
-# Phases 55-56: example 13 at its own size and at --small.
-ES_FULL = dict(n_envs=1024, n_updates=50, episode_len=100)
+# Phases 55-56: example 13 at its own width (1024 envs x 100 env steps) and
+# 10 of its 50 updates, the seconds per update their median; and at --small.
+ES_FULL = dict(n_envs=1024, n_updates=10, episode_len=100)
 ES_SMALL = dict(n_envs=64, n_updates=10, episode_len=25)
 
 
@@ -4276,31 +4288,36 @@ def compose_two_flies(condim: int = 3, terrain: bool = False):
 
 def phase_pair_condims(pair_worlds: dict) -> dict:
     """Phase 57: K2 with pair rows at condim 1, 4 and 6 against its plain
-    version, one K = 1 launch at PAIR_CHECK_WORLDS from the condim-6
-    golden's settled worlds with seeded root and joint noise; condim 6's
-    K = 1 and K = 8 launches timed at N_WORLDS with their bounds. Returns
-    each condim's ``k2_against_plain``."""
+    version at PAIR_CHECK_WORLDS from the condim-6 golden's settled worlds
+    with seeded root and joint noise: one K = 1 launch at condim 1 and 4,
+    at condim 6 one K = MEGASTEP_K launch (phase 58's main path: the warm
+    starts and the torsion and rolling rows across steps) against the
+    chain of plain steps, and its K = 1 and K = 8 launches timed at
+    N_WORLDS with their bounds. Returns each condim's
+    ``k2_against_plain``."""
     from flygym_tpu_torch.compose.bridge import TWOFLY_CONDIM6_GOLDEN, load_pair_variant_golden
 
     golden = load_pair_variant_golden(TWOFLY_CONDIM6_GOLDEN)
     out = {}
     for c in PAIR_CONDIMS:
         model = pair_worlds[c].model.to("cuda")
+        at = (PAIR_CHECK_WORLDS, MEGASTEP_K if c == 6 else 1)
         out[c] = k2_against_plain(
             f"pairs condim {c} kernel", model,
             lambda fn, n, k, seed, model=model: (*twofly_inputs(model, golden, n, k, seed), None),
             lambda state, _p, model=model: f"worlds with an active pair row "
                                            f"{active_pair_share(model, state):.4f}",
-            checks=((PAIR_CHECK_WORLDS, 1),), timed=c == 6, entry_at=(PAIR_CHECK_WORLDS, 1))
+            checks=(at,), timed=c == 6, entry_at=at)
         check(out[c]["err"] == 0.0, f"pairs condim {c}: K2 parts from its plain version")
     return out
 
 
 def phase_pair_terrain(compiled) -> tuple:
     """Phase 59: example 11's flies on the blocks terrain with compressed pair
-    rows. K2 against its plain version, one K = 1 launch at
-    PAIR_CHECK_WORLDS (the golden's settled worlds with seeded noise, the
-    joint sampler's planes and winners); the joint sampler on the card
+    rows. K2 against its plain version, one K = MEGASTEP_K launch (the
+    rollout's) at PAIR_CHECK_WORLDS against the chain of plain steps (the
+    golden's settled worlds with seeded noise, the joint sampler's planes
+    and winners, both read for all K steps); the joint sampler on the card
     against the same sampler on the CPU; K2's and the sampler's times at
     N_WORLDS; the 800-step rollout from the drop at N_WORLDS (K2 100,
     plane and winner samples 100 each); the golden."""
@@ -4317,7 +4334,8 @@ def phase_pair_terrain(compiled) -> tuple:
         lambda fn, n, k, seed: compressed_inputs(model, golden, n, k, seed, fn),
         lambda state, _a: f"worlds with an active compressed row "
                           f"{active_pair_share(model, state):.4f}",
-        checks=((PAIR_CHECK_WORLDS, 1),), timed=True, entry_at=(PAIR_CHECK_WORLDS, 1))
+        checks=((PAIR_CHECK_WORLDS, MEGASTEP_K),), timed=True,
+        entry_at=(PAIR_CHECK_WORLDS, MEGASTEP_K))
     check(k2["err"] == 0.0, "pairs terrain: K2 parts from its plain version")
     fn = k2["fns"][1]
     state = twofly_inputs(model, golden, PAIR_CHECK_WORLDS, 1, 3)[0]
@@ -4340,7 +4358,7 @@ def phase_pair_terrain(compiled) -> tuple:
     terrain.reset_samples()
     counts, wall = phase_twofly(compiled, label="twofly terrain",
                                 what="example 11 on the blocks terrain, compressed pair rows",
-                                slide_off_mm=SLIDE_OFF_MM, engine_steps=PAIR_ENGINE_STEPS)
+                                engine_steps=PAIR_ENGINE_STEPS)
     planes_sampled = terrain.samples["planes"]
     print(f"[twofly terrain] plane samples in the rollout and its engine path: {planes_sampled}")
     check(planes_sampled >= TWOFLY_STEPS // MEGASTEP_K,
@@ -4360,7 +4378,8 @@ def phase_all_possible(compiled) -> tuple:
     """Phase 60: ``JointPreset.ALL_POSSIBLE`` (nv 210) at N_WORLDS through
     the default step: a timed ALL_POSSIBLE_STEPS rollout at the neutral
     targets (K = 8 launches); then K2 against its plain version, one K = 1
-    launch at PAIR_CHECK_WORLDS from the rollout's end state, and its K = 1
+    launch at PAIR_CHECK_WORLDS from the rollout's end state moved by
+    ``jitter`` (qpos and qvel, so that the worlds differ), and its K = 1
     and K = 8 launches timed at N_WORLDS with their bounds."""
     import numpy as np
     import torch
@@ -4392,10 +4411,15 @@ def phase_all_possible(compiled) -> tuple:
           f"{wall:.3f} s; launches {counts}; root z {z.min().item():.4f}-{z.max().item():.4f} mm; "
           f"{ALL_POSSIBLE_STEPS * N_WORLDS / wall:.0f} world-steps/s on {card_line()}")
     held = st.map(lambda x: x.clone())
+
+    def inputs(_fn, n, k, seed):
+        state = jitter(sim.model, held.map(lambda x: x[:n].clone()), seed, qvel_scale=0.1)
+        return state, state.ctrl.expand((k, n, model.nu)).clone(), None
+
     k2 = k2_against_plain(
-        "all possible kernel", sim.model,
-        lambda fn, n, k, seed: (held.map(lambda x: x[:n].clone()),
-                                held.ctrl[:n].expand((k, n, model.nu)).clone(), None),
+        "all possible kernel", sim.model, inputs,
+        lambda state, _p: f"qpos spread over the worlds "
+                          f"{(state.qpos - state.qpos[:1]).abs().max().item():.3e}",
         checks=((PAIR_CHECK_WORLDS, 1),), timed=True, entry_at=(PAIR_CHECK_WORLDS, 1))
     check(k2["err"] == 0.0, "all possible: K2 parts from its plain version")
     return k2, counts
@@ -4455,70 +4479,12 @@ def phase_two_flies_example(condim6_pairs) -> dict:
     return out
 
 
-def wilson(k: int, n: int, z: float = 1.96) -> tuple:
-    """The Wilson score interval of k successes in n trials (95%)."""
-    p = k / n
-    centre = (p + z * z / (2 * n)) / (1 + z * z / n)
-    half = z * (p * (1 - p) / n + z * z / (4 * n * n)) ** 0.5 / (1 + z * z / n)
-    return centre - half, centre + half
-
-
-def slide_off(n_worlds: int) -> int:
-    """``--slide-off N``: the default two-fly preset's drop in N worlds
-    through the port's engine path (K1/K1b), 800 steps, top fly moved by a
-    seeded ±0.1 mm as in phase 17: how many worlds end with the top root
-    less than REST_GAP_MM above the bottom one, against the JAX engine's 5
-    of 512 (``scripts/export_compressed_golden.py --slide-off 512``) and
-    K2's share (phase 17), with 95% Wilson intervals."""
-    import torch
-
-    import flygym_tpu_torch
-    from flygym_tpu_torch import BatchSimulation
-    from flygym_tpu_torch.compose.bridge import TWOFLY_FULL
-    from flygym_tpu_torch.demo.hybrid_terrain import place_roots
-
-    print(card_line())
-    sims = {}
-    for path in ("engine", "K2"):
-        sim = BatchSimulation(flygym_tpu_torch.load_compiled(TWOFLY_FULL), n_worlds,
-                              megastep=path == "K2")
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        offsets = (2.0 * torch.rand((n_worlds, 2), generator=gen, device="cuda") - 1.0) \
-            * TOP_OFFSET_MM
-        place_roots(sim, offsets, root=1)
-        sim.set_leg_adhesion_states("bottom", torch.ones(6, device="cuda"))
-        reset_counts()
-        t0 = time.perf_counter()
-        sim.rollout(None, TWOFLY_STEPS, record_trajectory=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        sims[path] = sim
-        st = sim.state
-        (_b0, q_bottom, _v0), (_b1, q_top, _v1) = sim.model.free_joints
-        lift = st.qpos[:, q_top + 2] - st.qpos[:, q_bottom + 2]
-        sep = (st.qpos[:, q_top:q_top + 2] - st.qpos[:, q_bottom:q_bottom + 2]).norm(dim=1)
-        low = lift <= REST_GAP_MM
-        k = int(low.sum().item())
-        lo, hi = wilson(k, n_worlds)
-        print(f"[slide-off] {path} path, {n_worlds} worlds, {TWOFLY_STEPS} steps in {wall:.1f} s "
-              f"(launches {read_counts()}): top root {REST_GAP_MM} mm or less above the bottom "
-              f"one in {k} worlds ({k / n_worlds:.4f}, 95% interval {lo:.4f}-{hi:.4f}); their xy "
-              f"distances {[round(x, 3) for x in sep[low].tolist()]} mm; finite "
-              f"{bool(torch.isfinite(st.qpos).all())}")
-    jlo, jhi = wilson(5, 512)
-    print(f"[slide-off] the JAX engine: 5 of 512 (0.0098, 95% interval {jlo:.4f}-{jhi:.4f})")
-    return 0
-
-
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--slide-off"]:
-        sys.path.insert(0, str(Path(__file__).resolve().parent))
-        return slide_off(int(sys.argv[2]))
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -4561,9 +4527,6 @@ def main() -> int:
         pair_worlds = {1: compose_two_flies(1).compiled, 4: compose_two_flies(4).compiled,
                        6: condim6_pairs}
         count_ops_in_background(ops_pool, [
-            (TWOFLY_CONDIM6, 0), (TWOFLY_TERRAIN, 0), ("compose:all_possible", 0),
-            ("compose:two_flies_c1", 0), ("compose:two_flies_c4", 0)])
-        count_ops_in_background(ops_pool, [
             ("compose:benchmark", 0), (BENCHMARK_FLY, 0), (TERRAIN_FLY, 0), (TWOFLY, 0), (TWOFLY_FULL, 0), (THREEFLY, 0),
             (STRICT_FLY, 0), (MUSCLE_FLY, 0), (MIXED_FLY, 0), (TETHERED_FLY, 0),
             (ASSETS / f"condim{CONDIM_TIMED}_fly.npz", 0), (TAXIS_FLY, 0),
@@ -4588,6 +4551,10 @@ def main() -> int:
                      "example 11 composed": compose_two_flies(3).compiled},
                     compiled.model)
         lap("phase 1 (build)")
+        # Phases 57-60's worlds, counted after the builds, which need the cores.
+        count_ops_in_background(ops_pool, [
+            (TWOFLY_CONDIM6, 0), (TWOFLY_TERRAIN, 0), ("compose:all_possible", 0),
+            ("compose:two_flies_c1", 0), ("compose:two_flies_c4", 0)])
         model = compiled.model.to("cuda")
         kernels = phase_kernels(model, {"two flies, 55 x 55 compressed": full_compiled.model.to("cuda"),
                                         "3-fly pile": pile_compiled.model.to("cuda")})
@@ -4762,7 +4729,7 @@ def main() -> int:
         example_counts = phase_rl_examples()
         lap("phase 54 (examples 06 and 09)")
         es_full = phase_es("example 13", ES_FULL, learn=False)
-        lap("phase 55 (example 13 at its own size)")
+        lap("phase 55 (example 13 at its own width)")
         es_small = phase_es("example 13 --small", ES_SMALL, learn=True)
         lap("phase 56 (example 13 at --small)")
         k2_condims = phase_pair_condims(pair_worlds)
@@ -4770,7 +4737,7 @@ def main() -> int:
         lap("phase 57 (K2 with pair rows at condim 1, 4 and 6)")
         pairs6_counts, pairs6_wall = phase_twofly(
             condim6_pairs, label="twofly condim6", what="example 11 at condim 6",
-            slide_off_mm=SLIDE_OFF_MM, engine_steps=PAIR_ENGINE_STEPS)
+            engine_steps=PAIR_ENGINE_STEPS)
         k8 = k2_pairs6["times"][MEGASTEP_K][0]
         print(f"[twofly condim6] device busy share: "
               f"{100 * pairs6_counts['megastep'] * k8 / (pairs6_wall * 1e3):.1f}% "
@@ -4895,8 +4862,9 @@ def main() -> int:
     # The benchmark world the port composed: its replay's K = 8 launch.
     entries.append(k2_entry("megastep_composed", k2_composed, composed_counts["megastep"],
                             MEGASTEP_K))
-    # Slices g.3 on pair rows, g.2 and g.5: each header's K = 1 launch at
-    # PAIR_CHECK_WORLDS beside its plain version there; launches of the
+    # Slices g.3 on pair rows, g.2 and g.5: each header's checked launch at
+    # PAIR_CHECK_WORLDS (K = 8 at condim 6 and on the terrain, else K = 1)
+    # beside its plain version there; launches of the
     # 800-step rollouts (100 K = 8: condim 1 and 4 those of example 11 in
     # torch at B = 1) and of ALL_POSSIBLE's 400 (50 K = 8).
     for c in (1, 4):

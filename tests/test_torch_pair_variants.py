@@ -347,26 +347,44 @@ def cuda_device():
     return "cuda"
 
 
+def _differ(model, state, seed: int):
+    """``state`` with seeded noise in every hinge (0.01 rad) and in qvel
+    (0.1), the forward kinematics redone: 64 worlds that differ, so that a
+    world reading another world's rows would show."""
+    from flygym_tpu_torch.engine.kinematics import forward_kinematics
+
+    gen = torch.Generator().manual_seed(seed)
+    qpos, qvel = state.qpos.clone(), state.qvel.clone()
+    qpos[:, model.hinge_qadr] += 0.01 * torch.randn((qpos.shape[0], len(model.hinge_qadr)),
+                                                    generator=gen)
+    qvel += 0.1 * torch.randn(qvel.shape, generator=gen)
+    xpos, xquat = forward_kinematics(model, qpos)
+    return dataclasses.replace(state, qpos=qpos, qvel=qvel, xpos=xpos, xquat=xquat)
+
+
 def _card_case(variant: str):
-    """(model on the card, 64 settled worlds, aux or None) without JAX: the
-    condim-1 and -4 worlds composed by the port."""
+    """(model on the card, 64 worlds that differ, aux or None) without JAX:
+    the condim-1 and -4 worlds composed by the port; ``ALL_POSSIBLE`` from
+    its initial state, the others from their golden's settled worlds."""
     from flygym_tpu_torch.demo.two_flies import make_two_fly_world
 
     if variant == "all_possible":
         compiled = _all_possible()
+        model = compiled.model
         state = compiled.initial_state.map(lambda x: torch.cat([x] * 64).clone())
-        return compiled.model.to("cuda"), state.to("cuda"), None
-    if variant in ("condim1", "condim4"):
-        world = make_two_fly_world(condim=int(variant[-1]))
-        world.compile()
-        model = world.compiled.model
     else:
-        model = load_compiled(TWOFLY_TERRAIN if variant == "terrain" else TWOFLY_CONDIM6).model
-    golden = load_pair_variant_golden(TWOFLY_TERRAIN_GOLDEN if variant == "terrain"
-                                      else TWOFLY_CONDIM6_GOLDEN)
-    idx = torch.arange(64) % golden["state"].qpos.shape[0]
+        if variant in ("condim1", "condim4"):
+            world = make_two_fly_world(condim=int(variant[-1]))
+            world.compile()
+            model = world.compiled.model
+        else:
+            model = load_compiled(TWOFLY_TERRAIN if variant == "terrain" else TWOFLY_CONDIM6).model
+        golden = load_pair_variant_golden(TWOFLY_TERRAIN_GOLDEN if variant == "terrain"
+                                          else TWOFLY_CONDIM6_GOLDEN)
+        idx = torch.arange(64) % golden["state"].qpos.shape[0]
+        state = golden["state"].map(lambda x: x[idx].clone())
+    state = _differ(model, state, 0).to("cuda")
     model = model.to("cuda")
-    state = golden["state"].map(lambda x: x[idx].clone()).to("cuda")
     fn = ms.make_megastep(model)
     return model, state, None if fn.sample_planes is None else fn.sample_planes(state)
 
@@ -375,7 +393,7 @@ def _card_case(variant: str):
 @pytest.mark.parametrize("variant", [*VARIANTS, "all_possible"])
 def test_kernel_matches_plain(cuda_device, variant):
     """K2 with each new header against its plain version on the card, one
-    K = 1 launch at 64 settled worlds: 0 gaps."""
+    K = 1 launch at 64 worlds that differ: 0 gaps."""
     model, state, aux = _card_case(variant)
     fn = ms.make_megastep(model)
     before = ms.launches["megastep"]
