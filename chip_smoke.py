@@ -22,7 +22,8 @@ Phases (each failure ends the run with a non-zero exit code):
    phases 45-47 and 60, config 5's world composed by the env (phase 53) and
    ``VectorFlyEnv()``'s (phases 54-56), example 11's world at condim 1, 4
    and 6 and on the blocks terrain with compressed pair rows (phases
-   57-59), and the worlds example 11 in torch composes (phase 61) (one
+   57-59), the worlds example 11 in torch composes (phase 61) and those
+   examples 01, 02 and 12 in torch compose (phases 62-63) (one
    generated header each; worlds
    with the same header
    share its build), and for the benchmark fly K2's profile build (clock64
@@ -62,8 +63,12 @@ Phases (each failure ends the run with a non-zero exit code):
    outputs held equal to the shipped build's).
    Every check of K chained plain steps, here and in later phases, replays
    one captured plain step K times (``plain_steps``); this phase holds
-   such a chain against the eager chain at 1000 worlds and K = 2, to the
-   last bit.
+   such a chain, its first step's every output too, against the eager
+   chain at 1000 worlds and K = 2, to the last bit. A K = 1 check of a
+   header that also makes a chain (here and in phases 10, 13, 16, 19, 21,
+   24, 30 and 45) is held against that chain's first replay, on the
+   chain's inputs (the first worlds, at a smaller width): one eager plain
+   step fewer per header.
    (The plain version takes seconds per step whatever the worlds, so
    phases 3, 10, 13 and 16 hold K = 8 at 4096 worlds only; phases 3 and
    13 hold no second width at K = 8 and K = 1 respectively, phase 16 the
@@ -176,7 +181,8 @@ Phases (each failure ends the run with a non-zero exit code):
     at 4096 worlds; K2's bound from its operations counted on the CPU.
 20. The strict replay at 4096 worlds: the replay protocol of phase 4 on the
     strict fly (``load_compiled(STRICT_FLY)``, ``BatchSimulation``,
-    ``run_simulation``): launches K2 750, K1/K1b 0, all state finite. Then
+    ``run_simulation``) with replays of ``CUT_REPLAY_STEPS``: launches K2
+    600, K1/K1b 0, all state finite. Then
     its engine path at a small depth, 10 settle + 2 x 20 replay steps: 10 K1
     and 10 K1b launches per step.
 21. Hold K2 built for the muscle-driven fly (42 muscles, na 42) and for the
@@ -223,8 +229,9 @@ Phases (each failure ends the run with a non-zero exit code):
     more steps of both equal; 100 ``step()`` calls of the tethered fly, equal
     to its K = 1 rollout.
 28. The world sweep: ``run_benchmark(1, 16384, 4)`` (1, 4, ..., 16384
-    worlds), each count 750 K2 launches, no K1/K1b, all state finite, and
-    its world-steps/s; then ``python -m flygym_tpu_torch.demo.benchmark
+    worlds) at ``SWEEP_SETTLE`` and ``SWEEP_STEPS``, each count 150 K2
+    launches, no K1/K1b, all state finite, and its world-steps/s; then
+    ``python -m flygym_tpu_torch.demo.benchmark
     4096`` as a subprocess, whose last line must be bench.py's JSON line with
     a value > 0.
 29. One ``utils.profiling.trace()`` (``torch.profiler``) of 8 K = 8 replay
@@ -242,7 +249,8 @@ Phases (each failure ends the run with a non-zero exit code):
     terrain fly's candidates at 10 rows, their frames the sampled planes')
     against its plain version, one K = 1 launch at 1000 worlds.
 31. The condim-6 replay at 4096 worlds: phase 4's protocol on the
-    condim-6 fly: launches K2 750, K1/K1b 0, all state finite.
+    condim-6 fly with replays of ``CUT_REPLAY_STEPS``: launches K2 600,
+    K1/K1b 0, all state finite.
 32. The condim goldens (8 worlds; 4, 4 and 20 replay steps): the K2 path
     against the JAX emitter with 0 gaps, the engine path against the JAX
     engine within ``GOLDEN_TOLERANCE``.
@@ -425,6 +433,20 @@ Phases (each failure ends the run with a non-zero exit code):
     240 x 320 PNG from ``bottom/trackcam``; ``twofly_condim6.npz`` at B = 1,
     the 800-step drop (the example's check) and 800 more steps timed.
 
+62. Worlds split over 2 shards of cuda:0 (``parallel.make_world_mesh``):
+    phase 4's replay through ``run_simulation(mesh=)`` (K2 2 x 750), its
+    end state equal to phase 4's to the last bit, its world-steps/s beside
+    phase 4's; from 4096 worlds made to differ, 64 steps (K = 8) of the
+    terrain fly and of the default two-fly preset and 10 steps of the
+    engine path (K1 and K1b per shard), each shard equal to the last bit
+    to an unsharded batch of its own 2048 worlds, launches and winner
+    samples as many; ``save_state`` / ``load_state`` through ``put_like``;
+    example 12 in torch (8 shards of 4 worlds).
+63. Examples 01, 02 and 03 in torch at their own sizes: 01's 500-step
+    settle (K2 500, its MJCF equal to the JAX example's, every leg in
+    contact as there), 02's settle and replay of the clip with its
+    mesh-fidelity frame, 03 at 512 worlds (K2 750) with its montage.
+
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -446,6 +468,10 @@ from unittest import mock
 
 N_WORLDS = 4096
 N_STEPS = 1000
+# The strict and condim-6 replays (phases 20 and 31) replay this many steps,
+# twice, after the 500-step settle: their rates are K2's (the card ~100% busy),
+# and the shorter replays make room for phases 62-63 in the time limit.
+CUT_REPLAY_STEPS = 400
 SETTLE_STEPS = 500
 ENGINE_STEPS = 200
 ENGINE_SETTLE_STEPS = 100
@@ -481,8 +507,12 @@ TETHERED_STEPS = 1000  # the tethered rollout: 125 K = 8 launches
 SINGLE_STEPS = 1000  # step_with_profile() calls of the single-world fly (B = 1)
 TETHERED_SINGLE_STEPS = 100
 # The world-count sweep: run_benchmark(1, 16384, 4) runs 1, 4, 16, ..., 16384
-# worlds (factor 16 from 1 would skip 16384).
+# worlds (factor 16 from 1 would skip 16384), each a settle of SWEEP_SETTLE
+# steps and two replays of SWEEP_STEPS (the benchmark's 500 and 1000 cut to
+# make room; the benchmark entry's subprocess runs the full depth).
 SWEEP_COUNTS = (1, 16384, 4)
+SWEEP_SETTLE = 100  # 100 K = 1 launches: 8 does not divide it
+SWEEP_STEPS = 200  # 25 K = 8 launches per replay
 TRACE_LAUNCHES = 8  # K = 8 replay launches in the profiler's trace
 # The actuator goldens' engine path is held at a step only where its bar
 # (GOLDEN_TOLERANCE, or 3 times the conditioning probe's spread) is at most
@@ -612,6 +642,10 @@ PAIR_ENGINE_STEPS = 8
 # JAX golden's: the plane sampler on the card and XLA's jitted one have
 # parted by up to ~6e-8 (the terrain golden's planes).
 PLANE_ATOL = 1e-6
+# Phase 62: the mesh's dry run, its shards on cuda:0.
+MESH_SHARDS = 2
+MESH_ROLLOUT = 64  # 8 K = 8 launches per shard
+MESH_ENGINE_STEPS = 10
 
 
 START = time.perf_counter()
@@ -992,13 +1026,18 @@ def k2_inputs(compiled, golden, n_worlds: int, k_steps: int):
     return replace(state, ctrl=seq[0]), seq
 
 
-def plain_steps(static, state, seq=None, planes=None):
+def plain_steps(static, state, seq=None, planes=None, keep_first=False):
     """What ``megastep_plain(static, state, seq, planes)`` returns, in
     inference mode. One step (``seq`` None) runs eagerly. A chain of K
     steps captures one plain step in a CUDA graph and replays it once per
     step, each replay's state copied into the next one's inputs: the same
     ops on the same values as the eager chain, and so the same bits (phase
-    3 holds a replayed chain against the eager one). A plain step is
+    3 holds a replayed chain, its first step's every output too, against
+    the eager one). With ``keep_first`` the chain also returns its first
+    replay's whole output, which is one plain step from ``state`` with
+    ``seq[0]`` (``state.ctrl`` where the inputs hold ``ctrl = seq[0]``), and
+    the milliseconds to it (the capture and one replay): ``(state, rows,
+    first, first_ms)``. A plain step is
     ~300,000 to ~1,300,000 eager ops, on each of which the host spends
     ~10 us; a replay costs the card's time only. On an NVIDIA H100 80GB
     HBM3 at 700 W the benchmark fly's 8 steps at 4096 worlds took 10.7 s
@@ -1012,6 +1051,7 @@ def plain_steps(static, state, seq=None, planes=None):
     with torch.inference_mode():
         if seq is None:
             return megastep.megastep_plain(static, state, None, planes)
+        t0 = time.perf_counter()
         powf(state.qpos[:1, :1].abs(), 2.0)  # its tables are made before the capture
         carried = ("qpos", "qvel", "act", "qacc")
         inp = replace(state, ctrl=seq[0].clone(),
@@ -1033,9 +1073,16 @@ def plain_steps(static, state, seq=None, planes=None):
                     getattr(inp, f).copy_(getattr(out, f))
             graph.replay()
             rows.append(out.qpos.clone())
+            if keep_first and not i:
+                first = replace(out.map(torch.clone), ctrl=seq[0],
+                                time=state.time + static.timestep)
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
         new = replace(out.map(torch.clone), ctrl=seq[-1],
                       time=state.time + len(seq) * static.timestep)
         del graph, out
+        if keep_first:
+            return new, torch.stack(rows), first, first_ms
         return new, torch.stack(rows)
 
 
@@ -1054,6 +1101,12 @@ def k2_against_plain(label: str, model, inputs, note=None,
     of the kernel, so one step's time is the host's and hardly grows with
     the worlds; a chain of K steps is one captured step replayed K times
     (``plain_steps``), and its time is the capture's and the replays'.
+    Where ``checks`` hold a chain, a K = 1 check at its width or a smaller
+    one takes the chain's inputs (drawn from the chain's seed), its first
+    worlds at a smaller width, and its launch is held against the chain's
+    first replay on those worlds (the plain version computes each world
+    alone; its plain time is the chain's capture and first replay) instead
+    of an eager step of its own.
     With ``entry_at`` (one (worlds, K) of ``checks``) the kernel is also
     timed there, beside that check's plain time and the bound at that
     width (``entry``: the kernels line's numbers, ``k2_entry_at``)."""
@@ -1066,15 +1119,30 @@ def k2_against_plain(label: str, model, inputs, note=None,
     fields = ("qpos", "qvel", "qacc", "act", "xpos", "xquat", "actuator_force",
               "contact_sensordata")
     worst, plain_ms, plain_at = 0.0, {k: None for k in fns}, {}
-    for n, k in checks:
+    chain = max((c for c in checks if c[1] > 1), default=(0, 1))  # the widest chain
+    from_chain = [c for c in checks if c[1] == 1 and c[0] <= chain[0]]
+    first = None  # (state, planes, first plain step, its ms) of the chain
+    for n, k in sorted(checks, key=lambda c: c[1] == 1):  # the chain first
         fn = fns[k]
-        state, seq, planes = inputs(fn, n, k, n + k)
-        got = fn(state, planes) if k == 1 else fn(state, seq, planes)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = plain_steps(fn.static, state, None if k == 1 else seq, planes)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
+        if (n, k) in from_chain:
+            state, planes, want, plain = first
+            state, want = state.map(lambda v: v[:n]), want.map(lambda v: v[:n])
+            planes = None if planes is None else planes[:n]
+            got = fn(state, planes)
+        else:
+            state, seq, planes = inputs(fn, n, k, n + k)
+            got = fn(state, planes) if k == 1 else fn(state, seq, planes)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keep_first = (n, k) == chain and bool(from_chain)
+            want = plain_steps(fn.static, state, None if k == 1 else seq, planes, keep_first)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            if keep_first:
+                check(bool(torch.equal(state.ctrl, seq[0])),
+                      f"{label}: the inputs' ctrl is not the chain's first control")
+                *want, step1, step1_ms = want
+                first = (state, planes, step1, step1_ms)
         plain_at[(n, k)] = plain
         if n == N_WORLDS:
             plain_ms[k] = plain
@@ -1093,7 +1161,9 @@ def k2_against_plain(label: str, model, inputs, note=None,
             worst = max(worst, gap)
             gaps.append(f"{name} {gap:.2e}/{scale:.2e}")
         print(f"[{label}] B={n} K={k} max|kernel-plain|/max|plain|: " + ", ".join(gaps)
-              + (f"; {note(state, planes)}" if note else "") + f"; plain {plain:.1f} ms")
+              + (f"; {note(state, planes)}" if note else "") + f"; plain {plain:.1f} ms"
+              + (f" (the B={chain[0]} chain's capture and first replay)"
+                 if (n, k) in from_chain else ""))
 
     entry = None
     if entry_at is not None:
@@ -1207,18 +1277,27 @@ def plain_replay_is_eager(static, state, seq) -> None:
     from flygym_tpu_torch.ops import megastep
 
     with torch.inference_mode():
-        want, wtraj = megastep.megastep_plain(static, state, seq)
-    got, traj = plain_steps(static, state, seq)
+        # The eager chain, one eager step at a time (megastep_plain chains
+        # its steps so), each step's whole output kept.
+        eager, cur = [], state
+        for ctrl in seq:
+            cur = megastep.megastep_plain(static, replace(cur, ctrl=ctrl), None)
+            eager.append(cur)
+    want = replace(eager[-1], time=state.time + len(seq) * static.timestep)
+    wfirst = eager[0]
+    wtraj = torch.stack([e.qpos for e in eager])
+    got, traj, first, _ms = plain_steps(static, state, seq, keep_first=True)
+    names = ("qpos", "qvel", "ctrl", "act", "time", "qacc", "xpos", "xquat", "site_xpos",
+             "actuator_force", "contact_sensordata")
     pairs = [("qpos rows", traj, wtraj)] + [
-        (f, getattr(got, f), getattr(want, f)) for f in
-        ("qpos", "qvel", "ctrl", "act", "time", "qacc", "xpos", "xquat", "site_xpos",
-         "actuator_force", "contact_sensordata")]
+        (f, getattr(got, f), getattr(want, f)) for f in names] + [
+        (f"first step's {f}", getattr(first, f), getattr(wfirst, f)) for f in names]
     for name, a, b in pairs:
         check(a.shape == b.shape and bool(torch.equal(a, b)),
               f"the replayed plain chain's {name} differs from the eager chain's")
     print(f"[megastep] the plain chain replayed from one captured step against the eager "
-          f"chain at B={state.qpos.shape[0]}, K={len(seq)}: all {len(pairs)} outputs "
-          f"equal to the last bit")
+          f"chain at B={state.qpos.shape[0]}, K={len(seq)}: all {len(pairs)} outputs, the "
+          f"first step's too, equal to the last bit")
 
 
 def thread_sweep(model, state, seq, want) -> None:
@@ -1321,10 +1400,10 @@ def read_counts() -> dict:
 
 
 def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want: dict,
-                return_sim: bool = False):
-    """The replay benchmark at N_WORLDS through one path; returns the
-    launch counts and the replay's walltime (and the simulation, with
-    ``return_sim``)."""
+                return_sim: bool = False, mesh=None):
+    """The replay benchmark at N_WORLDS through one path (its worlds split
+    over ``mesh``, if given); returns the launch counts and the replay's
+    walltime (and the simulation, with ``return_sim``)."""
     import torch
 
     from flygym_tpu_torch.demo.benchmark import ReplayTargetData, run_simulation
@@ -1337,7 +1416,7 @@ def phase_slice(compiled, *, label: str, megastep, settle: int, steps: int, want
     reset_counts()
     t0 = time.perf_counter()
     walltime, sim = run_simulation(
-        compiled, targets, device="cuda", warmup_steps=settle, megastep=megastep
+        compiled, targets, device="cuda", warmup_steps=settle, megastep=megastep, mesh=mesh
     )
     total = time.perf_counter() - t0
     counts = read_counts()
@@ -2271,7 +2350,7 @@ def phase_twofly_golden(twofly_compiled, *, label: str, megastep, golden_path=No
         if aux is None:
             sim.rollout(None, 1, record_trajectory=False)
         else:
-            sim.state = fn(sim.state, aux)
+            sim.shards = fn(sim.shards, [aux])
         for key in ("qpos", "qvel"):
             got = getattr(sim.state, key).cpu().numpy()
             gap = float(np.abs(got - rec[key][i]).max())
@@ -2606,8 +2685,9 @@ def phase_single_world(compiled, tethered_compiled) -> dict:
 
 
 def phase_sweep() -> dict:
-    """``run_benchmark`` over SWEEP_COUNTS on the card, each count's
-    run_simulation checked (750 K2 launches, no K1/K1b, all state finite);
+    """``run_benchmark`` over SWEEP_COUNTS on the card at SWEEP_SETTLE and
+    SWEEP_STEPS, each count's run_simulation checked (its K2 launches, no
+    K1/K1b, all state finite);
     then ``python -m flygym_tpu_torch.demo.benchmark`` at N_WORLDS as a
     subprocess, whose last line must be bench.py's JSON with a value > 0."""
     import torch
@@ -2615,7 +2695,7 @@ def phase_sweep() -> dict:
     from flygym_tpu_torch.demo import benchmark
 
     run = benchmark.run_simulation
-    want = SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K)
+    want = SWEEP_SETTLE + 2 * (SWEEP_STEPS // MEGASTEP_K)
 
     def checked(compiled, targets, **kwargs):
         reset_counts()
@@ -2632,7 +2712,8 @@ def phase_sweep() -> dict:
     lo, hi, factor = SWEEP_COUNTS
     benchmark.run_simulation = checked
     try:
-        cols = benchmark.run_benchmark(lo, hi, factor)
+        cols = benchmark.run_benchmark(lo, hi, factor, sim_steps=SWEEP_STEPS,
+                                       warmup_steps=SWEEP_SETTLE)
     finally:
         benchmark.run_simulation = run
     counts = cols["n_worlds"].tolist()
@@ -2679,12 +2760,12 @@ def phase_trace(compiled) -> dict:
     sim = BatchSimulation(compiled, N_WORLDS)
     sim.set_leg_adhesion_states(fly, np.ones((N_WORLDS, 6), np.float32))
     act_ids = sim.actuator_ids(fly, "position")
-    state = replay_episode(sim, sim.state, targets, act_ids, n_steps)
+    shards = replay_episode(sim, sim.shards, targets, act_ids, n_steps)
     torch.cuda.synchronize()
     reset_counts()
     logdir = Path(__file__).resolve().parent / "outputs" / "trace"
     with trace(str(logdir), summarize=False):
-        replay_episode(sim, state, targets, act_ids, n_steps)
+        replay_episode(sim, shards, targets, act_ids, n_steps)
         torch.cuda.synchronize()
     counts = read_counts()
     check(counts["megastep"] == TRACE_LAUNCHES, f"trace: launches {counts}")
@@ -3486,6 +3567,22 @@ def compose_default_env():
     _fly, world = _build_default_world()
     world.compile()
     return world
+
+
+def example_worlds() -> dict:
+    """The worlds examples 01, 02 and 12 in torch compose (phases 62-63),
+    compiled for phase 1's build (example 03's is the composed benchmark
+    world)."""
+    from flygym_tpu_torch.demo.benchmark import make_model
+    from flygym_tpu_torch.demo.build_a_fly import build_fly_world
+    from flygym_tpu_torch.demo.multichip_scaling import make_world
+
+    worlds = {"example 01": build_fly_world()[1],
+              "example 02": make_model(spawn_position=(0, 0, 1.2))[1],
+              "example 12": make_world()}
+    for world in worlds.values():
+        world.compile()
+    return {f"{name}'s world": w.compiled for name, w in worlds.items()}
 
 
 def compose_all() -> dict:
@@ -4479,6 +4576,210 @@ def phase_two_flies_example(condim6_pairs) -> dict:
     return out
 
 
+STATE_FIELDS = ("qpos", "qvel", "ctrl", "act", "time", "qacc", "xpos", "xquat", "site_xpos",
+                "actuator_force", "contact_sensordata")
+
+
+def state_gaps(a, b) -> dict:
+    """Each field's largest |a - b| (shapes must agree)."""
+    return {f: (getattr(a, f) - getattr(b, f)).abs().max().item() if getattr(a, f).numel()
+            else 0.0 for f in STATE_FIELDS}
+
+
+def sharded_against_unsharded(label: str, compiled, state, n_steps: int, mesh,
+                              megastep=None) -> tuple:
+    """``rollout(None, n_steps)`` of ``state`` in a BatchSimulation over
+    ``mesh``, and of each shard's block of worlds in an unsharded
+    BatchSimulation of that block's size (the same batch, so the same
+    library kernels); every shard's outputs and trajectory equal to its
+    block's to the last bit or not, each field's largest gap, and the
+    counts: the unsharded runs' summed, the sharded run's."""
+    import torch
+
+    from flygym_tpu_torch import BatchSimulation
+    from flygym_tpu_torch.parallel import shard_world_axis
+
+    def run(n, m, start):
+        sim = BatchSimulation(compiled, n, mesh=m, megastep=megastep)
+        sim.state = start
+        traj = sim.rollout(None, n_steps)
+        return sim, traj
+
+    n_worlds = state.qpos.shape[0]
+    reset_counts()
+    sim, traj = run(n_worlds, mesh, state)
+    torch.cuda.synchronize()
+    cb = read_counts()
+    got = zip(sim.shards, shard_world_axis(traj, mesh, dim=1))
+    ca = {}
+    equal, gaps = True, {}
+    for block, (shard, rows) in zip(shard_world_axis(state, mesh), got):
+        reset_counts()
+        ref, ref_traj = run(n_worlds // mesh.size, None, block.map(torch.clone))
+        torch.cuda.synchronize()
+        ca = {k: ca.get(k, 0) + v for k, v in read_counts().items()}
+        for k, v in state_gaps(ref.state, shard).items():
+            gaps[k] = max(gaps.get(k, 0.0), v)
+        gaps["qpos rows"] = max(gaps.get("qpos rows", 0.0), (ref_traj - rows).abs().max().item())
+        equal = equal and all(torch.equal(getattr(ref.state, f), getattr(shard, f))
+                              for f in STATE_FIELDS) and bool(torch.equal(ref_traj, rows))
+        check(bool(torch.isfinite(ref.state.qpos).all()), f"{label}: state not finite")
+    check(bool(torch.isfinite(sim.state.qpos).all()), f"{label}: sharded state not finite")
+    print(f"[mesh] {label}, {n_worlds} worlds, {n_steps} steps: each of {mesh.size} shards equal "
+          f"to an unsharded batch of its {n_worlds // mesh.size} worlds to the last bit: {equal} "
+          f"(largest gap {max(gaps.values()):.3e}); counts unsharded {ca}, sharded {cb}")
+    return equal, gaps, ca, cb
+
+
+def phase_mesh(compiled, unsharded_end, unsharded_wall, terrain_compiled, full_compiled) -> dict:
+    """Phase 62: worlds split over MESH_SHARDS shards of cuda:0
+    (``parallel.make_world_mesh``; one card carries the mesh's dry run).
+
+    1. The replay benchmark of phase 4 (``run_simulation(mesh=)``): K2 once
+       per shard per launch (2 x 750), its end state equal to phase 4's
+       ``unsharded_end`` to the last bit, its world-steps/s beside phase 4's
+       (``unsharded_wall``).
+    2. MESH_ROLLOUT steps (K = 8) of the terrain fly (planes sampled per
+       shard) and of the default two-fly preset (winners per shard) from
+       seeded noisy worlds at N_WORLDS, each shard against an unsharded
+       batch of its block (``sharded_against_unsharded``): equal to the
+       last bit, launches and samples as many.
+    3. The engine path (K1 and K1b per shard) MESH_ENGINE_STEPS steps from
+       the golden's settled worlds made to differ (``jitter``), each shard
+       against an unsharded batch of its block: equal to the last bit (at
+       the same batch cuBLAS takes the same kernels).
+    4. ``save_state`` / ``load_state`` of the sharded replay (``put_like``
+       onto the shards), equal to the last bit.
+    5. Example 12's ``main`` (8 shards of 4 worlds on cuda:0): K2 8 + 8 x 50.
+
+    Returns the counts of the sharded replay."""
+    import torch
+
+    from flygym_tpu_torch.compose.bridge import (
+        TWOFLY_FULL_GOLDEN, load_golden, load_terrain_golden, load_twofly_golden)
+    from flygym_tpu_torch.demo import multichip_scaling
+    from flygym_tpu_torch.parallel import make_world_mesh
+    from flygym_tpu_torch.utils import checkpoint
+
+    mesh = make_world_mesh(["cuda:0"] * MESH_SHARDS)
+    launches = SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K)
+    counts, wall, sim = phase_slice(
+        compiled, label="mesh replay", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
+        want={"megastep": MESH_SHARDS * launches, "tree_ldl_factor": 0, "tree_ldl_solve": 0},
+        return_sim=True, mesh=mesh)
+    check(len(sim.shards) == MESH_SHARDS
+          and all(s.qpos.shape[0] == N_WORLDS // MESH_SHARDS for s in sim.shards),
+          f"mesh replay: shards {[tuple(s.qpos.shape) for s in sim.shards]}")
+    end = sim.state
+    equal = all(torch.equal(getattr(end, f), getattr(unsharded_end, f)) for f in STATE_FIELDS)
+    check(equal, f"mesh replay: the end state parts from phase 4's: "
+                 f"{state_gaps(end, unsharded_end)}")
+    rate, rate1 = N_STEPS * N_WORLDS / wall, N_STEPS * N_WORLDS / unsharded_wall
+    print(f"[mesh] the replay at {N_WORLDS} worlds on {MESH_SHARDS} shards of cuda:0: end state "
+          f"equal to phase 4's unsharded one to the last bit; {rate:.0f} world-steps/s against "
+          f"{rate1:.0f} unsharded ({rate / rate1:.4f}x) on {card_line()}")
+
+    terrain_model = terrain_compiled.model.to("cuda")
+    state = terrain_inputs(terrain_compiled, terrain_model, load_terrain_golden(), N_WORLDS, 1,
+                           62)[0]
+    ok, _gaps, ca, cb = sharded_against_unsharded("terrain fly, K = 8", terrain_compiled, state,
+                                                  MESH_ROLLOUT, mesh)
+    check(ok and cb["megastep"] == ca["megastep"] == MESH_SHARDS * MESH_ROLLOUT // MEGASTEP_K,
+          "mesh: the terrain fly's sharded rollout")
+    full_model = full_compiled.model.to("cuda")
+    state = twofly_inputs(full_model, load_twofly_golden(TWOFLY_FULL_GOLDEN), N_WORLDS, 1, 62)[0]
+    ok, _gaps, ca, cb = sharded_against_unsharded("the default two-fly preset, K = 8",
+                                                  full_compiled, state, MESH_ROLLOUT, mesh)
+    check(ok and cb["megastep"] == ca["megastep"] == MESH_SHARDS * MESH_ROLLOUT // MEGASTEP_K
+          and cb["winners"] == ca["winners"] > 0,
+          "mesh: the default two-fly preset's sharded rollout")
+
+    state = jitter(compiled.model.to("cuda"), load_golden()["state"].map(
+        lambda x: x[torch.arange(N_WORLDS) % 8].clone()).to("cuda"), 62, qvel_scale=0.1)
+    equal, gaps, ca, cb = sharded_against_unsharded("the engine path", compiled, state,
+                                                    MESH_ENGINE_STEPS, mesh, megastep=False)
+    check(cb["tree_ldl_factor"] == ca["tree_ldl_factor"] == MESH_SHARDS * MESH_ENGINE_STEPS
+          and cb["tree_ldl_solve"] == ca["tree_ldl_solve"] and cb["megastep"] == 0,
+          "mesh: the engine path's launches")
+    check(equal, f"mesh: the engine path's shards part from their unsharded blocks: {gaps}")
+
+    path = Path("outputs") / "mesh_state.npz"
+    want = [s.map(torch.clone) for s in sim.shards]
+    sim.save_state(path)
+    sim.reset()
+    sim.load_state(path)
+    check(all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(sim.shards, want)
+              for f in STATE_FIELDS), "mesh: load_state did not restore the shards")
+    put = checkpoint.put_like(checkpoint.load_state(path, device="cpu"), want)
+    check([s.qpos.device for s in put] == list(mesh.devices), "mesh: put_like's devices")
+    print(f"[mesh] save_state -> load_state (put_like onto {MESH_SHARDS} shards): equal to the "
+          f"last bit")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    r = multichip_scaling.main()
+    torch.cuda.synchronize()
+    c12 = read_counts()
+    n = r["sim"].mesh.size
+    check(c12["megastep"] == n * (1 + 50) and tuple(r["traj"].shape[:2]) == (50, 4 * n),
+          f"example 12: counts {c12}, trajectory {tuple(r['traj'].shape)}")
+    print(f"[mesh] example 12 ({n} shards of 4 worlds on cuda:0) in {time.perf_counter() - t0:.2f}"
+          f" s: K2 {c12['megastep']} ({n} x (1 + 50) K = 1)")
+    return counts
+
+
+def phase_basic_examples(golden_path) -> dict:
+    """Phase 63: examples 01, 02 and 03 in torch at their own sizes on the
+    card (``demo/build_a_fly``, ``replay_recorded_walking``,
+    ``batched_simulation``): each one's K2 launches and output; 01's MJCF
+    equal to the JAX example's (``golden_path``, scripts/
+    export_examples_golden.py) and its legs in contact as the JAX example's.
+    Returns each example's counts."""
+    import numpy as np
+    import torch
+
+    from flygym_tpu_torch.demo import batched_simulation, build_a_fly, replay_recorded_walking
+
+    with np.load(golden_path, allow_pickle=False) as g:
+        mjcf, found = str(g["ex01.mjcf"]), g["ex01.found"]
+    out = {}
+    runs = (
+        ("example 01", lambda: build_a_fly.main(out=Path("outputs/01_fly_world.xml"))),
+        ("example 02", lambda: replay_recorded_walking.main(
+            out=Path("outputs/02_replay_final_frame.mp4"))),
+        ("example 03", lambda: batched_simulation.main(out=Path("outputs/03_batch_montage.png"))),
+    )
+    for label, run in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = out[label] = read_counts()
+        sim = r["sim"]
+        check(sim.megastep and counts["tree_ldl_factor"] == 0, f"{label}: counts {counts}")
+        check(bool(torch.isfinite(sim.state.qpos).all()), f"{label}: state not finite")
+        if label == "example 01":
+            want = int(0.05 / sim.timestep)
+            check(r["path"].read_text() == mjcf, "example 01: the MJCF parts from JAX's")
+            check(np.array_equal(r["found"], found), f"example 01: legs in contact {r['found']}")
+            what = f"{want} K = 1 launches, MJCF equal to JAX's, legs in contact {r['found']}"
+        elif label == "example 02":
+            n = r["n_steps"]
+            want = SETTLE_STEPS + (n // MEGASTEP_K if n % MEGASTEP_K == 0 else n)
+            check(r["frame"] is not None and int(r["frame"].max()) > 0, "example 02: the frame")
+            what = (f"{n} replay steps, moved {np.round(r['start'], 3)} -> "
+                    f"{np.round(r['end'], 3)} mm, a mesh-fidelity frame")
+        else:
+            want = SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K)
+            check(r["montage"].std() > 0, "example 03: the montage")
+            what = f"{r['steps_per_s']:.0f} world-steps/s at 512 worlds, montage {r['path']}"
+        check(counts["megastep"] == want, f"{label}: K2 {counts['megastep']} != {want}")
+        print(f"[examples] {label} in {wall:.2f} s: K2 {counts['megastep']}; {what}")
+    print(f"[examples] on {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4541,14 +4842,17 @@ def main() -> int:
                      **{f"condim-{c} fly": condim_flies[c] for c in CONDIMS},
                      f"terrain fly, condim {CONDIM_TIMED}": terrain_condim,
                      "taxis fly": taxis_compiled, "cpg fly": cpg_compiled,
+                     # make_model's world: the sweep's and phase 43's too.
+                     "composed benchmark": composed["benchmark"][1].compiled,
                      **{f"composed {name}": w.compiled for name, (_f, w) in composed.items()
-                        if megastep_supported(w.compiled.model)},
+                        if name != "benchmark" and megastep_supported(w.compiled.model)},
                      "composed env fly": env_world.compiled,
                      "default env fly": default_world.compiled,
-                     **{f"two flies, condim {c}{'' if c == 6 else ' (composed)'}": pair_worlds[c]
-                        for c in PAIR_CONDIMS},
+                     **{f"two flies, condim {c}{'' if c == 6 else ' (composed)'}":
+                        pair_worlds[c] for c in PAIR_CONDIMS},
                      "two flies on the blocks terrain, compressed": terrain_pairs,
-                     "example 11 composed": compose_two_flies(3).compiled},
+                     "example 11 composed": compose_two_flies(3).compiled,
+                     **example_worlds()},
                     compiled.model)
         lap("phase 1 (build)")
         # Phases 57-60's worlds, counted after the builds, which need the cores.
@@ -4560,11 +4864,13 @@ def main() -> int:
                                         "3-fly pile": pile_compiled.model.to("cuda")})
         k2 = phase_megastep(compiled, model)
         # The replay protocol: settle, an untimed replay, a timed replay.
-        mega_counts, mega_wall = phase_slice(
+        mega_counts, mega_wall, mega_sim = phase_slice(
             compiled, label="megastep", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
             want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
-                  "tree_ldl_factor": 0, "tree_ldl_solve": 0},
+                  "tree_ldl_factor": 0, "tree_ldl_solve": 0}, return_sim=True,
         )
+        mega_end = mega_sim.state  # phase 62 holds the sharded replay to it
+        del mega_sim
         busy = (N_STEPS // MEGASTEP_K) * k2["times"][MEGASTEP_K][0] / (mega_wall * 1e3)
         print(f"[megastep] device busy share of the replay: {busy:.3f} "
               f"({N_STEPS // MEGASTEP_K} launches x {k2['times'][MEGASTEP_K][0]:.3f} ms "
@@ -4620,13 +4926,15 @@ def main() -> int:
         k2_strict = phase_strict_kernel(strict_compiled.model.to("cuda"))
         lap("phase 19 (K2 exact Newton)")
         strict_counts, strict_wall = phase_slice(
-            strict_compiled, label="strict", megastep=None, settle=SETTLE_STEPS, steps=N_STEPS,
-            want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
+            strict_compiled, label="strict", megastep=None, settle=SETTLE_STEPS,
+            steps=CUT_REPLAY_STEPS,
+            want={"megastep": SETTLE_STEPS + 2 * (CUT_REPLAY_STEPS // MEGASTEP_K),
                   "tree_ldl_factor": 0, "tree_ldl_solve": 0})
         k8 = k2_strict["times"][MEGASTEP_K][0]
         print(f"[strict] device busy share of the replay: "
-              f"{(N_STEPS // MEGASTEP_K) * k8 / (strict_wall * 1e3):.3f} "
-              f"({N_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over {strict_wall:.3f} s)")
+              f"{(CUT_REPLAY_STEPS // MEGASTEP_K) * k8 / (strict_wall * 1e3):.3f} "
+              f"({CUT_REPLAY_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over "
+              f"{strict_wall:.3f} s)")
         n_engine = STRICT_ENGINE_SETTLE_STEPS + 2 * STRICT_ENGINE_STEPS
         phase_slice(
             strict_compiled, label="strict engine", megastep=False,
@@ -4669,13 +4977,14 @@ def main() -> int:
         lap("phase 30 (K2 at condim 1, 4 and 6)")
         condim_counts, condim_wall = phase_slice(
             condim_flies[CONDIM_TIMED], label=f"condim{CONDIM_TIMED}", megastep=None,
-            settle=SETTLE_STEPS, steps=N_STEPS,
-            want={"megastep": SETTLE_STEPS + 2 * (N_STEPS // MEGASTEP_K),
+            settle=SETTLE_STEPS, steps=CUT_REPLAY_STEPS,
+            want={"megastep": SETTLE_STEPS + 2 * (CUT_REPLAY_STEPS // MEGASTEP_K),
                   "tree_ldl_factor": 0, "tree_ldl_solve": 0})
         k8 = k2_condim[CONDIM_TIMED]["times"][MEGASTEP_K][0]
         print(f"[condim{CONDIM_TIMED}] device busy share of the replay: "
-              f"{(N_STEPS // MEGASTEP_K) * k8 / (condim_wall * 1e3):.3f} "
-              f"({N_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over {condim_wall:.3f} s)")
+              f"{(CUT_REPLAY_STEPS // MEGASTEP_K) * k8 / (condim_wall * 1e3):.3f} "
+              f"({CUT_REPLAY_STEPS // MEGASTEP_K} launches x {k8:.3f} ms over "
+              f"{condim_wall:.3f} s)")
         lap(f"phase 31 (the condim-{CONDIM_TIMED} replay)")
         for c in CONDIMS:
             phase_replay_golden(condim_flies[c], ASSETS / f"condim{c}_fly_golden.npz",
@@ -4754,6 +5063,10 @@ def main() -> int:
         lap("phase 60 (ALL_POSSIBLE)")
         example_11_counts = phase_two_flies_example(condim6_pairs)
         lap("phase 61 (example 11 in torch)")
+        phase_mesh(compiled, mega_end, mega_wall, terrain_compiled, full_compiled)
+        lap("phase 62 (worlds split over 2 shards of cuda:0, example 12)")
+        phase_basic_examples(ASSETS / "examples_basic_golden.npz")
+        lap("phase 63 (examples 01, 02 and 03)")
         print(f"[rl] K2 launches on {card_line()}: config 5 composed "
               f"{composed_env_counts['megastep']}, example 06 {example_counts['example 06']['megastep']}"
               f", example 09 {example_counts['example 09']['megastep']}, example 13 "
@@ -4843,8 +5156,8 @@ def main() -> int:
     # its 800-step rollout makes it (100 launches).
     entries.append(k2_entry("megastep_pairs_compressed", k2_comp, full_counts["megastep"],
                             MEGASTEP_K))
-    # The exact Newton's K = 8 launch, as the strict replay makes 250 of its
-    # 750; every actuator kind's, as the muscle-driven and mixed-kind
+    # The exact Newton's K = 8 launch, as the strict replay makes 100 of its
+    # 600; every actuator kind's, as the muscle-driven and mixed-kind
     # rollouts make them.
     entries.append(k2_entry("megastep_strict", k2_strict, strict_counts["megastep"], MEGASTEP_K))
     entries.append(k2_entry("megastep_muscle", k2_act["muscle kernel"], muscle_counts["megastep"],
@@ -4853,7 +5166,7 @@ def main() -> int:
                             MEGASTEP_K))
     # Without contact candidates: the tethered rollout's K = 8 launch.
     entries.append(k2_entry("megastep_tethered", k2_teth, teth_counts["megastep"], MEGASTEP_K))
-    # Slice g.3: the condim-6 replay's K = 8 launch (250 of its 750), and
+    # Slice g.3: the condim-6 replay's K = 8 launch (100 of its 600), and
     # config 4's K = 20 launch, each of its settle and one per control step.
     entries.append(k2_entry(f"megastep_condim{CONDIM_TIMED}", k2_condim[CONDIM_TIMED],
                             condim_counts["megastep"], MEGASTEP_K))

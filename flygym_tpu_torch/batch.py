@@ -5,8 +5,17 @@ Port of ``flygym_tpu/batch.py``. Every state tensor has a leading
 data. The engine is batch-first already, so where the JAX package vmaps its
 per-world step, this class only sizes the batch. Its renderer's frames keep
 the world axis: (n_selected, H, W, 3) of the ``world_ids`` chosen.
+
+With ``mesh=`` the worlds are split over the mesh's devices
+(:mod:`flygym_tpu_torch.parallel`): the model is copied to each device, the
+state is kept as one block of worlds per shard, and every step runs on each
+shard with no operation across shards (K2 once per shard, or the engine
+step with K1 and K1b per shard).
 """
 
+import torch
+
+from flygym_tpu_torch.parallel.mesh import canonical_device
 from flygym_tpu_torch.simulation import Simulation
 from flygym_tpu_torch.utils.profiling import print_perf_report_parallel
 
@@ -19,20 +28,41 @@ class BatchSimulation(Simulation):
     ``megastep``, ``megastep_k`` and ``terrain_resample`` as for
     :class:`Simulation`.
 
-    Getters return (n_worlds, ...) tensors on ``device``; setters take
-    (n,) values for every world or (n_worlds, n) per world.
+    Args:
+        mesh: A :class:`~flygym_tpu_torch.parallel.WorldMesh` to split the
+            worlds over; ``n_worlds`` must be a multiple of its size. The
+            model, the initial state and the readouts are then on the mesh's
+            first device, which ``device`` may name (None takes it).
+
+    Without ``mesh`` the worlds are one shard on ``device``. Getters return
+    (n_worlds, ...) tensors on ``device``; setters take (n,) values for
+    every world or (n_worlds, n) per world. On a mesh the
+    getters, ``state`` and ``rollout``'s trajectory join the shards on the
+    mesh's first device (the JAX package returns arrays sharded over the
+    mesh there); setting ``state`` splits the given state over the mesh.
     """
 
     _batched_frames = True
 
-    def __init__(self, world, n_worlds: int, *, device="cuda",
+    def __init__(self, world, n_worlds: int, *, device=None, mesh=None,
                  megastep: bool | None = None, megastep_k: int = 8,
                  terrain_resample: int = 8) -> None:
         if n_worlds < 1:
             raise ValueError(f"n_worlds must be >= 1, got {n_worlds}")
         self.n_worlds = int(n_worlds)
-        super().__init__(world, device=device, megastep=megastep, megastep_k=megastep_k,
-                         terrain_resample=terrain_resample)
+        self.mesh = mesh
+        if mesh is not None:
+            if n_worlds % mesh.size != 0:
+                raise ValueError(
+                    f"n_worlds={n_worlds} not divisible by mesh axis "
+                    f"'{mesh.axis_name}' of size {mesh.size}"
+                )
+            if device is not None and canonical_device(torch.device(device)) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
+        super().__init__(world, device="cuda" if device is None else device, megastep=megastep,
+                         megastep_k=megastep_k, terrain_resample=terrain_resample)
 
     def _batch(self, state):
         return state.map(lambda x: x.expand((self.n_worlds,) + x.shape[1:]).clone())

@@ -88,6 +88,8 @@
 // threads of a warp read different entries.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include <atomic>
 #define MS_FN __device__ __forceinline__
 #define MS_TABLE __device__ const
 #define MS_NOUNROLL _Pragma("unroll 1")
@@ -1514,14 +1516,26 @@ cudaError_t set_attributes() {
                               static_cast<int>(kSharedBytes));
 }
 
+// The attribute belongs to the current device: it is set once on each device
+// that launches the kernel (at every launch on a device past kMaxDevices).
+constexpr int kMaxDevices = 64;
+std::atomic<bool> configured[kMaxDevices];
+
+cudaError_t configure_current_device() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool recorded = dev >= 0 && dev < kMaxDevices;
+  if (recorded && configured[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = set_attributes();
+  if (err == cudaSuccess && recorded) configured[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 int launch(const void* in, void* out, void* scratch, void* prof, int B, int K, void* stream) {
   if (B <= 0 || K < 1) return cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = set_attributes();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  const cudaError_t err = configure_current_device();
+  if (err != cudaSuccess) return static_cast<int>(err);
   megastep_kernel<<<B, kThreads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), static_cast<float*>(out), static_cast<float*>(scratch),
       static_cast<long long*>(prof), B, K);

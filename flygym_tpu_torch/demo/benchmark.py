@@ -40,7 +40,7 @@ from flygym_tpu_torch.compose.fly import ActuatorType, Fly, GeomFittingOption
 from flygym_tpu_torch.compose.pose import KinematicPosePreset
 from flygym_tpu_torch.compose.world import FlatGroundWorld
 from flygym_tpu_torch.demo.spotlight import MotionSnippet
-from flygym_tpu_torch.engine.step import step
+from flygym_tpu_torch.parallel.mesh import gather_world_axis, shard_world_axis
 from flygym_tpu_torch.utils.math import Rotation3D
 
 __all__ = [
@@ -164,45 +164,49 @@ class ReplayTargetData:
         return out
 
 
-def replay_episode(sim: BatchSimulation, state, targets: torch.Tensor, act_ids: torch.Tensor,
-                   n_steps: int, on_step=None):
+def replay_episode(sim: BatchSimulation, states: list, targets: torch.Tensor,
+                   act_ids: torch.Tensor, n_steps: int, on_step=None) -> list:
     """Replay ``targets`` (B, n_steps, n_dofs) into the actuators ``act_ids``
-    through ``sim``'s step (:meth:`~flygym_tpu_torch.Simulation.step_fns`).
+    through ``sim``'s step (:meth:`~flygym_tpu_torch.Simulation.step_fns`)
+    from ``states``, a list of per-shard States as ``sim.shards`` holds
+    them; returns the shards after the replay.
 
     With the K-step mega-step each launch takes the chunk's K target slices
-    written into its (K, B, nu) controls (``flygym_tpu/demo/benchmark.py:
-    144-170``); otherwise one step per target row. ``on_step(i, state)``, if
-    given, sees the state after each launch, ``i`` the index of its last
+    written into its (K, b, nu) controls (``flygym_tpu/demo/benchmark.py:
+    144-170``); otherwise one step per target row. Every shard is launched
+    before the next chunk. ``on_step(i, state)``, if given, sees the state
+    after each launch (the shards joined), ``i`` the index of its last
     step."""
     batched_step, kstep_fn = sim.step_fns(n_steps)
+    shards = shard_world_axis(targets, sim.mesh)
+    ids = [act_ids.to(t.device) for t in shards]
     if kstep_fn is not None:
         K = kstep_fn.k_steps
         for i in range(0, n_steps, K):
-            ctrl_seq = state.ctrl.expand((K,) + state.ctrl.shape).clone()
-            ctrl_seq[:, :, act_ids] = targets[:, i : i + K].transpose(0, 1)
-            state, _traj = kstep_fn(state, ctrl_seq)
+            seqs = []
+            for s, t, a in zip(states, shards, ids):
+                seq = s.ctrl.expand((K,) + s.ctrl.shape).clone()
+                seq[:, :, a] = t[:, i : i + K].transpose(0, 1)
+                seqs.append(seq)
+            states, _rows = kstep_fn(states, seqs)
             if on_step is not None:
-                on_step(i + K - 1, state)
-        return state
-    if batched_step is None:
-        batched_step = lambda s: step(sim.model, s)
+                on_step(i + K - 1, gather_world_axis(states))
+        return states
     for i in range(n_steps):
-        ctrl = state.ctrl.clone()
-        ctrl[:, act_ids] = targets[:, i]
-        state = batched_step(replace(state, ctrl=ctrl))
+        stepped = []
+        for s, t, a in zip(states, shards, ids):
+            ctrl = s.ctrl.clone()
+            ctrl[:, a] = t[:, i]
+            stepped.append(replace(s, ctrl=ctrl))
+        states = batched_step(stepped)
         if on_step is not None:
-            on_step(i, state)
-    return state
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+            on_step(i, gather_world_axis(states))
+    return states
 
 
 def run_simulation(compiled, replay_data: np.ndarray, *,
                    device="cuda", warmup_steps: int = 500, megastep: bool | None = None,
-                   megastep_k: int = 8, enable_rendering: bool = False):
+                   megastep_k: int = 8, enable_rendering: bool = False, mesh=None):
     """Settle, replay once untimed, then time a replay from the first one's
     end state (``flygym_tpu/demo/benchmark.py:189-240``; reference
     ``time_gpu_simulation.py:108-156``). The untimed replay keeps the
@@ -212,7 +216,8 @@ def run_simulation(compiled, replay_data: np.ndarray, *,
         compiled: A :class:`CompiledModel`, or a composed world, which the
             simulation compiles.
         replay_data: (n_worlds, n_steps, n_dofs) target angles.
-        megastep, megastep_k: The step, as for :class:`BatchSimulation`.
+        megastep, megastep_k, mesh: The step, and the mesh to split the
+            worlds over, as for :class:`BatchSimulation`.
         enable_rendering: Attach the tracking camera ``trackcam``
             (``playback_speed=0.2, output_fps=25``) and render one frame of
             world 0 after the timed replay, outside the timer, as the JAX
@@ -223,7 +228,7 @@ def run_simulation(compiled, replay_data: np.ndarray, *,
     """
     n_worlds, n_steps, _ = replay_data.shape
     sim = BatchSimulation(compiled, n_worlds, device=device, megastep=megastep,
-                          megastep_k=megastep_k)
+                          megastep_k=megastep_k, mesh=mesh)
     if enable_rendering:
         sim.set_renderer("trackcam", playback_speed=0.2, output_fps=25)
     fly = sim.compiled.fly_names[0]
@@ -232,11 +237,11 @@ def run_simulation(compiled, replay_data: np.ndarray, *,
 
     act_ids = sim.actuator_ids(fly, "position")
     targets = torch.as_tensor(replay_data, dtype=torch.float32, device=sim.device)
-    sim.state = replay_episode(sim, sim.state, targets, act_ids, n_steps)
-    _sync(sim.device)
+    sim.shards = replay_episode(sim, sim.shards, targets, act_ids, n_steps)
+    sim.synchronize()
     start = perf_counter()
-    sim.state = replay_episode(sim, sim.state, targets, act_ids, n_steps)
-    _sync(sim.device)
+    sim.shards = replay_episode(sim, sim.shards, targets, act_ids, n_steps)
+    sim.synchronize()
     walltime = perf_counter() - start
     if enable_rendering:
         sim.render_as_needed()
@@ -367,7 +372,8 @@ def track_golden(compiled: CompiledModel, golden: dict, *, device="cuda", n_worl
 
     targets = torch.as_tensor(golden["targets"][:n_worlds], device=dev)
     act_ids = sim.actuator_ids(compiled.fly_names[0], "position")
-    replay_episode(sim, state, targets, act_ids, n_steps, on_step=on_step)
+    sim.state = state
+    replay_episode(sim, sim.shards, targets, act_ids, n_steps, on_step=on_step)
     return worst
 
 

@@ -15,7 +15,6 @@ import torch
 from flygym_tpu_torch.batch import BatchSimulation
 from flygym_tpu_torch.control import CPGController, extract_preprogrammed_steps
 from flygym_tpu_torch.demo.spotlight import MotionSnippet
-from flygym_tpu_torch.engine.step import step as engine_step
 
 __all__ = ["CPGWalkingLoop"]
 
@@ -24,7 +23,8 @@ class CPGWalkingLoop:
     """Example 04's loop over the worlds of ``sim``.
 
     Args:
-        sim: the batch; its step choice (K2 or the engine step) is used.
+        sim: the batch, unsharded (no ``mesh``); its step choice (K2 or the
+            engine step) is used.
         controller: None builds the default :class:`CPGController` from the
             Spotlight clip's step tables, timestep the model's.
         fly: the fly's name; None is the world's first fly.
@@ -54,9 +54,8 @@ class CPGWalkingLoop:
         ctrl[:, self._act_ids] = targets
         ctrl[:, self._adh_ids] = adhesion
         state = replace(state, ctrl=ctrl)
-        if self.batched_step is None:
-            return engine_step(self.sim.model, state), cs
-        return self.batched_step(state), cs
+        (state,) = self.batched_step([state])
+        return state, cs
 
     def run(self, cs, n_steps: int, *, record: bool = False):
         """``n_steps`` steps from ``sim.state``, which is advanced.

@@ -29,7 +29,6 @@ from flygym_tpu_torch.demo.spotlight import MotionSnippet
 from flygym_tpu_torch.engine.kinematics import forward_kinematics
 from flygym_tpu_torch.engine.maths import quat_rotate
 from flygym_tpu_torch.engine.model import compute_site_xpos
-from flygym_tpu_torch.engine.step import step as engine_step
 
 __all__ = ["ROOT_OFFSET_MM", "HybridLoop", "place_roots", "root_offsets"]
 
@@ -59,8 +58,9 @@ class HybridLoop:
     """Example 08's loop over the worlds of ``sim``.
 
     Args:
-        sim: the batch, on terrain or flat ground; its step choice (K2 or
-            the engine step) and ``terrain_resample`` are used.
+        sim: the batch, unsharded (no ``mesh``), on terrain or flat ground;
+            its step choice (K2 or the engine step) and ``terrain_resample``
+            are used.
         controller: None builds the default :class:`HybridController` from
             the Spotlight clip's step tables.
         fly: the fly's name; None is the world's first fly.
@@ -85,7 +85,9 @@ class HybridLoop:
         self._x_axis = torch.tensor([1.0, 0.0, 0.0], device=sim.device)
         batched_step, _kstep = sim.step_fns(1)
         self.batched_step = batched_step
-        self.sample_planes = getattr(batched_step, "sample_planes", None)
+        self.sample_planes = None
+        if batched_step.sample_planes is not None:
+            self.sample_planes = lambda state: batched_step.sample_planes([state])[0]
 
     def init_state(self, generator: torch.Generator | None = None) -> HybridState:
         """A controller state per world, phases drawn from ``generator``."""
@@ -107,11 +109,11 @@ class HybridLoop:
 
     def physics_step(self, state, planes=None):
         """One step of the simulation's one-step function."""
-        if self.batched_step is None:
-            return engine_step(self.sim.model, state)
         if planes is None:
-            return self.batched_step(state)
-        return self.batched_step(state, planes)
+            (state,) = self.batched_step([state])
+        else:
+            (state,) = self.batched_step([state], [planes])
+        return state
 
     def run(self, cs: HybridState, n_steps: int, *, record: bool = False):
         """``n_steps`` closed-loop steps from ``sim.state``, which is

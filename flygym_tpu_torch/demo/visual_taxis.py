@@ -42,7 +42,7 @@ class TaxisLoop:
     """Example 07's loop over the worlds of ``sim``.
 
     Args:
-        sim: the batch; its step is used (build it with
+        sim: the batch, unsharded (no ``mesh``); its step is used (build it with
             ``megastep_k=PHYSICS_PER_CONTROL`` for one K2 launch per control
             step).
         controller: None builds the default :class:`VisualTaxisController`
@@ -92,9 +92,10 @@ class TaxisLoop:
     def physics(self, state):
         """``PHYSICS_PER_CONTROL`` steps with ``ctrl`` held."""
         batched_step, kstep_fn = self._step_fns
-        return rollout_batched(self.sim.model, state, None, PHYSICS_PER_CONTROL, record=False,
-                               batched_step=batched_step, kstep_fn=kstep_fn,
-                               terrain_resample=self.sim.terrain_resample)[0]
+        (state,), _ = rollout_batched([state], None, PHYSICS_PER_CONTROL, record=False,
+                                      batched_step=batched_step, kstep_fn=kstep_fn,
+                                      terrain_resample=self.sim.terrain_resample)
+        return state
 
     def run(self, cs, n_control_steps: int, *, record: bool = False,
             drives: torch.Tensor | None = None):

@@ -26,8 +26,9 @@ from flygym_tpu_torch.engine.kinematics import (
 )
 from flygym_tpu_torch.engine.maths import norm, quat_conj, quat_integrate, quat_mul
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State, compute_site_xpos
+from flygym_tpu_torch.parallel.mesh import make_world_mesh, replicate_model
 
-__all__ = ["make_step_fn", "rollout", "rollout_batched", "step"]
+__all__ = ["make_step_fn", "make_step_sharded", "rollout", "rollout_batched", "step"]
 
 
 def step(model: PhysicsModel, state: State, widx=None) -> State:
@@ -169,34 +170,65 @@ def rollout(model: PhysicsModel, state: State, ctrl_seq: torch.Tensor | None, n_
     if state.qpos.shape[0] != 1:
         raise ValueError(f"rollout steps one world, got a batch of {state.qpos.shape[0]}; "
                          "use rollout_batched")
-    if ctrl_seq is not None:
-        ctrl_seq = ctrl_seq[:, None, :]
-    final, traj = rollout_batched(model, state, ctrl_seq, n_steps, record=record)
-    return final, (traj[:, 0] if record else None)
+    step_fn = make_step_sharded(model, make_world_mesh([state.qpos.device]))
+    seqs = None if ctrl_seq is None else [ctrl_seq[:, None, :]]
+    (final,), trajs = rollout_batched([state], seqs, n_steps, batched_step=step_fn,
+                                      record=record)
+    return final, (trajs[0][:, 0] if record else None)
 
 
-def rollout_batched(
-    model: PhysicsModel,
-    state: State,
-    ctrl_seq: torch.Tensor | None,
-    n_steps: int,
-    record: bool = True,
-    batched_step=None,
-    kstep_fn=None,
-    terrain_resample: int = 8,
-):
-    """Step ``n_steps`` times.
+def make_step_sharded(model: PhysicsModel, mesh):
+    """The engine step over the world axis of ``mesh``: each shard's block
+    of worlds stepped by :func:`step` on the model's copy on its device,
+    as JAX's ``BatchSimulation`` jits its step with the state's shardings
+    (``flygym_tpu/batch.py:100-104``). ``fn(states) -> states`` takes and
+    gives a list of per-shard States
+    (:func:`~flygym_tpu_torch.parallel.shard_world_axis`); a mesh of one
+    device is the unsharded step."""
+    models = replicate_model(model, mesh)
+
+    def fn(states: list) -> list:
+        if len(states) != mesh.size:
+            raise ValueError(f"{len(states)} shards given for a mesh of {mesh.size}")
+        return [step(m, s) for m, s in zip(models, states)]
+
+    fn.sample_planes = None
+    return fn
+
+
+def _held(ctrl, ctrl_seq, t0: int, K: int) -> torch.Tensor:
+    """The (K, B, nu) controls of steps t0 .. t0 + K - 1, NaN entries of
+    ``ctrl_seq`` (or all of them, where it is None) holding the previous
+    step's control, ``ctrl`` before the first."""
+    eff = []
+    for t in range(t0, t0 + K):
+        if ctrl_seq is not None:
+            ctrl = torch.where(torch.isnan(ctrl_seq[t]), ctrl, ctrl_seq[t])
+        eff.append(ctrl)
+    return torch.stack(eff)
+
+
+def rollout_batched(states: list, ctrl_seq: list | None, n_steps: int, *, batched_step=None,
+                    kstep_fn=None, record: bool = True, terrain_resample: int = 8):
+    """Step the shards of a batch ``n_steps`` times: every shard is stepped
+    (launched, on the card) at each step or chunk before the next, with no
+    host read between. An unsharded batch is one shard.
 
     Args:
-        ctrl_seq: (n_steps, B, nu) controls per step; NaN entries keep the
-            previous control. None holds the current controls throughout.
+        states: The per-shard States
+            (:func:`~flygym_tpu_torch.parallel.shard_world_axis`).
+        ctrl_seq: The per-shard (n_steps, b, nu) controls per step; NaN
+            entries keep the previous control. None holds the current
+            controls throughout.
+        batched_step: A one-step function over the shards:
+            :func:`make_step_sharded`, or a K = 1
+            :func:`~flygym_tpu_torch.ops.megastep.make_megastep_sharded`.
+        kstep_fn: A K-step fused one (``make_megastep_sharded(model, mesh,
+            K)``), in place of ``batched_step``; ``n_steps`` must be a
+            multiple of its ``k_steps``. The loop then makes n_steps / K
+            launches per shard, forward-filling the NaN controls of each
+            chunk before its launch (``flygym_tpu/engine/step.py:256-277``).
         record: Stack the per-step qpos trajectory.
-        batched_step: Replaces :func:`step` (e.g. the K = 1 mega-step,
-            ``ops/megastep.py``); takes and returns a batched State.
-        kstep_fn: A K-step fused mega-step (``make_megastep(model, K)``);
-            ``n_steps`` must be a multiple of its ``k_steps``. The loop then
-            makes n_steps / K launches, forward-filling the NaN controls of
-            each chunk before its launch (``flygym_tpu/engine/step.py:256-277``).
         terrain_resample: On a heightfield world, or one with compressed
             pair rows, a mega-step carries ``sample_planes``: the ground
             planes, the pair groups' winners, or on a heightfield world with
@@ -209,40 +241,38 @@ def rollout_batched(
             Candidates move ~1e-3 mm per step against 0.25 mm terrain cells.
 
     Returns:
-        (final state, (n_steps, B, nq) qpos trajectory or None).
+        (per-shard final States, per-shard (n_steps, b, nq) qpos
+        trajectories or None).
     """
-    traj = []
+    n = len(states)
+    seqs = [None] * n if ctrl_seq is None else ctrl_seq
+    trajs = [[] for _ in range(n)]
     if kstep_fn is not None:
         K = kstep_fn.k_steps
         if n_steps % K:
             raise ValueError(f"n_steps={n_steps} is not a multiple of k_steps={K}")
         sample_planes = getattr(kstep_fn, "sample_planes", None)
         for t0 in range(0, n_steps, K):
-            eff, prev = [], state.ctrl
-            for t in range(t0, t0 + K):
-                if ctrl_seq is not None:
-                    prev = torch.where(torch.isnan(ctrl_seq[t]), prev, ctrl_seq[t])
-                eff.append(prev)
+            eff = [_held(s.ctrl, c, t0, K) for s, c in zip(states, seqs)]
             if sample_planes is None:
-                state, qpos_k = kstep_fn(state, torch.stack(eff))
+                states, rows = kstep_fn(states, eff)
             else:
-                state, qpos_k = kstep_fn(state, torch.stack(eff), sample_planes(state))
+                states, rows = kstep_fn(states, eff, sample_planes(states))
             if record:
-                traj.extend(qpos_k)
-        return state, (torch.stack(traj) if record else None)
+                for t, r in zip(trajs, rows):
+                    t.append(r)
+        return states, ([torch.cat(t) for t in trajs] if record else None)
 
-    step_fn = batched_step if batched_step is not None else (lambda s: step(model, s))
     sample_planes = getattr(batched_step, "sample_planes", None)
     chunked = sample_planes is not None and terrain_resample > 1 and n_steps % terrain_resample == 0
     for t in range(n_steps):
         if chunked and t % terrain_resample == 0:
-            planes = sample_planes(state)
+            planes = sample_planes(states)
         if ctrl_seq is not None:
-            ctrl_t = ctrl_seq[t]
-            state = replace(
-                state, ctrl=torch.where(torch.isnan(ctrl_t), state.ctrl, ctrl_t)
-            )
-        state = step_fn(state, planes) if chunked else step_fn(state)
+            states = [replace(s, ctrl=torch.where(torch.isnan(c[t]), s.ctrl, c[t]))
+                      for s, c in zip(states, seqs)]
+        states = batched_step(states, planes) if chunked else batched_step(states)
         if record:
-            traj.append(state.qpos)
-    return state, (torch.stack(traj) if record else None)
+            for tr, s in zip(trajs, states):
+                tr.append(s.qpos)
+    return states, ([torch.stack(t) for t in trajs] if record else None)

@@ -115,9 +115,10 @@ def tree_ldl_factor(tables: LdlTables, H: torch.Tensor):
     lib = load_library()
     H = H.contiguous()
     L, d = H.new_empty((B, nv, maxc)), H.new_empty((B, nv))
-    err = lib.tree_ldl_factor_f32(
-        H.data_ptr(), L.data_ptr(), d.data_ptr(), tables.kernel.data_ptr(), nv, maxc,
-        tables.n_env, tables.n_chain, B, _stream(H))
+    with torch.cuda.device(H.device):
+        err = lib.tree_ldl_factor_f32(
+            H.data_ptr(), L.data_ptr(), d.data_ptr(), tables.kernel.data_ptr(), nv, maxc,
+            tables.n_env, tables.n_chain, B, _stream(H))
     _raise_on_error(lib, err, "tree_ldl_factor")
     launches["tree_ldl_factor"] += 1
     return L, d
@@ -146,9 +147,10 @@ def _solve(tables: LdlTables, L, d, b, count: str):
     lib = load_library()
     L, d, b = L.contiguous(), d.contiguous(), b.contiguous()
     x = b.new_empty((B, nv))
-    err = lib.tree_ldl_solve_f32(
-        L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), tables.kernel.data_ptr(), nv,
-        maxc, tables.n_env, tables.n_chain, B, _stream(b))
+    with torch.cuda.device(b.device):
+        err = lib.tree_ldl_solve_f32(
+            L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), tables.kernel.data_ptr(),
+            nv, maxc, tables.n_env, tables.n_chain, B, _stream(b))
     _raise_on_error(lib, err, "tree_ldl_solve")
     launches[count] += 1
     return x

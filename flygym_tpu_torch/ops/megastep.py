@@ -37,6 +37,8 @@ Three parts:
   (:func:`~flygym_tpu_torch.engine.contact.make_pair_winner_sampler`), and
   on a heightfield world with compressed pair rows both, planes first; it
   takes them as ``terrain_planes=``.
+- :func:`make_megastep_sharded`, the same launch over the shards of a mesh
+  of devices, once per shard (JAX's ``make_megastep_sharded``).
 
 ``launches["megastep"]`` counts kernel launches; only a launch adds to it.
 K2 has no gradient, as JAX's Pallas kernel has no VJP: given a tensor that
@@ -62,12 +64,14 @@ from flygym_tpu_torch.engine.maths import sinf as _sinf
 from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State
 from flygym_tpu_torch.engine.terrain import make_plane_sampler
 from flygym_tpu_torch.ops import refuse_grad
+from flygym_tpu_torch.parallel.mesh import replicate_model
 
 __all__ = [
     "emit_step",
     "launches",
     "kernel_shape",
     "make_megastep",
+    "make_megastep_sharded",
     "megastep_plain",
     "megastep_supported",
     "model_header",
@@ -2430,9 +2434,10 @@ def profile_megastep(model: PhysicsModel, state: State, ctrl_seq: torch.Tensor) 
     scratch = torch.empty((B, max(scratch_layout(model)["n_global"], 1)),
                           dtype=torch.float32, device=dev)
     prof = torch.zeros((len(PROFILE_PHASES), B), dtype=torch.int64, device=dev)
-    err = lib.megastep_profile_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                                   prof.data_ptr(), B, K,
-                                   torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.megastep_profile_f32(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                       prof.data_ptr(), B, K,
+                                       torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_error(lib, err)
     cycles = prof.sum(dim=1).tolist()
     return dict(zip(PROFILE_PHASES, cycles))
@@ -2469,9 +2474,10 @@ def kernel_powf(model: PhysicsModel, x: torch.Tensor, y: torch.Tensor) -> torch.
     lib = load_megastep(model_header(model)[0])
     out = torch.empty_like(x)
     if x.numel():
-        _raise_on_error(lib, lib.megastep_powf_f32(
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream))
+        with torch.cuda.device(x.device):
+            _raise_on_error(lib, lib.megastep_powf_f32(
+                x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+                torch.cuda.current_stream(x.device).cuda_stream))
     return out
 
 
@@ -2546,7 +2552,10 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
         ref = sampled.get(id(aux))
         return ref is not None and ref() is aux
 
-    def run(state: State, ctrl_seq, terrain_planes):
+    def prepare(state: State, ctrl_seq, terrain_planes):
+        """The launch's checks, and what it reads from outside the kernel:
+        sampled when not given, checked on the host when given winners are
+        not ``sample_planes``' own."""
         if ctrl_seq is not None and tuple(ctrl_seq.shape) != (K,) + tuple(state.ctrl.shape):
             raise ValueError(f"ctrl_seq: expected {(K,) + tuple(state.ctrl.shape)}, "
                              f"got {tuple(ctrl_seq.shape)}")
@@ -2562,6 +2571,11 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
                              f"got {tuple(terrain_planes.shape)}")
         elif st.pair_comp_groups and not ours(terrain_planes):
             _check_winners(st, _split_aux(st, terrain_planes)[1])
+        return terrain_planes
+
+    def launch(state: State, ctrl_seq, terrain_planes):
+        """One K2 launch (the plain version on the CPU) on what
+        :func:`prepare` gave."""
         dev = state.qpos.device
         if dev.type == "cpu":
             return megastep_plain(st, state, ctrl_seq, terrain_planes)
@@ -2574,20 +2588,25 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
             built["lib"] = load_megastep(header)
             built["n_global"] = scratch_layout(model)["n_global"]
         lib = built["lib"]
+        B = state.qpos.shape[0]
         packed = _pack(st, state, ctrl_seq, terrain_planes, K)
         refuse_grad("megastep", packed)
         out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
         scratch = torch.empty((B, max(built["n_global"], 1)), dtype=torch.float32, device=dev)
         if B:
-            err = lib.megastep_f32(
-                packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, K,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
+            with torch.cuda.device(dev):
+                err = lib.megastep_f32(
+                    packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, K,
+                    torch.cuda.current_stream(dev).cuda_stream,
+                )
             _raise_on_error(lib, err)
             launches["megastep"] += 1
         ctrl = state.ctrl if ctrl_seq is None else ctrl_seq[-1]
         new, traj = _unpack(st, out, state, ctrl, K)
         return new if ctrl_seq is None else (new, traj)
+
+    def run(state: State, ctrl_seq, terrain_planes):
+        return launch(state, ctrl_seq, prepare(state, ctrl_seq, terrain_planes))
 
     if K == 1:
         def fn(state: State, terrain_planes: torch.Tensor | None = None) -> State:
@@ -2599,4 +2618,72 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
     fn.k_steps = K
     fn.static = st
     fn.sample_planes = None if sampler is None else sample_planes
+    # The two halves of a call, for make_megastep_sharded: every shard's
+    # checks and samples before any shard's launch.
+    fn.prepare, fn.launch = prepare, launch
+    return fn
+
+
+def make_megastep_sharded(model: PhysicsModel, mesh, k_steps: int = 1):
+    """K2 over the world axis of ``mesh`` (a
+    :class:`~flygym_tpu_torch.parallel.WorldMesh`): JAX's
+    ``make_megastep_sharded`` (``megastep.py:2855-3017``), which
+    shard_maps the kernel over the worlds with no collective.
+
+    Each shard's block of worlds goes through :func:`make_megastep` of the
+    model's copy on its device (one per distinct device): one launch per
+    shard on the current stream of that device, with its own (b, n_global)
+    scratch, and no operation across shards. Every shard's checks and
+    samples are made before any shard's launch, so that no host read (the
+    check of winners a caller gives) waits for a launch. A mesh of one
+    device is the unsharded step.
+
+    With ``k_steps == 1`` the function is ``fn(states, terrain_planes=None)
+    -> states``; with K > 1 ``fn(states, ctrl_seq, terrain_planes=None) ->
+    (states, qpos rows)``, ``ctrl_seq`` (K, b, nu) and the (K, b, nq) rows
+    per shard, and ctrl after the chunk ``ctrl_seq[-1]``. ``states``,
+    ``ctrl_seq`` and ``terrain_planes`` are lists of per-shard pieces
+    (:func:`~flygym_tpu_torch.parallel.shard_world_axis`), and so are the
+    results. ``fn.sample_planes(states)`` samples every shard's planes or
+    winners (None where the world reads none).
+    """
+    K = int(k_steps)
+    models = replicate_model(model, mesh)
+    per_device = {}
+    for d, m in zip(mesh.devices, models):
+        if d not in per_device:
+            per_device[d] = make_megastep(m, K)
+    fns = [per_device[d] for d in mesh.devices]
+
+    def shards(pieces, what: str) -> list:
+        if pieces is None:
+            return [None] * mesh.size
+        if len(pieces) != mesh.size:
+            raise ValueError(f"{len(pieces)} shards of {what} given for a mesh of {mesh.size}")
+        return pieces
+
+    def run(states, ctrl_seq, terrain_planes):
+        for s, d in zip(shards(states, "the state"), mesh.devices):
+            if s.qpos.device != d:
+                raise ValueError(f"a shard on {s.qpos.device} where the mesh has {d}")
+        seqs, aux = shards(ctrl_seq, "ctrl_seq"), shards(terrain_planes, "terrain_planes")
+        aux = [f.prepare(s, c, a) for f, s, c, a in zip(fns, states, seqs, aux)]
+        outs = [f.launch(s, c, a) for f, s, c, a in zip(fns, states, seqs, aux)]
+        if K == 1:
+            return outs
+        return [o[0] for o in outs], [o[1] for o in outs]
+
+    def sample_planes(states):
+        return [f.sample_planes(s) for f, s in zip(fns, shards(states, "the state"))]
+
+    if K == 1:
+        def fn(states, terrain_planes=None):
+            return run(states, None, terrain_planes)
+    else:
+        def fn(states, ctrl_seq, terrain_planes=None):
+            return run(states, ctrl_seq, terrain_planes)
+
+    fn.k_steps = K
+    fn.static = fns[0].static
+    fn.sample_planes = None if fns[0].sample_planes is None else sample_planes
     return fn

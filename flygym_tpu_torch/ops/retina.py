@@ -408,13 +408,14 @@ def _launch(lib, entry: str, tables: RetinaTables, packed: torch.Tensor, *extra)
     refuse_grad("retina", packed)
     B = packed.shape[0]
     out = torch.empty((B, 2, tables.R, 2), dtype=torch.float32, device=packed.device)
-    err = getattr(lib, entry)(
-        packed.data_ptr(), tables.ray_index.data_ptr(), tables.tile_dirs.data_ptr(),
-        tables.tile_weights.data_ptr(), tables.tile_axis.data_ptr(), tables.radius.data_ptr(),
-        tables.rgb.data_ptr(), out.data_ptr(), B, tables.R, tables.T, tables.G, tables.ground_z,
-        tables.tanh_cone, int(tables.use_cone), *extra,
-        torch.cuda.current_stream(packed.device).cuda_stream,
-    )
+    with torch.cuda.device(packed.device):
+        err = getattr(lib, entry)(
+            packed.data_ptr(), tables.ray_index.data_ptr(), tables.tile_dirs.data_ptr(),
+            tables.tile_weights.data_ptr(), tables.tile_axis.data_ptr(),
+            tables.radius.data_ptr(), tables.rgb.data_ptr(), out.data_ptr(), B, tables.R,
+            tables.T, tables.G, tables.ground_z, tables.tanh_cone, int(tables.use_cone), *extra,
+            torch.cuda.current_stream(packed.device).cuda_stream,
+        )
     _raise_on_error(err)
     return out
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
+from flygym_tpu_torch.compose.spec import CameraSpec
 from flygym_tpu_torch.engine.kinematics import geom_poses
 from flygym_tpu_torch.engine.maths import cross, mat_to_quat, norm
 from flygym_tpu_torch.engine.model import State
@@ -156,6 +157,8 @@ class Renderer:
     def _resolve_camera(self, camera) -> Camera:
         if isinstance(camera, Camera):
             return camera
+        if isinstance(camera, CameraSpec):  # a composed fly's camera, as JAX's renderer takes
+            camera = camera.full_identifier
         if isinstance(camera, str):
             for meta in self._meta["cameras"]:
                 if camera in (meta["name"], meta["full_identifier"]):

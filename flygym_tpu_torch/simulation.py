@@ -17,6 +17,11 @@ the engine step otherwise; a rollout of n steps fuses K = ``megastep_k``
 steps per launch when K divides n, and runs one step per launch when it does
 not. On terrain the mega-step's ground planes are sampled once per launch
 of K steps, or every ``terrain_resample`` steps on the one-step path.
+
+The state is held as a list of shards over a 1-D mesh of devices
+(:mod:`flygym_tpu_torch.parallel`), and every step is the sharded one: one
+shard on the simulation's device here, as many as the mesh has for a
+:class:`~flygym_tpu_torch.batch.BatchSimulation` given ``mesh=``.
 """
 
 from dataclasses import replace
@@ -26,10 +31,10 @@ from typing import Literal
 import torch
 
 from flygym_tpu_torch.compose.bridge import CompiledModel
-from flygym_tpu_torch.engine.step import rollout_batched
-from flygym_tpu_torch.engine.step import step as engine_step
+from flygym_tpu_torch.engine.step import make_step_sharded, rollout_batched
 from flygym_tpu_torch.ops import checked_device
-from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
+from flygym_tpu_torch.ops.megastep import make_megastep_sharded, megastep_supported
+from flygym_tpu_torch.parallel.mesh import gather_world_axis, make_world_mesh, shard_world_axis
 from flygym_tpu_torch.utils import checkpoint
 from flygym_tpu_torch.utils.profiling import print_perf_report
 
@@ -66,6 +71,8 @@ class Simulation:
     n_worlds = 1
     # Frames of a batch keep their world axis (BatchSimulation).
     _batched_frames = False
+    # The mesh the worlds are split over; None is one shard on ``device``.
+    mesh = None
 
     def __init__(self, world, *, device="cuda", megastep: bool | None = None,
                  megastep_k: int = 8, terrain_resample: int = 8) -> None:
@@ -80,6 +87,8 @@ class Simulation:
             raise ValueError("The compiled world must contain at least one fly.")
         self.compiled = compiled
         self.device = checked_device(device)
+        if self.mesh is None:
+            self.mesh = make_world_mesh([self.device])
         if megastep_k < 1:
             raise ValueError(f"megastep_k must be >= 1, got {megastep_k}")
         supported = megastep_supported(compiled.model)
@@ -97,6 +106,28 @@ class Simulation:
         self.renderer = None
         self._map_internal_ids()
         self._clear_counters()
+
+    @property
+    def state(self):
+        """The state of every world: on a mesh of several devices the shards
+        joined on the first one."""
+        return gather_world_axis(self._shards)
+
+    @state.setter
+    def state(self, value) -> None:
+        self._shards = shard_world_axis(value, self.mesh)
+
+    @property
+    def shards(self) -> list:
+        """The per-shard States, block i on the mesh's device i: what
+        :meth:`step_fns`' functions take and give."""
+        return self._shards
+
+    @shards.setter
+    def shards(self, value: list) -> None:
+        if len(value) != self.mesh.size:
+            raise ValueError(f"{len(value)} shards given for a mesh of {self.mesh.size}")
+        self._shards = list(value)
 
     def _batch(self, state):
         return state
@@ -162,20 +193,22 @@ class Simulation:
         compressed pair rows, K2 samples its planes or winners at every
         call."""
         batched_step, _kstep = self.step_fns(1)
-        if batched_step is None:
-            self.state = engine_step(self.model, self.state)
-        else:
-            self.state = batched_step(self.state)
+        self._shards = batched_step(self._shards)
 
     def step_with_profile(self) -> None:
         """:meth:`step`, its wall-clock time (the card synchronised before
         the clock is read) and the step added to the report's counters."""
         start = perf_counter_ns()
         self.step()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.synchronize()
         self._total_physics_time_ns += perf_counter_ns() - start
         self._curr_step += 1
+
+    def synchronize(self) -> None:
+        """Wait for the simulation's cards."""
+        for d in dict.fromkeys(self.mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def warmup(self, duration_s: float = 0.05) -> None:
         """Hold the current controls for ``int(duration_s / timestep)``
@@ -188,16 +221,21 @@ class Simulation:
             self._curr_step -= n_steps
 
     def step_fns(self, n_steps: int):
-        """``(batched_step, kstep_fn)`` for a run of ``n_steps`` steps, as
-        :func:`~flygym_tpu_torch.engine.step.rollout_batched` takes them:
-        (None, None) for the engine step; the K = 1 mega-step and None when
-        ``megastep_k`` does not divide ``n_steps``; else None and the
-        K-step mega-step."""
+        """``(batched_step, kstep_fn)`` for a run of ``n_steps`` steps over
+        the mesh, as :func:`~flygym_tpu_torch.engine.step.rollout_batched`
+        takes them (JAX's ``_get_megastep_k``): the engine step on each
+        shard (:func:`~flygym_tpu_torch.engine.step.make_step_sharded`) and
+        None; the K = 1 mega-step and None when ``megastep_k`` does not
+        divide ``n_steps``; else None and the K-step mega-step
+        (:func:`~flygym_tpu_torch.ops.megastep.make_megastep_sharded`).
+        Each takes and gives a list of per-shard States (:attr:`shards`)."""
         if not self.megastep:
-            return None, None
+            if "engine" not in self._megastep_fns:
+                self._megastep_fns["engine"] = make_step_sharded(self.model, self.mesh)
+            return self._megastep_fns["engine"], None
         K = self.megastep_k if n_steps % self.megastep_k == 0 else 1
         if K not in self._megastep_fns:
-            self._megastep_fns[K] = make_megastep(self.model, K)
+            self._megastep_fns[K] = make_megastep_sharded(self.model, self.mesh, K)
         fn = self._megastep_fns[K]
         return (fn, None) if K == 1 else (None, fn)
 
@@ -225,43 +263,50 @@ class Simulation:
             ctrl_sequence = ctrl_sequence.reshape(
                 ctrl_sequence.shape[0], self.n_worlds, self.model.nu
             )
+            ctrl_sequence = shard_world_axis(ctrl_sequence[:n_steps], self.mesh, dim=1)
         batched_step, kstep_fn = self.step_fns(n_steps)
-        self.state, traj = rollout_batched(
-            self.model, self.state, ctrl_sequence, n_steps, record=record_trajectory,
-            batched_step=batched_step, kstep_fn=kstep_fn, terrain_resample=self.terrain_resample,
+        self._shards, trajs = rollout_batched(
+            self._shards, ctrl_sequence, n_steps, batched_step=batched_step, kstep_fn=kstep_fn,
+            record=record_trajectory, terrain_resample=self.terrain_resample,
         )
         self._curr_step += n_steps
-        if traj is None:
+        if trajs is None:
             return None
+        traj = gather_world_axis(trajs, dim=1)
         return traj if self.n_worlds > 1 else traj[:, 0]
 
     # ------------------------------------------------------------------
     # State readout (fly canonical orders)
     # ------------------------------------------------------------------
 
+    def _read(self, name: str) -> torch.Tensor:
+        """The state's field ``name`` of every world (on a mesh of several
+        devices, the shards' joined on the first one)."""
+        return gather_world_axis([getattr(s, name) for s in self._shards])
+
     def get_joint_angles(self, fly_name: str) -> torch.Tensor:
-        return self._out(self.state.qpos[:, self._qpos_adrs[fly_name]])
+        return self._out(self._read("qpos")[:, self._qpos_adrs[fly_name]])
 
     def get_joint_velocities(self, fly_name: str) -> torch.Tensor:
-        return self._out(self.state.qvel[:, self._qvel_adrs[fly_name]])
+        return self._out(self._read("qvel")[:, self._qvel_adrs[fly_name]])
 
     def get_body_positions(self, fly_name: str) -> torch.Tensor:
-        return self._out(self.state.xpos[:, self._body_ids[fly_name]])
+        return self._out(self._read("xpos")[:, self._body_ids[fly_name]])
 
     def get_body_rotations(self, fly_name: str) -> torch.Tensor:
-        return self._out(self.state.xquat[:, self._body_ids[fly_name]])
+        return self._out(self._read("xquat")[:, self._body_ids[fly_name]])
 
     def get_actuator_forces(self, fly_name: str, actuator_type) -> torch.Tensor:
         ids = self.actuator_ids(fly_name, actuator_type)
-        return self._out(self.state.actuator_force[:, ids])
+        return self._out(self._read("actuator_force")[:, ids])
 
     def get_site_positions(self, fly_name: str) -> torch.Tensor:
-        return self._out(self.state.site_xpos[:, self._site_ids[fly_name]])
+        return self._out(self._read("site_xpos")[:, self._site_ids[fly_name]])
 
     def get_ground_contact_info(self, fly_name: str) -> tuple:
         """Per-leg (active, force, torque, position, normal, tangent); force
         and torque in the contact frame, the rest in the world frame."""
-        data = self._out(self.state.contact_sensordata[:, self._sensor_slots[fly_name]])
+        data = self._out(self._read("contact_sensordata")[:, self._sensor_slots[fly_name]])
         return (
             data[..., 0],
             data[..., 1:4],
@@ -298,9 +343,13 @@ class Simulation:
         self._set_ctrl(ids, values)
 
     def _set_ctrl(self, ids: torch.Tensor, values: torch.Tensor) -> None:
-        ctrl = self.state.ctrl.clone()
-        ctrl[:, ids] = values.expand(self.n_worlds, len(ids))
-        self.state = replace(self.state, ctrl=ctrl)
+        values = shard_world_axis(values.expand(self.n_worlds, len(ids)), self.mesh)
+        shards = []
+        for s, v in zip(self._shards, values):
+            ctrl = s.ctrl.clone()
+            ctrl[:, ids.to(ctrl.device)] = v
+            shards.append(replace(s, ctrl=ctrl))
+        self._shards = shards
 
     # ------------------------------------------------------------------
     # Rendering
@@ -326,8 +375,7 @@ class Simulation:
         time, and a frame rendered to its frame count."""
         start = perf_counter_ns()
         done = self.render_as_needed()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.synchronize()
         self._total_render_time_ns += perf_counter_ns() - start
         if done:
             self._frames_rendered += 1
@@ -345,21 +393,22 @@ class Simulation:
 
     def load_state(self, path) -> None:
         """Restore a state written by :meth:`save_state`, by either package,
-        onto this simulation's device."""
+        onto this simulation's devices, as its shards are placed
+        (:func:`~flygym_tpu_torch.utils.checkpoint.put_like`)."""
         state = checkpoint.load_state(path, device=self.device)
         if self.n_worlds == 1 and state.qpos.dim() == 1:
             state = state.map(lambda x: x[None])
         if state.qpos.dim() != 2 or state.qpos.shape != (self.n_worlds, self.model.nq):
             raise ValueError(f"checkpoint qpos {tuple(state.qpos.shape)} does not fit "
                              f"{self.n_worlds} worlds of nq {self.model.nq}")
-        self.state = state
+        self._shards = checkpoint.put_like(state, self._shards)
 
     # ------------------------------------------------------------------
 
     @property
     def time(self) -> float:
         """Simulation time of world 0, in seconds."""
-        return float(self.state.time[0])
+        return float(self._shards[0].time[0])
 
     @property
     def timestep(self) -> float:

@@ -299,9 +299,9 @@ def test_batch_replays_k_chunks_through_the_plain_emitter(compiled):
     assert _none is None and kfn.k_steps == 8
     seen = []
 
-    def spy(state, ctrl_seq):
-        seen.append(ctrl_seq.clone())
-        return kfn(state, ctrl_seq)
+    def spy(states, ctrl_seq):
+        seen.append(ctrl_seq[0].clone())
+        return kfn(states, ctrl_seq)
 
     spy.k_steps = 8
     sim._megastep_fns[8] = spy

@@ -412,22 +412,24 @@ def test_flat_header_is_unchanged_by_the_terrain_switch():
 
 
 class _Spy:
-    """A stand-in step with a plane sampler that counts its calls."""
+    """A stand-in step over one shard with a plane sampler that counts its
+    calls."""
 
     def __init__(self, k_steps=1):
         self.k_steps, self.calls, self.samples = k_steps, [], 0
         self.sample_planes = self._sample
 
-    def _sample(self, state):
+    def _sample(self, states):
         self.samples += 1
-        return torch.full((1, 1, 4), float(self.samples))
+        return [torch.full((1, 1, 4), float(self.samples))]
 
-    def __call__(self, state, *args):
+    def __call__(self, states, *args):
         self.calls.append(args)
+        (state,) = states
         if self.k_steps == 1:
-            return dataclasses.replace(state, time=state.time + 1)
-        return dataclasses.replace(state, time=state.time + self.k_steps), state.qpos.expand(
-            (self.k_steps,) + tuple(state.qpos.shape))
+            return [dataclasses.replace(state, time=state.time + 1)]
+        return [dataclasses.replace(state, time=state.time + self.k_steps)], [state.qpos.expand(
+            (self.k_steps,) + tuple(state.qpos.shape))]
 
 
 @pytest.mark.parametrize(
@@ -441,14 +443,14 @@ def test_plane_resample_schedule(compiled, kind, n_steps, resample, samples, lau
     state = compiled.initial_state
     if kind == "kchunk":
         spy = _Spy(8)
-        rollout_batched(compiled.model, state, None, n_steps, kstep_fn=spy, record=False)
+        rollout_batched([state], None, n_steps, kstep_fn=spy, record=False)
     else:
         spy = _Spy(1)
-        rollout_batched(compiled.model, state, None, n_steps, batched_step=spy, record=False,
+        rollout_batched([state], None, n_steps, batched_step=spy, record=False,
                         terrain_resample=resample)
     assert spy.samples == samples and len(spy.calls) == launches
     if kind != "indivisible":
-        got = [int(c[-1][0, 0, 0]) for c in spy.calls]
+        got = [int(c[-1][0][0, 0, 0]) for c in spy.calls]
         per = 1 if kind == "kchunk" else resample
         assert got == [1 + i // per for i in range(launches)]
     else:
