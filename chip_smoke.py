@@ -446,6 +446,15 @@ Phases (each failure ends the run with a non-zero exit code):
     settle (K2 500, its MJCF equal to the JAX example's, every leg in
     contact as there), 02's settle and replay of the clip with its
     mesh-fidelity frame, 03 at 512 worlds (K2 750) with its montage.
+64. The five notebooks of ``tutorials/torch`` at their own sizes, cell by
+    cell through ``scripts/run_tutorial.py``, each cell's launches counted:
+    tutorial 1's warmup (K2 500, every leg in contact after it), 1bis
+    (no launch; its two flies' 3025 pair rows), 2's settle and 2000-step
+    replay (K2 500 + 250; the fly moves forward, its trajectory finite),
+    3's 4096 x 50 rollout (K2 50) and the same over 2 shards of cuda:0 (K2
+    2 x 50, finite), 4's CPG settle (K2 100), ``Retina.render`` (K3 once),
+    the env step at 4096 envs (K2 once at K = 10, the observations finite).
+    All five within ``TUTORIALS_LIMIT_S``; their K2 headers are phase 1's.
 
 ``[time]`` lines give the seconds since the start after each group of
 phases. The line before the last is a JSON summary of the kernels; the last
@@ -4780,6 +4789,107 @@ def phase_basic_examples(golden_path) -> dict:
     return out
 
 
+TUTORIALS_LIMIT_S = 30.0
+
+
+def phase_tutorials() -> dict:
+    """Phase 64: the five torch notebooks at their own sizes on the card,
+    each code cell run through ``scripts/run_tutorial.py`` between a reset
+    and a read of the launch counts; what each notebook shows is checked
+    (the module docstring's phase 64). Returns each notebook's counts."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "run_tutorial", Path(__file__).resolve().parent / "scripts" / "run_tutorial.py")
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    notebooks = Path(__file__).resolve().parent / "tutorials" / "torch"
+    zero = {"megastep": 0, "retina": 0, "tree_ldl_factor": 0, "tree_ldl_solve": 0}
+
+    def run(name: str):
+        """(namespace, per-cell counts, shown reprs, seconds)."""
+        ns, cells, shown = {}, [], {}
+        t0 = time.perf_counter()
+        for i, (_tags, src) in enumerate(runner.code_cells(notebooks / f"{name}.ipynb")):
+            reset_counts()
+            value = runner.run_cell(src, ns, f"{name}[cell {i}]")
+            torch.cuda.synchronize()
+            cells.append({k: read_counts().get(k, 0) for k in zero})
+            if value is not None:
+                shown[i] = repr(value)
+        return ns, cells, shown, time.perf_counter() - t0
+
+    def total(cells):
+        return {k: sum(c[k] for c in cells) for k in zero}
+
+    out, walls = {}, {}
+    start = time.perf_counter()
+
+    ns, cells, _shown, walls["1"] = run("1_composing_models_and_scenes")
+    found = ns["found"]
+    want = {**zero, "megastep": int(ns["warmup_s"] / ns["sim"].timestep)}
+    check(found.is_cuda and bool(found.all()), f"tutorial 1: legs in contact {found.tolist()}")
+    check(total(cells) == want, f"tutorial 1: counts {total(cells)} != {want}")
+    print(f"[tutorials] 1 in {walls['1']:.2f} s: K2 {want['megastep']} (warmup), every leg in "
+          f"contact")
+    out["1"] = total(cells)
+
+    ns, cells, shown, walls["1bis"] = run("1bis_advanced_model_composition")
+    check(total(cells) == zero and shown.get(9) == "3025",
+          f"tutorial 1bis: counts {total(cells)}, pair rows {shown.get(9)}")
+    print(f"[tutorials] 1bis in {walls['1bis']:.2f} s: no launch, 3025 pair rows")
+    out["1bis"] = total(cells)
+
+    ns, cells, _shown, walls["2"] = run("2_replaying_experimental_recordings")
+    traj, n = ns["traj"], ns["n_steps"]
+    moved = (traj[-1, 0, :3] - traj[0, 0, :3]).tolist()
+    want = {**zero, "megastep": ns["settle_steps"] + (n // MEGASTEP_K if n % MEGASTEP_K == 0
+                                                       else n)}
+    check(tuple(traj.shape) == (n, 1, 73) and bool(torch.isfinite(traj).all()),
+          f"tutorial 2: trajectory {tuple(traj.shape)}")
+    check(moved[0] > 0.5, f"tutorial 2: the root moved {moved} mm")
+    check(total(cells) == want, f"tutorial 2: counts {total(cells)} != {want}")
+    print(f"[tutorials] 2 in {walls['2']:.2f} s: K2 {want['megastep']} ({ns['settle_steps']} "
+          f"settle + {n} replay steps), the root moved {np.round(moved, 3)} mm")
+    out["2"] = total(cells)
+
+    ns, cells, _shown, walls["3"] = run("3_gpu_accelerated_simulation")
+    n, B = ns["n_steps"], ns["n_worlds"]
+    traj, traj_mesh = ns["traj"], ns["traj_mesh"]
+    rollout, mesh_cell = cells[4], cells[6]
+    check(tuple(traj.shape) == (n, B, 73) and bool(torch.isfinite(traj).all()),
+          f"tutorial 3: trajectory {tuple(traj.shape)}")
+    check(tuple(traj_mesh.shape) == (n, B, 73) and bool(torch.isfinite(traj_mesh).all())
+          and len(ns["sim"].shards) == 2, f"tutorial 3: mesh trajectory {tuple(traj_mesh.shape)}")
+    check(rollout == {**zero, "megastep": n} and mesh_cell == {**zero, "megastep": 2 * n},
+          f"tutorial 3: rollout counts {rollout}, mesh counts {mesh_cell}")
+    print(f"[tutorials] 3 in {walls['3']:.2f} s: {B} x {n} rollout K2 {n}; over 2 shards of "
+          f"cuda:0 K2 2 x {n}; both finite")
+    out["3"] = total(cells)
+
+    ns, cells, _shown, walls["4"] = run("4_closed_loop_control")
+    cpg_cell, retina_cell, env_cell = cells[2], cells[3], cells[5]
+    check(cpg_cell == {**zero, "megastep": ns["settle_steps"]},
+          f"tutorial 4: CPG cell counts {cpg_cell}")
+    check(retina_cell == {**zero, "retina": 1} and bool(torch.isfinite(ns["intensities"]).all()),
+          f"tutorial 4: Retina.render counts {retina_cell}")
+    check(env_cell == {**zero, "megastep": 1}, f"tutorial 4: env step counts {env_cell}")
+    for key, value in ns["obs"].items():
+        check(value.shape[0] == ns["n_envs"] and bool(torch.isfinite(value).all()),
+              f"tutorial 4: obs {key}")
+    print(f"[tutorials] 4 in {walls['4']:.2f} s: K2 {ns['settle_steps']} (settle), K3 1 "
+          f"(Retina.render), K2 1 (the env step at {ns['n_envs']} envs, K = 10); obs finite")
+    out["4"] = total(cells)
+
+    wall = time.perf_counter() - start
+    print(f"[tutorials] all five in {wall:.2f} s (limit {TUTORIALS_LIMIT_S:.0f} s) on {card_line()}")
+    check(wall < TUTORIALS_LIMIT_S, f"tutorials: {wall:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5067,6 +5177,8 @@ def main() -> int:
         lap("phase 62 (worlds split over 2 shards of cuda:0, example 12)")
         phase_basic_examples(ASSETS / "examples_basic_golden.npz")
         lap("phase 63 (examples 01, 02 and 03)")
+        phase_tutorials()
+        lap("phase 64 (the five tutorials in torch)")
         print(f"[rl] K2 launches on {card_line()}: config 5 composed "
               f"{composed_env_counts['megastep']}, example 06 {example_counts['example 06']['megastep']}"
               f", example 09 {example_counts['example 09']['megastep']}, example 13 "

@@ -67,6 +67,8 @@ class BatchSimulation(Simulation):
     def _batch(self, state):
         return state.map(lambda x: x.expand((self.n_worlds,) + x.shape[1:]).clone())
 
+    _one_world = False
+
     def _out(self, x):
         return x
 

@@ -322,6 +322,14 @@ class Fly(BaseCompositionElement):
             elif isinstance(neutral_input, KinematicPosePreset):
                 pose = neutral_input.get_pose_by_axis_order(self.skeleton.axis_order)
                 neutral_input = pose.joint_angles_lookup_rad
+        elif isinstance(neutral_input, (KinematicPose, KinematicPosePreset)):
+            # The JAX package fails here with an AttributeError (it reads the
+            # pose as a dict); a pose is a neutral input of position servos only.
+            raise ValueError(
+                f"neutral_input={neutral_input!r} is a pose, which only position "
+                f"actuators take; {actuator_type.value} actuators take a dict of "
+                "inputs by DoF name or None (make_model: pass neutral_pose=None)"
+            )
 
         gain, kv = _actuator_gains(actuator_type, kwargs)
 

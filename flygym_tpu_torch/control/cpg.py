@@ -60,8 +60,9 @@ def extract_preprogrammed_steps(snippet, dof_order, *, n_bins: int = 64,
 
     Args:
         snippet: a :class:`~flygym_tpu_torch.demo.spotlight.MotionSnippet`.
-        dof_order: the simulator's actuated DoF order, as (leg, parent link,
-            child link, axis) tuples.
+        dof_order: the simulator's actuated DoF order, as ``JointDOF``
+            objects (``fly.get_actuated_jointdofs_order``) or as (leg, parent link,
+            child link, axis) tuples (``Simulation.actuated_dofs``).
 
     Returns:
         dict with ``tables`` (6, n_bins, 7) angles, ``stance`` (6, n_bins)
@@ -122,9 +123,11 @@ def extract_preprogrammed_steps(snippet, dof_order, *, n_bins: int = 64,
             sig = tables[leg, :, 2]
             stance[leg] = (sig < np.median(sig)).astype(np.float32)
 
+    keys = [d if isinstance(d, tuple) else (d.child.pos, d.parent.link, d.child.link, d.axis.value)
+            for d in dof_order]
     dof_map = np.array(
         [(snippet.legs.index(leg), snippet.dofs_per_leg.index((p, c, a)))
-         for leg, p, c, a in dof_order],
+         for leg, p, c, a in keys],
         np.int32,
     )
     return {

@@ -34,7 +34,13 @@ RENDER_GOLDEN = ASSETS / "render_golden.npz"
 CASES = ("capsule", "mesh", "aim", "lights", "batch", "terrain", "flyenv")
 # A frame (floats in [0, 1]) against another: the share of pixels whose
 # largest channel gap is within ``atol``, and the mean gap of all values.
-FRAME_BARS = {"atol": 2e-3, "share": 0.995, "mean": 1e-3}
+# Measured against the JAX golden: at least 99.902% of pixels within 1e-3
+# in every case of the camera renderer, on the CPU and on the card alike,
+# mean gaps 6.6e-7 to 1.97e-5, bit-equal pixels 17-68% (the raycast's own
+# arithmetic still parts in the last bits, ROADMAP.md queue 3 item 5);
+# FlyEnv's plain frame on the card 99.836-99.870%, against the CPU's and
+# JAX's.
+FRAME_BARS = {"atol": 1e-3, "share": 0.997, "mean": 5e-5}
 
 
 def load_render_golden(path=RENDER_GOLDEN) -> dict:

@@ -63,7 +63,7 @@ def main(n_steps: int = 5000, settle_steps: int = 500, render: bool = True, devi
     ctrl_seq[:, 0, act_ids] = torch.as_tensor(angles[:n_steps], dtype=torch.float32)
 
     start = sim.state.qpos[0, :3].cpu().numpy()
-    traj = sim.rollout(ctrl_seq, n_steps)
+    traj = sim.rollout(ctrl_seq, n_steps)[:, 0]  # the one world's
     end = sim.state.qpos[0, :3].cpu().numpy()
     print(f"fly moved from {np.round(start, 2)} to {np.round(end, 2)} mm")
 

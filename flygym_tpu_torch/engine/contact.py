@@ -391,8 +391,13 @@ def compute_candidate_invweight(model: PhysicsModel) -> torch.Tensor:
     world side of a ground row contributes zero). It runs once, when the
     port compiles a world, on the CPU in float32, as MuJoCo's compiler runs
     on the host; the Cholesky factor and solve are torch's, where the JAX
-    package takes ``jax.scipy.linalg.cho_factor``, so the two can differ in
-    the last bits.
+    package takes ``jax.scipy.linalg.cho_factor``. The two differ in the
+    last bits (1.7e-5 relative at most over the committed worlds): the
+    neutral-pose mass matrix here is not the jitted JAX program's to the
+    bit, so its LAPACK route would not be either. Its first stages that part
+    are the forward kinematics and ``quat_to_mat``; every stage after those
+    is held to JAX's with ``fused=True`` (``tests/test_torch_neutral_dynamics.py``,
+    ``ROADMAP.md`` queue 3 item 7).
     """
     xpos, xquat, ref, S, M = _neutral_dynamics(model)
     chol = torch.linalg.cholesky(M[0])
@@ -420,7 +425,9 @@ def compute_actuator_acc0(model: PhysicsModel) -> torch.Tensor:
     ``acc0``, with which the muscle model scales its peak force
     (``force = scale / acc0`` when gainprm's force is negative). Like
     :func:`compute_candidate_invweight` it runs once, at compile time, on
-    the CPU in float32, with torch's Cholesky factor and solve.
+    the CPU in float32, with torch's Cholesky factor and solve, and differs
+    from JAX's in the last bits for the same reason (3.3e-7 relative at
+    most).
     """
     _xpos, _xquat, _ref, _S, M = _neutral_dynamics(model)
     Mh = M[0] + model.timestep * torch.diag(model.dof_damping)

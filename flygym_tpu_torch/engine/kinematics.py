@@ -169,9 +169,15 @@ def velocity_pass(model: PhysicsModel, qvel, xpos, S):
     return cvel, cacc
 
 
-def geom_poses(model: PhysicsModel, xpos, xquat):
-    """World poses of all geoms: (B, ngeom, 3) positions, (B, ngeom, 4) quats."""
+def geom_poses(model: PhysicsModel, xpos, xquat, fused: bool = False):
+    """World poses of all geoms: (B, ngeom, 3) positions, (B, ngeom, 4) quats.
+
+    ``fused`` rounds as the JAX package's jitted ``Renderer`` does
+    (``quat_rotate_fma``, ``quat_mul_fma``); the step, whose K2 path is
+    bit-equal to the engine's, keeps the plain products."""
+    quat_mul = quat_mul_fma if fused else _quat_mul
+    quat_rotate = quat_rotate_fma if fused else _quat_rotate
     b = model.geom_body
-    gpos = xpos[:, b] + _quat_rotate(xquat[:, b], model.geom_pos)
-    gquat = _quat_mul(xquat[:, b], model.geom_quat)
+    gpos = xpos[:, b] + quat_rotate(xquat[:, b], model.geom_pos)
+    gquat = quat_mul(xquat[:, b], model.geom_quat)
     return gpos, gquat

@@ -24,6 +24,7 @@ __all__ = [
     "cross",
     "cross_fma",
     "fma32",
+    "matmul_fma",
     "sinf",
     "sqrt_rn",
     "norm",
@@ -358,6 +359,37 @@ def quat_mul_fma(a, b):
         fma32(az, bx, fma32(ay, bw, fma32(aw, by, -(ax * bz)))),
         fma32(az, bw, fma32(-ay, bx, fma32(aw, bz, ax * by))),
     ], dim=-1)
+
+
+def matmul_fma(a: torch.Tensor, b: torch.Tensor, lanes: int = 1) -> torch.Tensor:
+    """``a @ b`` of float32 tensors with each sum rounded in the order of
+    XLA's CPU dot (a runtime call, not a fusion), read off its results:
+
+    - ``lanes=1``: one fused multiply-add chain over k in order (the batched
+      3 x 3 and 6 x 6 products of the mass matrix);
+    - ``lanes=2`` or ``4``: the first k rounded down to a multiple of
+      ``lanes`` go round-robin into that many chains, which are then added
+      in adjacent pairs ((0 + 1) + (2 + 3)); the rest of k is one more chain,
+      added last (the (nv, 6) @ (6, nv) product takes 2, the subtree mask's
+      (nbody, nbody) @ (nbody, 36) product 4).
+    """
+    k = a.shape[-1]
+    full = k // lanes * lanes
+
+    def chain(ks):
+        acc = None
+        for i in ks:
+            x, y = a[..., :, i : i + 1], b[..., i : i + 1, :]
+            acc = x * y if acc is None else fma32(x, y, acc)
+        return acc
+
+    parts = [chain(range(lane, full, lanes)) for lane in range(lanes if full else 0)]
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    rest = chain(range(full, k))
+    if not parts:
+        return rest
+    return parts[0] if rest is None else parts[0] + rest
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ from flygym_tpu_torch.engine.maths import (
     quat_rotate,
     quat_to_mat,
     sinf,
+    sqrt_rn,
 )
 from flygym_tpu_torch.engine.model import PhysicsModel
 
@@ -100,16 +101,58 @@ def _linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor
     return torch.cat([out, stop.reshape(1)])
 
 
-def camera_rays(height: int, width: int, fovy_deg: float, device=None) -> torch.Tensor:
+def _linspace_jit(start: torch.Tensor, stop: torch.Tensor, num: int, mode: str):
+    """``jnp.linspace`` as XLA compiles it inside the jitted ``Renderer``:
+    start (1 - i c) + i (stop c) with c = float32(1 / (num - 1)), the last
+    entry ``stop``. ``mode`` is how the loop that makes it rounds, as read
+    off the jitted program's results:
+
+    - "rows": the frame's row loop, both products fused as
+      fma(1 - i c, start, i (stop c)) with 1 - i c one fused multiply-add;
+    - "columns": a column loop run at run time, fused as
+      fma(i, stop c, start (1 - i c));
+    - "folded": a column loop short enough that LLVM unrolls it and folds
+      it to constants one operation at a time (up to 80 columns here).
+    """
+    i = torch.arange(num - 1, dtype=torch.float32, device=start.device)
+    c = torch.tensor(1.0 / (num - 1), dtype=torch.float32, device=start.device)
+    step = stop * c
+    if mode == "folded":
+        out = start * (1 - i * c) + i * step
+    else:
+        s = fma32(-i, c.expand_as(i), torch.ones_like(i))
+        if mode == "rows":
+            out = fma32(s, start.expand_as(i), i * step)
+        else:
+            out = fma32(i, step.expand_as(i), start * s)
+    return torch.cat([out, stop.reshape(1)])
+
+
+# The widest column loop that XLA's CPU backend unrolls into constants.
+_FOLDED_COLUMNS = 80
+
+
+def camera_rays(height: int, width: int, fovy_deg: float, device=None,
+                fused: bool = False) -> torch.Tensor:
     """Pixel ray directions in the camera frame (-z forward, y up): (H, W, 3)
-    unit vectors."""
+    unit vectors. ``fused`` as the jitted ``Renderer`` rounds them; else as
+    the eager ``camera_rays`` does."""
     fovy = torch.tensor(math.radians(fovy_deg), dtype=torch.float32)
     tan_y = torch.tan(fovy.double() / 2.0).float().to(device)
     tan_x = tan_y * (width / height)
-    ys = _linspace(tan_y, -tan_y, height)
-    xs = _linspace(-tan_x, tan_x, width)
+    if fused:
+        ys = _linspace_jit(tan_y, -tan_y, height, "rows")
+        xs = _linspace_jit(-tan_x, tan_x, width,
+                           "folded" if width <= _FOLDED_COLUMNS else "columns")
+    else:
+        ys = _linspace(tan_y, -tan_y, height)
+        xs = _linspace(-tan_x, tan_x, width)
     yg, xg = torch.meshgrid(ys, xs, indexing="ij")
     dirs = torch.stack([xg, yg, -torch.ones_like(xg)], dim=-1)
+    if fused:
+        # The reduction's products pass through a shuffle: none is fused.
+        sq = (dirs[..., 0] * dirs[..., 0] + dirs[..., 1] * dirs[..., 1]) + dirs[..., 2] * dirs[..., 2]
+        return dirs / sqrt_rn(sq)[..., None]
     return dirs / norm(dirs, keepdim=True)
 
 
@@ -456,7 +499,7 @@ def render_pixels(model: PhysicsModel, gpos, gquat, cam_pos, cam_quat, height: i
     ground (tinted by height on a heightfield) and distance fog.
     """
     B = gpos.shape[0]
-    dirs_cam = camera_rays(height, width, fovy_deg, gpos.device).reshape(-1, 3)
+    dirs_cam = camera_rays(height, width, fovy_deg, gpos.device, fused=fused).reshape(-1, 3)
     R = quat_to_mat(cam_quat)
     dirs = torch.matmul(dirs_cam, R.transpose(-1, -2))  # (B, P, 3)
     origins = cam_pos[:, None, :].expand(dirs.shape)

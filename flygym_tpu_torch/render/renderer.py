@@ -246,7 +246,7 @@ class Renderer:
         (B, H, W, 3) floats in [0, 1], before the uint8 cast."""
         cam = self.cameras[camera]
         pos, quat = self._camera_pose(cam, state)
-        gpos, gquat = geom_poses(self.model, state.xpos, state.xquat)
+        gpos, gquat = geom_poses(self.model, state.xpos, state.xquat, fused=True)
         h, w = self.camera_res
         return render_pixels(
             self.model, gpos, gquat, pos, quat, h, w, cam.fovy, self._capsule_mask,

@@ -132,6 +132,10 @@ class Simulation:
     def _batch(self, state):
         return state
 
+    # Readouts and trajectories without the world axis (a batch keeps it,
+    # one world or more, as the JAX package's ``BatchSimulation`` does).
+    _one_world = True
+
     def _out(self, x: torch.Tensor) -> torch.Tensor:
         """A batched readout as this runtime returns it (world 0 here)."""
         return x[0]
@@ -248,8 +252,9 @@ class Simulation:
                 control, and None holds the current controls.
 
         Returns:
-            The qpos trajectory, (n_steps, nq) or (n_steps, n_worlds, nq),
-            or None without ``record_trajectory``.
+            The qpos trajectory, (n_steps, nq) for one world or
+            (n_steps, n_worlds, nq) for a batch (one world too), or None
+            without ``record_trajectory``.
         """
         if ctrl_sequence is not None:
             ctrl_sequence = torch.as_tensor(
@@ -273,7 +278,7 @@ class Simulation:
         if trajs is None:
             return None
         traj = gather_world_axis(trajs, dim=1)
-        return traj if self.n_worlds > 1 else traj[:, 0]
+        return traj[:, 0] if self._one_world else traj
 
     # ------------------------------------------------------------------
     # State readout (fly canonical orders)

@@ -236,9 +236,17 @@ class Retina:
     # ------------------------------------------------------------------
 
     def render(self, model: PhysicsModel, state: State) -> torch.Tensor:
-        """Render both eyes of every world: (B, 2, n_omm, 2) in [0, 1]
+        """Render both eyes of every world: (B, 2, n_omm, 2) in [0, 1].
+
+        On CUDA tensors of a flat world, one launch of the retina kernel K3
+        and the acceptance blur (:meth:`make_render_batched`); on the CPU,
+        and on a heightfield, the JAX package's jnp path
         (``flygym_tpu/vision.py:248-288``)."""
         from flygym_tpu_torch.engine.kinematics import geom_poses
+        from flygym_tpu_torch.ops.retina import retina_kernel_supported
+
+        if state.xpos.device.type == "cuda" and retina_kernel_supported(model):
+            return self.make_render_batched(model)(state)
 
         gpos, gquat = geom_poses(model, state.xpos, state.xquat)
         mask = capsule_mask(model)

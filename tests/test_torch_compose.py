@@ -431,3 +431,40 @@ def test_no_port_module_reads_the_jax_package():
             if imports.match(code) or re.search(r"[\"']flygym_tpu/[\w/.]*[\"']", code):
                 offenders.append(f"{path.relative_to(REPO)}:{i}")
     assert offenders == []
+
+
+@pytest.mark.parametrize("kind", ["motor", "velocity"])
+@pytest.mark.parametrize("pose", ["preset", "pose"])
+def test_pose_as_input_of_other_actuators_is_refused_like_jax(kind, pose):
+    """A ``KinematicPosePreset`` or ``KinematicPose`` as the neutral input of
+    actuators other than position servos: the JAX package fails with an
+    AttributeError (it reads the pose as a dict), the port refuses it with
+    a ValueError that names the way round (``neutral_pose=None`` in
+    ``make_model``); ``make_model(actuator_type=MOTOR)`` fails in both with
+    its default neutral pose."""
+    import flygym_tpu.compose as jc
+    import flygym_tpu.demo.benchmark as jb
+    from flygym_tpu.anatomy import Skeleton as JaxSkeleton
+
+    import flygym_tpu_torch.compose as pc
+    import flygym_tpu_torch.demo.benchmark as pb
+    from flygym_tpu_torch.anatomy import Skeleton
+
+    def attempt(compose, skeleton_cls):
+        fly = compose.Fly(name="f")
+        fly.add_joints(skeleton_cls(axis_order="ypr", joint_preset="legs_only"))
+        neutral = compose.KinematicPosePreset.NEUTRAL
+        if pose == "pose":
+            neutral = neutral.get_pose_by_axis_order(fly.skeleton.axis_order)
+        fly.add_actuators(fly.skeleton.get_actuated_dofs_from_preset("legs_active_only"),
+                          compose.ActuatorType(kind), neutral_input=neutral)
+
+    with pytest.raises(AttributeError):
+        attempt(jc, JaxSkeleton)
+    with pytest.raises(ValueError, match="neutral_pose=None"):
+        attempt(pc, Skeleton)
+    if kind == "motor" and pose == "preset":
+        with pytest.raises(AttributeError):
+            jb.make_model(actuator_type=jc.ActuatorType.MOTOR)
+        with pytest.raises(ValueError, match="neutral_pose=None"):
+            pb.make_model(actuator_type=pc.ActuatorType.MOTOR)

@@ -311,7 +311,7 @@ def test_batch_replays_k_chunks_through_the_plain_emitter(compiled):
     seq[9, 2] = -0.5
     ctrl0 = sim.state.ctrl.clone()
     traj = sim.rollout(seq, 16)
-    assert len(seen) == 2 and traj.shape == (16, compiled.model.nq)
+    assert len(seen) == 2 and traj.shape == (16, 1, compiled.model.nq)
     want = ctrl0.expand(16, 1, nu).clone()
     want[3:, :, :5] = 0.25
     want[9:, :, 2] = -0.5
