@@ -46,6 +46,7 @@ import torch
 
 from flygym_tpu_torch.engine.linalg import LdlTables
 from flygym_tpu_torch.engine.model import PhysicsModel, State
+from flygym_tpu_torch.utils.profiling import span
 
 __all__ = [
     "BENCHMARK_FLY",
@@ -231,6 +232,7 @@ def read_meta(path) -> dict:
     return _read_npz(path)[1]
 
 
+@span("flygym.setup.load")
 def load_compiled(path=BENCHMARK_FLY) -> CompiledModel:
     """Load a compiled model written by ``scripts/export_torch_model.py``
     (by default the benchmark fly)."""

@@ -42,6 +42,7 @@ from flygym_tpu_torch.compose.world import FlatGroundWorld
 from flygym_tpu_torch.demo.spotlight import MotionSnippet
 from flygym_tpu_torch.parallel.mesh import gather_world_axis, shard_world_axis
 from flygym_tpu_torch.utils.math import Rotation3D
+from flygym_tpu_torch.utils.profiling import span
 
 __all__ = [
     "GOLDEN_TOLERANCE",
@@ -176,29 +177,32 @@ def replay_episode(sim: BatchSimulation, states: list, targets: torch.Tensor,
     144-170``); otherwise one step per target row. Every shard is launched
     before the next chunk. ``on_step(i, state)``, if given, sees the state
     after each launch (the shards joined), ``i`` the index of its last
-    step."""
+    step. Each chunk (K steps, or one step without the mega-step) is the
+    span ``flygym.replay.chunk``, its id the chunk's index."""
     batched_step, kstep_fn = sim.step_fns(n_steps)
     shards = shard_world_axis(targets, sim.mesh)
     ids = [act_ids.to(t.device) for t in shards]
     if kstep_fn is not None:
         K = kstep_fn.k_steps
         for i in range(0, n_steps, K):
-            seqs = []
-            for s, t, a in zip(states, shards, ids):
-                seq = s.ctrl.expand((K,) + s.ctrl.shape).clone()
-                seq[:, :, a] = t[:, i : i + K].transpose(0, 1)
-                seqs.append(seq)
-            states, _rows = kstep_fn(states, seqs)
+            with span("flygym.replay.chunk", i // K):
+                seqs = []
+                for s, t, a in zip(states, shards, ids):
+                    seq = s.ctrl.expand((K,) + s.ctrl.shape).clone()
+                    seq[:, :, a] = t[:, i : i + K].transpose(0, 1)
+                    seqs.append(seq)
+                states, _rows = kstep_fn(states, seqs)
             if on_step is not None:
                 on_step(i + K - 1, gather_world_axis(states))
         return states
     for i in range(n_steps):
-        stepped = []
-        for s, t, a in zip(states, shards, ids):
-            ctrl = s.ctrl.clone()
-            ctrl[:, a] = t[:, i]
-            stepped.append(replace(s, ctrl=ctrl))
-        states = batched_step(stepped)
+        with span("flygym.replay.chunk", i):
+            stepped = []
+            for s, t, a in zip(states, shards, ids):
+                ctrl = s.ctrl.clone()
+                ctrl[:, a] = t[:, i]
+                stepped.append(replace(s, ctrl=ctrl))
+            states = batched_step(stepped)
         if on_step is not None:
             on_step(i, gather_world_axis(states))
     return states

@@ -18,7 +18,10 @@ steps are one launch of the mega-step kernel K2 fusing them
 (``megastep=None`` on the card), or the engine step per substep
 (``megastep=False``: the tree-LDL kernels K1/K1b); vision, wherever it is
 observed, is one launch of the retina kernel K3 and the acceptance blur
-(K3's plain version for CPU tensors).
+(K3's plain version for CPU tensors). An env step is the span
+``flygym.env.step`` with the children ``flygym.env.advance``,
+``flygym.env.reward_done``, ``flygym.env.observe_body`` (odor inside it)
+and ``flygym.vision.render``; a reset is ``flygym.env.reset``.
 
 The env builds its world as JAX's does: with no world it composes
 :func:`_build_default_world` (the flagship walking fly on flat ground),
@@ -45,6 +48,7 @@ from flygym_tpu_torch.engine.model import State
 from flygym_tpu_torch.engine.step import step as engine_step
 from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep, megastep_supported
+from flygym_tpu_torch.utils.profiling import span
 
 __all__ = ["FlyEnv", "VectorFlyEnv", "env_frame", "world_tables"]
 
@@ -132,6 +136,7 @@ class VectorFlyEnv:
     ``fly`` are None for an exported env.
     """
 
+    @span("flygym.setup.env")
     def __init__(self, world=None, fly_name: str | None = None, *, decision_interval: int = 10,
                  enable_vision: bool = False, odor_field=None, device="cuda",
                  megastep: bool | None = None):
@@ -191,6 +196,7 @@ class VectorFlyEnv:
         Gaussian noise on qpos, none on free-joint quaternions."""
         return self.reset_batched(generator, 1)
 
+    @span("flygym.env.reset")
     def reset_batched(self, generator: torch.Generator | None, n_envs: int) -> State:
         """(n_envs,) fresh states, one noise draw each from ``generator``."""
         gen_dev = generator.device if generator is not None else self.device
@@ -205,6 +211,7 @@ class VectorFlyEnv:
 
     # -- stepping -------------------------------------------------------------
 
+    @span("flygym.env.advance")
     def _advance(self, states: State, action: dict) -> State:
         """Set the action into ``ctrl`` and run ``decision_interval`` steps."""
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -223,6 +230,7 @@ class VectorFlyEnv:
         states, _qpos_rows = self._megastep_fn(states, seq)
         return states
 
+    @span("flygym.env.step")
     def step(self, states: State, action: dict):
         """One env step of every world.
 
@@ -233,6 +241,7 @@ class VectorFlyEnv:
         reward, done = self._reward_done(states)
         return states, self.observe(states), reward, done, {}
 
+    @span("flygym.env.reward_done")
     def _reward_done(self, states: State):
         root_quat = states.xquat[:, self._root_body]
         heading = quat_rotate(root_quat, root_quat.new_tensor([1.0, 0.0, 0.0]))
@@ -258,6 +267,7 @@ class VectorFlyEnv:
         if not auto_reset:
             return self.step
 
+        @span("flygym.env.step")
         def step_batched_autoreset(states: State, action: dict, generator):
             states = self._advance(states, action)
             reward, done = self._reward_done(states)
@@ -283,6 +293,7 @@ class VectorFlyEnv:
             obs["vision"] = self.render_vision(states)
         return obs
 
+    @span("flygym.env.observe_body")
     def _observe_body(self, states: State) -> dict:
         """Every observation but vision."""
         if self.model.nu == 0:

@@ -16,6 +16,7 @@ import torch
 
 from flygym_tpu_torch.engine.maths import quat_rotate
 from flygym_tpu_torch.engine.model import PhysicsModel, State
+from flygym_tpu_torch.utils.profiling import span
 
 __all__ = ["OdorField"]
 
@@ -104,6 +105,7 @@ class OdorField:
         offsets = torch.as_tensor(self.sensor_offsets, device=dev)
         return state.xpos[:, bodies] + quat_rotate(state.xquat[:, bodies], offsets)
 
+    @span("flygym.odor.sample")
     def sample(self, model: PhysicsModel, state: State) -> torch.Tensor:
         """Odor intensities at the sensors: (B, n_dimensions, 4)."""
         pos = self.sensor_positions(state)  # (B, 4, 3)

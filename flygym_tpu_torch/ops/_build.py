@@ -27,6 +27,12 @@ are used. A failed build raises with the compiler's stderr.
 :func:`build_megastep_host`, :func:`build_retina_host` and
 :func:`build_ldl_host` compile the same K2, K3 and K1/K1b sources as host
 C++ with g++, for the CPU tests.
+
+The recorder (``utils/profiling.py``) counts ``kernel_builds.<kernel>``
+(nvcc or g++ ran) and ``kernel_loads.<kernel>`` (a library was opened), and
+spans each loader (``flygym.build.megastep``, ``.retina``, ``.ldl``, and
+``.library`` for the model-independent kernels' first load): its hash, its
+build if missing and its load.
 """
 
 import ctypes
@@ -36,6 +42,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from flygym_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "build",
@@ -102,8 +110,10 @@ def library_path() -> Path:
     return BUILD / f"libflygym_kernels_{_digest(NVCC_FLAGS, _sources() + sorted(CSRC.glob('*.cuh')))}.so"
 
 
-def _compile(cmd_head: list, out: Path, sources: list) -> str:
-    """Run a compiler into ``out`` via a private name; return its stderr."""
+def _compile(cmd_head: list, out: Path, sources: list, kernel: str) -> str:
+    """Run a compiler into ``out`` via a private name; return its stderr.
+    Counted as a build of ``kernel``."""
+    count(f"kernel_builds.{kernel}")
     out.parent.mkdir(parents=True, exist_ok=True)
     # Build to a private name, then rename: concurrent processes never load
     # a half-written library.
@@ -118,6 +128,12 @@ def _compile(cmd_head: list, out: Path, sources: list) -> str:
     return proc.stderr
 
 
+def _open(path: Path, kernel: str) -> ctypes.CDLL:
+    """Open a built library, counted as a load of ``kernel``."""
+    count(f"kernel_loads.{kernel}")
+    return ctypes.CDLL(str(path))
+
+
 def _ptxas_path(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
@@ -127,7 +143,7 @@ def build() -> Path:
     path. nvcc's ptxas report is written beside the library."""
     out = library_path()
     if not out.exists():
-        log = _compile([_nvcc(), *NVCC_FLAGS], out, _sources())
+        log = _compile([_nvcc(), *NVCC_FLAGS], out, _sources(), "library")
         _ptxas_path(out).write_text(log)
     return out
 
@@ -136,10 +152,11 @@ def load_library() -> ctypes.CDLL:
     """The model-independent kernels' shared library, built on the first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        _ldl_signatures(lib)
-        _retina_signatures(lib)
-        _lib = lib
+        with span("flygym.build.library"):
+            lib = _open(build(), "library")
+            _ldl_signatures(lib)
+            _retina_signatures(lib)
+            _lib = lib
     return _lib
 
 
@@ -190,23 +207,23 @@ def _retina_signatures(lib: ctypes.CDLL) -> None:
     })
 
 
-def _build_alone(src: Path, flags) -> Path:
+def _build_alone(src: Path, flags, kernel: str) -> Path:
     """One source with nvcc into its own library, named by the source's
     folder, stem and a hash of its text and flags; nvcc's ptxas report
     beside it."""
     out = BUILD / f"lib{src.parent.name}_{src.stem}_{_digest(flags, [src])}.so"
     if not out.exists():
-        log = _compile([_nvcc(), *flags], out, [src])
+        log = _compile([_nvcc(), *flags], out, [src], kernel)
         _ptxas_path(out).write_text(log)
     return out
 
 
-def _load_alone(cache: dict, key, build_fn, signatures) -> ctypes.CDLL:
+def _load_alone(cache: dict, key, build_fn, signatures, kernel: str) -> ctypes.CDLL:
     """The library that ``build_fn()`` builds, loaded once per ``key`` (its
     build's arguments): a later call neither hashes nor stats its source."""
     lib = cache.get(key)
     if lib is None:
-        lib = cache[key] = ctypes.CDLL(str(build_fn()))
+        lib = cache[key] = _open(build_fn(), kernel)
         signatures(lib)
     return lib
 
@@ -223,14 +240,15 @@ def build_retina(source: Path | None = None, profile: bool = False,
     src = RETINA_SRC if source is None else Path(source)
     flags = (*NVCC_FLAGS, *(("-DRT_PROFILE=1",) if profile else ()),
              *((f"-DRT_WARPS={warps}",) if warps is not None else ()))
-    return _build_alone(src, flags)
+    return _build_alone(src, flags, "retina")
 
 
+@span("flygym.build.retina")
 def load_retina(source: Path | None = None, profile: bool = False,
                 warps: int | None = None) -> ctypes.CDLL:
     """The library of :func:`build_retina`, built on the first call."""
     return _load_alone(_retina_libs, (source, profile, warps),
-                       lambda: build_retina(source, profile, warps), _retina_signatures)
+                       lambda: build_retina(source, profile, warps), _retina_signatures, "retina")
 
 
 def build_ldl(source: Path) -> Path:
@@ -238,12 +256,13 @@ def build_ldl(source: Path) -> Path:
     path, with nvcc's ptxas report beside it: ``chip_smoke.py`` builds K1/K1b
     as they stood before their redesign
     (``scripts/k1_before_redesign/tree_ldl.cu``)."""
-    return _build_alone(Path(source), NVCC_FLAGS)
+    return _build_alone(Path(source), NVCC_FLAGS, "ldl")
 
 
+@span("flygym.build.ldl")
 def load_ldl(source: Path) -> ctypes.CDLL:
     """The library of :func:`build_ldl`, built on the first call."""
-    return _load_alone(_ldl_libs, source, lambda: build_ldl(source), _ldl_signatures)
+    return _load_alone(_ldl_libs, source, lambda: build_ldl(source), _ldl_signatures, "ldl")
 
 
 def _megastep_dir(header: str, flags, source: Path = MEGASTEP_SRC) -> Path:
@@ -271,7 +290,7 @@ def build_megastep(header: str, profile: bool = False, source: Path | None = Non
     d = _megastep_dir(header, flags, src)
     out = d / "libmegastep.so"
     if not out.exists():
-        log = _compile([_nvcc(), *flags, "-I", str(d)], out, [src])
+        log = _compile([_nvcc(), *flags, "-I", str(d)], out, [src], "megastep")
         _ptxas_path(out).write_text(log)
     return out
 
@@ -286,13 +305,14 @@ def ptxas_report(header: str | None = None, library: Path | None = None) -> str:
     return path.read_text() if path.exists() else ""
 
 
+@span("flygym.build.megastep")
 def load_megastep(header: str, profile: bool = False, source: Path | None = None) -> ctypes.CDLL:
     """K2 for one model, built on the first call (``build_megastep``'s
     arguments)."""
     path = build_megastep(header, profile, source)
     lib = _megastep_libs.get(path)
     if lib is None:
-        lib = ctypes.CDLL(str(path))
+        lib = _open(path, "megastep")
         p, i = ctypes.c_void_p, ctypes.c_int
         if profile:
             lib.megastep_profile_f32.argtypes = [p, p, p, p, i, i, p]
@@ -327,8 +347,8 @@ def build_megastep_host(header: str) -> ctypes.CDLL:
     d = _megastep_dir(header, GXX_FLAGS)
     out = d / "libmegastep_host.so"
     if not out.exists():
-        _compile([gxx, *GXX_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC])
-    lib = ctypes.CDLL(str(out))
+        _compile([gxx, *GXX_FLAGS, "-I", str(d)], out, [MEGASTEP_SRC], "megastep_host")
+    lib = _open(out, "megastep_host")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.megastep_host_f32.argtypes = [p, p, p, i, i, i]
     lib.megastep_host_f32.restype = i
@@ -337,11 +357,11 @@ def build_megastep_host(header: str) -> ctypes.CDLL:
     return lib
 
 
-def _build_host(src: Path) -> Path:
+def _build_host(src: Path, kernel: str) -> ctypes.CDLL:
     out = BUILD / f"lib{src.parent.name}_{src.stem}_host_{_digest(GXX_FLAGS, [src])}.so"
     if not out.exists():
-        _compile([_gxx(), *GXX_FLAGS], out, [src])
-    return out
+        _compile([_gxx(), *GXX_FLAGS], out, [src], kernel)
+    return _open(out, kernel)
 
 
 def build_ldl_host(source: Path | None = None) -> ctypes.CDLL:
@@ -352,7 +372,7 @@ def build_ldl_host(source: Path | None = None) -> ctypes.CDLL:
     build's ``tree_ldl_before_factor_host_f32`` and
     ``tree_ldl_before_solve_host_f32`` (world-minor, one world after
     another)."""
-    lib = ctypes.CDLL(str(_build_host(LDL_SRC if source is None else Path(source))))
+    lib = _build_host(LDL_SRC if source is None else Path(source), "ldl_host")
     _ldl_signatures(lib)
     return lib
 
@@ -364,6 +384,6 @@ def build_retina_host(source: Path | None = None) -> ctypes.CDLL:
     lattice order, each ray a tile of its own (``retina_host_f32``).
     ``source`` replaces ``csrc/retina.cu`` (the before build's
     ``retina_before_host_f32``)."""
-    lib = ctypes.CDLL(str(_build_host(RETINA_SRC if source is None else Path(source))))
+    lib = _build_host(RETINA_SRC if source is None else Path(source), "retina_host")
     _retina_signatures(lib)
     return lib

@@ -15,7 +15,8 @@ it, L (B, nv, maxc) and d (B, nv) contiguous, so a factor from
 model whose world does not fit in a block's shared memory raises
 (:func:`shared_bytes`).
 
-``launches`` counts kernel launches per wrapper. Only a launch adds to it.
+``launches`` counts kernel launches per wrapper. Only a launch adds to it
+(the recorder's ``launches.<wrapper>``).
 
 Gradients: :func:`tree_ldl_solve_grad` is the solve under autograd (a
 ``torch.autograd.Function``). Its forward is one K1b launch on a factor of
@@ -34,6 +35,7 @@ from torch.autograd.function import once_differentiable
 from flygym_tpu_torch.engine import linalg
 from flygym_tpu_torch.engine.linalg import LdlTables
 from flygym_tpu_torch.ops import refuse_grad
+from flygym_tpu_torch.utils.profiling import register_launches
 
 __all__ = [
     "tree_ldl_factor",
@@ -52,6 +54,7 @@ WORLDS = 4  # worlds per block: LDL_WORLDS in tree_ldl.cu (kernel_shape's thread
 SHARED_LIMIT = 232448  # bytes of shared memory a block may use on the H100
 
 launches = {"tree_ldl_factor": 0, "tree_ldl_solve": 0, "tree_ldl_solve_backward": 0}
+register_launches(launches)
 
 
 def reset_launches() -> None:

@@ -40,7 +40,10 @@ Three parts:
 - :func:`make_megastep_sharded`, the same launch over the shards of a mesh
   of devices, once per shard (JAX's ``make_megastep_sharded``).
 
-``launches["megastep"]`` counts kernel launches; only a launch adds to it.
+``launches["megastep"]`` counts kernel launches; only a launch adds to it
+(the recorder's ``launches.megastep``). A call's two halves are the spans
+``flygym.megastep.prepare`` (checks, the plane and winner samplers) and
+``flygym.megastep.launch`` (``_pack``, the kernel, ``_unpack``).
 K2 has no gradient, as JAX's Pallas kernel has no VJP: given a tensor that
 requires grad in grad mode, the wrapper raises (``ops.refuse_grad``) where
 its output would otherwise carry no graph.
@@ -65,6 +68,7 @@ from flygym_tpu_torch.engine.model import ActKind, PhysicsModel, State
 from flygym_tpu_torch.engine.terrain import make_plane_sampler
 from flygym_tpu_torch.ops import refuse_grad
 from flygym_tpu_torch.parallel.mesh import replicate_model
+from flygym_tpu_torch.utils.profiling import register_launches, span
 
 __all__ = [
     "emit_step",
@@ -87,6 +91,7 @@ _LS_ALPHA_MAX = 2.0
 _C_EPS = 1e-12
 
 launches = {"megastep": 0}
+register_launches(launches)
 
 
 def reset_launches() -> None:
@@ -2552,6 +2557,7 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
         ref = sampled.get(id(aux))
         return ref is not None and ref() is aux
 
+    @span("flygym.megastep.prepare")
     def prepare(state: State, ctrl_seq, terrain_planes):
         """The launch's checks, and what it reads from outside the kernel:
         sampled when not given, checked on the host when given winners are
@@ -2573,6 +2579,7 @@ def make_megastep(model: PhysicsModel, k_steps: int = 1):
             _check_winners(st, _split_aux(st, terrain_planes)[1])
         return terrain_planes
 
+    @span("flygym.megastep.launch")
     def launch(state: State, ctrl_seq, terrain_planes):
         """One K2 launch (the plain version on the CPU) on what
         :func:`prepare` gave."""

@@ -17,7 +17,9 @@ Port of ``flygym_tpu/ops/retina_pallas.py:49-554``. Three parts:
   only the geoms whose bounding sphere its cone can reach; the outputs are
   the same bits as sweeping every geom.
 
-``launches["retina"]`` counts kernel launches; only a launch adds to it.
+``launches["retina"]`` counts kernel launches; only a launch adds to it
+(the recorder's ``launches.retina``). A render's spans are
+``flygym.retina.pack_rows`` and ``flygym.retina.launch``.
 K3 has no gradient: given rows that require grad in grad mode, a launch
 raises (``ops.refuse_grad``), as JAX's Pallas kernel, which has no VJP, does.
 
@@ -31,6 +33,7 @@ import torch
 from flygym_tpu_torch.engine.maths import quat_mul, quat_rotate, sqrt_rn
 from flygym_tpu_torch.engine.model import PhysicsModel, State
 from flygym_tpu_torch.ops import refuse_grad
+from flygym_tpu_torch.utils.profiling import register_launches, span
 
 __all__ = [
     "contributing_pairs",
@@ -56,6 +59,7 @@ _EYE_ROWS = 14
 TILE = 32
 
 launches = {"retina": 0}
+register_launches(launches)
 
 
 def reset_launches() -> None:
@@ -485,13 +489,15 @@ def make_retina_kernel(model: PhysicsModel, retina):
     tables = RetinaTables(model, retina)
 
     def render_batched(state: State) -> torch.Tensor:
-        packed = pack_rows(tables, state.xpos, state.xquat)
+        with span("flygym.retina.pack_rows"):
+            packed = pack_rows(tables, state.xpos, state.xquat)
         dev = packed.device
-        if dev.type == "cpu":
-            return retina_plain(tables, packed)
-        if dev.type != "cuda":
-            raise RuntimeError(f"the retina kernel runs on CUDA tensors, got {dev}")
-        return launch_retina(tables, packed)
+        with span("flygym.retina.launch"):
+            if dev.type == "cpu":
+                return retina_plain(tables, packed)
+            if dev.type != "cuda":
+                raise RuntimeError(f"the retina kernel runs on CUDA tensors, got {dev}")
+            return launch_retina(tables, packed)
 
     render_batched.tables = tables
     return render_batched

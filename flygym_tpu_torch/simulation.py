@@ -36,7 +36,7 @@ from flygym_tpu_torch.ops import checked_device
 from flygym_tpu_torch.ops.megastep import make_megastep_sharded, megastep_supported
 from flygym_tpu_torch.parallel.mesh import gather_world_axis, make_world_mesh, shard_world_axis
 from flygym_tpu_torch.utils import checkpoint
-from flygym_tpu_torch.utils.profiling import print_perf_report
+from flygym_tpu_torch.utils.profiling import print_perf_report, span
 
 __all__ = ["Simulation"]
 
@@ -74,6 +74,7 @@ class Simulation:
     # The mesh the worlds are split over; None is one shard on ``device``.
     mesh = None
 
+    @span("flygym.setup.sim")
     def __init__(self, world, *, device="cuda", megastep: bool | None = None,
                  megastep_k: int = 8, terrain_resample: int = 8) -> None:
         if isinstance(world, CompiledModel):

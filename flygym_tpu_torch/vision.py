@@ -31,6 +31,7 @@ import torch
 
 from flygym_tpu_torch.engine.maths import quat_rotate
 from flygym_tpu_torch.engine.model import PhysicsModel, State
+from flygym_tpu_torch.utils.profiling import span
 from flygym_tpu_torch.render.raycast import (
     _BIG,
     _CHUNK,
@@ -225,8 +226,11 @@ class Retina:
             W = self._blur_tensor(model.device)
             blur = lambda x: _mix(W, x)
 
+        @span("flygym.vision.render")
         def render_batched(state: State) -> torch.Tensor:
-            return blur(kern(state))
+            point_samples = kern(state)
+            with span("flygym.vision.blur"):
+                return blur(point_samples)
 
         render_batched.kernel, render_batched.blur = kern, blur
         return render_batched

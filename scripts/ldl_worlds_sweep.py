@@ -57,7 +57,8 @@ def time_ms(fn, n: int) -> float:
 
 def build(worlds: int):
     """The build with ``worlds`` worlds per block, loaded, and its ptxas report."""
-    path = _build._build_alone(_build.LDL_SRC, (*_build.NVCC_FLAGS, f"-DLDL_WORLDS={worlds}"))
+    path = _build._build_alone(_build.LDL_SRC, (*_build.NVCC_FLAGS, f"-DLDL_WORLDS={worlds}"),
+                               "ldl")
     lib = ctypes.CDLL(str(path))
     _build._ldl_signatures(lib)
     return lib, _build.ptxas_report(library=path)

@@ -26,7 +26,8 @@ def _before_host_build(header: str) -> ctypes.CDLL:
     d = _build._megastep_dir(header, _build.GXX_FLAGS, src)
     out = d / "libmegastep_host.so"
     if not out.exists():
-        _build._compile([_build._gxx(), *_build.GXX_FLAGS, "-I", str(d)], out, [src])
+        _build._compile([_build._gxx(), *_build.GXX_FLAGS, "-I", str(d)], out, [src],
+                        "megastep_before_host")
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.megastep_host_f32.argtypes = [p, p, p, i, i]
